@@ -1,0 +1,266 @@
+"""CoCoA+ framework driver (paper Algorithm 1), generalized over g(w).
+
+Port of `repro.core.cocoa`, simulated backend. One outer round:
+    1. every worker k solves the sigma'-damped local subproblem (eq. 9)
+       Theta-approximately -- all K at once, in one kernel launch on the
+       kernel solvers,
+    2. communicates Delta v_k = du_k / sigma' (comm.exchange, flat reduce),
+    3. the driver applies v <- v + gamma sum_k Delta v_k,
+       alpha <- alpha + gamma Delta alpha (comm.apply_update).
+
+The shared state is the scaled dual-side vector v = A alpha / (tau n),
+kept under its historical name `w`; the primal iterate is
+reg.conj_grad(v) (`primal_w`), the identity under L2.
+
+Visit orders. The reference derives every worker's coordinate order from
+a threefry key carried in its state. torch cannot reproduce threefry, so
+the port's state carries no key: round r draws its orders from a CPU
+`torch.Generator` seeded with (seed, r), and `solve(visit_orders=...)`
+lets a caller supply them instead -- the parity tests feed the reference's
+own permutations and index streams through it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import comm
+from ..data.sparse import SparseShards
+from ..device import DEFAULT_DEVICE, resolve_device, synchronize
+from . import duality
+from .losses import get_loss
+from .regularizers import Regularizer, get_regularizer
+from .solvers import LocalSolver, SOLVERS, get_solver, sparse_counterpart
+
+
+@dataclasses.dataclass(frozen=True)
+class CoCoAConfig:
+    loss: str = "hinge"
+    lam: float = 1e-4
+    gamma: float = 1.0                 # aggregation parameter in (0, 1]
+    sigma_p: Optional[float] = None    # None -> safe bound gamma * K (Lemma 4)
+    H: int = 1000                      # local solver iterations per round
+    solver: str = "sdca"               # core.solvers.SOLVERS key
+    average_iterates: bool = False     # Theorem-8 averaged iterate output
+    aggregator: Optional[str] = None   # "add"|"average"|"gamma:<g>" strategy;
+                                       # overrides (gamma, sigma_p) when set
+    reg: str = "l2"                    # "l2" | "elastic:<eta>" | "l1s:<eps>"
+
+    def agg_params(self, K: int) -> comm.AggParams:
+        """The (gamma, sigma') pair this config runs with at K workers."""
+        return comm.from_config(self.gamma, self.sigma_p, K,
+                                aggregator=self.aggregator)
+
+    def regularizer(self) -> Regularizer:
+        return get_regularizer(self.reg)
+
+    @staticmethod
+    def averaging(K: int, **kw) -> "CoCoAConfig":
+        """Original CoCoA (Remark 12)."""
+        return CoCoAConfig(gamma=1.0 / K, sigma_p=1.0, **kw)
+
+    @staticmethod
+    def adding(K: int, **kw) -> "CoCoAConfig":
+        """CoCoA+ with the safe bound sigma' = K."""
+        return CoCoAConfig(gamma=1.0, sigma_p=float(K), **kw)
+
+
+class CoCoAState(NamedTuple):
+    w: torch.Tensor          # (d,) the scaled dual-side vector v
+    alpha: torch.Tensor      # (K, nk) partitioned duals
+    rounds: int              # rounds run so far
+    alpha_bar: torch.Tensor  # (K, nk) running sum for the averaged iterate
+    ef: torch.Tensor         # (K, d) error-feedback residuals (zeros)
+
+
+def init_state(d: int, K: int, nk: int, dtype=torch.float32,
+               device=DEFAULT_DEVICE) -> CoCoAState:
+    dev = resolve_device(device)
+    return CoCoAState(
+        w=torch.zeros((d,), dtype=dtype, device=dev),
+        alpha=torch.zeros((K, nk), dtype=dtype, device=dev),
+        rounds=0,
+        alpha_bar=torch.zeros((K, nk), dtype=dtype, device=dev),
+        ef=comm.init_residual(K, d, dtype, dev),
+    )
+
+
+def state_from_reference(arrays: Dict[str, np.ndarray],
+                         device=DEFAULT_DEVICE) -> CoCoAState:
+    """The port's state from a reference `repro.core.cocoa.CoCoAState`'s
+    leaves converted to numpy (`w`, `alpha`, `rounds`, `alpha_bar`, `ef`).
+
+    The reference's threefry key (`rng`) is dropped: the port carries no
+    key, and a resumed run draws its visit orders from its own generator
+    (or from `solve`'s `visit_orders` hook)."""
+    dev = resolve_device(device)
+
+    def t(name):
+        # np.array copies: the leaves may be read-only views of device arrays
+        return torch.from_numpy(np.array(arrays[name], np.float32)).to(dev)
+
+    return CoCoAState(w=t("w"), alpha=t("alpha"),
+                      rounds=int(np.asarray(arrays["rounds"])),
+                      alpha_bar=t("alpha_bar"), ef=t("ef"))
+
+
+def primal_w(state: CoCoAState, cfg: CoCoAConfig) -> torch.Tensor:
+    """The primal iterate the run serves: w = grad g*(tau v)."""
+    return cfg.regularizer().conj_grad(state.w, cfg.lam)
+
+
+def resolve_solver(name, sparse: bool) -> LocalSolver:
+    """Resolve a registry key against the round's input format through the
+    LocalSolver capability flags: dense inputs need `dense`, SparseShards
+    map through `sparse_counterpart`."""
+    ls = get_solver(name)
+    if not sparse:
+        if not ls.dense:
+            raise ValueError(
+                f"solver {ls.name!r} needs SparseShards inputs; dense "
+                f"tensors take 'sdca' / 'sdca_kernel' (mapped automatically "
+                f"when the data is sparse)")
+        return ls
+    twin = sparse_counterpart(ls)
+    if twin is None:
+        raise ValueError(
+            f"solver {ls.name!r} has no sparse path; pick one of "
+            f"{sorted(n for n in SOLVERS if sparse_counterpart(n))} "
+            f"for SparseShards inputs")
+    return get_solver(twin)
+
+
+def visit_shape(solver: LocalSolver, K: int, nk: int, H: int):
+    """Shape of the visit input `solver` takes for one round."""
+    return (K, nk) if solver.visit == "permutation" else (K, H)
+
+
+def draw_visit_orders(solver: LocalSolver, K: int, nk: int, H: int,
+                      seed: int, round_index: int) -> torch.Tensor:
+    """One round's visit input from a CPU generator seeded with
+    (seed, round_index): (K, nk) permutations or (K, H) uniform row ids."""
+    gen = torch.Generator().manual_seed(
+        (int(seed) * 1_000_003 + int(round_index)) % (2 ** 63))
+    if solver.visit == "permutation":
+        return torch.stack([torch.randperm(nk, generator=gen)
+                            for _ in range(K)])
+    return torch.randint(0, nk, (K, H), generator=gen)
+
+
+def _dims(X):
+    if isinstance(X, SparseShards):
+        K, nk = X.cols.shape[:2]
+        return K, nk, X.d, X.vals.dtype, X.device
+    K, nk, d = X.shape
+    return K, nk, d, X.dtype, X.device
+
+
+def make_round(cfg: CoCoAConfig, K: int, sparse: bool,
+               n: float) -> Callable[..., CoCoAState]:
+    """The simulated K-worker round (`make_round_vmap`'s counterpart): all
+    K workers solve in one solver call -- one kernel launch on the kernel
+    solvers -- then the flat exchange. `n` is the global effective row
+    count; `round_fn(state, X, y, mask, order)` takes the round's visit
+    input `order` (see `visit_shape`)."""
+    loss = get_loss(cfg.loss)
+    reg = cfg.regularizer()
+    topo = comm.Topology.simulated(K)
+    p = cfg.agg_params(K)
+    compressor = comm.NoCompression()
+    solver = resolve_solver(cfg.solver, sparse)
+
+    def round_fn(state: CoCoAState, X, y, mask, order) -> CoCoAState:
+        # `order` goes in as given (on the host when drawn here): the
+        # kernel solvers range-check it there before copying it over
+        res = solver.fn(X, y, state.alpha, mask, state.w, order, loss,
+                        cfg.lam, n, p.sigma_prime, cfg.H, reg=reg)
+        dw_sum, ef = comm.exchange(topo, res.du, state.ef, p, compressor)
+        w, alpha = comm.apply_update(state.w, state.alpha, dw_sum,
+                                     res.dalpha, p)
+        return CoCoAState(w, alpha, state.rounds + 1,
+                          state.alpha_bar + alpha, ef)
+
+    return round_fn
+
+
+class SolveResult(NamedTuple):
+    state: CoCoAState
+    history: dict   # lists per certified round: round, gap, primal, dual,
+                    # comm_floats (cumulative), execute_s, certificate_s
+
+
+def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
+          seed: int = 0, gap_every: int = 1,
+          state: Optional[CoCoAState] = None,
+          visit_orders: Optional[Callable[[int], torch.Tensor]] = None
+          ) -> SolveResult:
+    """Run CoCoA+/CoCoA until `rounds` or duality gap <= eps_gap.
+
+    `X` is a dense (K, nk, d) tensor or a `SparseShards`, on the device the
+    run uses. `visit_orders(t) -> order` supplies round t's visit input
+    (0-based within this call): (K, nk) permutations for the kernel
+    solvers, (K, H) row ids for the eager twins; by default each round
+    draws its own (`draw_visit_orders`).
+
+    History, one entry per certified round (every `gap_every` rounds and
+    the last): `round`, `gap`, `primal`, `dual`, `comm_floats` (cumulative
+    wire floats, K*d per round for the flat dense reduce), `execute_s` (host
+    seconds of the rounds since the previous entry, each fenced by a device
+    synchronize) and `certificate_s` (the same for the gap computation).
+    """
+    K, nk, d, dtype, dev = _dims(X)
+    sparse = isinstance(X, SparseShards)
+    loss = get_loss(cfg.loss)
+    reg = cfg.regularizer()
+    round_fn = make_round(cfg, K, sparse, float(duality.effective_n(mask)))
+    solver = resolve_solver(cfg.solver, sparse)
+    want = visit_shape(solver, K, nk, cfg.H)
+    if state is None:
+        state = init_state(d, K, nk, dtype, dev)
+    topo = comm.Topology.simulated(K)
+    floats_per_round = topo.floats_per_round(
+        comm.NoCompression().floats_per_message(d))
+
+    hist = {"round": [], "gap": [], "primal": [], "dual": [],
+            "comm_floats": [], "execute_s": [], "certificate_s": []}
+    exec_acc = 0.0
+    base_round = state.rounds
+    for t in range(rounds):
+        t0 = time.perf_counter()
+        if visit_orders is not None:
+            order = visit_orders(t)
+            if tuple(order.shape) != want:
+                raise ValueError(f"visit_orders({t}) gave shape "
+                                 f"{tuple(order.shape)}; solver "
+                                 f"{solver.name!r} takes {want}")
+        else:
+            order = draw_visit_orders(solver, K, nk, cfg.H, seed,
+                                      base_round + t)
+        state = round_fn(state, X, y, mask, order)
+        synchronize(dev)
+        exec_acc += time.perf_counter() - t0
+        if (t + 1) % gap_every and t != rounds - 1:
+            continue
+        alpha_eval = state.alpha
+        if cfg.average_iterates:
+            alpha_eval = state.alpha_bar / max(state.rounds, 1)
+        t0 = time.perf_counter()
+        pval, dval, g = duality.gap_decomposed(alpha_eval, X, y, mask, loss,
+                                               cfg.lam, reg)
+        gap = float(g)
+        cert_s = time.perf_counter() - t0
+        hist["round"].append(t + 1)
+        hist["gap"].append(gap)
+        hist["primal"].append(float(pval))
+        hist["dual"].append(float(dval))
+        hist["comm_floats"].append(floats_per_round * (t + 1))
+        hist["execute_s"].append(exec_acc)
+        hist["certificate_s"].append(cert_s)
+        exec_acc = 0.0
+        if gap <= eps_gap:
+            break
+    return SolveResult(state, hist)

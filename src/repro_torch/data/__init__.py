@@ -1,0 +1,5 @@
+from .synthetic import (DATASETS, load, make_classification,
+                        make_regression, partition)
+from .sparse import (CSRMatrix, SparseShards, csr_to_ell,
+                     make_sparse_classification, partition_sparse,
+                     shards_from_arrays)

@@ -1,0 +1,196 @@
+"""Sparse data: CSR on the host, padded-ELL tensors on the device.
+
+Port of `repro.data.sparse` for the main path:
+
+  * `CSRMatrix` -- host-side CSR triple (data, indices, indptr), numpy.
+  * `csr_to_ell` -- the padded-ELL layout `(n, r_max)` of (col, value)
+    pairs. Padding entries are (col 0, val 0.0): every gather adds
+    u[0] * 0 and every scatter adds 0 to u[0], exact no-ops.
+  * `SparseShards` -- a dataclass of tensors mirroring the dense
+    `(K, nk, d)` partition: `cols`/`vals` are `(K, nk, r_max)`, `nnz` the
+    true per-row entry count.
+  * `partition_sparse` -- the worker partitioner (same shuffle, padding and
+    mask as `data.synthetic.partition`); one model shard (M=1) only.
+  * `matvec` / `rmatvec` / `row_sqnorms` -- the sparse matvec family the
+    duality certificate uses; `rmatvec` is an `index_add_`.
+
+The LIBSVM parser and the feature-sharded `FeatureShards` are still to port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from .synthetic import split_order
+
+
+class CSRMatrix(NamedTuple):
+    """Compressed sparse rows: row i owns indices[indptr[i]:indptr[i+1]]."""
+    data: np.ndarray       # (nnz,) float32
+    indices: np.ndarray    # (nnz,) int32, column ids, sorted within a row
+    indptr: np.ndarray     # (n + 1,) int64
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[-1])
+
+    @property
+    def density(self) -> float:
+        n, d = self.shape
+        return self.nnz / max(n * d, 1)
+
+    def row_nnz(self) -> np.ndarray:
+        return np.diff(self.indptr).astype(np.int32)
+
+    def toarray(self) -> np.ndarray:
+        n, d = self.shape
+        out = np.zeros((n, d), np.float32)
+        rows = np.repeat(np.arange(n), self.row_nnz())
+        # accumulate, don't assign: duplicate (row, col) entries sum
+        np.add.at(out, (rows, self.indices), self.data)
+        return out
+
+
+def csr_to_ell(csr: CSRMatrix, r_max: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(cols (n, r_max) int32, vals (n, r_max) f32, nnz (n,) int32).
+
+    Padding entries are (0, 0.0) -- exact no-ops for gather/scatter."""
+    nnz = csr.row_nnz()
+    need = int(nnz.max()) if nnz.size else 0
+    r_max = need if r_max is None else r_max
+    if r_max < need:
+        raise ValueError(f"r_max={r_max} < max row nnz {need}")
+    n = csr.shape[0]
+    slot = np.arange(max(r_max, 1))[None, :] < nnz[:, None]   # (n, r_max)
+    cols = np.zeros((n, max(r_max, 1)), np.int32)
+    vals = np.zeros((n, max(r_max, 1)), np.float32)
+    cols[slot] = csr.indices
+    vals[slot] = csr.data
+    return cols, vals, nnz
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseShards:
+    """Padded-ELL worker shards: the sparse analogue of the dense
+    (K, nk, d) partition. Leaves carry the leading K axis."""
+    cols: torch.Tensor    # (K, nk, r_max) int32, padding -> 0
+    vals: torch.Tensor    # (K, nk, r_max) float32, padding -> 0.0
+    nnz: torch.Tensor     # (K, nk) int32 true entries per row
+    d: int
+
+    @property
+    def r_max(self) -> int:
+        return self.cols.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    @property
+    def density(self) -> float:
+        rows = self.nnz.numel()
+        return float(self.nnz.sum()) / max(rows * self.d, 1)
+
+
+def check_cols(cols: np.ndarray, d: int) -> None:
+    """Column ids must lie in [0, d). Checked on the host, once, where the
+    shards are built: the sparse kernel indexes u with them unchecked."""
+    if cols.size and (int(cols.min()) < 0 or int(cols.max()) >= d):
+        raise ValueError(f"column ids must lie in [0, {d})")
+
+
+def shards_from_arrays(cols, vals, nnz, d: int,
+                       device=DEFAULT_DEVICE) -> SparseShards:
+    """`SparseShards` from array-likes -- e.g. the leaves of the reference's
+    `repro.data.sparse.SparseShards` converted to numpy."""
+    dev = resolve_device(device)
+
+    def t(a, dtype):     # np.array copies: the inputs may be read-only views
+        return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+    cols = np.asarray(cols)
+    check_cols(cols, d)
+    return SparseShards(t(cols, np.int32), t(vals, np.float32),
+                        t(nnz, np.int32), d=int(d))
+
+
+def matvec(sh: SparseShards, w: torch.Tensor) -> torch.Tensor:
+    """z = A^T w per row:  z_i = sum_r vals[i, r] * w[cols[i, r]]."""
+    return torch.sum(sh.vals * w[sh.cols.long()], dim=-1)
+
+
+def rmatvec(sh: SparseShards, coef: torch.Tensor) -> torch.Tensor:
+    """A coef = sum_i coef_i x_i as a scatter-add into a dense (d,)."""
+    contrib = sh.vals * coef[..., None]
+    out = torch.zeros(sh.d, dtype=contrib.dtype, device=contrib.device)
+    return out.index_add_(0, sh.cols.reshape(-1).long(), contrib.reshape(-1))
+
+
+def row_sqnorms(sh: SparseShards) -> torch.Tensor:
+    """||x_i||^2 per row, (K, nk)."""
+    return torch.sum(sh.vals * sh.vals, dim=-1)
+
+
+def make_sparse_classification(n: int, d: int, *, density: float,
+                               seed: int = 0, noise: float = 0.1
+                               ) -> Tuple[CSRMatrix, np.ndarray]:
+    """Binary labels in {-1, +1} on rows with ~density*d nonzeros, ||x|| <= 1.
+
+    Row nnz is Poisson around density*d (clipped to [1, d]) so r_max stays a
+    small multiple of the mean -- the padded-ELL waste is bounded."""
+    rng = np.random.default_rng(seed)
+    base = max(1, int(round(density * d)))
+    nnz = np.clip(rng.poisson(base, n), 1, d).astype(np.int64)
+    indptr = np.concatenate([[0], np.cumsum(nnz)])
+    indices = np.empty(int(indptr[-1]), np.int32)
+    data = rng.standard_normal(int(indptr[-1])).astype(np.float32)
+    for i in range(n):
+        lo, hi = indptr[i], indptr[i + 1]
+        indices[lo:hi] = np.sort(rng.choice(d, hi - lo, replace=False))
+    # normalize rows (paper Remark 7: ||x_i|| <= 1)
+    norms = np.sqrt(np.add.reduceat(data * data, indptr[:-1]))
+    data /= np.maximum(np.repeat(norms, nnz), 1e-12)
+    csr = CSRMatrix(data, indices, indptr, (n, d))
+    w_star = rng.standard_normal(d).astype(np.float32)
+    margin = np.add.reduceat(data * w_star[indices], indptr[:-1])
+    flip = rng.random(n) < noise
+    yv = np.sign(margin) * np.where(flip, -1.0, 1.0)
+    yv[yv == 0] = 1.0
+    return csr, yv.astype(np.float32)
+
+
+def partition_sparse(csr: CSRMatrix, y: np.ndarray, K: int, *, seed: int = 0,
+                     heterogeneity: float = 1.0,
+                     r_max: Optional[int] = None, device=DEFAULT_DEVICE):
+    """Shuffle + split CSR rows into (shards, y (K, nk), mask (K, nk)) on
+    `device`. Same contract as the dense `partition` (identical rng stream,
+    padding rows are all-zero with mask 0)."""
+    dev = resolve_device(device)
+    n, d = csr.shape
+    check_cols(csr.indices, d)
+    cols_e, vals_e, nnz_e = csr_to_ell(csr, r_max)
+    rng = np.random.default_rng(seed)
+    order = split_order(
+        n, rng, heterogeneity,
+        lambda r: np.sum(
+            vals_e * r.standard_normal(d).astype(np.float32)[cols_e], axis=1))
+    nk = (n + K - 1) // K
+    pad = nk * K - n
+    rm = cols_e.shape[1]
+    colsp = np.concatenate([cols_e[order], np.zeros((pad, rm), np.int32)])
+    valsp = np.concatenate([vals_e[order], np.zeros((pad, rm), np.float32)])
+    nnzp = np.concatenate([nnz_e[order], np.zeros(pad, np.int32)])
+    yp = np.concatenate([np.asarray(y)[order],
+                         np.zeros(pad, np.asarray(y).dtype)])
+    mk = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    shards = SparseShards(torch.from_numpy(colsp.reshape(K, nk, rm)).to(dev),
+                          torch.from_numpy(valsp.reshape(K, nk, rm)).to(dev),
+                          torch.from_numpy(nnzp.reshape(K, nk)).to(dev), d=d)
+    return (shards, torch.from_numpy(yp.reshape(K, nk)).to(dev),
+            torch.from_numpy(mk.reshape(K, nk)).to(dev))

@@ -1,0 +1,127 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library
+with a plain C interface and loaded with `ctypes` -- no PyTorch headers, so
+a build takes seconds. Libraries go to `build/` at the root of the
+checkout, named by a hash of the sources and flags, so an edit rebuilds
+and an unchanged tree reuses what is there. Nothing is built when a module
+is imported: `load` builds on first use, `build_all` builds every kernel at
+once (one `nvcc` per source, all started together).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Dict, Tuple
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+KERNELS = ("local_sdca", "sparse_sdca")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    name: str
+    path: pathlib.Path
+    seconds: float          # nvcc wall time (0.0 when the library existed)
+    log: str                # nvcc's output, with -Xptxas -v's usage lines
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _target(name: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", CSRC / "sdca_common.cuh"):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Tuple[pathlib.Path, pathlib.Path,
+                               subprocess.Popen]:
+    target = _target(name)
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return target, tmp, proc
+
+
+def build_all(names=KERNELS) -> Dict[str, BuildInfo]:
+    """Build every kernel that is not built yet, all `nvcc`s in parallel.
+    Raises RuntimeError with the compiler's output if one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    infos, running = {}, []
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            infos[name] = BuildInfo(name, target, 0.0, "(cached)")
+        else:
+            running.append((name, time.perf_counter(), *_start(name)))
+    failed = []
+    for name, t0, target, tmp, proc in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)      # atomic: concurrent builds agree
+        infos[name] = BuildInfo(name, target, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return infos
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        info = build_all((name,))[name]
+        lib = ctypes.CDLL(str(info.path))
+        _bind(name, lib)
+        _LIBS[name] = lib
+    return lib
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "local_sdca":
+        lib.local_sdca_launch.argtypes = [P] * 8 + [I] * 4 + [F, I, F, P]
+        lib.local_sdca_launch.restype = I
+    elif name == "sparse_sdca":
+        lib.sparse_sdca_launch.argtypes = ([P] * 9 + [I] * 5
+                                           + [F, I, F, I, F, P])
+        lib.sparse_sdca_launch.restype = I
+    else:
+        raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [I]
+    err_fn.restype = ctypes.c_char_p
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if code != 0:
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

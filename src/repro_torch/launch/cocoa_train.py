@@ -1,0 +1,157 @@
+"""CoCoA+ trainer CLI of the port -- the paper's workload end to end.
+
+    PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
+        --dataset covtype_like --workers 8 --rounds 60 --eps 1e-3
+
+    # the paper's sparse regime through the sparse CUDA kernel
+    PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
+        --dataset rcv1_sparse --solver sdca_kernel --rounds 40
+
+Same flags as `repro.launch.cocoa_train`, plus `--device` (default cuda;
+`--device cpu` runs the plain PyTorch versions). The default `--solver
+sdca` runs the eager twin, as the reference's default runs its jnp solver;
+`--solver sdca_kernel` (mapped to `sdca_sparse_kernel` on sparse data)
+runs the kernels. Flag values this port does not carry yet exit with the
+ROADMAP.md item that will bring them.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+from ..core import CoCoAConfig, primal_w, solve
+from ..core.regularizers import get_regularizer
+from ..data import DATASETS, load, partition, partition_sparse
+from ..device import resolve_device
+
+# flag -> (value that is ported, ROADMAP.md item that ports the rest)
+_UNPORTED = {
+    "compress": ("none", "Queue 1 item 8 (comm: the rest of the wire stack)"),
+    "topology": ("flat", "Queue 1 item 8 (comm: the rest of the wire stack)"),
+    "gather": (False, "Queue 1 item 8 (comm: the rest of the wire stack)"),
+    "accel": ("none", "Queue 1 item 9 (core/accel.py)"),
+    "mesh": ("", "Queue 1 item 10 (multi-process backend)"),
+    "backend": ("vmap", "Queue 1 item 10 (multi-process backend)"),
+    "ckpt": ("", "Queue 1 item 12 (runtime, checkpoint)"),
+    "simulate_failure": (0, "Queue 1 item 12 (runtime, checkpoint)"),
+    "simulate_straggler": (-1, "Queue 1 item 12 (runtime, checkpoint)"),
+    "elastic_to": ("", "Queue 1 item 12 (runtime, checkpoint)"),
+    "metrics_out": ("", "Queue 1 item 11 (obs)"),
+    "dashboard": (False, "Queue 1 item 11 (obs)"),
+    "profile": ("", "Queue 1 item 11 (obs)"),
+}
+_UNPORTED_SOLVERS = {
+    "gd": "Queue 1 item 4 (core/solvers.py: deadline, importance, gd)",
+    "sdca_deadline": "Queue 1 item 4 (core/solvers.py: deadline, "
+                     "importance, gd)",
+}
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.cocoa_train")
+    ap.add_argument("--dataset", default="covtype_like",
+                    choices=sorted(DATASETS))
+    ap.add_argument("--loss", default="hinge")
+    ap.add_argument("--reg", default="l2",
+                    help="regularizer g(w): l2 | elastic:<eta> | l1s:<eps>")
+    ap.add_argument("--lam", type=float, default=1e-4)
+    ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--H", type=int, default=2048)
+    ap.add_argument("--rounds", type=int, default=60)
+    ap.add_argument("--eps", type=float, default=1e-3)
+    ap.add_argument("--gamma", choices=["add", "avg"], default="add")
+    ap.add_argument("--aggregator", default="",
+                    help="add | avg | gamma:<g> (overrides --gamma)")
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "topk", "randk", "qsgd", "int8"])
+    ap.add_argument("--compress-k", type=int, default=64)
+    ap.add_argument("--topology", default="flat")
+    ap.add_argument("--gather", action="store_true")
+    ap.add_argument("--solver", default="sdca",
+                    choices=["sdca", "sdca_kernel", "sdca_sparse",
+                             "sdca_sparse_kernel", "gd", "sdca_deadline"])
+    ap.add_argument("--accel", default="none")
+    ap.add_argument("--backend", default="vmap", choices=["vmap", "shard_map"])
+    ap.add_argument("--mesh", default="")
+    ap.add_argument("--format", default="auto",
+                    choices=["auto", "dense", "sparse"])
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--simulate-failure", type=int, default=0)
+    ap.add_argument("--simulate-straggler", type=int, default=-1)
+    ap.add_argument("--elastic-to", default="")
+    ap.add_argument("--metrics-out", default="")
+    ap.add_argument("--dashboard", action="store_true")
+    ap.add_argument("--profile", default="")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    return ap
+
+
+def _reject_unported(args) -> None:
+    for flag, (ported, item) in _UNPORTED.items():
+        if getattr(args, flag) != ported:
+            raise SystemExit(
+                f"--{flag.replace('_', '-')}={getattr(args, flag)!r} is not "
+                f"ported to repro_torch yet: ROADMAP.md {item}")
+    if args.solver in _UNPORTED_SOLVERS:
+        raise SystemExit(f"--solver {args.solver} is not ported to "
+                         f"repro_torch yet: ROADMAP.md "
+                         f"{_UNPORTED_SOLVERS[args.solver]}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parser().parse_args(argv)
+    _reject_unported(args)
+    try:
+        get_regularizer(args.reg)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"--reg: {e}")
+    device = resolve_device(args.device)
+
+    spec = DATASETS[args.dataset]
+    fmt = spec.format if args.format == "auto" else args.format
+    K = args.workers
+    if fmt == "sparse":
+        if spec.format != "sparse":
+            raise SystemExit(f"--format sparse needs a sparse dataset spec; "
+                             f"{args.dataset!r} is {spec.format}")
+        csr, y = load(args.dataset)
+        Xp, yp, mk = partition_sparse(csr, y, K, seed=0, device=device)
+        print(f"sparse shards: nnz/row r_max={Xp.r_max} "
+              f"density={csr.density:.4g} d={Xp.d}")
+    else:
+        X, y = load(args.dataset)
+        if spec.format == "sparse":
+            X = X.toarray()     # --format dense on a sparse spec
+        Xp, yp, mk = partition(X, y, K, seed=0, device=device)
+
+    common = dict(loss=args.loss, lam=args.lam, H=args.H, solver=args.solver,
+                  reg=args.reg)
+    if args.aggregator:
+        cfg = CoCoAConfig(aggregator=args.aggregator, **common)
+    elif args.gamma == "add":
+        cfg = CoCoAConfig.adding(K, **common)
+    else:
+        cfg = CoCoAConfig.averaging(K, **common)
+
+    r = solve(cfg, Xp, yp, mk, rounds=args.rounds, eps_gap=args.eps,
+              gap_every=1)
+    hist = r.history
+    for t, gap, ex in zip(hist["round"], hist["gap"], hist["execute_s"]):
+        print(f"round {t}: gap={gap:.3e} execute_s={ex:.4f}")
+    reg = cfg.regularizer()
+    if args.reg != "l2":
+        w_fin = primal_w(r.state, cfg)
+        nz = int((w_fin.abs() > 0).sum())
+        print(f"reg[{reg.name}]: tau={reg.tau(args.lam):.3g} "
+              f"primal w nonzeros: {nz}/{w_fin.shape[0]}")
+    print(f"final: rounds={hist['round'][-1]} gap={hist['gap'][-1]:.3e} "
+          f"primal={hist['primal'][-1]:.6g} dual={hist['dual'][-1]:.6g} "
+          f"comm={hist['comm_floats'][-1] // hist['round'][-1]} floats/round "
+          f"device={device}")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

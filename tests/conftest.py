@@ -29,6 +29,8 @@ def pytest_configure(config):
     # `-W error` runs don't trip PytestUnknownMarkWarning
     config.addinivalue_line(
         "markers", "slow: long-running test (multi-device dry runs)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (the port's kernels)")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,111 @@
+"""The port's boundaries: what it imports, where it runs, and what its CLI
+accepts."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import init_state
+from repro_torch.data import (load, partition, partition_sparse,
+                              shards_from_arrays)
+from repro_torch.launch import cocoa_train
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"cocoa.py", "local_sdca.py", "sparse_sdca.py", "ops.py",
+            "cocoa_train.py", "chip_smoke.py"} <= names
+
+
+def _defaults():
+    """Entry points called without `device`, each returning a tensor."""
+    X, y = load("tiny")
+    csr, ys = load("tiny_sparse")
+    return [lambda: partition(X, y, 4)[0],
+            lambda: partition_sparse(csr, ys, 4)[1],
+            lambda: init_state(8, 2, 4).w,
+            lambda: shards_from_arrays(np.zeros((1, 1, 1), np.int32),
+                                       np.zeros((1, 1, 1), np.float32),
+                                       np.ones((1, 1), np.int32), 4).vals]
+
+
+def test_entry_points_default_to_cuda():
+    """Without a card the default raises; with one it lands on cuda."""
+    for make in _defaults():
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
+
+
+def test_cli_defaults_to_cuda():
+    argv = ["--dataset", "tiny", "--rounds", "1", "--solver", "sdca_kernel"]
+    if torch.cuda.is_available():
+        assert cocoa_train.main(argv)["round"] == [1]
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cocoa_train.main(argv)
+
+
+def test_cli_sparse_kernel_run_on_cpu(capsys):
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", "tiny_sparse",
+                             "--solver", "sdca_kernel", "--rounds", "4"])
+    out = capsys.readouterr().out
+    assert "sparse shards" in out and "round 4: gap=" in out
+    gaps = hist["gap"]
+    assert len(gaps) == 4
+    assert all(b < a for a, b in zip(gaps, gaps[1:])), gaps
+
+
+def test_cli_dense_default_solver_on_cpu(capsys):
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", "tiny",
+                             "--rounds", "3", "--H", "64", "--gamma", "avg",
+                             "--eps", "0"])
+    assert hist["round"] == [1, 2, 3]
+    assert "final: rounds=3" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--compress", "topk"], "item 8"),
+    (["--topology", "hier:2"], "item 8"),
+    (["--gather"], "item 8"),
+    (["--accel", "nesterov"], "item 9"),
+    (["--mesh", "2x2"], "item 10"),
+    (["--backend", "shard_map"], "item 10"),
+    (["--ckpt", "ckpt_dir"], "item 12"),
+    (["--simulate-failure", "3"], "item 12"),
+    (["--simulate-straggler", "1"], "item 12"),
+    (["--elastic-to", "4@2"], "item 12"),
+    (["--metrics-out", "m.jsonl"], "item 11"),
+    (["--dashboard"], "item 11"),
+    (["--profile", "prof"], "item 11"),
+    (["--solver", "gd"], "item 4"),
+    (["--solver", "sdca_deadline"], "item 4"),
+])
+def test_cli_unported_flags_name_their_roadmap_item(flags, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
+        cocoa_train.main(["--device", "cpu", "--dataset", "tiny", *flags])

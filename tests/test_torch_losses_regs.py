@@ -1,0 +1,107 @@
+"""The port's losses and regularizers against the reference's, elementwise
+on random grids. Tolerance: rtol 1e-6 -- both sides run the same float32
+formulas, so only libm-level rounding (log, log1p, exp) may differ; atol
+1e-7 absorbs cancellation to ~0 in y*beta - abar and soft-thresholds."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import losses as rl, regularizers as rr
+from repro_torch.core import losses as tl, regularizers as tr
+
+RTOL, ATOL = 1e-6, 1e-7
+LOSS_NAMES = ["hinge", "smooth_hinge", "smooth_hinge0.5", "squared",
+              "absolute", "logistic"]
+
+
+@pytest.fixture(scope="module")
+def grid():
+    rng = np.random.default_rng(0)
+    n = 4096
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    z = rng.normal(0, 2, n).astype(np.float32)
+    a = rng.normal(0, 0.7, n).astype(np.float32)      # in and out of domain
+    abar = (y * rng.random(n)).astype(np.float32)      # feasible duals
+    q = rng.exponential(1.0, n).astype(np.float32)
+    q[::7] = 0.0                                       # the q == 0 guards
+    return dict(y=y, z=z, a=a, abar=abar, q=q)
+
+
+def _both(fn_ref, fn_port, *args):
+    ref = np.asarray(fn_ref(*[jnp.asarray(x) for x in args]))
+    port = fn_port(*[torch.from_numpy(x) for x in args]).numpy()
+    return ref, port
+
+
+@pytest.mark.parametrize("name", LOSS_NAMES)
+@pytest.mark.parametrize("part", ["value", "conj", "u_subgrad", "conj_grad",
+                                  "project"])
+def test_loss_functions_match_reference(grid, name, part):
+    ref_loss, port_loss = rl.get_loss(name), tl.get_loss(name)
+    assert port_loss.name == ref_loss.name
+    assert (port_loss.L, port_loss.mu) == (ref_loss.L, ref_loss.mu)
+    first = grid["z"] if part in ("value", "u_subgrad") else grid["a"]
+    ref, port = _both(getattr(ref_loss, part), getattr(port_loss, part),
+                      first, grid["y"])
+    np.testing.assert_allclose(port, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", LOSS_NAMES)
+def test_cd_update_matches_reference(grid, name):
+    ref, port = _both(rl.get_loss(name).cd_update,
+                      tl.get_loss(name).cd_update,
+                      grid["abar"], grid["z"], grid["q"], grid["y"])
+    if name == "logistic":
+        # 25 guarded Newton steps through log/log1p: libm rounding
+        # compounds, still far inside what a coordinate step can feel
+        np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_allclose(port, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_smoothing_carried_for_the_kernels():
+    assert tl.get_loss("smooth_hinge0.5").smoothing == 0.5
+    assert tl.get_loss("smooth_hinge").smoothing == 1.0
+    assert tl.get_loss("hinge").smoothing == 0.0
+
+
+REG_SPECS = ["l2", "elastic:0.5", "elastic:0.2", "l1s:0.1"]
+
+
+@pytest.mark.parametrize("spec", REG_SPECS)
+def test_regularizers_match_reference(spec):
+    rng = np.random.default_rng(1)
+    v = rng.normal(0, 2, 512).astype(np.float32)
+    lam = 1e-2
+    ref, port = rr.get_regularizer(spec), tr.get_regularizer(spec)
+    assert port.name == ref.name and port.family == ref.family
+    assert port.tau(lam) == ref.tau(lam)
+    assert port.prox_kappa(lam) == ref.prox_kappa(lam)
+    vt, vj = torch.from_numpy(v), jnp.asarray(v)
+    np.testing.assert_allclose(port.conj_grad(vt, lam).numpy(),
+                               np.asarray(ref.conj_grad(vj, lam)),
+                               rtol=RTOL, atol=ATOL)
+    for part in ("value", "conj"):
+        np.testing.assert_allclose(float(getattr(port, part)(vt, lam)),
+                                   float(getattr(ref, part)(vj, lam)),
+                                   rtol=RTOL)
+
+
+def test_soft_threshold_matches_reference():
+    rng = np.random.default_rng(2)
+    v = rng.normal(0, 1, 1000).astype(np.float32)
+    v[:10] = 0.0
+    for kappa in (0.0, 0.3, 1.0):
+        np.testing.assert_allclose(
+            tr.soft_threshold(torch.from_numpy(v), kappa).numpy(),
+            np.asarray(rr.soft_threshold(jnp.asarray(v), kappa)),
+            rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("bad", ["elastic:1.0", "l1s:0", "nope"])
+def test_regularizer_rejections_match_reference(bad):
+    with pytest.raises((KeyError, ValueError)):
+        rr.get_regularizer(bad)
+    with pytest.raises((KeyError, ValueError)):
+        tr.get_regularizer(bad)

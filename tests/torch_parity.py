@@ -1,0 +1,101 @@
+"""Shared helpers for the PyTorch port's parity tests (tests/test_torch_*.py).
+
+The port may not import jax, so everything that needs both sides lives
+here: numpy input makers, jax <-> numpy <-> torch converters, and the
+reference's key derivation turned into explicit visit orders. jax is
+imported only inside the functions that use it, so the card-only tests
+can import this module on a machine without jax. Reference
+round t draws from `rng, sub = split(state.rng)` and worker k from
+`fold_in(sub, k)` (repro/core/cocoa.py:305-309); the kernel solvers walk
+`permutation(key_k, nk)` (repro/kernels/ops.py:88, :206), the eager
+solvers `randint(key_k, (H,), 0, nk)` (repro/core/solvers.py:126, :311).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def state_arrays(ref_state) -> dict:
+    """A reference `CoCoAState`'s leaves as numpy (the rng key included,
+    which `state_from_reference` drops)."""
+    return {k: to_np(v) for k, v in ref_state._asdict().items()
+            if v is not None}
+
+
+def round_keys(key, rounds: int):
+    """The per-round `sub` keys a reference solve derives from `key`."""
+    import jax
+    subs = []
+    for _ in range(rounds):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+    return subs
+
+
+def visit_orders_from_keys(subs, K: int, nk: int, H: int, kind: str):
+    """One torch (K, nk) permutation or (K, H) row-id tensor per round."""
+    import jax
+    out = []
+    for sub in subs:
+        rows = []
+        for k in range(K):
+            kk = jax.random.fold_in(sub, k)
+            if kind == "permutation":
+                rows.append(np.asarray(jax.random.permutation(kk, nk)))
+            else:
+                rows.append(np.asarray(jax.random.randint(kk, (H,), 0, nk)))
+        out.append(torch.as_tensor(np.stack(rows).astype(np.int64)))
+    return out
+
+
+def reference_visit_orders(seed_or_key, rounds: int, K: int, nk: int, H: int,
+                           kind: str):
+    """`solve(visit_orders=...)` hook replaying a reference solve's visit
+    orders from `seed` (or from a carried state's rng key)."""
+    import jax
+    key = (jax.random.PRNGKey(seed_or_key)
+           if isinstance(seed_or_key, int) else seed_or_key)
+    orders = visit_orders_from_keys(round_keys(key, rounds), K, nk, H, kind)
+    return lambda t: orders[t]
+
+
+def dense_block(rng: np.random.Generator, K: int, nk: int, d: int,
+                pad_rows: int = 0):
+    """(X (K, nk, d), y, alpha, mask) with ||x|| <= 1, labels in {-1, 1},
+    feasible hinge duals, and the last `pad_rows` rows of each worker zero
+    with mask 0."""
+    X = rng.standard_normal((K, nk, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=-1, keepdims=True)
+    y = np.where(rng.random((K, nk)) < 0.5, -1.0, 1.0).astype(np.float32)
+    alpha = (y * rng.random((K, nk)) * 0.5).astype(np.float32)
+    mask = np.ones((K, nk), np.float32)
+    if pad_rows:
+        X[:, nk - pad_rows:] = 0.0
+        mask[:, nk - pad_rows:] = 0.0
+        alpha[:, nk - pad_rows:] = 0.0
+    return X, y, alpha, mask
+
+
+def ell_block(rng: np.random.Generator, K: int, nk: int, d: int, r_max: int):
+    """Padded-ELL (cols, vals) (K, nk, r_max) with the cases the kernels must
+    get right: rows with duplicate column ids, rows with a real column-0
+    entry next to (col 0, val 0) padding, and ragged row lengths."""
+    nnz = rng.integers(1, r_max + 1, size=(K, nk))
+    cols = rng.integers(0, d, size=(K, nk, r_max)).astype(np.int32)
+    vals = rng.standard_normal((K, nk, r_max)).astype(np.float32)
+    cols[:, 0::3, 1] = cols[:, 0::3, 0]                  # duplicate ids
+    cols[:, 1::3, 0] = 0                                 # real column 0
+    nnz[:, 1::3] = np.minimum(nnz[:, 1::3], r_max - 1)   # ... next to padding
+    nnz[:, 0::3] = np.maximum(nnz[:, 0::3], 2)
+    live = np.arange(r_max)[None, None, :] < nnz[..., None]
+    cols = np.where(live, cols, 0).astype(np.int32)
+    vals = np.where(live, vals, 0.0).astype(np.float32)
+    vals /= np.maximum(np.linalg.norm(vals, axis=-1, keepdims=True), 1e-12)
+    return cols, vals, nnz.astype(np.int32)
