@@ -7,8 +7,8 @@ Needs one NVIDIA card and nvcc; run from the root of a checkout. Phases, in
 order, each failing the run with a non-zero exit:
 
   1. device    name, count, power limit, torch and CUDA versions
-  2. build     both kernels from csrc/, one nvcc each, in parallel, with
-               -Xptxas -v's registers and shared memory
+  2. build     all four kernels from csrc/, one nvcc each, in parallel,
+               with -Xptxas -v's registers and shared memory
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the real widths (d = 2,000 dense, d = 47,236 sparse) and a cut
                row count, every closed-form loss, prox on and off, rows with
@@ -27,6 +27,32 @@ order, each failing the run with a non-zero exit:
                scaled by the walk's length (`_against_plain`); the kernel's
                time with CUDA events beside its bound; one more round split
                on the host clock
+  7. lm-kernels  flash attention and the selective scan against their plain
+               versions on the card at cut shapes: GQA, MQA, softcap, ragged
+               tails, float32 and bfloat16, head_dim 64, 128 and 256; scan
+               d_inner 256 and 8,192, N = 16, ragged S
+  8. serve     the LM serving path: stablelm-1.6b at full width and depth
+               (24 layers, d_model 2,048, 32 x 64 heads, vocab 100,352,
+               bf16, 1.64 B random weights from the seed) with
+               use_flash_attention, `ServingEngine(slots=4, s_max=2048)`, 8
+               requests of 256-1,536 prompt tokens and 32 new tokens, timed
+               after the same prompts warmed a throwaway engine; every
+               request finishes with in-range tokens; one prefill's logits
+               with the kernel against the same prefill through the plain
+               `chunked_attention`
+  9. mamba     the scoring forward (`forward_train`, no grad) of
+               falcon-mamba-7b at full width and depth (64 layers, d_model
+               4,096, d_inner 8,192, N 16, vocab 65,024, bf16, 7.27 B random
+               weights) on one TokenStream batch, B = 1, S = 2,048, with
+               use_fused_ssm, held against the same forward through the
+               chunked scan: the loss, and the last block's output by
+               relative RMS; the same forward with D x planted out of the
+               kernel's y must fail that check
+ 10. lm-times  each LM kernel against its plain version on the path's own
+               inputs (layer 0's kernel arguments, kept as phase 8's first
+               prompt and phase 9's batch ran), then its time with CUDA
+               events beside its bound, the plain version's and, for flash,
+               scaled_dot_product_attention's
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -39,6 +65,7 @@ before that the kernels' JSON summary, the last line the run's JSON result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -50,6 +77,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 peak outside tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor-core peak
 RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain (reduction order differs)
 CUT_NK = 1024                  # phase 3's rows per worker
 SEED = 0
@@ -84,11 +112,13 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, flash_attention as fa
     t0 = time.perf_counter()
     infos = build.build_all()
     log(f"[2 build] {len(infos)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (parallel nvcc, sm_90a)")
+    if set(infos) != set(build.KERNELS):
+        fail(f"built {sorted(infos)}, expected {sorted(build.KERNELS)}")
     from repro_torch.kernels.local_sdca import SCRATCH_BYTES
     for info in infos.values():
         log(f"  {info.name}: nvcc {info.seconds:.2f} s -> {info.path.name}")
@@ -98,14 +128,20 @@ def phase_build():
     log(f"  dynamic shared memory per block: {SCRATCH_BYTES} + 4 d bytes "
         f"(d=2000: {SCRATCH_BYTES + 8000} B; d=47236: "
         f"{SCRATCH_BYTES + 4 * 47236} B; limit 232448 B)")
+    log("  flash_attention dynamic shared memory per block: " + ", ".join(
+        f"hd={hd}: {fa.smem_bytes(hd)} B" for hd in fa.HEAD_DIMS)
+        + "; ssm_scan: static only (the smem line above)")
 
 
-def _errors(got, want, atol=ATOL):
+def _errors(got, want, atol=ATOL, rtol=RTOL):
+    """(max abs error, max rel error, ok) for |got - want| <= atol + rtol
+    |want|, compared in float32."""
     import torch
+    got, want = got.float(), want.float()
     diff = (got - want).abs()
     abs_err = float(diff.max())
     rel_err = float((diff / want.abs().clamp_min(1e-6)).max())
-    ok = bool(torch.allclose(got, want, rtol=RTOL, atol=atol))
+    ok = bool(torch.allclose(got, want, rtol=rtol, atol=atol))
     return abs_err, rel_err, ok
 
 
@@ -297,18 +333,21 @@ def phase_dense(dev):
     return Xp, yp, mk, r, cfg, launches
 
 
-def _time_ms(fn, reps):
+def _time_ms(fn, reps=1, warm=True):
+    """(ms per call on CUDA events, the last call's result): the mean of
+    `reps` calls, after one warm-up call when `warm`."""
     import torch
-    fn()                                              # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
 def _round_inputs(cfg, X, y, mask, state):
@@ -342,13 +381,7 @@ def _against_plain(name, kernel, plain, args, kw):
     nk = args[-1].shape[1]                    # perm, (K, nk)
     atol = ATOL * max(1.0, nk / CUT_NK)
     got = kernel(*args, **kw)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = plain(*args, **kw)
-    end.record()
-    torch.cuda.synchronize()
+    plain_ms, want = _time_ms(lambda: plain(*args, **kw), warm=False)
     worst, bad = [0.0, 0.0], []
     for part, g, p in zip(("dalpha", "du"), got, want):
         a, r, ok = _errors(g, p, atol)
@@ -361,7 +394,7 @@ def _against_plain(name, kernel, plain, args, kw):
     if bad:
         fail(f"{name} disagrees with its plain version on the main path's "
              f"round inputs: {bad}")
-    return worst[0], worst[1], start.elapsed_time(end)
+    return worst[0], worst[1], plain_ms
 
 
 def _host_split(cfg, X, y, mask, state):
@@ -416,7 +449,7 @@ def phase_times(dense, sparse, cut_errs):
     args = (Xp, yp, r.state.alpha, mk, w, scale, perm)
     errs = _against_plain("local_sdca", dk.local_sdca, dk.local_sdca_plain,
                           args, hinge)
-    ms = _time_ms(lambda: dk.local_sdca(*args, **hinge), 3)
+    ms, _ = _time_ms(lambda: dk.local_sdca(*args, **hinge), reps=3)
     out.append(("local_sdca", "src/repro_torch/kernels/csrc/local_sdca.cu",
                 "src/repro/kernels/local_sdca.py:56", launches, r, errs,
                 cut_errs["local_sdca"], ms,
@@ -430,7 +463,7 @@ def phase_times(dense, sparse, cut_errs):
     args = (sh.cols, sh.vals, yp, r.state.alpha, mk, w, scale, perm)
     errs = _against_plain("sparse_sdca", sk.sparse_local_sdca,
                           sk.sparse_local_sdca_plain, args, hinge)
-    ms = _time_ms(lambda: sk.sparse_local_sdca(*args, **hinge), 3)
+    ms, _ = _time_ms(lambda: sk.sparse_local_sdca(*args, **hinge), reps=3)
     out.append(("sparse_sdca", "src/repro_torch/kernels/csrc/sparse_sdca.cu",
                 "src/repro/kernels/sparse_sdca.py:172", launches, r, errs,
                 cut_errs["sparse_sdca"], ms,
@@ -441,32 +474,466 @@ def phase_times(dense, sparse, cut_errs):
     for (name, src, repl, launches, r, (abs_err, rel_err, plain), cut, ms,
          nbytes, flops, shape, split) in out:
         rounds = len(r.history["round"])
-        per_round = launches / rounds
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"  {name}: {ms:.3f} ms/launch at {shape}; bound {bound_ms:.4f} "
-            f"ms ({bound_by}: {nbytes} B at 3.35 TB/s, {flops} flop at 67 "
-            f"TFLOP/s) -> {ms / bound_ms:.0f}x the bound; launches/round "
-            f"{per_round:g}; plain {plain:.3f} ms at the same shape; "
-            f"library call: none")
+        rows.append(_row(name, src, repl, launches, launches / rounds,
+                         "per round", (abs_err, rel_err), cut, ms, plain,
+                         None, nbytes, flops, F32_FLOPS_PER_S,
+                         "67 TFLOP/s f32", shape, rounds=rounds,
+                         host_split_ms=split))
         steady = r.history["execute_s"][1:] or r.history["execute_s"]
         log(f"  {name} one round on the host clock (ms): " + ", ".join(
             f"{k}={v:.3f}" for k, v in split.items())
             + f"; sum={sum(split.values()):.3f}; solver minus kernel="
             f"{split['solver'] - ms:.3f}; main path execute_s after round 1 "
             f"mean={1e3 * sum(steady) / len(steady):.3f}")
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "status": "ported",
-                     "launches": launches, "rounds": rounds,
-                     "launches_per_round": per_round,
-                     "max_abs_err": abs_err, "max_rel_err": rel_err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None,
-                     "shape": shape, "cut_max_abs_err": cut[0],
-                     "cut_max_rel_err": cut[1], "host_split_ms": split})
     return rows
+
+
+def _row(name, src, repl, launches, per, per_what, errs, cut, ms, plain_ms,
+         lib_ms, nbytes, flops, peak, peak_name, shape, **extra):
+    """One kernel's entry of the summary line, logged as it is made. `errs`
+    and `cut` are (max abs, max rel) errors against the plain version on
+    the path's inputs and at the cut shapes; `extra` adds keys."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+    log(f"  {name}: {ms:.3f} ms/launch at {shape}; bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes} B at 3.35 TB/s, {flops} flop at "
+        f"{peak_name}) -> {ms / bound_ms:.1f}x the bound; launches "
+        f"{per:g} {per_what}; plain {plain_ms:.3f} ms at the same shape; "
+        f"library call {lib}")
+    return {"name": name, "route": "cuda", "source": src, "replaces": repl,
+            "status": "ported", "launches": launches,
+            f"launches_{per_what.replace(' ', '_')}": per,
+            "max_abs_err": errs[0], "max_rel_err": errs[1], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "shape": shape, "cut_max_abs_err": cut[0],
+            "cut_max_rel_err": cut[1], **extra}
+
+
+# ----------------------------------------------------------------------------
+# the LM seed: flash attention (phase 8) and the selective scan (phase 9)
+# ----------------------------------------------------------------------------
+
+FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-2, 2e-3)}
+SCAN_RTOL, SCAN_ATOL = 2e-4, 2e-5
+# prefill logits, flash kernel vs plain chunked_attention, both in bf16:
+# relative RMS of the difference over the logits. Each attention output
+# rounds to bf16 on both sides (p relative to the running max there, to
+# the final max here), so they part by ~1 bf16 ulp per layer, carried
+# through 24 layers; a wrong mask or head mapping moves it by O(1).
+LOGITS_REL_RMS = 5e-2
+# scoring forward, fused scan vs chunked scan (both float32 recurrences;
+# their outputs round to bf16 before out_proj): relative RMS of the
+# difference of the last block's outputs (the residual stream the loss
+# reads). The two part by bf16 roundings that the random 64-layer stack
+# amplifies layer by layer; the first full run read 5.59e-2 there, and the
+# same forward with D x planted out of the kernel's y 1.02, so the limit
+# sits between. Phase 9 logs the difference after every few blocks.
+HIDDEN_REL_RMS = 0.2
+# and the scoring loss of the two: relative difference
+LOSS_RTOL = 2e-3
+
+
+def _lm_counts_zero():
+    from repro_torch.kernels import (flash_attention as fa, local_sdca as dk,
+                                     sparse_sdca as sk, ssm_scan as ss)
+    for mod in (dk, sk, fa, ss):
+        mod.LAUNCHES = 0
+    return lambda: {"local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
+                    "flash_attention": fa.LAUNCHES,
+                    "ssm_scan": ss.LAUNCHES}
+
+
+@contextlib.contextmanager
+def _wrapped(module, attr, around):
+    """Inside the block, calls of `module.attr` (a kernel wrapper as a model
+    module imported it) go to `around(wrapper, *args, **kw)`."""
+    real = getattr(module, attr)
+    setattr(module, attr, lambda *args, **kw: around(real, *args, **kw))
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def _keep_first(seen):
+    """An `around` that forwards every call and keeps the first call's
+    (args, kwargs) in `seen`: layer 0's own kernel inputs."""
+    def around(real, *args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return real(*args, **kw)
+    return around
+
+
+def _rel_rms(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _rand(rng, shape, dev, dtype=None):
+    import torch
+    t = torch.from_numpy(rng.standard_normal(shape).astype("float32")).to(dev)
+    return t if dtype is None else t.to(dtype)
+
+
+def _scan_case(rng, B, S, di, N, dev):
+    import numpy as np
+    import torch
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return (t(rng.standard_normal((B, S, di))),
+            t(0.1 * np.abs(rng.standard_normal((B, S, di)))),
+            t(rng.standard_normal((B, S, N))),
+            t(rng.standard_normal((B, S, N))),
+            t(-np.abs(rng.standard_normal((di, N)))),
+            t(rng.standard_normal(di)))
+
+
+def phase_lm_kernels(dev):
+    """Flash attention and the scan against their plain versions on the
+    card at cut shapes. Returns the max (abs, rel) errors per kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+    rng = np.random.default_rng(SEED)
+    errs = {"flash_attention": [0.0, 0.0], "ssm_scan": [0.0, 0.0]}
+    bad = []
+    log("[7 lm-kernels] kernel vs plain on the card; tolerance |k - p| <= "
+        f"atol + rtol |p|: flash float32 {FLASH_TOL['float32']}, bfloat16 "
+        f"{FLASH_TOL['bfloat16']}; scan ({SCAN_RTOL}, {SCAN_ATOL})")
+
+    def note(name, what, got, want, rtol, atol):
+        torch.cuda.synchronize()
+        a, r, ok = _errors(got, want, atol, rtol)
+        errs[name] = [max(errs[name][0], a), max(errs[name][1], r)]
+        log(f"  {what}: max_abs={a:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(what)
+
+    for B, S, H, KV, hd, cap in ((2, 256, 8, 2, 64, None),      # GQA
+                                 (1, 200, 8, 1, 128, None),     # MQA, ragged
+                                 (2, 192, 4, 4, 64, 50.0),      # softcap
+                                 (1, 130, 4, 2, 256, None)):    # hd 256
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = _rand(rng, (B, S, H, hd), dev, dt)
+            k, v = (_rand(rng, (B, S, KV, hd), dev, dt) for _ in range(2))
+            note("flash_attention", f"flash B={B} S={S} H={H} KV={KV} "
+                 f"hd={hd} softcap={cap} {dtype}",
+                 fa.flash_attention(q, k, v, softcap=cap),
+                 fa.flash_attention_plain(q, k, v, softcap=cap),
+                 *FLASH_TOL[dtype])
+    for B, S, di, N in ((2, 300, 256, 16), (1, 130, 8192, 16)):
+        ins = _scan_case(rng, B, S, di, N, dev)
+        note("ssm_scan", f"ssm_scan B={B} S={S} di={di} N={N}",
+             ss.ssm_scan(*ins), ss.ssm_scan_plain(*ins), SCAN_RTOL,
+             SCAN_ATOL)
+    if bad:
+        fail(f"LM kernel disagrees with its plain version: {bad}")
+    return errs
+
+
+def _device_busy_ms(fn):
+    """(ms, count): summed device time and number of the kernels (and
+    copies) one call of `fn` runs, from a torch.profiler trace; (None, 0)
+    when the trace holds no device activity. Kernels on one stream do not
+    overlap, so the sum is the time the card was busy for the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return (sum(times) / 1e3, len(times)) if sum(times) > 0 else (None, 0)
+
+
+def _busy_line(what, busy, wall_ms):
+    ms, count = busy
+    if ms is None:
+        return f"  {what}: device busy not measured (no device events)"
+    return (f"  {what}: {count} device kernels busy {ms:.3f} ms of "
+            f"{wall_ms:.3f} ms on the host clock (unprofiled) -> idle share "
+            f"{1 - ms / wall_ms:.3f}")
+
+
+def phase_serve(dev):
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serving_runtime import ServingEngine
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              use_flash_attention=True)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(256, 1537, size=8)
+    stream = TokenStream(cfg.vocab, 1, int(lens.max()), seed=SEED)
+    prompts = [stream.batch_at(i)["tokens"][0, :n] for i, n in
+               enumerate(lens)]
+    log(f"[8 serve] stablelm-1.6b: {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} {cfg.n_heads}x{cfg.head_dim} heads vocab "
+        f"{cfg.vocab} {cfg.dtype}, {n_params} params (random, made in "
+        f"{time.perf_counter() - t0:.1f} s); prompts {lens.tolist()}")
+    # warm-up: the same prompts, 2 tokens each, through a throwaway engine,
+    # so that the timed run pays no first use (allocator growth, GEMM
+    # heuristics for each prefill shape, each kernel's first launch)
+    t0 = time.perf_counter()
+    warm = ServingEngine(cfg, model, slots=4, s_max=2048, device=dev)
+    for p in prompts:
+        warm.submit(p, max_new=2)
+    warm.run_until_drained()
+    torch.cuda.synchronize()
+    log(f"  warm-up engine: {len(prompts)} requests x 2 tokens in "
+        f"{time.perf_counter() - t0:.3f} s")
+    del warm
+    eng = ServingEngine(cfg, model, slots=4, s_max=2048, device=dev)
+    reqs = [eng.submit(p, max_new=32) for p in prompts]
+    counts = _lm_counts_zero()
+    steps = []
+    t_run = time.perf_counter()
+    while True:
+        queued = len(eng.queue)
+        t0 = time.perf_counter()
+        live = eng.step()
+        torch.cuda.synchronize()
+        if live == 0 and not eng.queue:
+            break
+        steps.append((queued - len(eng.queue), live,
+                      (time.perf_counter() - t0) * 1e3))
+    run_s = time.perf_counter() - t_run
+    launches = counts()
+    log(f"  launches on the serving path: {launches}")
+    if launches["flash_attention"] != len(reqs) * cfg.n_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} "
+             f"times for {len(reqs)} prefills of {cfg.n_layers} layers")
+    for r, p in zip(reqs, prompts):
+        if not (r.done and len(r.out) == 32
+                and all(0 <= t < cfg.vocab for t in r.out)):
+            fail(f"request {r.rid} (prompt {len(p)}): done={r.done} "
+                 f"{len(r.out)} tokens {r.out[:8]}...")
+    generated = sum(len(r.out) for r in reqs)
+    decode = [(live, ms) for n, live, ms in steps if n == 0]
+    decode_ms = [ms for _, ms in decode]
+    log(f"  {len(reqs)} requests done, {generated} tokens in {len(steps)} "
+        f"engine steps, {run_s:.3f} s: {generated / run_s:.1f} generated "
+        f"tokens/s over the run (prefills included); live per step "
+        f"{[live for _, live, _ in steps]}")
+    log(f"  decode ms per engine step (steps without a prefill, "
+        f"{len(decode_ms)}): mean {sum(decode_ms) / len(decode_ms):.3f} "
+        f"min {min(decode_ms):.3f} max {max(decode_ms):.3f}; "
+        f"{1e3 * sum(n for n, _ in decode) / sum(decode_ms):.1f} tokens/s "
+        f"over those steps")
+    # one slot's prefill per request, timed alone on the host clock
+    prefill_ms = []
+    for p in prompts:
+        cache = M.init_cache(cfg, 1, 2048, dev)
+        tok = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.prefill(model, {"tokens": tok}, cache)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    log("  prefill ms per request (one slot, host clock): " + ", ".join(
+        f"S={len(p)}: {ms:.3f}" for p, ms in zip(prompts, prefill_ms)))
+    tok = torch.from_numpy(prompts[0][None].astype(np.int64)).to(dev)
+    busy = _device_busy_ms(lambda: M.prefill(
+        model, {"tokens": tok}, M.init_cache(cfg, 1, 2048, dev)))
+    log(_busy_line(f"prefill S={len(prompts[0])}", busy, prefill_ms[0]))
+    toks = torch.ones((4, 1), dtype=torch.int64, device=dev)
+    pos = int(lens.max()) + 16
+    busy = _device_busy_ms(lambda: M.decode_step(model, eng.cache, toks,
+                                                 pos))
+    log(_busy_line(f"decode step (4 slots, pos {pos})", busy,
+                   sum(decode_ms) / len(decode_ms)))
+    # the kernel's prefill against the plain chunked_attention's, keeping
+    # layer 0's flash inputs for phase 10
+    logits, seen = {}, []
+    for flag in (True, False):
+        cache = M.init_cache(cfg, 1, 2048, dev)
+        with _wrapped(M, "flash_attention", _keep_first(seen)):
+            logits[flag], _ = M.prefill(
+                model, {"tokens": tok}, cache,
+                dataclasses.replace(cfg, use_flash_attention=flag))
+    rel_rms = _rel_rms(logits[True], logits[False])
+    log(f"  prefill logits (S={len(prompts[0])}) flash vs chunked_attention: "
+        f"rel RMS {rel_rms:.3e} (limit {LOGITS_REL_RMS}), max abs "
+        f"{float((logits[True] - logits[False]).abs().max()):.3e}, max "
+        f"|logit| {float(logits[False].abs().max()):.3e}")
+    if not (torch.isfinite(logits[True]).all() and rel_rms <= LOGITS_REL_RMS):
+        fail(f"flash prefill logits differ from the plain path: {rel_rms}")
+    del model, eng, cache
+    return {"launches": launches["flash_attention"], "prefills": len(reqs),
+            "call": seen[0]}
+
+
+def phase_mamba(dev):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import model as M, ssm as S
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              use_fused_ssm=True)
+    chunked = dataclasses.replace(cfg, use_fused_ssm=False)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=SEED, device=dev)
+    batch = TokenStream(cfg.vocab, 1, 2048, seed=SEED).tensors_at(0, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[9 mamba] falcon-mamba-7b: {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} d_inner {cfg.d_inner} N {cfg.ssm_state} vocab "
+        f"{cfg.vocab} {cfg.dtype}, {n_params} params (random, made in "
+        f"{time.perf_counter() - t0:.1f} s); B=1 S=2048")
+
+    def score(c, around=None):
+        """(loss, every block's output) of one scoring forward under `c`,
+        its scan calls going through `around` when one is given."""
+        out = []
+        hooks = [blk.register_forward_hook(
+            lambda _mod, _args, o: out.append(o[0])) for blk in model.blocks]
+        with (_wrapped(S, "ssm_scan", around) if around
+              else contextlib.nullcontext()):
+            loss, _ = M.forward_train(model, batch, c)
+        for hook in hooks:
+            hook.remove()
+        return float(loss), out
+
+    def no_dx(real, xin, dt, Bm, Cm, A, D):
+        return real(xin, dt, Bm, Cm, A, torch.zeros_like(D))
+
+    counts = _lm_counts_zero()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        loss, hid = score(cfg)
+        fused_s = time.perf_counter() - t0
+        launches = counts()
+        log(f"  launches on the scoring path: {launches}")
+        if launches["ssm_scan"] != cfg.n_layers:
+            fail(f"ssm_scan launched {launches['ssm_scan']} times in one "
+                 f"forward of {cfg.n_layers} layers")
+        t0 = time.perf_counter()
+        plain, hid_plain = score(chunked)
+        chunked_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        float(M.forward_train(model, batch, cfg)[0])
+        warm_s = time.perf_counter() - t0
+        seen = []
+        with _wrapped(S, "ssm_scan", _keep_first(seen)):
+            busy = _device_busy_ms(lambda: M.forward_train(model, batch, cfg))
+        bad_loss, hid_bad = score(cfg, no_dx)
+    rel = abs(loss - plain) / abs(plain)
+    curve = [_rel_rms(a, b) for a, b in zip(hid, hid_plain)]
+    curve_bad = [_rel_rms(a, b) for a, b in zip(hid_bad, hid_plain)]
+    rms, rms_bad = curve[-1], curve_bad[-1]
+    del hid, hid_plain, hid_bad
+    at = [i for i in (1, 2, 4, 8, 16, 32) if i < cfg.n_layers] + [cfg.n_layers]
+    log("  block output rel RMS vs chunked scan, fused / planted fault, "
+        "after layer: " + ", ".join(
+            f"{i}: {curve[i - 1]:.3e} / {curve_bad[i - 1]:.3e}" for i in at))
+    log(f"  loss fused {loss:.6f} ({fused_s:.3f} s; again, warm: "
+        f"{warm_s:.3f} s) vs chunked scan {plain:.6f} ({chunked_s:.3f} s): "
+        f"rel diff {rel:.3e} (limit {LOSS_RTOL}); ln(vocab) = "
+        f"{math.log(cfg.vocab):.4f}")
+    log(f"  last block's output, fused vs chunked scan: rel RMS {rms:.3e} "
+        f"(limit {HIDDEN_REL_RMS}); planted fault, D x dropped from the "
+        f"kernel's y: rel RMS {rms_bad:.3e}, loss {bad_loss:.6f} (rel diff "
+        f"{abs(bad_loss - plain) / abs(plain):.3e})")
+    log(_busy_line("fused scoring forward, warm", busy, warm_s * 1e3))
+    if not (math.isfinite(loss) and rel <= LOSS_RTOL
+            and rms <= HIDDEN_REL_RMS):
+        fail(f"fused-scan forward differs from the chunked scan's: rel RMS "
+             f"{rms}, loss {loss} vs {plain}")
+    if not rms_bad > HIDDEN_REL_RMS:
+        fail(f"the fused-vs-chunked check does not see a planted fault "
+             f"(rel RMS {rms_bad} <= {HIDDEN_REL_RMS})")
+    del model
+    return {"launches": launches["ssm_scan"], "call": seen[0]}
+
+
+def phase_lm_times(serve, mamba, cut_errs):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ssm_scan as ss
+    log("[10 lm-times] kernel vs plain on layer 0's own inputs, kept from "
+        "phases 8 and 9, then CUDA events (mean of 10 launches after a "
+        "warm-up)")
+    rows = []
+    # flash at the first prompt's prefill shape
+    args, kw = serve["call"]
+    q, k, v = args
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    got = fa.flash_attention(*args, **kw)
+    plain_ms, want = _time_ms(lambda: fa.flash_attention_plain(*args, **kw),
+                              warm=False)
+    abs_err, rel_err, ok = _errors(got, want, FLASH_TOL["bfloat16"][1],
+                                   FLASH_TOL["bfloat16"][0])
+    log(f"  flash_attention kernel vs plain at B={B} S={S} H={H} KV={KV} "
+        f"hd={hd} bf16 {kw}: max_abs={abs_err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("flash_attention disagrees with its plain version on the "
+             "serving path's inputs")
+    ms, _ = _time_ms(lambda: fa.flash_attention(*args, **kw), reps=10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms, _ = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=H != KV), reps=10)
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    rows.append(_row(
+        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:34", serve["launches"],
+        serve["launches"] / serve["prefills"], "per prefill",
+        (abs_err, rel_err), cut_errs["flash_attention"], ms, plain_ms,
+        lib_ms, nbytes, flops, BF16_FLOPS_PER_S, "989 TFLOP/s bf16",
+        f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal"))
+    # the selective scan at the scoring forward's shape
+    args, kw = mamba["call"]
+    Bb, S, di = args[0].shape
+    N = args[2].shape[-1]
+    got = ss.ssm_scan(*args, **kw)
+    plain_ms, want = _time_ms(lambda: ss.ssm_scan_plain(*args, **kw),
+                              warm=False)
+    scale = max(1.0, float(want.abs().max()))
+    abs_err, rel_err, ok = _errors(got, want, SCAN_ATOL * scale, SCAN_RTOL)
+    log(f"  ssm_scan kernel vs plain at B={Bb} S={S} di={di} N={N}: "
+        f"max_abs={abs_err:.3e} (tolerance {SCAN_ATOL} max(1, max|p|) = "
+        f"{SCAN_ATOL * scale:.3e} + {SCAN_RTOL} |p|) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("ssm_scan disagrees with its plain version on the scoring "
+             "path's inputs")
+    ms, _ = _time_ms(lambda: ss.ssm_scan(*args, **kw), reps=10)
+    # per (b, t, c, n): exp, dt*A, decay*h, the add, *B, h*C, the sum;
+    # per (b, t, c): dt*x, D*x and its add
+    flops = 7 * Bb * S * di * N + 3 * Bb * S * di
+    nbytes = 4 * ((3 * di + 2 * N) * S * Bb + di * N + di)
+    rows.append(_row(
+        "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "src/repro/kernels/ssm_scan.py:32", mamba["launches"],
+        float(mamba["launches"]), "per forward", (abs_err, rel_err),
+        cut_errs["ssm_scan"], ms, plain_ms, None, nbytes, flops,
+        F32_FLOPS_PER_S, "67 TFLOP/s f32", f"B={Bb} S={S} di={di} N={N} f32"))
+    return rows
+
+
+TO_PORT = [
+    {"replaces": "src/repro/kernels/sparse_sdca.py:205",
+     "name": "_sparse_sdca_pipelined_kernel",
+     "roadmap": "ROADMAP.md Queue 2 item 3"},
+    {"replaces": "src/repro/kernels/sparse_sdca.py:394",
+     "name": "_sparse_sdca_zx_kernel",
+     "roadmap": "ROADMAP.md Queue 2 item 4"},
+]
 
 
 def main() -> None:
@@ -485,7 +952,18 @@ def main() -> None:
     sparse = phase_sparse(dev)
     dense = phase_dense(dev)
     rows = phase_times(dense, sparse, cut_errs)
-    log(json.dumps({"kernels": rows}))
+    del dense, sparse
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_cut_errs = phase_lm_kernels(dev)
+    serve = phase_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba = phase_mamba(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += phase_lm_times(serve, mamba, lm_cut_errs)
+    log(json.dumps({"kernels": rows, "to_port": TO_PORT}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

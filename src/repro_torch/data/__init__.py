@@ -3,3 +3,4 @@ from .synthetic import (DATASETS, load, make_classification,
 from .sparse import (CSRMatrix, SparseShards, csr_to_ell,
                      make_sparse_classification, partition_sparse,
                      shards_from_arrays)
+from .tokens import TokenStream

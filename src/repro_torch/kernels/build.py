@@ -3,10 +3,11 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` into its own shared library
 with a plain C interface and loaded with `ctypes` -- no PyTorch headers, so
 a build takes seconds. Libraries go to `build/` at the root of the
-checkout, named by a hash of the sources and flags, so an edit rebuilds
-and an unchanged tree reuses what is there. Nothing is built when a module
-is imported: `load` builds on first use, `build_all` builds every kernel at
-once (one `nvcc` per source, all started together).
+checkout, named by a hash of the kernel's `.cu`, the headers it includes
+and the flags, so an edit rebuilds what it touches and an unchanged tree
+reuses what is there. Nothing is built when a module is imported: `load`
+builds on first use, `build_all` builds every kernel at once (one `nvcc`
+per source, all started together).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import dataclasses
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +24,7 @@ from typing import Dict, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("local_sdca", "sparse_sdca")
+KERNELS = ("local_sdca", "sparse_sdca", "flash_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,9 +50,26 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> Tuple[pathlib.Path, ...]:
+    """`csrc/<name>.cu` and every header it includes from csrc/, directly or
+    through another header, in the order first reached."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        src = todo.pop(0)
+        if src in seen:
+            continue
+        seen.append(src)
+        todo += [CSRC / inc for inc in
+                 _LOCAL_INCLUDE.findall(src.read_text())]
+    return tuple(seen)
+
+
 def _target(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "sdca_common.cuh"):
+    for src in sources(name):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -113,6 +132,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.sparse_sdca_launch.argtypes = ([P] * 9 + [I] * 5
                                            + [F, I, F, I, F, P])
         lib.sparse_sdca_launch.restype = I
+    elif name == "flash_attention":
+        lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 6 + [F, P]
+        lib.flash_attention_launch.restype = I
+    elif name == "ssm_scan":
+        lib.ssm_scan_launch.argtypes = [P] * 7 + [I] * 4 + [P]
+        lib.ssm_scan_launch.restype = I
     else:
         raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
     err_fn = getattr(lib, f"{name}_error_string")

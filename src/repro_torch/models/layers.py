@@ -1,0 +1,286 @@
+"""Core NN layers (`repro.models.layers` counterpart): norms, partial RoPE,
+global-causal chunked-online-softmax attention (GQA/MQA, softcap,
+qk-norm), single-token decode attention, gated MLPs, embeddings.
+
+Weights keep the reference's layout: a projection is stored (in, out) and
+applied as `x @ W`, so a reference pytree loads without transposes. Each
+weight group is a `Params` module whose attribute names are the reference
+dict's keys, so a module's `state_dict` keys are the reference pytree's
+paths joined with dots.
+
+Not ported (ROADMAP.md Queue 1 item 13): M-RoPE, sliding-window and
+bidirectional attention, ring-buffer decode, MoE and RG-LRU. Asking for
+one raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG = -1e30
+_ITEM13 = "not ported yet (ROADMAP.md Queue 1 item 13)"
+
+
+class Params(nn.Module):
+    """A named group of weights (and nested groups): the counterpart of one
+    dict of the reference pytree. Weights are frozen parameters -- the port
+    runs inference and scoring only."""
+
+    def __init__(self, **entries):
+        super().__init__()
+        for name, value in entries.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+# ----------------------------------------------------------------------------
+# init helpers
+# ----------------------------------------------------------------------------
+
+def init_device(gen) -> torch.device:
+    """Where an init draws: `gen`'s device, or "meta" (shapes only, no
+    values) when `gen` is None."""
+    return gen.device if gen is not None else torch.device("meta")
+
+
+def dense_init(gen: torch.Generator, shape, dtype, scale=None):
+    """Normal(0, scale) draws from `gen`, on `gen`'s device; scale defaults
+    to 1/sqrt(fan_in) with fan_in = shape[0]."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(tuple(shape), generator=gen, device=init_device(gen),
+                    dtype=torch.float32)
+    return (x * s).to(dtype)
+
+
+# ----------------------------------------------------------------------------
+# norms
+# ----------------------------------------------------------------------------
+
+def rmsnorm(x, gamma, eps=1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return ((1.0 + gamma.float()) * out).to(x.dtype)
+
+
+def layernorm(x, gamma, beta, eps=1e-5):
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (gamma.float() * out + beta.float()).to(x.dtype)
+
+
+def apply_norm(p: Params, x, kind):
+    if kind == "rmsnorm":
+        return rmsnorm(x, p.g)
+    return layernorm(x, p.g, p.b)
+
+
+def init_norm(d, kind, dtype, device):
+    if kind == "rmsnorm":
+        return Params(g=torch.zeros((d,), dtype=dtype, device=device))
+    return Params(g=torch.ones((d,), dtype=dtype, device=device),
+                  b=torch.zeros((d,), dtype=dtype, device=device))
+
+
+# ----------------------------------------------------------------------------
+# RoPE (+ partial)
+# ----------------------------------------------------------------------------
+
+def rope_freqs(head_dim, rope_pct, base, device=None):
+    rot = int(head_dim * rope_pct) // 2 * 2
+    inv = 1.0 / (base ** (torch.arange(0, rot, 2, dtype=torch.float32,
+                                       device=device) / rot))
+    return inv, rot
+
+
+def apply_rope(x, positions, *, rope_pct=1.0, base=10_000.0,
+               mrope_sections=None):
+    """x: (..., S, H, hd); positions: (..., S) int."""
+    if mrope_sections is not None:
+        raise NotImplementedError(f"M-RoPE is {_ITEM13}")
+    hd = x.shape[-1]
+    inv, rot = rope_freqs(hd, rope_pct, base, x.device)
+    if rot == 0:
+        return x
+    theta = positions[..., None].float() * inv
+    cos = torch.cos(theta)[..., None, :]                   # (..., S, 1, rot/2)
+    sin = torch.sin(theta)[..., None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2].float(), xr[..., rot // 2:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ----------------------------------------------------------------------------
+# attention
+# ----------------------------------------------------------------------------
+
+def _softcap(x, cap):
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+def pick_chunk(S, want):
+    """Largest divisor of S that is <= want (graceful for odd lengths)."""
+    c = min(want, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _attn_scores(q, k, softcap):
+    # q: (B, C, KV, G, hd)  k: (B, T, KV, hd) -> (B, KV, G, C, T), float32,
+    # scaled by 1/sqrt(hd)
+    # (bf16 products are exact in float32: the reference's
+    # preferred_element_type=float32)
+    s = torch.einsum("bckgh,btkh->bkgct", q.float(), k.float())
+    s = s * (1.0 / math.sqrt(q.shape[-1]))
+    return _softcap(s, softcap)
+
+
+def chunked_attention(q, k, v, positions, *, causal=True, window=None,
+                      softcap=None, q_chunk=512):
+    """Global-causal attention with a softmax over query chunks.
+    q: (B,S,H,hd), k/v: (B,S,KV,hd), positions: (B,S) int, the queries'
+    and the keys'. Returns (B,S,H,hd) in v's dtype."""
+    B, S, H, hd = q.shape
+    if not causal:
+        raise NotImplementedError(f"bidirectional attention is {_ITEM13}")
+    if window is not None and window < S:
+        raise NotImplementedError(f"sliding-window attention is {_ITEM13}")
+    KV = k.shape[2]
+    G = H // KV
+    C = pick_chunk(S, q_chunk)
+    qg = q.reshape(B, S, KV, G, hd)
+    outs = []
+    for qs in range(0, S, C):
+        qc = qg[:, qs:qs + C]
+        pq = positions[:, qs:qs + C]
+        s = _attn_scores(qc, k, softcap)                    # (B,KV,G,C,Sk)
+        m = pq[:, None, None, :, None] >= positions[:, None, None, None, :]
+        s = torch.where(m, s, NEG)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgct,btkh->bckgh", p.to(v.dtype), v))
+    return torch.cat(outs, dim=1).reshape(B, S, H, hd)
+
+
+def decode_attention(q, kcache, vcache, pos, *, window=None, softcap=None):
+    """Single-token attention against a cache. q: (B,1,H,hd);
+    k/vcache: (B,S,KV,hd); pos: int, the last valid position."""
+    B, S, KV, hd = kcache.shape
+    if window is not None and window < S:
+        raise NotImplementedError(f"windowed decode attention is {_ITEM13}")
+    H = q.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, hd)
+    s = _attn_scores(qg, kcache, softcap)                   # (B,KV,G,1,S)
+    m = torch.arange(S, device=q.device) <= pos
+    s = torch.where(m, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgct,btkh->bckgh", p.to(vcache.dtype), vcache)
+    return out.reshape(B, 1, H, hd)
+
+
+def init_attn(gen, cfg, dtype):
+    d, H, KVh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    dev = init_device(gen)
+    p = {"wq": dense_init(gen, (d, H * hd), dtype),
+         "wk": dense_init(gen, (d, KVh * hd), dtype),
+         "wv": dense_init(gen, (d, KVh * hd), dtype),
+         "wo": dense_init(gen, (H * hd, d), dtype)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((KVh * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((KVh * hd,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["qnorm"] = Params(g=torch.zeros((hd,), dtype=dtype, device=dev))
+        p["knorm"] = Params(g=torch.zeros((hd,), dtype=dtype, device=dev))
+    return Params(**p)
+
+
+def attn_qkv(p: Params, x, cfg, positions, rope_base, cross_kv=None):
+    if cross_kv is not None:
+        raise NotImplementedError(f"cross attention is {_ITEM13}")
+    B, S, d = x.shape
+    H, KVh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = x @ p.wq
+    if "bq" in p:
+        q = q + p.bq
+    q = q.reshape(B, S, H, hd)
+    k = x @ p.wk
+    v = x @ p.wv
+    if "bk" in p:
+        k, v = k + p.bk, v + p.bv
+    k = k.reshape(B, S, KVh, hd)
+    v = v.reshape(B, S, KVh, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.qnorm.g)
+        k = rmsnorm(k, p.knorm.g)
+    if rope_base is not None:
+        q = apply_rope(q, positions, rope_pct=cfg.rope_pct, base=rope_base,
+                       mrope_sections=cfg.mrope_sections)
+        k = apply_rope(k, positions, rope_pct=cfg.rope_pct, base=rope_base,
+                       mrope_sections=cfg.mrope_sections)
+    return q, k, v
+
+
+# ----------------------------------------------------------------------------
+# MLPs
+# ----------------------------------------------------------------------------
+
+def init_mlp(gen, d, dff, kind, dtype):
+    if kind == "moe":
+        raise NotImplementedError(f"MoE is {_ITEM13}")
+    if kind in ("geglu", "swiglu"):
+        return Params(wi=dense_init(gen, (d, dff), dtype),
+                      wg=dense_init(gen, (d, dff), dtype),
+                      wo=dense_init(gen, (dff, d), dtype))
+    return Params(wi=dense_init(gen, (d, dff), dtype),
+                  wo=dense_init(gen, (dff, d), dtype))
+
+
+def mlp_forward(p: Params, x, kind):
+    # jax.nn.gelu defaults to the tanh approximation
+    if kind == "geglu":
+        h = F.gelu(x @ p.wg, approximate="tanh") * (x @ p.wi)
+    elif kind == "swiglu":
+        h = F.silu(x @ p.wg) * (x @ p.wi)
+    else:  # gelu
+        h = F.gelu(x @ p.wi, approximate="tanh")
+    return h @ p.wo
+
+
+# ----------------------------------------------------------------------------
+# embeddings / head
+# ----------------------------------------------------------------------------
+
+def init_embed(gen, cfg, dtype):
+    p = {"tok": dense_init(gen, (cfg.vocab, cfg.d_model), dtype, scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype,
+                               scale=0.02)
+    return Params(**p)
+
+
+def embed_tokens(p: Params, tokens, cfg):
+    x = p.tok[tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def lm_logits(p: Params, x, cfg):
+    w = p.tok.T if cfg.tie_embeddings else p.head
+    logits = (x @ w.to(x.dtype)).float()
+    return _softcap(logits, cfg.final_softcap)

@@ -1,0 +1,330 @@
+"""Decoder-only LM (`repro.models.model` counterpart): weights as
+`nn.Module`s, the scoring forward (chunked cross-entropy loss), prefill and
+single-token decode with caches.
+
+    Decoder                 embed (tok, head), blocks, final_norm
+      AttnBlock             norm1, attn, [norm1_post], norm2, mlp, [norm2_post]
+      SSMBlock              norm1, ssm, ...
+
+A plain loop over the layers takes the place of the reference's scan over
+stacked periods; the cache is a list with one dict per layer, {"k", "v"}
+(B, S_max, KV, hd) for attention and {"h", "conv"} for SSM blocks, and
+prefill and decode update it in place.
+
+Weight layout: as the reference, every projection is (in, out) and
+applied as `x @ W`; `params_from_reference` loads a reference `init_params`
+pytree (nested dicts of numpy arrays) without transposes, unstacking its
+"scan" leaves (n_periods, ...) into one module per layer.
+
+Not ported (ROADMAP.md Queue 1 item 13): MoE, RG-LRU, sliding windows,
+M-RoPE, embedding inputs and the encoder-decoder; asking for one raises.
+The reference's remat, sharding-constraint and FSDP hooks have no
+counterpart: one card runs eagerly.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..kernels.flash_attention import flash_attention
+from . import layers as L
+from . import ssm as S
+from .config import Block, ModelConfig
+
+_ITEM13 = "not ported yet (ROADMAP.md Queue 1 item 13)"
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.is_encdec():
+        raise NotImplementedError(f"the encoder-decoder is {_ITEM13}")
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(f"embedding inputs are {_ITEM13}")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(f"M-RoPE is {_ITEM13}")
+    for spec in cfg.pattern:
+        if spec.mixer not in ("attn", "ssm"):
+            raise NotImplementedError(f"the {spec.mixer} mixer is {_ITEM13}")
+        if spec.mlp == "moe":
+            raise NotImplementedError(f"MoE is {_ITEM13}")
+        if spec.window is not None:
+            raise NotImplementedError(f"windowed attention is {_ITEM13}")
+
+
+# ----------------------------------------------------------------------------
+# blocks
+# ----------------------------------------------------------------------------
+
+def _block_dff(cfg: ModelConfig, spec: Block) -> int:
+    return spec.d_ff if spec.d_ff is not None else cfg.d_ff
+
+
+def _rope_base_for(cfg: ModelConfig, spec: Block):
+    if spec.window is None and cfg.rope_base_global is not None:
+        return cfg.rope_base_global
+    return cfg.rope_base
+
+
+class _Block(nn.Module):
+    """Pre-norm residual block: mixer (a subclass's `mix`) then the MLP."""
+
+    def __init__(self, gen, cfg: ModelConfig, spec: Block, dtype):
+        super().__init__()
+        self.spec = spec
+        dev = L.init_device(gen)
+        self.norm1 = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        if cfg.post_norms:
+            self.norm1_post = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        if spec.mlp is not None:
+            self.norm2 = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+            self.mlp = L.init_mlp(gen, cfg.d_model, _block_dff(cfg, spec),
+                                  spec.mlp, dtype)
+            if cfg.post_norms:
+                self.norm2_post = L.init_norm(cfg.d_model, cfg.norm, dtype,
+                                              dev)
+
+    def mix(self, h, cfg, ctx, cache):
+        raise NotImplementedError
+
+    def forward(self, x, cfg: ModelConfig, ctx, cache=None):
+        """Returns (x, cache). ctx keys: positions, pos (decode write
+        index), decode (bool)."""
+        h = L.apply_norm(self.norm1, x, cfg.norm)
+        o, cache = self.mix(h, cfg, ctx, cache)
+        if cfg.post_norms:
+            o = L.apply_norm(self.norm1_post, o, cfg.norm)
+        x = x + o
+        if self.spec.mlp is not None:
+            h2 = L.apply_norm(self.norm2, x, cfg.norm)
+            o2 = L.mlp_forward(self.mlp, h2, self.spec.mlp)
+            if cfg.post_norms:
+                o2 = L.apply_norm(self.norm2_post, o2, cfg.norm)
+            x = x + o2
+        return x, cache
+
+
+class AttnBlock(_Block):
+    def __init__(self, gen, cfg, spec, dtype):
+        super().__init__(gen, cfg, spec, dtype)
+        self.attn = L.init_attn(gen, cfg, dtype)
+
+    def mix(self, h, cfg, ctx, cache):
+        q, k, v = L.attn_qkv(self.attn, h, cfg, ctx["positions"],
+                             _rope_base_for(cfg, self.spec))
+        if ctx["decode"]:
+            pos = ctx["pos"]
+            # the reference's dynamic_update_slice clamps the write index
+            wpos = min(max(pos, 0), cache["k"].shape[1] - 1)
+            cache["k"][:, wpos:wpos + 1] = k.to(cache["k"].dtype)
+            cache["v"][:, wpos:wpos + 1] = v.to(cache["v"].dtype)
+            o = L.decode_attention(q, cache["k"], cache["v"], pos,
+                                   softcap=cfg.attn_softcap)
+        else:
+            if cfg.use_flash_attention and ctx["positions"].dim() == 2:
+                o = flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), softcap=cfg.attn_softcap)
+            else:
+                o = L.chunked_attention(q, k, v, ctx["positions"],
+                                        softcap=cfg.attn_softcap,
+                                        q_chunk=cfg.q_chunk)
+            if cache is not None:      # prefill: write into the cache
+                S_in = k.shape[1]
+                cache["k"][:, :S_in] = k.to(cache["k"].dtype)
+                cache["v"][:, :S_in] = v.to(cache["v"].dtype)
+        B, Sq = h.shape[:2]
+        o = o.reshape(B, Sq, cfg.n_heads * cfg.head_dim) @ self.attn.wo
+        return o, cache
+
+
+class SSMBlock(_Block):
+    def __init__(self, gen, cfg, spec, dtype):
+        super().__init__(gen, cfg, spec, dtype)
+        self.ssm = S.init_ssm(gen, cfg, dtype)
+
+    def mix(self, h, cfg, ctx, cache):
+        return S.ssm_forward(self.ssm, h, cfg, cache)[0], cache
+
+
+_BLOCKS = {"attn": AttnBlock, "ssm": SSMBlock}
+
+
+def init_block(gen, cfg: ModelConfig, spec: Block, dtype):
+    return _BLOCKS[spec.mixer](gen, cfg, spec, dtype)
+
+
+def init_block_cache(cfg: ModelConfig, spec: Block, B: int, S_max: int,
+                     dtype, device):
+    if spec.mixer == "attn":
+        shp = (B, S_max, cfg.n_kv, cfg.head_dim)
+        return {"k": torch.zeros(shp, dtype=dtype, device=device),
+                "v": torch.zeros(shp, dtype=dtype, device=device)}
+    return S.init_ssm_cache(cfg, B, dtype, device)
+
+
+# ----------------------------------------------------------------------------
+# the decoder
+# ----------------------------------------------------------------------------
+
+def _split_layers(cfg: ModelConfig) -> Tuple[int, int]:
+    P = len(cfg.pattern)
+    return cfg.n_layers // P, cfg.n_layers % P
+
+
+class Decoder(nn.Module):
+    """The decoder-only stack. Weights are drawn from a `torch.Generator`
+    seeded with `seed` on `device`; `device="meta"` gives shapes only."""
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0,
+                 device=DEFAULT_DEVICE):
+        super().__init__()
+        _check_supported(cfg)
+        dev = resolve_device(device)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
+        dtype = getattr(torch, cfg.dtype)
+        self.cfg = cfg
+        self.embed = L.init_embed(gen, cfg, dtype)
+        self.blocks = nn.ModuleList(init_block(gen, cfg, spec, dtype)
+                                    for spec in cfg.blocks())
+        self.final_norm = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.tok.device
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=DEFAULT_DEVICE):
+    """A `Decoder` with random weights drawn from `seed` (the port's own
+    draws; `params_from_reference` carries the reference's)."""
+    return Decoder(cfg, seed=seed, device=device)
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Total parameters; without MoE blocks (which raise) every one is
+    active, so `active_only` changes nothing."""
+    return sum(p.numel() for p in Decoder(cfg, device="meta").parameters())
+
+
+def init_cache(cfg: ModelConfig, B: int, S_max: int, device=DEFAULT_DEVICE):
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    return [init_block_cache(cfg, spec, B, S_max, dtype, dev)
+            for spec in cfg.blocks()]
+
+
+def _flatten(tree, prefix: str) -> Dict[str, Any]:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}.{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, name))
+        else:
+            out[name] = value
+    return out
+
+
+def params_from_reference(params, cfg: ModelConfig, device=DEFAULT_DEVICE):
+    """A `Decoder` holding the reference's `init_params(rng, cfg)` weights.
+
+    `params` is that pytree as nested dicts (lists or tuples for "scan" and
+    "rest") of numpy arrays; bfloat16 leaves may come as float32 and are
+    cast back. Leaf k of period i in "scan" (shape (n_periods, ...)) goes
+    to layer i * len(pattern) + k; "rest" follows the periods."""
+    model = Decoder(cfg, device=device)
+    n_full, _ = _split_layers(cfg)
+    P = len(cfg.pattern)
+    flat = _flatten(params["embed"], "embed")
+    flat.update(_flatten(params["final_norm"], "final_norm"))
+    if n_full > 0:
+        for j, period in enumerate(params["scan"]):
+            for name, arr in _flatten(period, "").items():
+                for i in range(n_full):
+                    flat[f"blocks.{i * P + j}{name}"] = arr[i]
+    for i, blk in enumerate(params["rest"]):
+        flat.update(_flatten(blk, f"blocks.{n_full * P + i}"))
+    state = {k: torch.from_numpy(np.array(v))
+             for k, v in flat.items()}
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def _embed_inputs(model: Decoder, batch, cfg: ModelConfig):
+    return L.embed_tokens(model.embed, batch["tokens"].long(), cfg)
+
+
+def _positions(cfg, batch, B, Sq, device):
+    if "positions" in batch:
+        return batch["positions"]
+    return torch.arange(Sq, dtype=torch.int32, device=device).expand(B, Sq)
+
+
+def _run_stack(model: Decoder, x, cfg, ctx, cache: Optional[List] = None):
+    """All layers, then the final norm. Returns (x, cache)."""
+    for i, block in enumerate(model.blocks):
+        x, _ = block(x, cfg, ctx, None if cache is None else cache[i])
+    return L.apply_norm(model.final_norm, x, cfg.norm), cache
+
+
+def chunked_xent(model: Decoder, x, labels, mask, cfg):
+    """Cross-entropy over sequence chunks, never holding (B, S, V)."""
+    B, Sq, d = x.shape
+    C = L.pick_chunk(Sq, cfg.loss_chunk)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, Sq, C):
+        logits = L.lm_logits(model.embed, x[:, c0:c0 + C], cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        ys = labels[:, c0:c0 + C].long()
+        gold = torch.gather(logits, -1, ys[..., None])[..., 0]
+        ms = mask[:, c0:c0 + C]
+        tot = tot + torch.sum((logz - gold) * ms)
+        cnt = cnt + torch.sum(ms)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def forward_train(model: Decoder, batch, cfg: Optional[ModelConfig] = None):
+    """The scoring forward. batch: tokens + labels (+ loss_mask) tensors on
+    the model's device. Returns (loss, metrics); no backward."""
+    cfg = cfg or model.cfg
+    x = _embed_inputs(model, batch, cfg)
+    B, Sq = x.shape[:2]
+    ctx = {"positions": _positions(cfg, batch, B, Sq, x.device), "pos": None,
+           "decode": False}
+    x, _ = _run_stack(model, x, cfg, ctx)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    loss = chunked_xent(model, x, labels, mask, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"xent": loss, "moe_aux": aux}      # no MoE: aux is 0
+
+
+def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
+    """Fill the cache (in place) with a prompt; returns (last_logits,
+    cache)."""
+    cfg = cfg or model.cfg
+    x = _embed_inputs(model, batch, cfg)
+    B, Sq = x.shape[:2]
+    ctx = {"positions": _positions(cfg, batch, B, Sq, x.device), "pos": 0,
+           "decode": False}
+    x, cache = _run_stack(model, x, cfg, ctx, cache)
+    return L.lm_logits(model.embed, x[:, -1:], cfg), cache
+
+
+def decode_step(model: Decoder, cache, tokens, pos: int,
+                cfg: Optional[ModelConfig] = None):
+    """One decode step. tokens: (B,1) int; pos: int (write index, also the
+    attended-up-to position). Returns (logits (B,1,V), cache)."""
+    cfg = cfg or model.cfg
+    x = L.embed_tokens(model.embed, tokens.long(), cfg)
+    B = x.shape[0]
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    ctx = {"positions": posv, "pos": int(pos), "decode": True}
+    x, cache = _run_stack(model, x, cfg, ctx, cache)
+    return L.lm_logits(model.embed, x, cfg), cache

@@ -99,3 +99,17 @@ def ell_block(rng: np.random.Generator, K: int, nk: int, d: int, r_max: int):
     vals = np.where(live, vals, 0.0).astype(np.float32)
     vals /= np.maximum(np.linalg.norm(vals, axis=-1, keepdims=True), 1e-12)
     return cols, vals, nnz.astype(np.int32)
+
+
+def tree_to_numpy(tree):
+    """A reference pytree (dicts, lists, tuples of jax arrays) as the same
+    structure of numpy arrays; bfloat16 leaves become float32 (numpy has no
+    bfloat16 of torch's), which `params_from_reference` casts back."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return arr
