@@ -7,16 +7,24 @@ Needs one NVIDIA card and nvcc; run from the root of a checkout. Phases, in
 order, each failing the run with a non-zero exit:
 
   1. device    name, count, power limit, torch and CUDA versions
-  2. build     all four kernels from csrc/, one nvcc each, in parallel,
-               with -Xptxas -v's registers and shared memory
+  2. build     the five kernel sources in csrc/, one nvcc each, in
+               parallel, with -Xptxas -v's registers and shared memory
+               (six kernels: the 1-D sparse source is rows 2 and 3 of the
+               kernel table, at ring depth 1 and at depth >= 2)
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the real widths (d = 2,000 dense, d = 47,236 sparse) and a cut
                row count, every closed-form loss, prox on and off, rows with
-               duplicate column ids and column-0 entries next to padding
+               duplicate column ids and column-0 entries next to padding;
+               the sparse kernel at depths 2-4 (nk below and above the
+               depth) also bit for bit against itself at depth 1 on rows
+               with unique column ids; the z-exchange kernel at M = 1, 2, 4
+               and B = 1, 16 with a ragged last block, and at B = 1, M = 1
+               against the sparse kernel at depth 1
   4. sparse    the main path (`solve`, sdca_sparse_kernel) at rcv1's
                published shape, 677,399 x 47,236 at density 0.0016, K = 8,
                hinge, lambda = 1e-6, after a small-input cross-check of the
-               card against the CPU
+               card against the CPU: the sparse kernel at the card's
+               cache-miss ring depth, 2 (the prefetching walk)
   5. dense     the main path (`solve`, sdca_kernel) at epsilon's published
                shape, 400,000 x 2,000, K = 8 (3.2 GB of X on the card),
                hinge, lambda = 1e-4
@@ -53,6 +61,20 @@ order, each failing the run with a non-zero exit:
                prompt and phase 9's batch ran), then its time with CUDA
                events beside its bound, the plain version's and, for flash,
                scaled_dot_product_attention's
+ 11. depth-1   phase 4's main path again (rcv1 shape, K = 8, 5 rounds)
+               with buffer_depth 1 resolved from a one-entry autotune cache
+               named by REPRO_TORCH_AUTOTUNE_CACHE: the sparse kernel walks
+               without prefetching, and the state equals phase 4's bit for
+               bit; its time per launch at depth 1, 2 and 4
+ 12. mesh2d    the feature-sharded path: after a small-input cross-check of
+               card against CPU, phase 4's CSR partitioned K = 4, M = 2 (the
+               reference's --mesh 4x2) and solved through `solve` on
+               `make_test_mesh((4, 2))` with sdca_sparse_kernel, 5 rounds:
+               the z-exchange kernel, n_passes * nb launches a round
+ 13. new-times the depth-1 walk and the zx kernel against their plain
+               versions on their paths' next-round inputs (phase 11's are
+               phase 4's, so phase 6's plain result serves), times beside
+               the bounds
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -80,6 +102,10 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 peak outside tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor-core peak
 RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain (reduction order differs)
 CUT_NK = 1024                  # phase 3's rows per worker
+CACHE_DEPTH = 1                # phase 11's cached buffer_depth
+TABLE_ORDER = ("local_sdca", "sparse_sdca", "sparse_sdca_pipelined",
+               "sparse_sdca_zx", "ssm_scan", "flash_attention")
+DEPTHS = (1, 2, 4)             # phase 11's timed ring depths
 SEED = 0
 DENSE_LAM, SPARSE_LAM = 1e-4, 1e-6
 
@@ -125,9 +151,13 @@ def phase_build():
         for line in info.log.splitlines():
             if any(k in line for k in ("registers", "smem", "Compiling")):
                 log(f"    {line.strip()}")
-    log(f"  dynamic shared memory per block: {SCRATCH_BYTES} + 4 d bytes "
-        f"(d=2000: {SCRATCH_BYTES + 8000} B; d=47236: "
-        f"{SCRATCH_BYTES + 4 * 47236} B; limit 232448 B)")
+    log(f"  dynamic shared memory per block, limit 232448 B: local_sdca "
+        f"{SCRATCH_BYTES} + 4 d bytes (d=2000: {SCRATCH_BYTES + 8000} B)")
+    log(f"  sparse_sdca_pipelined: {SCRATCH_BYTES} + 4 d + 4 depth "
+        f"(2 r_max + 5) bytes (d=47236, r_max=118: " + ", ".join(
+            f"depth {k}: {SCRATCH_BYTES + 4 * 47236 + 4 * k * 241} B"
+            for k in DEPTHS) + "); sparse_sdca_zx: 8 block_rows bytes "
+        "(128 B at 16; u stays in device memory)")
     log("  flash_attention dynamic shared memory per block: " + ", ".join(
         f"hd={hd}: {fa.smem_bytes(hd)} B" for hd in fa.HEAD_DIMS)
         + "; ssm_scan: static only (the smem line above)")
@@ -166,9 +196,10 @@ def dense_case(rng, K, nk, d, dev):
     return (t(X), t(y), t(alpha), t(mask), t(w), t(_perm(rng, K, nk)))
 
 
-def sparse_case(rng, K, nk, d, r_max, dev):
+def _ell(rng, K, nk, d, r_max):
+    """(cols, vals, nnz) numpy, padded ELL with duplicate column ids and
+    column-0 entries next to padding."""
     import numpy as np
-    import torch
     nnz = rng.integers(1, r_max + 1, size=(K, nk))
     cols = rng.integers(0, d, size=(K, nk, r_max))
     vals = rng.standard_normal((K, nk, r_max)).astype(np.float32)
@@ -181,6 +212,28 @@ def sparse_case(rng, K, nk, d, r_max, dev):
     cols = np.where(live, cols, 0).astype(np.int32)
     vals = np.where(live, vals, 0.0).astype(np.float32)
     vals /= np.maximum(np.linalg.norm(vals, axis=-1, keepdims=True), 1e-12)
+    return cols, vals, nnz.astype(np.int32)
+
+
+def _unique_ell(rng, K, nk, d, r_max):
+    """(cols, vals) numpy, padded ELL rows without duplicate column ids
+    (the condition for the prefetching kernel's bit equality)."""
+    import numpy as np
+    nnz = rng.integers(1, r_max + 1, size=(K, nk))
+    cols = np.stack([[np.sort(rng.choice(d, r_max, replace=False))
+                      for _ in range(nk)] for _ in range(K)])
+    live = np.arange(r_max)[None, None, :] < nnz[..., None]
+    vals = np.where(live, rng.standard_normal((K, nk, r_max)), 0.0)
+    vals /= np.linalg.norm(vals, axis=-1, keepdims=True)
+    return (np.where(live, cols, 0).astype(np.int32),
+            vals.astype(np.float32))
+
+
+def _rows_case(rng, cols, vals, d, dev):
+    """The case's tensors on `dev`: cols, vals, y, alpha, mask, w, perm."""
+    import numpy as np
+    import torch
+    K, nk = cols.shape[:2]
     y = np.where(rng.random((K, nk)) < 0.5, -1.0, 1.0).astype(np.float32)
     alpha = (y * rng.random((K, nk)) * 0.5).astype(np.float32)
     mask = np.ones((K, nk), np.float32)
@@ -188,6 +241,11 @@ def sparse_case(rng, K, nk, d, r_max, dev):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return (t(cols), t(vals), t(y), t(alpha), t(mask), t(w),
             t(_perm(rng, K, nk)))
+
+
+def sparse_case(rng, K, nk, d, r_max, dev):
+    cols, vals, _ = _ell(rng, K, nk, d, r_max)
+    return _rows_case(rng, cols, vals, d, dev)
 
 
 def phase_kernels(dev):
@@ -246,9 +304,122 @@ def phase_kernels(dev):
                 f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"sparse {loss_name} kappa={kappa} {part}")
+    errs["sparse_sdca_pipelined"] = _cut_pipelined(rng, dev, sparse_in,
+                                                   scale, bad)
+    errs["sparse_sdca_zx"] = _cut_zx(rng, dev, scale, bad)
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     return errs
+
+
+def _cut_pipelined(rng, dev, sparse_in, scale, bad):
+    """The prefetching kernel at cut shapes: against the plain version on
+    rows with duplicate ids, and bit for bit against the depth-1 kernel on
+    rows with unique ids, at depths 2-4 with nk above and below the depth.
+    Returns the max (abs, rel) errors against the plain version."""
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import sparse_sdca as sk
+    worst = [0.0, 0.0]
+    cases = [(loss_name, kappa, depth, n_passes)
+             for depth in (2, 3, 4)
+             for loss_name, kappa, n_passes in (
+                 ("hinge", None, 1), ("smooth_hinge", 0.5, 2),
+                 ("squared", None, 2), ("absolute", 0.5, 1))]
+    for loss_name, kappa, depth, n_passes in cases:
+        kw = dict(loss=get_loss(loss_name), n_passes=n_passes,
+                  prox_kappa=kappa)
+        got = sk.sparse_local_sdca(*sparse_in[:6], scale, sparse_in[6],
+                                   buffer_depth=depth, **kw)
+        want = sk.sparse_local_sdca_plain(*sparse_in[:6], scale,
+                                          sparse_in[6], **kw)
+        torch.cuda.synchronize()
+        for part, g, p in zip(("dalpha", "du"), got, want):
+            a, r, ok = _errors(g, p)
+            worst = [max(worst[0], a), max(worst[1], r)]
+            log(f"  pipelined d=47236 depth={depth} {loss_name:12s} "
+                f"kappa={kappa} passes={n_passes} {part:6s} max_abs={a:.3e} "
+                f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"pipelined depth={depth} {loss_name} {part}")
+    K, d = 8, 47_236
+    for nk, depth, n_passes in ((CUT_NK, 2, 2), (CUT_NK, 3, 1),
+                                (CUT_NK, 4, 2), (3, 4, 3), (1, 2, 2)):
+        uniq = _rows_case(rng, *_unique_ell(rng, K, nk, d, 118), d, dev)
+        same = []
+        for loss_name in ("hinge", "smooth_hinge", "squared", "absolute"):
+            for kappa in (None, 0.5):
+                kw = dict(loss=get_loss(loss_name), n_passes=n_passes,
+                          prox_kappa=kappa)
+                deep = sk.sparse_local_sdca(*uniq[:6], scale, uniq[6],
+                                            buffer_depth=depth, **kw)
+                one = sk.sparse_local_sdca(*uniq[:6], scale, uniq[6], **kw)
+                torch.cuda.synchronize()
+                same.append(all(torch.equal(a, b)
+                                for a, b in zip(deep, one)))
+        log(f"  pipelined vs depth 1, unique column ids, nk={nk} "
+            f"depth={depth} passes={n_passes}, 4 losses x prox on/off: "
+            f"{'bit for bit' if all(same) else 'DIFFER'}")
+        if not all(same):
+            bad.append(f"pipelined nk={nk} depth={depth} not bit-equal")
+    return worst
+
+
+def _cut_zx(rng, dev, scale, bad):
+    """The z-exchange kernel at cut shapes against its plain version, at
+    M = 1, 2, 4 and B = 1, 16 (nk = 1,000: B = 16 leaves a ragged last
+    block), and at B = 1, M = 1 against the depth-1 kernel. Returns the
+    max (abs, rel) errors against the plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.data.sparse import SparseShards, shard_features
+    from repro_torch.kernels import sparse_sdca as sk
+    K, nk, d, r_max = 4, 1000, 47_236, 128
+    cols, vals, nnz = _ell(rng, K, nk, d, r_max)
+    base = _rows_case(rng, cols, vals, d, dev)
+    worst = [0.0, 0.0]
+    sh = SparseShards(base[0], base[1], torch.from_numpy(nnz).to(dev), d=d)
+    cases = [(M, B, loss_name, kappa, 2 if B > 1 else 1)
+             for M in (1, 2, 4) for B, loss_name, kappa in (
+                 (1, "hinge", None), (16, "smooth_hinge", 0.5))]
+    cases += [(2, 16, loss_name, kappa, 2)
+              for loss_name in ("hinge", "squared", "absolute")
+              for kappa in (None, 0.5)]
+    for M, B, loss_name, kappa, n_passes in cases:
+        fs = shard_features(sh, M)
+        w = torch.nn.functional.pad(base[5], (0, fs.d_padded - d))
+        sq = torch.sum(fs.vals * fs.vals, dim=(1, 3))
+        args = (fs.cols, fs.vals, *base[2:5], w, scale, sq, base[6])
+        kw = dict(loss=get_loss(loss_name), n_passes=n_passes, block_rows=B,
+                  prox_kappa=kappa)
+        got = sk.sparse_local_sdca_zx(*args, **kw)
+        want = sk.sparse_local_sdca_zx_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for part, g, p in zip(("dalpha", "du"), got, want):
+            a, r, ok = _errors(g, p)
+            worst = [max(worst[0], a), max(worst[1], r)]
+            log(f"  zx M={M} B={B:2d} {loss_name:12s} kappa={kappa} "
+                f"passes={n_passes} {part:6s} max_abs={a:.3e} "
+                f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"zx M={M} B={B} {loss_name} {part}")
+    fs = shard_features(sh, 1)
+    hinge = get_loss("hinge")
+    zx = sk.sparse_local_sdca_zx(fs.cols, fs.vals, *base[2:6], scale,
+                                 torch.sum(fs.vals * fs.vals, dim=(1, 3)),
+                                 base[6], loss=hinge, block_rows=1)
+    one = sk.sparse_local_sdca(fs.cols[:, 0].contiguous(),
+                               fs.vals[:, 0].contiguous(), *base[2:6], scale,
+                               base[6], loss=hinge)
+    torch.cuda.synchronize()
+    for part, g, p in zip(("dalpha", "du"), zx, one):
+        a, r, ok = _errors(g, p)
+        log(f"  zx B=1 M=1 vs the depth-1 kernel {part:6s} max_abs={a:.3e} "
+            f"max_rel={r:.3e} (phase 3's tolerance) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"zx B=1 M=1 vs sparse_sdca {part}")
+    return worst
 
 
 def _check_gaps(name, hist, rounds):
@@ -269,13 +440,11 @@ def _main_path(name, X, y, mask, solver, rounds, lam, expect):
     """Drive `solve` with the launch counters at 0 just before and read
     just after; `expect` names the kernel module that must have run."""
     from repro_torch.core import CoCoAConfig, solve
-    from repro_torch.kernels import local_sdca as dk, sparse_sdca as sk
     K, nk = y.shape
     cfg = CoCoAConfig.adding(K, loss="hinge", lam=lam, H=nk, solver=solver)
-    dk.LAUNCHES = 0
-    sk.LAUNCHES = 0
+    counts = _counts_zero()
     r = solve(cfg, X, y, mask, rounds=rounds, gap_every=1, seed=SEED)
-    launches = {"local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES}
+    launches = counts()
     log(f"  launches on the main path: {launches}")
     _check_gaps(name, r.history, rounds)
     if launches[expect] != rounds:
@@ -289,6 +458,7 @@ def phase_sparse(dev):
     from repro_torch.core import CoCoAConfig, solve
     from repro_torch.data import load, make_sparse_classification
     from repro_torch.data import partition_sparse
+    from repro_torch.kernels import autotune, ops
     # small input: the card's main path against the CPU's plain versions
     csr, y = load("tiny_sparse")
     gaps = {}
@@ -311,11 +481,15 @@ def phase_sparse(dev):
     nnz = int(sh.nnz.sum())
     log(f"  rcv1 shape: n=677399 d=47236 nnz={nnz} r_max={sh.r_max} "
         f"nk={yp.shape[1]} (data made in {time.perf_counter() - t0:.1f} s)")
-    del csr
     r, launches, cfg = _main_path("rcv1 sdca_sparse_kernel", sh, yp, mk,
                                   "sdca_sparse_kernel", 5, SPARSE_LAM,
-                                  "sparse_sdca")
-    return sh, yp, mk, r, cfg, launches, nnz
+                                  "sparse_sdca_pipelined")
+    used = dict(ops.LAST_SPARSE_CONFIG)
+    log(f"  LAST_SPARSE_CONFIG {used}")
+    if (used["buffer_depth"], used["source"]) != (
+            autotune.CUDA_DEFAULT_BUFFER_DEPTH, "default"):
+        fail(f"phase 4 did not run the card's cache-miss depth: {used}")
+    return sh, yp, mk, r, cfg, launches, nnz, (csr, y), used["buffer_depth"]
 
 
 def phase_dense(dev):
@@ -366,9 +540,11 @@ def _round_inputs(cfg, X, y, mask, state):
     return w, scale, ops.perm_i32(order, nk, y.device)
 
 
-def _against_plain(name, kernel, plain, args, kw):
+def _against_plain(name, kernel, plain, args, kw, known=None):
     """One wrapper call and one plain call on the same inputs: the max
-    errors over (dalpha, du), and the plain call's time in ms.
+    errors over (dalpha, du), the plain call's time in ms and its result.
+    `known` = (plain ms, plain result) of the same inputs, from an earlier
+    phase, stands in for the plain call.
 
     Tolerance |k - p| <= ATOL * nk / CUT_NK + RTOL |p|: phase 3's, with its
     absolute part scaled by the walk's length. The kernel's block reduction
@@ -377,11 +553,12 @@ def _against_plain(name, kernel, plain, args, kw):
     first run at epsilon's shape measured 1.55e-5 in dalpha, ~55x phase 3's
     error over a 49x longer walk). A wrong loss, a lost scatter or a missed
     barrier moves dalpha and du by orders of magnitude more."""
-    import torch
     nk = args[-1].shape[1]                    # perm, (K, nk)
     atol = ATOL * max(1.0, nk / CUT_NK)
     got = kernel(*args, **kw)
-    plain_ms, want = _time_ms(lambda: plain(*args, **kw), warm=False)
+    if known is None:
+        known = _time_ms(lambda: plain(*args, **kw), warm=False)
+    plain_ms, want = known
     worst, bad = [0.0, 0.0], []
     for part, g, p in zip(("dalpha", "du"), got, want):
         a, r, ok = _errors(g, p, atol)
@@ -394,7 +571,7 @@ def _against_plain(name, kernel, plain, args, kw):
     if bad:
         fail(f"{name} disagrees with its plain version on the main path's "
              f"round inputs: {bad}")
-    return worst[0], worst[1], plain_ms
+    return worst[0], worst[1], plain_ms, want
 
 
 def _host_split(cfg, X, y, mask, state):
@@ -435,6 +612,20 @@ def _host_split(cfg, X, y, mask, state):
     return out
 
 
+def _at_depth(depth):
+    """The 1-D sparse wrapper at ring depth `depth` (its plain version
+    takes no depth)."""
+    from repro_torch.kernels import sparse_sdca as sk
+    return lambda *args, **kw: sk.sparse_local_sdca(
+        *args, buffer_depth=depth, **kw)
+
+
+def _sparse_bytes(nnz, K, nk, d):
+    """Bytes a 1-D sparse round must move: 8 per nonzero (col id and
+    value), the rows' y, alpha, mask, dalpha and perm, w, and du."""
+    return 8 * nnz + 4 * (5 * K * nk + d + K * d)
+
+
 def phase_times(dense, sparse, cut_errs):
     from repro_torch.core.losses import get_loss
     from repro_torch.kernels import local_sdca as dk, sparse_sdca as sk
@@ -448,7 +639,7 @@ def phase_times(dense, sparse, cut_errs):
     w, scale, perm = _round_inputs(cfg, Xp, yp, mk, r.state)
     args = (Xp, yp, r.state.alpha, mk, w, scale, perm)
     errs = _against_plain("local_sdca", dk.local_sdca, dk.local_sdca_plain,
-                          args, hinge)
+                          args, hinge)[:3]
     ms, _ = _time_ms(lambda: dk.local_sdca(*args, **hinge), reps=3)
     out.append(("local_sdca", "src/repro_torch/kernels/csrc/local_sdca.cu",
                 "src/repro/kernels/local_sdca.py:56", launches, r, errs,
@@ -456,19 +647,23 @@ def phase_times(dense, sparse, cut_errs):
                 4 * (K * nk * d + 5 * K * nk + d + K * d), 6 * K * nk * d,
                 f"K={K} nk={nk} d={d}",
                 _host_split(cfg, Xp, yp, mk, r.state)))
-    # sparse at rcv1's shape
-    sh, yp, mk, r, cfg, launches, nnz = sparse
+    # sparse at rcv1's shape, at the main path's ring depth
+    sh, yp, mk, r, cfg, launches, nnz, _, depth = sparse
     K, nk, r_max = sh.cols.shape
     w, scale, perm = _round_inputs(cfg, sh, yp, mk, r.state)
     args = (sh.cols, sh.vals, yp, r.state.alpha, mk, w, scale, perm)
-    errs = _against_plain("sparse_sdca", sk.sparse_local_sdca,
-                          sk.sparse_local_sdca_plain, args, hinge)
-    ms, _ = _time_ms(lambda: sk.sparse_local_sdca(*args, **hinge), reps=3)
-    out.append(("sparse_sdca", "src/repro_torch/kernels/csrc/sparse_sdca.cu",
-                "src/repro/kernels/sparse_sdca.py:172", launches, r, errs,
-                cut_errs["sparse_sdca"], ms,
-                8 * nnz + 4 * (5 * K * nk + sh.d + K * sh.d), 6 * nnz,
-                f"K={K} nk={nk} r_max={r_max} d={sh.d} nnz={nnz}",
+    walk = _at_depth(depth)
+    *errs, sparse_want = _against_plain(
+        "sparse_sdca_pipelined", walk, sk.sparse_local_sdca_plain, args,
+        hinge)
+    ms, _ = _time_ms(lambda: walk(*args, **hinge), reps=3)
+    out.append(("sparse_sdca_pipelined",
+                "src/repro_torch/kernels/csrc/sparse_sdca_pipelined.cu",
+                "src/repro/kernels/sparse_sdca.py:205", launches, r, errs,
+                cut_errs["sparse_sdca_pipelined"], ms,
+                _sparse_bytes(nnz, K, nk, sh.d), 6 * nnz,
+                f"K={K} nk={nk} r_max={r_max} d={sh.d} nnz={nnz} "
+                f"depth={depth}",
                 _host_split(cfg, sh, yp, mk, r.state)))
     rows = []
     for (name, src, repl, launches, r, (abs_err, rel_err, plain), cut, ms,
@@ -485,7 +680,8 @@ def phase_times(dense, sparse, cut_errs):
             + f"; sum={sum(split.values()):.3f}; solver minus kernel="
             f"{split['solver'] - ms:.3f}; main path execute_s after round 1 "
             f"mean={1e3 * sum(steady) / len(steady):.3f}")
-    return rows
+    sparse_plain = (rows[1]["plain_ms"], sparse_want)
+    return rows, sparse_plain
 
 
 def _row(name, src, repl, launches, per, per_what, errs, cut, ms, plain_ms,
@@ -498,7 +694,7 @@ def _row(name, src, repl, launches, per, per_what, errs, cut, ms, plain_ms,
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
-    log(f"  {name}: {ms:.3f} ms/launch at {shape}; bound {bound_ms:.4f} ms "
+    log(f"  {name}: {ms:.3f} ms a call at {shape}; bound {bound_ms:.4f} ms "
         f"({bound_by}: {nbytes} B at 3.35 TB/s, {flops} flop at "
         f"{peak_name}) -> {ms / bound_ms:.1f}x the bound; launches "
         f"{per:g} {per_what}; plain {plain_ms:.3f} ms at the same shape; "
@@ -536,12 +732,17 @@ HIDDEN_REL_RMS = 0.2
 LOSS_RTOL = 2e-3
 
 
-def _lm_counts_zero():
+def _counts_zero():
+    """Set every kernel's launch count to 0; returns a reader of them."""
     from repro_torch.kernels import (flash_attention as fa, local_sdca as dk,
                                      sparse_sdca as sk, ssm_scan as ss)
     for mod in (dk, sk, fa, ss):
         mod.LAUNCHES = 0
+    sk.PIPELINED_LAUNCHES = 0
+    sk.ZX_LAUNCHES = 0
     return lambda: {"local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
+                    "sparse_sdca_pipelined": sk.PIPELINED_LAUNCHES,
+                    "sparse_sdca_zx": sk.ZX_LAUNCHES,
                     "flash_attention": fa.LAUNCHES,
                     "ssm_scan": ss.LAUNCHES}
 
@@ -698,7 +899,7 @@ def phase_serve(dev):
     del warm
     eng = ServingEngine(cfg, model, slots=4, s_max=2048, device=dev)
     reqs = [eng.submit(p, max_new=32) for p in prompts]
-    counts = _lm_counts_zero()
+    counts = _counts_zero()
     steps = []
     t_run = time.perf_counter()
     while True:
@@ -811,7 +1012,7 @@ def phase_mamba(dev):
     def no_dx(real, xin, dt, Bm, Cm, A, D):
         return real(xin, dt, Bm, Cm, A, torch.zeros_like(D))
 
-    counts = _lm_counts_zero()
+    counts = _counts_zero()
     with torch.no_grad():
         t0 = time.perf_counter()
         loss, hid = score(cfg)
@@ -926,14 +1127,214 @@ def phase_lm_times(serve, mamba, cut_errs):
     return rows
 
 
-TO_PORT = [
-    {"replaces": "src/repro/kernels/sparse_sdca.py:205",
-     "name": "_sparse_sdca_pipelined_kernel",
-     "roadmap": "ROADMAP.md Queue 2 item 3"},
-    {"replaces": "src/repro/kernels/sparse_sdca.py:394",
-     "name": "_sparse_sdca_zx_kernel",
-     "roadmap": "ROADMAP.md Queue 2 item 4"},
-]
+# ----------------------------------------------------------------------------
+# the third slice: the prefetching walk (phase 11), the feature-sharded
+# z-exchange path (phase 12), and both kernels' times (phase 13)
+# ----------------------------------------------------------------------------
+
+def phase_depth_one(sparse):
+    """Phase 4's main path with buffer_depth 1 from a one-entry autotune
+    cache: the sparse kernel must walk without prefetching and give phase
+    4's state."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.core import solve
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import sparse_sdca as sk
+    sh, yp, mk, r4, cfg, _, nnz, _, _ = sparse
+    K, nk, r_max = sh.cols.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "autotune_cache.json"
+        autotune.AutotuneCache(path).record(
+            "sparse_sdca", sh.device.type, d=sh.d, r_max=r_max,
+            density=sh.density,
+            config={"block_rows": 128, "buffer_depth": CACHE_DEPTH},
+            wall_s=0.0)
+        os.environ[autotune.ENV_VAR] = str(path)
+        autotune.reset_cache()
+        try:
+            counts = _counts_zero()
+            r = solve(cfg, sh, yp, mk, rounds=len(r4.history["round"]),
+                      gap_every=1, seed=SEED)
+            launches = counts()
+            used = dict(ops.LAST_SPARSE_CONFIG)
+        finally:
+            del os.environ[autotune.ENV_VAR]
+            autotune.reset_cache()
+    log(f"[11 depth-1] rcv1 shape, K={K}, buffer_depth from the cache "
+        f"file {path.name} ({autotune.ENV_VAR}): LAST_SPARSE_CONFIG {used}")
+    log(f"  launches on the main path: {launches}")
+    rounds = len(r4.history["round"])
+    _check_gaps("rcv1 sdca_sparse_kernel, depth 1", r.history, rounds)
+    if used["buffer_depth"] != CACHE_DEPTH or used["source"] != "cache":
+        fail(f"phase 11 did not resolve depth {CACHE_DEPTH} from the "
+             f"cache: {used}")
+    if launches["sparse_sdca"] != rounds or \
+            launches["sparse_sdca_pipelined"] != 0:
+        fail(f"phase 11 launched {launches} in {rounds} rounds")
+    # the states must be the same bits; the gaps then agree in every
+    # printed digit, and their float64 values within the certificate's own
+    # run-to-run noise (v's index_add_ lands its float32 atomics in no
+    # fixed order)
+    states = (torch.equal(r.state.w, r4.state.w)
+              and torch.equal(r.state.alpha, r4.state.alpha))
+    printed = [f"{g:.4e}" for g in r.history["gap"]]
+    same = printed == [f"{g:.4e}" for g in r4.history["gap"]]
+    noise = max(abs(a / b - 1) for a, b in zip(r.history["gap"],
+                                               r4.history["gap"]))
+    log(f"  state (w, alpha) after {rounds} rounds equal to phase 4's bit "
+        f"for bit: {states}; gaps {' '.join(printed)} "
+        f"{'equal digit for digit' if same else 'DIFFER'} to phase 4's "
+        f"(float64 values within {noise:.1e} relative)")
+    if not (states and same):
+        fail("phase 11's run differs from phase 4's")
+    w, scale, perm = _round_inputs(cfg, sh, yp, mk, r.state)
+    args = (sh.cols, sh.vals, yp, r.state.alpha, mk, w, scale, perm)
+    hinge = {"loss": get_loss("hinge")}
+    outs, ms = {}, {depth: [] for depth in DEPTHS}
+    for depth in DEPTHS + DEPTHS[::-1]:                     # in turns
+        t, outs[depth] = _time_ms(lambda: sk.sparse_local_sdca(
+            *args, buffer_depth=depth, **hinge), reps=2)
+        ms[depth].append(t)
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    equal = all(torch.equal(a, b) for depth in DEPTHS[1:]
+                for a, b in zip(outs[depth], outs[1]))
+    order = DEPTHS + DEPTHS[::-1]
+    log(f"  ms per launch on the next round's inputs (CUDA events, depths "
+        f"in turns {', '.join(map(str, order))}): " + ", ".join(
+            f"depth {k}: {v:.3f}" for k, v in ms.items())
+        + f"; depths {DEPTHS[1:]} equal depth 1 bit for bit: {equal}")
+    if not equal:
+        fail("the sparse kernel at depth >= 2 differs from depth 1 on "
+             "rcv1's rows")
+    return {"r": r, "launches": launches["sparse_sdca"], "args": args,
+            "ms": ms, "nnz": nnz}
+
+
+def phase_mesh2d(dev, csr_y):
+    """The feature-sharded path through `solve` on a (4, 2) mesh."""
+    import torch
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data import load, partition_sparse
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    K, M = 4, 2
+    kw = dict(backend="shard_map", model_axis="model",
+              solver="sdca_sparse_kernel", loss="hinge")
+    csr, y = load("tiny_sparse")
+    gaps = {}
+    for where in ("cpu", dev):
+        fs, yp, mk = partition_sparse(csr, y, K, M=M, device=where)
+        cfg = CoCoAConfig.adding(K, lam=1e-3, H=128, **kw)
+        gaps[str(where)] = solve(cfg, fs, yp, mk, rounds=5, seed=SEED,
+                                 mesh=make_test_mesh((K, M), device=where)
+                                 ).history["gap"]
+    worst = max(abs(a / b - 1) for a, b in zip(gaps["cpu"], gaps[str(dev)]))
+    log(f"[12 mesh2d] tiny_sparse K={K} M={M} zx gaps, card vs cpu plain: "
+        f"max rel diff {worst:.3e} (limit 1e-4)")
+    if worst > 1e-4:
+        fail(f"tiny_sparse 2-D gaps differ between card and cpu: {gaps}")
+    t0 = time.perf_counter()
+    csr, y = csr_y
+    fs, yp, mk = partition_sparse(csr, y, K, M=M, device=dev)
+    nk = yp.shape[1]
+    log(f"  rcv1 shape as FeatureShards: K={K} M={M} nk={nk} d_local="
+        f"{fs.d_local} r_loc={fs.r_loc} nnz={int(fs.nnz.sum())} (sliced in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    cfg = CoCoAConfig.adding(K, lam=SPARSE_LAM, H=nk, **kw)
+    rounds = 5
+    counts = _counts_zero()
+    r = solve(cfg, fs, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
+              mesh=make_test_mesh((K, M), device=dev))
+    launches = counts()
+    used = dict(ops.LAST_SPARSE_CONFIG)
+    plan = ops.sparse_zx_plan(nk, fs.d_local, nk, r_max=fs.r_loc,
+                              model_shards=M, backend=dev.type)
+    per_round = plan["n_passes"] * plan["blocks"]
+    log(f"  LAST_SPARSE_CONFIG {used}; launches on the path: {launches}")
+    _check_gaps("rcv1 4x2 sdca_sparse_kernel zx", r.history, rounds)
+    if not (used["zx"] is True and used["model_shards"] == M):
+        fail(f"phase 12 did not run the z-exchange schedule: {used}")
+    if launches["sparse_sdca_zx"] != rounds * per_round or any(
+            launches[k] for k in ("local_sdca", "sparse_sdca",
+                                  "sparse_sdca_pipelined")):
+        fail(f"phase 12 launched {launches}, expected {rounds} x "
+             f"{per_round} zx launches")
+    ex = r.history["execute_s"]
+    log(f"  {per_round} launches a round (n_passes {plan['n_passes']} x "
+        f"{plan['blocks']} blocks of {plan['block_rows']}); execute_s per "
+        f"round " + ", ".join(f"{e:.4f}" for e in ex) + "; us per launch "
+        + ", ".join(f"{1e6 * e / per_round:.3f}" for e in ex)
+        + f"; comm_floats per round {r.history['comm_floats'][0]}")
+    del csr
+    return {"fs": fs, "yp": yp, "mk": mk, "r": r, "cfg": cfg,
+            "launches": launches["sparse_sdca_zx"], "per_round": per_round,
+            "B": plan["block_rows"], "n_passes": plan["n_passes"]}
+
+
+def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
+    """The depth-1 walk and the zx kernel against their plain versions on
+    their paths' next-round inputs, and their times beside their bounds."""
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.data.sparse import row_sqnorms
+    from repro_torch.kernels import sparse_sdca as sk
+    hinge = {"loss": get_loss("hinge")}
+    log("[13 new-times] the depth-1 walk and the zx kernel vs plain on "
+        "their paths' next-round inputs; CUDA events")
+    rows = []
+    args = pipe["args"]
+    K, nk, r_max = args[0].shape
+    d = args[5].shape[0]
+    errs = _against_plain("sparse_sdca", _at_depth(1),
+                          sk.sparse_local_sdca_plain, args, hinge,
+                          known=sparse_plain)[:3]
+    nnz = pipe["nnz"]
+    rounds = len(pipe["r"].history["round"])
+    rows.append(_row(
+        "sparse_sdca",
+        "src/repro_torch/kernels/csrc/sparse_sdca_pipelined.cu",
+        "src/repro/kernels/sparse_sdca.py:172", pipe["launches"],
+        pipe["launches"] / rounds, "per round", errs[:2],
+        cut_errs["sparse_sdca"], pipe["ms"][1], errs[2], None,
+        _sparse_bytes(nnz, K, nk, d), 6 * nnz, F32_FLOPS_PER_S,
+        "67 TFLOP/s f32", f"K={K} nk={nk} r_max={r_max} d={d} nnz={nnz} "
+        f"depth=1", rounds=rounds, depth_ms=pipe["ms"]))
+    # zx at rcv1's 4 x 2 shape
+    fs, yp, mk, r, cfg = (mesh[k] for k in ("fs", "yp", "mk", "r", "cfg"))
+    w, scale, perm = _round_inputs(cfg, fs, yp, mk, r.state)
+    sq = (row_sqnorms(fs) * mk).contiguous()
+    B, n_passes = mesh["B"], mesh["n_passes"]
+    zargs = (fs.cols, fs.vals, yp, r.state.alpha, mk, w, scale, sq, perm)
+    zkw = dict(hinge, n_passes=n_passes, block_rows=B)
+    errs = _against_plain("sparse_sdca_zx", sk.sparse_local_sdca_zx,
+                          sk.sparse_local_sdca_zx_plain, zargs, zkw)[:3]
+    ms, _ = _time_ms(lambda: sk.sparse_local_sdca_zx(*zargs, **zkw), reps=3)
+    K, M, nk, r_loc = fs.cols.shape
+    inv = mesh["per_round"]
+    zx_nnz = int(fs.nnz.sum())
+    # each pass reads every nonzero once (col id and value: a block's rows
+    # are read again as the next launch's walk, from L2); per launch the z
+    # vectors (M read, one written); once a round the rows' y, alpha, mask,
+    # sqnorms, perm and dalpha, w and du. Per nonzero and pass, the
+    # scatter's and the next partial dot's multiply-adds
+    nbytes = (n_passes * 8 * zx_nnz + inv * K * M * B * (M + 1) * 4
+              + 4 * (6 * K * nk + M * fs.d_local + K * M * fs.d_local))
+    flops = n_passes * 4 * zx_nnz
+    rounds = len(r.history["round"])
+    rows.append(_row(
+        "sparse_sdca_zx", "src/repro_torch/kernels/csrc/sparse_sdca_zx.cu",
+        "src/repro/kernels/sparse_sdca.py:394", mesh["launches"],
+        mesh["launches"] / rounds, "per round", errs[:2],
+        cut_errs["sparse_sdca_zx"], ms, errs[2], None, nbytes, flops,
+        F32_FLOPS_PER_S, "67 TFLOP/s f32",
+        f"K={K} M={M} nk={nk} r_loc={r_loc} d_local={fs.d_local} B={B} "
+        f"(one call: {inv} launches)", rounds=rounds,
+        us_per_launch=1e3 * ms / inv))
+    return rows
+
 
 
 def main() -> None:
@@ -947,12 +1348,13 @@ def main() -> None:
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     phase_build()
     cut_errs = phase_kernels(dev)
     sparse = phase_sparse(dev)
     dense = phase_dense(dev)
-    rows = phase_times(dense, sparse, cut_errs)
-    del dense, sparse
+    rows, sparse_plain = phase_times(dense, sparse, cut_errs)
+    del dense
     gc.collect()
     torch.cuda.empty_cache()
     lm_cut_errs = phase_lm_kernels(dev)
@@ -963,7 +1365,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     rows += phase_lm_times(serve, mamba, lm_cut_errs)
-    log(json.dumps({"kernels": rows, "to_port": TO_PORT}))
+    del serve, mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = phase_depth_one(sparse)
+    mesh = phase_mesh2d(dev, sparse[7])
+    rows += phase_new_times(pipe, sparse_plain, mesh, cut_errs)
+    rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": rows}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -1,6 +1,6 @@
 """CoCoA+ framework driver (paper Algorithm 1), generalized over g(w).
 
-Port of `repro.core.cocoa`, simulated backend. One outer round:
+Port of `repro.core.cocoa`. One outer round:
     1. every worker k solves the sigma'-damped local subproblem (eq. 9)
        Theta-approximately -- all K at once, in one kernel launch on the
        kernel solvers,
@@ -11,6 +11,18 @@ Port of `repro.core.cocoa`, simulated backend. One outer round:
 The shared state is the scaled dual-side vector v = A alpha / (tau n),
 kept under its historical name `w`; the primal iterate is
 reg.conj_grad(v) (`primal_w`), the identity under L2.
+
+Two backends, as in the reference:
+
+    "vmap"       K simulated workers on the leading tensor axis
+    "shard_map"  a (data=K, model=M) mesh (`launch.mesh.make_test_mesh`)
+                 laid onto one card: K workers, and w feature-sharded into
+                 M slices of d_local = ceil(d / M) (`comm.WSpec`) when the
+                 data is a `FeatureShards`. Each step's partial dots are
+                 summed over the M shards (the eager `sdca_sparse`), or the
+                 sparse kernel runs its z-exchange schedule; the per-round
+                 reduce is then one d_local-float message per worker per
+                 shard. At M = 1 it is the vmap round on the same tensors.
 
 Visit orders. The reference derives every worker's coordinate order from
 a threefry key carried in its state. torch cannot reproduce threefry, so
@@ -29,7 +41,8 @@ import numpy as np
 import torch
 
 from .. import comm
-from ..data.sparse import SparseShards
+from ..data import sparse as sparse_data
+from ..data.sparse import FeatureShards, SparseShards
 from ..device import DEFAULT_DEVICE, resolve_device, synchronize
 from . import duality
 from .losses import get_loss
@@ -45,6 +58,9 @@ class CoCoAConfig:
     sigma_p: Optional[float] = None    # None -> safe bound gamma * K (Lemma 4)
     H: int = 1000                      # local solver iterations per round
     solver: str = "sdca"               # core.solvers.SOLVERS key
+    backend: str = "vmap"              # "vmap" | "shard_map"
+    data_axis: str = "data"            # mesh axis carrying the workers
+    model_axis: Optional[str] = None   # mesh axis feature-sharding w
     average_iterates: bool = False     # Theorem-8 averaged iterate output
     aggregator: Optional[str] = None   # "add"|"average"|"gamma:<g>" strategy;
                                        # overrides (gamma, sigma_p) when set
@@ -113,10 +129,12 @@ def primal_w(state: CoCoAState, cfg: CoCoAConfig) -> torch.Tensor:
     return cfg.regularizer().conj_grad(state.w, cfg.lam)
 
 
-def resolve_solver(name, sparse: bool) -> LocalSolver:
+def resolve_solver(name, sparse: bool,
+                   feature_sharded: bool = False) -> LocalSolver:
     """Resolve a registry key against the round's input format through the
     LocalSolver capability flags: dense inputs need `dense`, SparseShards
-    map through `sparse_counterpart`."""
+    map through `sparse_counterpart`, and a feature-sharded mesh (M > 1)
+    needs `model_axis`."""
     ls = get_solver(name)
     if not sparse:
         if not ls.dense:
@@ -124,14 +142,21 @@ def resolve_solver(name, sparse: bool) -> LocalSolver:
                 f"solver {ls.name!r} needs SparseShards inputs; dense "
                 f"tensors take 'sdca' / 'sdca_kernel' (mapped automatically "
                 f"when the data is sparse)")
-        return ls
-    twin = sparse_counterpart(ls)
-    if twin is None:
+        resolved = ls
+    else:
+        twin = sparse_counterpart(ls)
+        if twin is None:
+            raise ValueError(
+                f"solver {ls.name!r} has no sparse path; pick one of "
+                f"{sorted(n for n in SOLVERS if sparse_counterpart(n))} "
+                f"for SparseShards inputs")
+        resolved = get_solver(twin)
+    if feature_sharded and not resolved.model_axis:
         raise ValueError(
-            f"solver {ls.name!r} has no sparse path; pick one of "
-            f"{sorted(n for n in SOLVERS if sparse_counterpart(n))} "
-            f"for SparseShards inputs")
-    return get_solver(twin)
+            f"solver {resolved.name!r} cannot run feature-sharded (M>1): "
+            f"use 'sdca_sparse' (eager) or 'sdca_sparse_kernel' (the "
+            f"z-exchange schedule) on FeatureShards")
+    return resolved
 
 
 def visit_shape(solver: LocalSolver, K: int, nk: int, H: int):
@@ -152,6 +177,10 @@ def draw_visit_orders(solver: LocalSolver, K: int, nk: int, H: int,
 
 
 def _dims(X):
+    """(K, nk, width of the state's w, dtype, device)."""
+    if isinstance(X, FeatureShards):
+        K, _, nk = X.cols.shape[:3]
+        return K, nk, X.d_padded, X.vals.dtype, X.device
     if isinstance(X, SparseShards):
         K, nk = X.cols.shape[:2]
         return K, nk, X.d, X.vals.dtype, X.device
@@ -159,25 +188,31 @@ def _dims(X):
     return K, nk, d, X.dtype, X.device
 
 
-def make_round(cfg: CoCoAConfig, K: int, sparse: bool,
-               n: float) -> Callable[..., CoCoAState]:
-    """The simulated K-worker round (`make_round_vmap`'s counterpart): all
-    K workers solve in one solver call -- one kernel launch on the kernel
-    solvers -- then the flat exchange. `n` is the global effective row
-    count; `round_fn(state, X, y, mask, order)` takes the round's visit
-    input `order` (see `visit_shape`)."""
+def _round(cfg: CoCoAConfig, topo: comm.Topology, solver: LocalSolver,
+           n: float) -> Callable[..., CoCoAState]:
+    """`round_fn(state, X, y, mask, order, sqnorms=None)`: every worker
+    solves in one solver call -- one kernel launch, or one launch per
+    z-exchange block, on the kernel solvers -- then the flat exchange and
+    the update. On a feature-sharded topology the solver also gets the
+    model axis and the global row norms: `sqnorms` when the caller computed
+    them once for the run (`solve` does), else computed here."""
     loss = get_loss(cfg.loss)
     reg = cfg.regularizer()
-    topo = comm.Topology.simulated(K)
-    p = cfg.agg_params(K)
+    p = cfg.agg_params(topo.K)
     compressor = comm.NoCompression()
-    solver = resolve_solver(cfg.solver, sparse)
+    feature_sharded = topo.M > 1
 
-    def round_fn(state: CoCoAState, X, y, mask, order) -> CoCoAState:
+    def round_fn(state: CoCoAState, X, y, mask, order,
+                 sqnorms: Optional[torch.Tensor] = None) -> CoCoAState:
+        kw = {}
+        if feature_sharded:
+            if sqnorms is None:
+                sqnorms = sparse_data.row_sqnorms(X) * mask
+            kw = dict(sqnorms=sqnorms, model_axis=cfg.model_axis)
         # `order` goes in as given (on the host when drawn here): the
         # kernel solvers range-check it there before copying it over
         res = solver.fn(X, y, state.alpha, mask, state.w, order, loss,
-                        cfg.lam, n, p.sigma_prime, cfg.H, reg=reg)
+                        cfg.lam, n, p.sigma_prime, cfg.H, reg=reg, **kw)
         dw_sum, ef = comm.exchange(topo, res.du, state.ef, p, compressor)
         w, alpha = comm.apply_update(state.w, state.alpha, dw_sum,
                                      res.dalpha, p)
@@ -185,6 +220,56 @@ def make_round(cfg: CoCoAConfig, K: int, sparse: bool,
                           state.alpha_bar + alpha, ef)
 
     return round_fn
+
+
+def make_round(cfg: CoCoAConfig, K: int, sparse: bool,
+               n: float) -> Callable[..., CoCoAState]:
+    """The simulated K-worker round (`make_round_vmap`'s counterpart). `n`
+    is the global effective row count; `round_fn(state, X, y, mask,
+    order)` takes the round's visit input `order` (see `visit_shape`)."""
+    return _round(cfg, comm.Topology.simulated(K),
+                  resolve_solver(cfg.solver, sparse), n)
+
+
+def make_round_sharded(cfg: CoCoAConfig, mesh, sparse: bool,
+                       n: float) -> Callable[..., CoCoAState]:
+    """The mesh round on one card (`make_round_sharded`'s counterpart): K
+    workers from the mesh's data axis, M model shards from its model axis.
+    At M > 1 the round takes `FeatureShards` and the padded w; at M = 1 it
+    is the simulated round (`place_on_mesh` turns M = 1 FeatureShards into
+    SparseShards)."""
+    topo = comm.Topology.from_mesh(mesh, cfg.data_axis, cfg.model_axis)
+    return _round(cfg, topo, resolve_solver(cfg.solver, sparse,
+                                            feature_sharded=topo.M > 1), n)
+
+
+def place_on_mesh(cfg: CoCoAConfig, mesh, X):
+    """Check X against the mesh and return what the rounds take: the
+    reference's guards (M mismatch, SparseShards at M > 1), the data on the
+    mesh's device, and M = 1 FeatureShards as SparseShards. Dense data at
+    M > 1 is not ported."""
+    topo = comm.Topology.from_mesh(mesh, cfg.data_axis, cfg.model_axis)
+    K, _, _, _, dev = _dims(X)
+    if K != topo.K:
+        raise ValueError(f"the data has K={K} workers but the mesh's data "
+                         f"axis {cfg.data_axis!r} has {topo.K}")
+    if dev.type != mesh.device.type:
+        raise ValueError(f"the data lives on {dev}, the mesh on "
+                         f"{mesh.device}")
+    if isinstance(X, FeatureShards):
+        if X.M != topo.M:
+            raise ValueError(f"FeatureShards sliced for M={X.M} but the "
+                             f"mesh's model axis carries M={topo.M}")
+        return X.model_shard_view() if topo.M == 1 else X
+    if topo.M > 1:
+        if isinstance(X, SparseShards):
+            raise ValueError(
+                "feature sharding (M>1) needs FeatureShards with "
+                "shard-local column ids; slice the shards with "
+                "data.sparse.shard_features (or partition_sparse with M=...)")
+        raise ValueError("dense feature sharding (M>1) is not ported yet: "
+                         "ROADMAP.md Queue 1 item 10")
+    return X
 
 
 class SolveResult(NamedTuple):
@@ -196,34 +281,64 @@ class SolveResult(NamedTuple):
 def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
           seed: int = 0, gap_every: int = 1,
           state: Optional[CoCoAState] = None,
-          visit_orders: Optional[Callable[[int], torch.Tensor]] = None
-          ) -> SolveResult:
+          visit_orders: Optional[Callable[[int], torch.Tensor]] = None,
+          mesh=None) -> SolveResult:
     """Run CoCoA+/CoCoA until `rounds` or duality gap <= eps_gap.
 
     `X` is a dense (K, nk, d) tensor or a `SparseShards`, on the device the
-    run uses. `visit_orders(t) -> order` supplies round t's visit input
-    (0-based within this call): (K, nk) permutations for the kernel
-    solvers, (K, H) row ids for the eager twins; by default each round
-    draws its own (`draw_visit_orders`).
+    run uses; on the shard_map backend (with `mesh`) also a
+    `FeatureShards`, whose state w is the padded (M d_local,) vector.
+    `visit_orders(t) -> order` supplies round t's visit input (0-based
+    within this call): (K, nk) permutations for the kernel solvers, (K, H)
+    row ids for the eager twins; every model shard of worker k walks row k
+    of it. By default each round draws its own (`draw_visit_orders`).
 
     History, one entry per certified round (every `gap_every` rounds and
     the last): `round`, `gap`, `primal`, `dual`, `comm_floats` (cumulative
-    wire floats, K*d per round for the flat dense reduce), `execute_s` (host
-    seconds of the rounds since the previous entry, each fenced by a device
-    synchronize) and `certificate_s` (the same for the gap computation).
+    wire floats: K d_local per round for the flat reduce, plus on a
+    feature-sharded mesh the model axis's K M H floats of per-step partial
+    dots, or K M exchanges block_rows on the z-exchange kernel path),
+    `execute_s` (host seconds of the rounds since the previous entry, each
+    fenced by a device synchronize) and `certificate_s` (the same for the
+    gap computation).
     """
+    if cfg.backend == "shard_map":
+        if mesh is None:
+            raise ValueError("the shard_map backend needs a mesh "
+                             "(launch.mesh.make_test_mesh)")
+        X = place_on_mesh(cfg, mesh, X)
+        topo = comm.Topology.from_mesh(mesh, cfg.data_axis, cfg.model_axis)
+    elif cfg.backend == "vmap":
+        if isinstance(X, FeatureShards):
+            raise ValueError("FeatureShards need the shard_map backend on "
+                             "a 2-D mesh; the vmap reference runs on "
+                             "SparseShards with the global column ids")
+        topo = comm.Topology.simulated(_dims(X)[0])
+    else:
+        raise ValueError(f"unknown backend {cfg.backend!r}; use 'vmap' or "
+                         f"'shard_map'")
     K, nk, d, dtype, dev = _dims(X)
-    sparse = isinstance(X, SparseShards)
+    sparse = isinstance(X, (SparseShards, FeatureShards))
     loss = get_loss(cfg.loss)
     reg = cfg.regularizer()
-    round_fn = make_round(cfg, K, sparse, float(duality.effective_n(mask)))
-    solver = resolve_solver(cfg.solver, sparse)
+    n = float(duality.effective_n(mask))
+    if cfg.backend == "shard_map":
+        round_fn = make_round_sharded(cfg, mesh, sparse, n)
+    else:
+        round_fn = make_round(cfg, K, sparse, n)
+    solver = resolve_solver(cfg.solver, sparse,
+                            feature_sharded=topo.M > 1)
     want = visit_shape(solver, K, nk, cfg.H)
     if state is None:
         state = init_state(d, K, nk, dtype, dev)
-    topo = comm.Topology.simulated(K)
+    d_true = X.d if sparse else d
     floats_per_round = topo.floats_per_round(
-        comm.NoCompression().floats_per_message(d))
+        comm.NoCompression().floats_per_message(topo.d_local(d_true)))
+    sqnorms = None
+    if topo.M > 1:
+        floats_per_round += solver.model_hop(X, cfg.H, reg)
+        # the global row norms, fixed for the run
+        sqnorms = sparse_data.row_sqnorms(X) * mask
 
     hist = {"round": [], "gap": [], "primal": [], "dual": [],
             "comm_floats": [], "execute_s": [], "certificate_s": []}
@@ -240,7 +355,7 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
         else:
             order = draw_visit_orders(solver, K, nk, cfg.H, seed,
                                       base_round + t)
-        state = round_fn(state, X, y, mask, order)
+        state = round_fn(state, X, y, mask, order, sqnorms)
         synchronize(dev)
         exec_acc += time.perf_counter() - t0
         if (t + 1) % gap_every and t != rounds - 1:

@@ -1,7 +1,9 @@
 """Primal/dual objectives, the alpha -> v map and the duality-gap certificate.
 
-Port of `repro.core.duality`. X is a dense (K, nk, d) tensor or a
-`data.sparse.SparseShards`; labels, duals and the {0,1} row mask are
+Port of `repro.core.duality`. X is a dense (K, nk, d) tensor, a
+`data.sparse.SparseShards`, or a `FeatureShards` with w and v the padded
+(M d_local,) vectors (the padded coordinates carry no data, stay exactly
+zero and add nothing to P or D); labels, duals and the {0,1} row mask are
 (K, nk). Every objective takes the global effective n (the mask's sum), so
 padded partitions reproduce the unpadded math exactly.
 
@@ -21,7 +23,9 @@ from __future__ import annotations
 import torch
 
 from ..data import sparse as sparse_data
-from ..data.sparse import SparseShards
+from ..data.sparse import FeatureShards, SparseShards
+
+_SPARSE = (SparseShards, FeatureShards)
 from .losses import Loss
 from .regularizers import L2, Regularizer
 
@@ -32,7 +36,7 @@ def effective_n(mask: torch.Tensor) -> torch.Tensor:
 
 def _Atw(X, w: torch.Tensor) -> torch.Tensor:
     """Per-row predictions z = A^T w, shape (K, nk)."""
-    if isinstance(X, SparseShards):
+    if isinstance(X, _SPARSE):
         return sparse_data.matvec(X, w)
     return torch.einsum("kid,d->ki", X, w)
 
@@ -41,7 +45,7 @@ def v_of_alpha(X, alpha: torch.Tensor, lam: float, n,
                reg: Regularizer = L2) -> torch.Tensor:
     """v(alpha) = A alpha / (tau n); the paper's w(alpha) under L2."""
     tau = reg.tau(lam)
-    if isinstance(X, SparseShards):
+    if isinstance(X, _SPARSE):
         return sparse_data.rmatvec(X, alpha) / (tau * n)
     return torch.einsum("kid,ki->d", X, alpha) / (tau * n)
 

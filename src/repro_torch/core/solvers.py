@@ -3,7 +3,9 @@
 Port of `repro.core.solvers`. The reference writes each solver for one
 worker and vmaps it over K; here every solver takes all K workers at once,
 with the K axis written out: X is (K, nk, d) or a `SparseShards`, the duals
-and labels are (K, nk) and the shared v is (d,). Each returns an
+and labels are (K, nk) and the shared v is (d,). The solvers flagged
+`model_axis` also take a `FeatureShards` (K, M, nk, r_loc) and the padded
+(M d_local,) v of a (data=K, model=M) mesh on one card. Each returns an
 `SDCAResult` with dalpha (K, nk) and du (K, d), the sigma'-scaled v-space
 delta (sigma'/(tau n)) A_[k] dalpha of every worker.
 
@@ -64,14 +66,30 @@ def local_sdca(X, y, alpha, mask, v, idxs, loss: Loss, lam: float, n,
 
 
 def local_sdca_sparse(shard, y, alpha, mask, v, idxs, loss: Loss, lam: float,
-                      n, sigma_p: float, H: int,
-                      reg: Regularizer = L2) -> SDCAResult:
+                      n, sigma_p: float, H: int, reg: Regularizer = L2,
+                      sqnorms: Optional[torch.Tensor] = None,
+                      model_axis: Optional[str] = None) -> SDCAResult:
     """LocalSDCA over padded-ELL shards: per step one r_max gather-dot
     through the conjugate map and one r_max scatter-axpy (scatter_add_,
-    so duplicate columns all land). Padding slots are exact no-ops."""
+    so duplicate columns all land). Padding slots are exact no-ops.
+
+    `model_axis` set: the feature-sharded form. `shard` is a
+    `FeatureShards` (cols (K, M, nk, r_loc), shard-local ids) and `v` the
+    padded (M d_local,) vector; each step's partial dots are summed over
+    the M shards in a fixed order (the reference's psum over the model
+    axis), q comes from the global `sqnorms` (K, nk), which the slices
+    cannot rebuild, and each shard's scatter touches its own slice only."""
+    if model_axis is not None:
+        if sqnorms is None:
+            raise ValueError("feature-sharded local_sdca_sparse needs global "
+                             "sqnorms; the local ELL slices can't rebuild "
+                             "||x_i||^2")
+        return _local_sdca_sparse_fs(shard, y, alpha, mask, v, idxs, loss,
+                                     lam, n, sigma_p, H, reg, sqnorms)
     cols, vals = shard.cols.long(), shard.vals
     K, nk, _ = cols.shape
-    sqnorms = torch.sum(vals * vals, dim=-1) * mask
+    if sqnorms is None:
+        sqnorms = torch.sum(vals * vals, dim=-1) * mask
     scale = sigma_p / (reg.tau(lam) * n)
     ks = torch.arange(K, device=vals.device)
     idxs = idxs.to(vals.device, torch.long)
@@ -89,6 +107,32 @@ def local_sdca_sparse(shard, y, alpha, mask, v, idxs, loss: Loss, lam: float,
     return SDCAResult(dalpha, u - v, H)
 
 
+def _local_sdca_sparse_fs(fs, y, alpha, mask, v, idxs, loss, lam, n,
+                          sigma_p, H, reg, sqnorms) -> SDCAResult:
+    cols, vals = fs.cols.long(), fs.vals
+    K, M, nk, _ = cols.shape
+    d_loc = v.shape[0] // M
+    scale = sigma_p / (reg.tau(lam) * n)
+    ks = torch.arange(K, device=vals.device)
+    idxs = idxs.to(vals.device, torch.long)
+    dalpha = torch.zeros((K, nk), dtype=vals.dtype, device=vals.device)
+    v3 = v.to(vals.dtype).reshape(1, M, d_loc)
+    u = v3.expand(K, M, d_loc).clone()
+    for h in range(H):
+        i = idxs[:, h]
+        ci, vi = cols[ks, :, i], vals[ks, :, i]            # (K, M, r_loc)
+        zm = torch.sum(vi * reg.conj_grad(u.gather(2, ci), lam), dim=-1)
+        z = zm[:, 0]
+        for m in range(1, M):                 # the psum, in a fixed order
+            z = z + zm[:, m]
+        abar = alpha[ks, i] + dalpha[ks, i]
+        q = scale * sqnorms[ks, i]
+        delta = loss.cd_update(abar, z, q, y[ks, i]) * mask[ks, i]
+        dalpha[ks, i] += delta
+        u.scatter_add_(2, ci, (scale * delta)[:, None, None] * vi)
+    return SDCAResult(dalpha, (u - v3).reshape(K, M * d_loc), H)
+
+
 # ----------------------------------------------------------------------------
 # The LocalSolver registry: frozen descriptors + open registration
 # ----------------------------------------------------------------------------
@@ -102,13 +146,19 @@ class LocalSolver:
     when `dense`, a `SparseShards` when `sparse`; `order` is the visit
     input of kind `visit` ("draws" (K, H) or "permutation" (K, nk)).
     `sparse_name` is the registry key of the padded-ELL counterpart the
-    driver maps to when the data is sparse."""
+    driver maps to when the data is sparse. `model_axis` marks a solver
+    that runs feature-sharded (M > 1): it takes a `FeatureShards` and the
+    padded v, with `sqnorms=` (the global row norms) and `model_axis=`;
+    `model_hop(X, H, reg)` is then the floats its model axis carries in
+    one round on the `FeatureShards` X."""
     name: str
     fn: Callable[..., SDCAResult]
     dense: bool = True
     sparse: bool = False
     visit: str = "draws"
     sparse_name: Optional[str] = None
+    model_axis: bool = False
+    model_hop: Optional[Callable[..., int]] = None
 
     def __hash__(self):
         return hash(self.name)
@@ -132,6 +182,9 @@ def register_solver(solver: LocalSolver, *,
     if solver.visit not in VISIT_KINDS:
         raise ValueError(f"visit must be one of {VISIT_KINDS}, got "
                          f"{solver.visit!r}")
+    if solver.model_axis and solver.model_hop is None:
+        raise ValueError(f"solver {solver.name!r} runs feature-sharded "
+                         f"(model_axis) but prices no model_hop")
     if solver.name in SOLVERS and not overwrite:
         raise ValueError(f"solver {solver.name!r} is already registered; "
                          f"pass overwrite=True to replace it")
@@ -150,6 +203,14 @@ def get_solver(name) -> LocalSolver:
                        f"{sorted(SOLVERS)}") from None
 
 
+def per_step_hop_floats(X, H: int, reg: Regularizer = L2) -> int:
+    """Floats the model axis carries in one round of the eager
+    feature-sharded `local_sdca_sparse`: one partial dot per (worker,
+    shard) per step."""
+    K, M = X.cols.shape[:2]
+    return K * M * H
+
+
 def _lazy_kernel(attr: str) -> Callable[..., SDCAResult]:
     """Import-cycle-free binding for the kernel entry points
     (kernels.ops imports SDCAResult from here)."""
@@ -162,13 +223,15 @@ def _lazy_kernel(attr: str) -> Callable[..., SDCAResult]:
 
 register_solver(LocalSolver("sdca", local_sdca, sparse_name="sdca_sparse"))
 register_solver(LocalSolver("sdca_sparse", local_sdca_sparse, dense=False,
-                            sparse=True))
+                            sparse=True, model_axis=True,
+                            model_hop=per_step_hop_floats))
 register_solver(LocalSolver(
     "sdca_kernel", _lazy_kernel("local_sdca_block"), visit="permutation",
     sparse_name="sdca_sparse_kernel"))
 register_solver(LocalSolver(
     "sdca_sparse_kernel", _lazy_kernel("sparse_local_sdca_block"),
-    dense=False, sparse=True, visit="permutation"))
+    dense=False, sparse=True, visit="permutation", model_axis=True,
+    model_hop=_lazy_kernel("sparse_zx_hop_floats")))
 
 
 def sparse_counterpart(name) -> Optional[str]:

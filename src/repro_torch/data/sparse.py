@@ -9,12 +9,16 @@ Port of `repro.data.sparse` for the main path:
   * `SparseShards` -- a dataclass of tensors mirroring the dense
     `(K, nk, d)` partition: `cols`/`vals` are `(K, nk, r_max)`, `nnz` the
     true per-row entry count.
+  * `FeatureShards` -- the same rows sliced by feature block for a
+    (data=K, model=M) mesh: `cols`/`vals` are `(K, M, nk, r_loc)` with
+    shard-local column ids (`shard_features`).
   * `partition_sparse` -- the worker partitioner (same shuffle, padding and
-    mask as `data.synthetic.partition`); one model shard (M=1) only.
-  * `matvec` / `rmatvec` / `row_sqnorms` -- the sparse matvec family the
-    duality certificate uses; `rmatvec` is an `index_add_`.
+    mask as `data.synthetic.partition`); `M > 1` returns `FeatureShards`.
+  * `matvec` / `rmatvec` / `row_sqnorms` / `densify` -- the sparse matvec
+    family the duality certificate uses, over both layouts; `rmatvec` is an
+    `index_add_`.
 
-The LIBSVM parser and the feature-sharded `FeatureShards` are still to port.
+The LIBSVM parser and the streaming ingest are still to port.
 """
 from __future__ import annotations
 
@@ -98,6 +102,70 @@ class SparseShards:
         return float(self.nnz.sum()) / max(rows * self.d, 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class FeatureShards:
+    """Worker shards sliced by feature block for a (data=K, model=M) mesh.
+
+    Model shard m of worker k keeps the entries whose global column lies in
+    [m d_local, (m+1) d_local), stored with shard-local ids (global -
+    m d_local): the contiguous block map of `comm.WSpec(d, M)`. Padding
+    slots are (local col 0, val 0.0). `nnz` counts each slice's true
+    entries; `d` is the global unpadded width, M d_local the padded one.
+    M = 1 holds the `SparseShards` arrays with a singleton model axis."""
+    cols: torch.Tensor    # (K, M, nk, r_loc) int32 shard-local ids
+    vals: torch.Tensor    # (K, M, nk, r_loc) float32
+    nnz: torch.Tensor     # (K, M, nk) int32 true entries per row slice
+    d: int
+    M: int
+    d_local: int
+
+    @property
+    def r_loc(self) -> int:
+        return self.cols.shape[-1]
+
+    @property
+    def d_padded(self) -> int:
+        return self.M * self.d_local
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    def model_shard_view(self) -> SparseShards:
+        """At M = 1, the same tensors as `SparseShards` (no copy)."""
+        if self.M != 1:
+            raise ValueError(f"model_shard_view needs M = 1, got M={self.M}")
+        return SparseShards(self.cols[:, 0], self.vals[:, 0],
+                            self.nnz[:, 0], d=self.d_local)
+
+
+def shard_features(sh: SparseShards, M: int) -> FeatureShards:
+    """Slice worker ELL shards along the feature axis into M model shards
+    with shard-local column ids, on the host with numpy (arrays equal to
+    the reference's `shard_features`), then onto `sh`'s device."""
+    cols = sh.cols.cpu().numpy()
+    vals = sh.vals.cpu().numpy()
+    K, nk, r_max = cols.shape
+    d_local = -(-sh.d // M)
+    live = np.arange(r_max)[None, None, :] < sh.nnz.cpu().numpy()[:, :, None]
+    owner = np.where(live, cols // d_local, -1)        # padding owns nothing
+    slice_nnz = np.stack([(owner == m).sum(-1) for m in range(M)], axis=1)
+    r_loc = max(int(slice_nnz.max()) if slice_nnz.size else 0, 1)
+    out_c = np.zeros((K, M, nk, r_loc), np.int32)
+    out_v = np.zeros((K, M, nk, r_loc), np.float32)
+    for m in range(M):
+        sel = owner == m                               # (K, nk, r_max)
+        slot = np.cumsum(sel, axis=-1) - 1             # dest slot per entry
+        kk, ii, _ = np.nonzero(sel)
+        out_c[kk, m, ii, slot[sel]] = cols[sel] - m * d_local
+        out_v[kk, m, ii, slot[sel]] = vals[sel]
+    dev = sh.device
+    return FeatureShards(torch.from_numpy(out_c).to(dev),
+                         torch.from_numpy(out_v).to(dev),
+                         torch.from_numpy(slice_nnz.astype(np.int32)).to(dev),
+                         d=sh.d, M=M, d_local=d_local)
+
+
 def check_cols(cols: np.ndarray, d: int) -> None:
     """Column ids must lie in [0, d). Checked on the host, once, where the
     shards are built: the sparse kernel indexes u with them unchecked."""
@@ -120,21 +188,59 @@ def shards_from_arrays(cols, vals, nnz, d: int,
                         t(nnz, np.int32), d=int(d))
 
 
-def matvec(sh: SparseShards, w: torch.Tensor) -> torch.Tensor:
-    """z = A^T w per row:  z_i = sum_r vals[i, r] * w[cols[i, r]]."""
+def _global_cols(fs: FeatureShards) -> torch.Tensor:
+    """A FeatureShards' column ids in the padded global frame, as int64."""
+    off = torch.arange(fs.M, device=fs.device) * fs.d_local
+    return fs.cols.long() + off[None, :, None, None]
+
+
+def matvec(sh, w: torch.Tensor) -> torch.Tensor:
+    """z = A^T w per row:  z_i = sum_r vals[i, r] * w[cols[i, r]], (K, nk).
+    For `FeatureShards` w is the padded (M d_local,) vector: the per-shard
+    partial dots, summed over the model axis."""
+    if isinstance(sh, FeatureShards):
+        per_m = torch.sum(sh.vals * w[_global_cols(sh)], dim=-1)
+        return torch.sum(per_m, dim=1)
     return torch.sum(sh.vals * w[sh.cols.long()], dim=-1)
 
 
-def rmatvec(sh: SparseShards, coef: torch.Tensor) -> torch.Tensor:
-    """A coef = sum_i coef_i x_i as a scatter-add into a dense (d,)."""
+def rmatvec(sh, coef: torch.Tensor) -> torch.Tensor:
+    """A coef = sum_i coef_i x_i as a scatter-add: (d,) for `SparseShards`,
+    the padded (M d_local,) vector for `FeatureShards` (padded coordinates
+    receive nothing)."""
+    if isinstance(sh, FeatureShards):
+        contrib = sh.vals * coef[:, None, :, None]
+        out = torch.zeros(sh.d_padded, dtype=contrib.dtype,
+                          device=contrib.device)
+        return out.index_add_(0, _global_cols(sh).reshape(-1),
+                              contrib.reshape(-1))
     contrib = sh.vals * coef[..., None]
     out = torch.zeros(sh.d, dtype=contrib.dtype, device=contrib.device)
     return out.index_add_(0, sh.cols.reshape(-1).long(), contrib.reshape(-1))
 
 
-def row_sqnorms(sh: SparseShards) -> torch.Tensor:
-    """||x_i||^2 per row, (K, nk)."""
+def row_sqnorms(sh) -> torch.Tensor:
+    """||x_i||^2 per row, (K, nk); for `FeatureShards` the slices' masses
+    summed over the model axis (the global norms the 2-D solvers need)."""
+    if isinstance(sh, FeatureShards):
+        return torch.sum(sh.vals * sh.vals, dim=(-3, -1))
     return torch.sum(sh.vals * sh.vals, dim=-1)
+
+
+def densify(sh) -> torch.Tensor:
+    """Dense (K, nk, d) rows; `FeatureShards` densify to the padded
+    (K, nk, M d_local) width with local ids lifted back to global."""
+    if isinstance(sh, FeatureShards):
+        cols, width = _global_cols(sh).transpose(1, 2), sh.d_padded
+        vals = sh.vals.transpose(1, 2)
+        K, nk = cols.shape[:2]
+        cols, vals = cols.reshape(K, nk, -1), vals.reshape(K, nk, -1)
+    else:
+        cols, vals, width = sh.cols.long(), sh.vals, sh.d
+        K, nk = cols.shape[:2]
+    out = torch.zeros((K, nk, width), dtype=vals.dtype, device=vals.device)
+    # accumulate, don't assign: duplicate (row, col) entries sum
+    return out.scatter_add_(2, cols, vals)
 
 
 def make_sparse_classification(n: int, d: int, *, density: float,
@@ -167,10 +273,13 @@ def make_sparse_classification(n: int, d: int, *, density: float,
 
 def partition_sparse(csr: CSRMatrix, y: np.ndarray, K: int, *, seed: int = 0,
                      heterogeneity: float = 1.0,
-                     r_max: Optional[int] = None, device=DEFAULT_DEVICE):
+                     r_max: Optional[int] = None, M: int = 1,
+                     device=DEFAULT_DEVICE):
     """Shuffle + split CSR rows into (shards, y (K, nk), mask (K, nk)) on
     `device`. Same contract as the dense `partition` (identical rng stream,
-    padding rows are all-zero with mask 0)."""
+    padding rows are all-zero with mask 0). `M > 1` slices each worker's
+    rows by feature block into `FeatureShards` (`shard_features`); the row
+    partition, and so y and mask, is the same for every M."""
     dev = resolve_device(device)
     n, d = csr.shape
     check_cols(csr.indices, d)
@@ -189,8 +298,13 @@ def partition_sparse(csr: CSRMatrix, y: np.ndarray, K: int, *, seed: int = 0,
     yp = np.concatenate([np.asarray(y)[order],
                          np.zeros(pad, np.asarray(y).dtype)])
     mk = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
-    shards = SparseShards(torch.from_numpy(colsp.reshape(K, nk, rm)).to(dev),
-                          torch.from_numpy(valsp.reshape(K, nk, rm)).to(dev),
-                          torch.from_numpy(nnzp.reshape(K, nk)).to(dev), d=d)
+    shards = SparseShards(torch.from_numpy(colsp.reshape(K, nk, rm)),
+                          torch.from_numpy(valsp.reshape(K, nk, rm)),
+                          torch.from_numpy(nnzp.reshape(K, nk)), d=d)
+    if M > 1:          # sliced on the host, before anything moves
+        shards = shard_features(shards, M)
+    shards = dataclasses.replace(shards, cols=shards.cols.to(dev),
+                                 vals=shards.vals.to(dev),
+                                 nnz=shards.nnz.to(dev))
     return (shards, torch.from_numpy(yp.reshape(K, nk)).to(dev),
             torch.from_numpy(mk.reshape(K, nk)).to(dev))

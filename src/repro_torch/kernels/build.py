@@ -24,7 +24,8 @@ from typing import Dict, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("local_sdca", "sparse_sdca", "flash_attention", "ssm_scan")
+KERNELS = ("local_sdca", "sparse_sdca_pipelined", "sparse_sdca_zx",
+           "flash_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -128,10 +129,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "local_sdca":
         lib.local_sdca_launch.argtypes = [P] * 8 + [I] * 4 + [F, I, F, P]
         lib.local_sdca_launch.restype = I
-    elif name == "sparse_sdca":
-        lib.sparse_sdca_launch.argtypes = ([P] * 9 + [I] * 5
-                                           + [F, I, F, I, F, P])
-        lib.sparse_sdca_launch.restype = I
+    elif name == "sparse_sdca_pipelined":
+        lib.sparse_sdca_pipelined_launch.argtypes = ([P] * 9 + [I] * 5
+                                                     + [F, I, F, I, F, I, P])
+        lib.sparse_sdca_pipelined_launch.restype = I
+    elif name == "sparse_sdca_zx":
+        lib.sparse_sdca_zx_launch.argtypes = ([P] * 10 + [I] * 7
+                                              + [F, I, F, I, F, P])
+        lib.sparse_sdca_zx_launch.restype = I
     elif name == "flash_attention":
         lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 6 + [F, P]
         lib.flash_attention_launch.restype = I

@@ -1,4 +1,5 @@
-// Shared pieces of the LocalSDCA kernels (local_sdca.cu, sparse_sdca.cu):
+// Shared pieces of the LocalSDCA kernels (local_sdca.cu,
+// sparse_sdca_pipelined.cu, sparse_sdca_zx.cu):
 // the closed-form coordinate update of every kernel-supported loss, the
 // soft-threshold of the fused prox, and the per-step block reduction.
 //

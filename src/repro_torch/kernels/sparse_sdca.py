@@ -1,16 +1,29 @@
-"""LocalSDCA over padded-ELL rows, with the fused prox: the CUDA kernel
-`csrc/sparse_sdca.cu` and its plain PyTorch version.
+"""LocalSDCA over padded-ELL rows, with the fused prox: the CUDA kernels
+`csrc/sparse_sdca_pipelined.cu` and `csrc/sparse_sdca_zx.cu`, and their
+plain PyTorch versions.
 
-Replaces the TPU kernel `repro/kernels/sparse_sdca.py::_sparse_sdca_kernel`
-(depth-1 buffering). One call runs one round for all K workers: per row an
+`sparse_local_sdca` replaces the TPU kernels `repro/kernels/sparse_sdca.py::
+_sparse_sdca_kernel` (buffer_depth 1) and `_sparse_sdca_pipelined_kernel`
+(buffer_depth >= 2) with one kernel templated on its ring depth: at depth 1
+each row is fetched in its own step, at depth >= 2 the next rows are
+prefetched. One call runs one round for all K workers: per row an
 r_max gather-dot `sum_r prox(u[c_r]) * v_r` (prox only when `prox_kappa`
 is set), `q = scale * sum_r v_r^2`, the closed-form update, then an r_max
 scatter-axpy into raw u. Padding slots (col 0, val 0) are exact no-ops and
 duplicate column ids in a row all land. With the prox fused the caller
 passes w = v, so u lives in v-space; du = u - w = scale * A_[k] dalpha.
+Every depth walks the same visit order and gives the same results.
 
-`sparse_local_sdca` launches the kernel for CUDA tensors and runs
-`sparse_local_sdca_plain` for CPU tensors. `LAUNCHES` counts launches.
+`sparse_local_sdca_zx` replaces `_sparse_sdca_zx_kernel`: the z-exchange
+schedule of a feature-sharded (data=K, model=M) mesh, on one card. Each
+invocation walks one block of `block_rows` rows of the visit order against
+the exchanged (model-summed) partial dots, with q from the global row
+norms, then emits the next block's partial dots at the updated u.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors. `LAUNCHES` counts the 1-D kernel's launches at
+depth 1 (the counterpart of `_sparse_sdca_kernel`), `PIPELINED_LAUNCHES`
+those at depth >= 2, `ZX_LAUNCHES` the zx kernel's.
 """
 from __future__ import annotations
 
@@ -21,9 +34,52 @@ import torch
 from ..core.losses import Loss
 from ..core.regularizers import soft_threshold
 from . import build
-from .local_sdca import check_u_fits, loss_code
+from .local_sdca import MAX_SMEM_BYTES, SCRATCH_BYTES, loss_code
 
-LAUNCHES = 0
+LAUNCHES = 0                # csrc/sparse_sdca_pipelined.cu at depth 1
+PIPELINED_LAUNCHES = 0      # the same kernel at depth >= 2
+ZX_LAUNCHES = 0             # csrc/sparse_sdca_zx.cu, one per invocation
+MAX_DEPTH = 8               # ring stages the 1-D kernel is built for
+
+
+def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
+                buffer_depth: int = 1, block_rows: int = 16,
+                zx: bool = False) -> dict:
+    """Dynamic shared memory one block of the launch uses, in bytes (the
+    counterpart of the reference's `vmem_budget`). The 1-D kernel holds u
+    (4 d), the reduction scratch and a ring of min(buffer_depth, nk) rows
+    (cols, vals, y, alpha, mask, dalpha and the row id); the zx kernel
+    keeps u in device memory and holds a coefficient and a row id per
+    block row."""
+    if zx:
+        u, ring, scratch = 0, 0, 8 * block_rows
+    else:
+        u, scratch = 4 * d, SCRATCH_BYTES
+        stages = min(buffer_depth, nk) if nk is not None else buffer_depth
+        ring = 4 * stages * (2 * r_max + 5)
+    total = u + ring + scratch
+    return dict(u_bytes=u, ring_bytes=ring, scratch_bytes=scratch,
+                total_bytes=total, fits=total <= MAX_SMEM_BYTES)
+
+
+def _enforce_smem(budget: dict, where: str) -> None:
+    """Reject a launch whose shared memory does not fit a block."""
+    if not budget["fits"]:
+        raise ValueError(
+            f"{where}: needs {budget['total_bytes']} bytes of shared memory "
+            f"per block (u {budget['u_bytes']}, ring {budget['ring_bytes']}, "
+            f"scratch {budget['scratch_bytes']}); the limit is "
+            f"{MAX_SMEM_BYTES} bytes")
+
+
+def _require(device, **tensors):
+    """Every tensor contiguous, on `device`, float32 (int32 for cols and
+    perm): what the kernels take."""
+    for name, t in tensors.items():
+        want = torch.int32 if name in ("cols", "perm") else torch.float32
+        if t.dtype != want or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{name} must be a contiguous {want} tensor on "
+                             f"{device}")
 
 
 def _check_shapes(cols, vals, y, alpha, mask, w, perm):
@@ -72,20 +128,26 @@ def sparse_local_sdca_plain(cols, vals, y, alpha, mask, w, scale, perm, *,
 
 def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
                       loss: Loss, n_passes: int = 1,
-                      prox_kappa: Optional[float] = None):
-    """One round of sparse LocalSDCA for all K workers: the CUDA kernel on
-    CUDA tensors, `sparse_local_sdca_plain` on CPU tensors.
+                      prox_kappa: Optional[float] = None,
+                      buffer_depth: int = 1):
+    """One round of sparse LocalSDCA for all K workers: on CUDA tensors the
+    kernel with a ring of buffer_depth rows (clamped to nk: see its source
+    note), which at depth >= 2 prefetches the next rows; on CPU tensors
+    `sparse_local_sdca_plain`, whatever the depth.
 
     cols (K, nk, r_max) int32 (padding col 0); vals (K, nk, r_max) f32
     (padding 0); y, alpha, mask (K, nk) f32; w (d,) f32; perm (K, nk) int32;
     scale = sigma'/(tau n). Returns (dalpha (K, nk), du (K, d)).
 
-    The kernel indexes with perm and cols unchecked: a range check here
+    The kernels index with perm and cols unchecked: a range check here
     would cost device syncs and a pass over cols every launch, so perm is
     checked on the host by `ops.perm_i32` and the column ids once where the
     shards are built (`data.sparse`)."""
     lid, g = loss_code(loss)
     K, nk, r_max, d = _check_shapes(cols, vals, y, alpha, mask, w, perm)
+    if not 1 <= buffer_depth <= MAX_DEPTH:
+        raise ValueError(f"buffer_depth must lie in [1, {MAX_DEPTH}], got "
+                         f"{buffer_depth}")
     if vals.device.type == "cpu":
         return sparse_local_sdca_plain(cols, vals, y, alpha, mask, w, scale,
                                        perm, loss=loss, n_passes=n_passes,
@@ -93,29 +155,167 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
     if vals.device.type != "cuda":
         raise ValueError(f"sparse_local_sdca runs on cuda or cpu, got "
                          f"{vals.device}")
-    for name, t in (("vals", vals), ("y", y), ("alpha", alpha),
-                    ("mask", mask), ("w", w)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != vals.device:
-            raise ValueError(f"{name} must be a contiguous float32 tensor "
-                             f"on {vals.device}")
-    for name, t in (("cols", cols), ("perm", perm)):
-        if t.dtype != torch.int32 or not t.is_contiguous() \
-                or t.device != vals.device:
-            raise ValueError(f"{name} must be a contiguous int32 tensor on "
-                             f"{vals.device}")
-    check_u_fits(d)
+    _require(vals.device, vals=vals, y=y, alpha=alpha, mask=mask, w=w,
+             cols=cols, perm=perm)
+    _enforce_smem(smem_budget(d=d, r_max=r_max, nk=nk,
+                              buffer_depth=buffer_depth),
+                  "sparse_local_sdca")
     dalpha = torch.zeros((K, nk), dtype=torch.float32, device=vals.device)
     du = torch.empty((K, d), dtype=torch.float32, device=vals.device)
-    lib = build.load("sparse_sdca")
-    code = lib.sparse_sdca_launch(
+    lib = build.load("sparse_sdca_pipelined")
+    depth = min(buffer_depth, nk)   # the ring never reaches past the pass
+    code = lib.sparse_sdca_pipelined_launch(
         cols.data_ptr(), vals.data_ptr(), y.data_ptr(), alpha.data_ptr(),
         mask.data_ptr(), w.data_ptr(), perm.data_ptr(), dalpha.data_ptr(),
         du.data_ptr(), K, nk, r_max, d, int(n_passes), float(scale), lid, g,
         int(prox_kappa is not None),
         float(prox_kappa) if prox_kappa is not None else 0.0,
-        torch.cuda.current_stream(vals.device).cuda_stream)
-    build.check(lib, "sparse_sdca", code)
-    global LAUNCHES
-    LAUNCHES += 1
+        depth, torch.cuda.current_stream(vals.device).cuda_stream)
+    build.check(lib, "sparse_sdca_pipelined", code)
+    global LAUNCHES, PIPELINED_LAUNCHES
+    if depth == 1:
+        LAUNCHES += 1
+    else:
+        PIPELINED_LAUNCHES += 1
     return dalpha, du
+
+
+# ----------------------------------------------------------------------------
+# the z-exchange schedule (feature-sharded, M model shards per worker)
+# ----------------------------------------------------------------------------
+
+def zx_exchanges(nk: int, block_rows: int, n_passes: int = 1) -> int:
+    """Model-axis exchanges of `block_rows` floats one zx round performs:
+    one per scheduled block (ceil(nk / block_rows) blocks a pass) plus the
+    prologue priming block 0 at u = w."""
+    return n_passes * (-(-nk // block_rows)) + 1
+
+
+def _check_zx_shapes(cols, vals, y, alpha, mask, w, sqnorms, perm):
+    if cols.dim() != 4 or tuple(vals.shape) != tuple(cols.shape):
+        raise ValueError(f"cols/vals must both be (K, M, nk, r_loc), got "
+                         f"{tuple(cols.shape)} and {tuple(vals.shape)}")
+    K, M, nk, r_loc = cols.shape
+    for name, t in (("y", y), ("alpha", alpha), ("mask", mask),
+                    ("sqnorms", sqnorms), ("perm", perm)):
+        if tuple(t.shape) != (K, nk):
+            raise ValueError(f"{name} must be {(K, nk)}, got "
+                             f"{tuple(t.shape)}")
+    if w.dim() != 1 or w.shape[0] % M:
+        raise ValueError(f"w must be the padded (M * d_local,) vector, got "
+                         f"{tuple(w.shape)} for M={M}")
+    return K, M, nk, r_loc, w.shape[0] // M
+
+
+def _block_rows_of(perm, nk: int, B: int, b: int):
+    """Row ids of block b of the visit order, (K, <= B) (the last ragged)."""
+    return perm[:, b * B:min((b + 1) * B, nk)]
+
+
+def zx_partial_dots(cols, vals, u, rows, prox_kappa: Optional[float] = None):
+    """Each shard's partial gather-dots of the rows `rows` (K, R) at u
+    (K, M, d_loc): (K, M, R). The prologue of both versions (block 0 at
+    u = w, as the reference's `z0`) and the plain version's next dots."""
+    K, M, nk, r_loc = cols.shape
+    R = rows.shape[1]
+    idx = rows.long()[:, None, :, None].expand(K, M, R, r_loc)
+    c = cols.gather(2, idx).long()
+    v = vals.gather(2, idx)
+    uv = u.gather(2, c.reshape(K, M, R * r_loc)).reshape(K, M, R, r_loc)
+    if prox_kappa is not None:
+        uv = soft_threshold(uv, prox_kappa)
+    return torch.sum(uv * v, dim=-1)
+
+
+def sparse_local_sdca_zx_plain(cols, vals, y, alpha, mask, w, scale,
+                               sqnorms, perm, *, loss: Loss,
+                               n_passes: int = 1, block_rows: int = 16,
+                               prox_kappa: Optional[float] = None):
+    """Plain PyTorch version: replays the reference's scan
+    (`sparse_local_sdca_zx` at repro/kernels/sparse_sdca.py:476) for all
+    (k, m) at once. The rows of a block update together against the
+    block's exchanged z; their scatter_add_ lands row after row, slot after
+    slot, as the reference's walk does."""
+    loss_code(loss)
+    K, M, nk, r_loc, d_loc = _check_zx_shapes(cols, vals, y, alpha, mask, w,
+                                              sqnorms, perm)
+    B = int(block_rows)
+    nb = -(-nk // B)
+    w3 = w.float().reshape(1, M, d_loc)
+    u = w3.expand(K, M, d_loc).clone()
+    dalpha = torch.zeros((K, nk), dtype=torch.float32, device=vals.device)
+    perm = perm.long()
+    z = zx_partial_dots(cols, vals, u, _block_rows_of(perm, nk, B, 0),
+                        prox_kappa)
+    for gi in range(n_passes * nb):
+        rows = _block_rows_of(perm, nk, B, gi % nb)
+        R = rows.shape[1]
+        z_ex = z[:, 0]
+        for m in range(1, M):                 # the psum, in a fixed order
+            z_ex = z_ex + z[:, m]
+        dai = dalpha.gather(1, rows)
+        delta = loss.cd_update(alpha.gather(1, rows) + dai, z_ex,
+                               scale * sqnorms.gather(1, rows),
+                               y.gather(1, rows)) * mask.gather(1, rows)
+        dalpha.scatter_(1, rows, dai + delta)
+        idx = rows[:, None, :, None].expand(K, M, R, r_loc)
+        c = cols.gather(2, idx).long().reshape(K, M, R * r_loc)
+        v = vals.gather(2, idx)
+        u.scatter_add_(2, c, ((scale * delta)[:, None, :, None] * v)
+                       .reshape(K, M, R * r_loc))
+        z = zx_partial_dots(cols, vals, u,
+                            _block_rows_of(perm, nk, B, (gi + 1) % nb),
+                            prox_kappa)
+    return dalpha, (u - w3).reshape(K, M * d_loc)
+
+
+def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
+                         perm, *, loss: Loss, n_passes: int = 1,
+                         block_rows: int = 16,
+                         prox_kappa: Optional[float] = None):
+    """One round of the z-exchange schedule for all K workers and M model
+    shards: on CUDA tensors n_passes * ceil(nk / block_rows) launches of
+    the zx kernel (the loop runs in its C launcher), on CPU tensors
+    `sparse_local_sdca_zx_plain`.
+
+    cols/vals (K, M, nk, r_loc) with shard-local ids (a `FeatureShards`);
+    y, alpha, mask (K, nk) f32; w the padded (M d_local,) f32 vector;
+    sqnorms (K, nk) the global row norms; perm (K, nk) int32, the visit
+    order every shard of worker k walks. Returns (dalpha (K, nk),
+    du (K, M d_local))."""
+    lid, g = loss_code(loss)
+    K, M, nk, r_loc, d_loc = _check_zx_shapes(cols, vals, y, alpha, mask, w,
+                                              sqnorms, perm)
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    if vals.device.type == "cpu":
+        return sparse_local_sdca_zx_plain(
+            cols, vals, y, alpha, mask, w, scale, sqnorms, perm, loss=loss,
+            n_passes=n_passes, block_rows=block_rows, prox_kappa=prox_kappa)
+    if vals.device.type != "cuda":
+        raise ValueError(f"sparse_local_sdca_zx runs on cuda or cpu, got "
+                         f"{vals.device}")
+    _require(vals.device, vals=vals, y=y, alpha=alpha, mask=mask, w=w,
+             sqnorms=sqnorms, cols=cols, perm=perm)
+    B = int(block_rows)
+    _enforce_smem(smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True),
+                  "sparse_local_sdca_zx")
+    w3 = w.reshape(1, M, d_loc)
+    u = w3.expand(K, M, d_loc).contiguous()
+    dalpha = torch.zeros((K, M, nk), dtype=torch.float32, device=vals.device)
+    zbuf = torch.zeros((2, K, M, B), dtype=torch.float32, device=vals.device)
+    z0 = zx_partial_dots(cols, vals, u, _block_rows_of(perm, nk, B, 0),
+                         prox_kappa)
+    zbuf[0, :, :, :z0.shape[2]] = z0
+    lib = build.load("sparse_sdca_zx")
+    code = lib.sparse_sdca_zx_launch(
+        cols.data_ptr(), vals.data_ptr(), y.data_ptr(), alpha.data_ptr(),
+        mask.data_ptr(), sqnorms.data_ptr(), perm.data_ptr(), u.data_ptr(),
+        dalpha.data_ptr(), zbuf.data_ptr(), K, M, nk, r_loc, d_loc, B,
+        int(n_passes), float(scale), lid, g, int(prox_kappa is not None),
+        float(prox_kappa) if prox_kappa is not None else 0.0,
+        torch.cuda.current_stream(vals.device).cuda_stream)
+    build.check(lib, "sparse_sdca_zx", code)
+    global ZX_LAUNCHES
+    ZX_LAUNCHES += int(n_passes) * (-(-nk // B))
+    return dalpha[:, 0].contiguous(), (u - w3).reshape(K, M * d_loc)

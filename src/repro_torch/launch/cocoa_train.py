@@ -7,6 +7,11 @@
     PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
         --dataset rcv1_sparse --solver sdca_kernel --rounds 40
 
+    # 2-D (data x model) mesh on one card: 4 workers x 2 feature shards of
+    # w, the sparse kernel's z-exchange schedule
+    PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
+        --dataset rcv1_sparse --mesh 4x2 --solver sdca_kernel --rounds 40
+
 Same flags as `repro.launch.cocoa_train`, plus `--device` (default cuda;
 `--device cpu` runs the plain PyTorch versions). The default `--solver
 sdca` runs the eager twin, as the reference's default runs its jnp solver;
@@ -21,8 +26,10 @@ from typing import Optional, Sequence
 
 from ..core import CoCoAConfig, primal_w, solve
 from ..core.regularizers import get_regularizer
-from ..data import DATASETS, load, partition, partition_sparse
+from ..data import DATASETS, FeatureShards, load, partition, \
+    partition_sparse
 from ..device import resolve_device
+from .mesh import make_test_mesh
 
 # flag -> (value that is ported, ROADMAP.md item that ports the rest)
 _UNPORTED = {
@@ -30,8 +37,6 @@ _UNPORTED = {
     "topology": ("flat", "Queue 1 item 8 (comm: the rest of the wire stack)"),
     "gather": (False, "Queue 1 item 8 (comm: the rest of the wire stack)"),
     "accel": ("none", "Queue 1 item 9 (core/accel.py)"),
-    "mesh": ("", "Queue 1 item 10 (multi-process backend)"),
-    "backend": ("vmap", "Queue 1 item 10 (multi-process backend)"),
     "ckpt": ("", "Queue 1 item 12 (runtime, checkpoint)"),
     "simulate_failure": (0, "Queue 1 item 12 (runtime, checkpoint)"),
     "simulate_straggler": (-1, "Queue 1 item 12 (runtime, checkpoint)"),
@@ -72,7 +77,10 @@ def parser() -> argparse.ArgumentParser:
                              "sdca_sparse_kernel", "gd", "sdca_deadline"])
     ap.add_argument("--accel", default="none")
     ap.add_argument("--backend", default="vmap", choices=["vmap", "shard_map"])
-    ap.add_argument("--mesh", default="")
+    ap.add_argument("--mesh", default="",
+                    help="'KxM' (data x model) mesh on one card: K workers, "
+                         "w in M feature shards (sets --workers K and "
+                         "--backend shard_map)")
     ap.add_argument("--format", default="auto",
                     choices=["auto", "dense", "sparse"])
     ap.add_argument("--ckpt", default="")
@@ -107,19 +115,37 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         get_regularizer(args.reg)
     except (KeyError, ValueError) as e:
         raise SystemExit(f"--reg: {e}")
+    M = 1
+    if args.mesh:
+        try:
+            K_mesh, M = (int(v) for v in args.mesh.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--mesh wants 'KxM', got {args.mesh!r}")
+        if K_mesh < 1 or M < 1:
+            raise SystemExit(f"--mesh axes must be >= 1, got {args.mesh}")
+        args.workers = K_mesh
+        args.backend = "shard_map"
     device = resolve_device(args.device)
 
     spec = DATASETS[args.dataset]
     fmt = spec.format if args.format == "auto" else args.format
+    if M > 1 and fmt != "sparse":
+        raise SystemExit(f"--mesh {args.mesh} feature-shards w, which "
+                         f"dense data cannot do in repro_torch yet: "
+                         f"ROADMAP.md Queue 1 item 10 (dense M > 1)")
     K = args.workers
     if fmt == "sparse":
         if spec.format != "sparse":
             raise SystemExit(f"--format sparse needs a sparse dataset spec; "
                              f"{args.dataset!r} is {spec.format}")
         csr, y = load(args.dataset)
-        Xp, yp, mk = partition_sparse(csr, y, K, seed=0, device=device)
-        print(f"sparse shards: nnz/row r_max={Xp.r_max} "
-              f"density={csr.density:.4g} d={Xp.d}")
+        Xp, yp, mk = partition_sparse(csr, y, K, seed=0, M=M, device=device)
+        if isinstance(Xp, FeatureShards):
+            print(f"sparse feature shards: M={M} d_local={Xp.d_local} "
+                  f"r_loc={Xp.r_loc} density={csr.density:.4g} d={Xp.d}")
+        else:
+            print(f"sparse shards: nnz/row r_max={Xp.r_max} "
+                  f"density={csr.density:.4g} d={Xp.d}")
     else:
         X, y = load(args.dataset)
         if spec.format == "sparse":
@@ -127,7 +153,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         Xp, yp, mk = partition(X, y, K, seed=0, device=device)
 
     common = dict(loss=args.loss, lam=args.lam, H=args.H, solver=args.solver,
-                  reg=args.reg)
+                  reg=args.reg, backend=args.backend,
+                  model_axis="model" if M > 1 else None)
     if args.aggregator:
         cfg = CoCoAConfig(aggregator=args.aggregator, **common)
     elif args.gamma == "add":
@@ -135,8 +162,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     else:
         cfg = CoCoAConfig.averaging(K, **common)
 
+    mesh = None
+    if args.backend == "shard_map":
+        mesh = (make_test_mesh((K, M), ("data", "model"), device) if M > 1
+                else make_test_mesh((K,), ("data",), device))
     r = solve(cfg, Xp, yp, mk, rounds=args.rounds, eps_gap=args.eps,
-              gap_every=1)
+              gap_every=1, mesh=mesh)
     hist = r.history
     for t, gap, ex in zip(hist["round"], hist["gap"], hist["execute_s"]):
         print(f"round {t}: gap={gap:.3e} execute_s={ex:.4f}")
@@ -149,7 +180,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"final: rounds={hist['round'][-1]} gap={hist['gap'][-1]:.3e} "
           f"primal={hist['primal'][-1]:.6g} dual={hist['dual'][-1]:.6g} "
           f"comm={hist['comm_floats'][-1] // hist['round'][-1]} floats/round "
-          f"device={device}")
+          f"device={device}{f' mesh={K}x{M}' if M > 1 else ''}")
     return hist
 
 

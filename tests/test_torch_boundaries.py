@@ -94,8 +94,8 @@ def test_cli_dense_default_solver_on_cpu(capsys):
     (["--topology", "hier:2"], "item 8"),
     (["--gather"], "item 8"),
     (["--accel", "nesterov"], "item 9"),
-    (["--mesh", "2x2"], "item 10"),
-    (["--backend", "shard_map"], "item 10"),
+    (["--mesh", "2x2"], "item 10"),                 # dense M > 1
+    (["--mesh", "2x2", "--topology", "hier:2"], "item 8"),
     (["--ckpt", "ckpt_dir"], "item 12"),
     (["--simulate-failure", "3"], "item 12"),
     (["--simulate-straggler", "1"], "item 12"),
@@ -109,3 +109,19 @@ def test_cli_dense_default_solver_on_cpu(capsys):
 def test_cli_unported_flags_name_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
         cocoa_train.main(["--device", "cpu", "--dataset", "tiny", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "2x2", "--solver", "sdca_sparse_kernel"],
+    ["--mesh", "2x2", "--solver", "sdca"],
+    ["--backend", "shard_map", "--solver", "sdca_kernel"],
+])
+def test_cli_mesh_and_backend_run_on_tiny_sparse(capsys, flags):
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", "tiny_sparse",
+                             "--rounds", "3", "--H", "256", "--lam", "1e-3",
+                             "--eps", "0", *flags])
+    out = capsys.readouterr().out
+    gaps = hist["gap"]
+    assert len(gaps) == 3 and all(b < a for a, b in zip(gaps, gaps[1:]))
+    if "--mesh" in flags:
+        assert "sparse feature shards: M=2" in out and "mesh=2x2" in out

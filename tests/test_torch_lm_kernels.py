@@ -153,10 +153,12 @@ def test_build_hashes_each_kernel_with_its_own_headers():
     from repro_torch.kernels import build
     assert {k: [p.name for p in build.sources(k)] for k in build.KERNELS} == {
         "local_sdca": ["local_sdca.cu", "sdca_common.cuh"],
-        "sparse_sdca": ["sparse_sdca.cu", "sdca_common.cuh"],
+        "sparse_sdca_pipelined": ["sparse_sdca_pipelined.cu",
+                                  "sdca_common.cuh"],
+        "sparse_sdca_zx": ["sparse_sdca_zx.cu", "sdca_common.cuh"],
         "flash_attention": ["flash_attention.cu"],
         "ssm_scan": ["ssm_scan.cu"]}
-    assert len({build._target(k).name for k in build.KERNELS}) == 4
+    assert len({build._target(k).name for k in build.KERNELS}) == 5
 
 
 def test_flash_smem_fits_every_head_dim():

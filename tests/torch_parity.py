@@ -113,3 +113,41 @@ def tree_to_numpy(tree):
     if arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
     return arr
+
+
+def reference_in_child(code: str, *, devices: int = 4,
+                       timeout: int = 600) -> dict:
+    """Run reference code in a child process with `devices` forced host
+    devices (a mesh the parent's single CPU device cannot give) and return
+    the numpy arrays it saves.
+
+    The child starts from the repo root and imports the root `conftest`
+    first, so the jax 0.9 shim is in place before `repro` loads. `code`
+    fills a dict `out` of arrays; the child saves it as an .npz, which this
+    returns as a dict."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import textwrap
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.npz")
+        script = ("import conftest\nimport numpy as np\nout = {}\n"
+                  + textwrap.dedent(code)
+                  + f"\nnp.savez({path!r}, **out)\n")
+        env = dict(os.environ)
+        env["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count="
+                            f"{devices}")
+        env["JAX_PLATFORMS"] = "cpu"
+        env["PYTHONPATH"] = os.pathsep.join([os.path.join(root, "src"),
+                                             root])
+        p = subprocess.run([sys.executable, "-c", script], cwd=root,
+                           env=env, capture_output=True, text=True,
+                           timeout=timeout)
+        if p.returncode != 0:
+            raise RuntimeError(f"reference child failed (exit "
+                               f"{p.returncode}):\n{p.stderr[-4000:]}")
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
