@@ -10,16 +10,22 @@ order, each failing the run with a non-zero exit:
   2. build     the five kernel sources in csrc/, one nvcc each, in
                parallel, with -Xptxas -v's registers and shared memory
                (six kernels: the 1-D sparse source is rows 2 and 3 of the
-               kernel table, at ring depth 1 and at depth >= 2)
+               kernel table, at ring depth 1 and at depth >= 2); each
+               library's shared-memory layout against the wrappers'
+               budgets; cuobjdump -sass of flash attention: HMMA (tensor
+               core) instructions in every bfloat16 instance
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the real widths (d = 2,000 dense, d = 47,236 sparse) and a cut
                row count, every closed-form loss, prox on and off, rows with
                duplicate column ids and column-0 entries next to padding;
                the sparse kernel at depths 2-4 (nk below and above the
                depth) also bit for bit against itself at depth 1 on rows
-               with unique column ids; the z-exchange kernel at M = 1, 2, 4
-               and B = 1, 16 with a ragged last block, and at B = 1, M = 1
-               against the sparse kernel at depth 1
+               with unique column ids; the z-exchange kernel (one launch a
+               round, a cluster of M blocks per worker) at M = 1, 2, 4, 8,
+               B = 1, 16, 128 with ragged last blocks, 1-3 passes, one and
+               two blocks a pass, u in shared memory and (d_loc = 65,536)
+               in device memory, and at B = 1, M = 1 against the sparse
+               kernel at depth 1
   4. sparse    the main path (`solve`, sdca_sparse_kernel) at rcv1's
                published shape, 677,399 x 47,236 at density 0.0016, K = 8,
                hinge, lambda = 1e-6, after a small-input cross-check of the
@@ -37,7 +43,9 @@ order, each failing the run with a non-zero exit:
                on the host clock
   7. lm-kernels  flash attention and the selective scan against their plain
                versions on the card at cut shapes: GQA, MQA, softcap, ragged
-               tails, float32 and bfloat16, head_dim 64, 128 and 256; scan
+               tails, float32 and bfloat16, head_dim 64, 128 and 256; the
+               bfloat16 (tensor-core) instance at head_dim 32-256 and S = 1,
+               63, 64, 65, 200, 1,345, GQA 4, MQA, softcap 50; scan
                d_inner 256 and 8,192, N = 16, ragged S
   8. serve     the LM serving path: stablelm-1.6b at full width and depth
                (24 layers, d_model 2,048, 32 x 64 heads, vocab 100,352,
@@ -70,11 +78,12 @@ order, each failing the run with a non-zero exit:
                card against CPU, phase 4's CSR partitioned K = 4, M = 2 (the
                reference's --mesh 4x2) and solved through `solve` on
                `make_test_mesh((4, 2))` with sdca_sparse_kernel, 5 rounds:
-               the z-exchange kernel, n_passes * nb launches a round
+               the z-exchange kernel, one launch a round of n_passes * nb
+               steps
  13. new-times the depth-1 walk and the zx kernel against their plain
                versions on their paths' next-round inputs (phase 11's are
                phase 4's, so phase 6's plain result serves), times beside
-               the bounds
+               the bounds; the zx kernel's ms a round and us a step
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -138,7 +147,7 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels import build, flash_attention as fa
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     infos = build.build_all()
     log(f"[2 build] {len(infos)} kernels in "
@@ -149,18 +158,77 @@ def phase_build():
     for info in infos.values():
         log(f"  {info.name}: nvcc {info.seconds:.2f} s -> {info.path.name}")
         for line in info.log.splitlines():
-            if any(k in line for k in ("registers", "smem", "Compiling")):
+            if any(k in line for k in ("registers", "smem", "Compiling",
+                                       "spill")):
                 log(f"    {line.strip()}")
     log(f"  dynamic shared memory per block, limit 232448 B: local_sdca "
         f"{SCRATCH_BYTES} + 4 d bytes (d=2000: {SCRATCH_BYTES + 8000} B)")
     log(f"  sparse_sdca_pipelined: {SCRATCH_BYTES} + 4 d + 4 depth "
         f"(2 r_max + 5) bytes (d=47236, r_max=118: " + ", ".join(
             f"depth {k}: {SCRATCH_BYTES + 4 * 47236 + 4 * k * 241} B"
-            for k in DEPTHS) + "); sparse_sdca_zx: 8 block_rows bytes "
-        "(128 B at 16; u stays in device memory)")
-    log("  flash_attention dynamic shared memory per block: " + ", ".join(
-        f"hd={hd}: {fa.smem_bytes(hd)} B" for hd in fa.HEAD_DIMS)
-        + "; ssm_scan: static only (the smem line above)")
+            for k in DEPTHS) + ")")
+    _layouts()
+    _tensor_cores(infos["flash_attention"].path)
+
+
+def _layouts():
+    """Each library's shared-memory layout against its wrapper's budget:
+    flash at every (head dim, dtype), the zx kernel at rcv1's 4 x 2 shape
+    (u in shared memory) and at d_loc = 65,536 (u in device memory)."""
+    from repro_torch.kernels import build, flash_attention as fa
+    from repro_torch.kernels import sparse_sdca as sk
+    lib = build.load("flash_attention")
+    for dt, code in fa.DTYPES.items():
+        got = {hd: lib.flash_attention_smem_bytes(hd, code)
+               for hd in fa.HEAD_DIMS}
+        want = {hd: fa.smem_bytes(hd, dt) for hd in fa.HEAD_DIMS}
+        log(f"  flash_attention {str(dt)[6:]} dynamic shared memory per "
+            f"block: " + ", ".join(f"hd={hd}: {b} B" for hd, b in got.items())
+            + f" (the wrapper's smem_bytes: {'equal' if got == want else want})")
+        if got != want:
+            fail("flash_attention's shared memory differs from smem_bytes")
+    lib = build.load("sparse_sdca_zx")
+    for K, M, nk, d_loc, B, r in ((4, 2, 169_350, 23_618, 16, 70),
+                                  (8, 1, 84_675, 65_536, 16, 118)):
+        plan = sk.zx_launch_plan(K, M, nk, d_loc, B, r_loc=r)
+        got = lib.sparse_sdca_zx_smem_bytes(B, r, d_loc,
+                                            int(plan["u_in_smem"]))
+        fit = sk._zx_clusters_fit(lib, M, B, r, d_loc, plan["u_in_smem"])
+        log(f"  sparse_sdca_zx at K={K} M={M} d_local={d_loc} B={B} "
+            f"r_loc={r}: {plan['launches']} launch of {K} clusters of {M}, "
+            f"{plan['steps']} steps; u in "
+            f"{'shared' if plan['u_in_smem'] else 'device'} memory; {got} B "
+            f"of shared memory per block (smem_budget: "
+            f"{plan['smem_bytes']}); clusters resident at once: {fit}")
+        if got != plan["smem_bytes"] or fit < 1:
+            fail(f"sparse_sdca_zx layout or cluster fit: {got}, {plan}, {fit}")
+
+
+def _tensor_cores(path):
+    """Count HMMA (tensor-core) instructions per kernel in the flash
+    library's SASS; every bfloat16 instance (flash_tc_kernel) must have
+    them."""
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    tc = {k: v for k, v in counts.items() if "flash_tc_kernel" in k}
+    simt = {k: v for k, v in counts.items() if "flash_tc_kernel" not in k}
+    log(f"  flash_attention SASS: HMMA per bfloat16 instance "
+        f"{sorted(tc.values())}, per float32 (SIMT) instance "
+        f"{sorted(simt.values())}")
+    if len(tc) != 4 or not all(tc.values()):
+        fail(f"flash_attention's bfloat16 instances lack tensor-core "
+             f"instructions: {tc}")
 
 
 def _errors(got, want, atol=ATOL, rtol=RTOL):
@@ -366,31 +434,58 @@ def _cut_pipelined(rng, dev, sparse_in, scale, bad):
 
 
 def _cut_zx(rng, dev, scale, bad):
-    """The z-exchange kernel at cut shapes against its plain version, at
-    M = 1, 2, 4 and B = 1, 16 (nk = 1,000: B = 16 leaves a ragged last
-    block), and at B = 1, M = 1 against the depth-1 kernel. Returns the
-    max (abs, rel) errors against the plain version."""
-    import numpy as np
+    """The z-exchange kernel at cut shapes against its plain version: M =
+    1, 2, 4, 8 and B = 1, 16, 128 at nk = 1,000 (B = 16 and 128 leave a
+    ragged last block), 1-3 passes, prox on and off; one and two blocks a
+    pass (nk = 100 and 200 at B = 128); one, two and three at B = 1 (nk =
+    1, 2, 3, three passes); u in device memory (d_loc = 65,536 at M = 1);
+    and at B = 1, M = 1 against the depth-1 kernel.
+    Returns the max (abs, rel) errors against the plain version."""
     import torch
     from repro_torch.core.losses import get_loss
     from repro_torch.data.sparse import SparseShards, shard_features
     from repro_torch.kernels import sparse_sdca as sk
-    K, nk, d, r_max = 4, 1000, 47_236, 128
-    cols, vals, nnz = _ell(rng, K, nk, d, r_max)
-    base = _rows_case(rng, cols, vals, d, dev)
+
+    def rows(K, nk, d, r_max):
+        cols, vals, nnz = _ell(rng, K, nk, d, r_max)
+        ins = _rows_case(rng, cols, vals, d, dev)
+        return SparseShards(ins[0], ins[1], torch.from_numpy(nnz).to(dev),
+                            d=d), ins
+
     worst = [0.0, 0.0]
-    sh = SparseShards(base[0], base[1], torch.from_numpy(nnz).to(dev), d=d)
+    sh, base = rows(4, 1000, 47_236, 128)
     cases = [(M, B, loss_name, kappa, 2 if B > 1 else 1)
              for M in (1, 2, 4) for B, loss_name, kappa in (
                  (1, "hinge", None), (16, "smooth_hinge", 0.5))]
     cases += [(2, 16, loss_name, kappa, 2)
               for loss_name in ("hinge", "squared", "absolute")
               for kappa in (None, 0.5)]
-    for M, B, loss_name, kappa, n_passes in cases:
-        fs = shard_features(sh, M)
-        w = torch.nn.functional.pad(base[5], (0, fs.d_padded - d))
+    cases += [(8, 16, "hinge", 0.5, 2), (8, 128, "squared", None, 3),
+              (8, 1, "smooth_hinge", None, 1), (4, 128, "absolute", 0.5, 1),
+              (2, 128, "hinge", None, 3), (2, 1, "hinge", 0.5, 2),
+              (8, 1, "squared", None, 3)]
+    runs = [(f"M={case[0]} B={case[1]:3d} nk=1000", sh, base, *case)
+            for case in cases]
+    # B = 1 with one, two and three blocks a pass: dalpha prefetched two
+    # blocks ahead reads rows the previous pass (or step) wrote
+    for nk, M, loss_name, kappa in ((1, 2, "hinge", 0.5),
+                                    (2, 4, "squared", None),
+                                    (3, 2, "smooth_hinge", None)):
+        runs.append((f"M={M} B=  1 nk={nk}", *rows(4, nk, 47_236, 128), M, 1,
+                     loss_name, kappa, 3))
+    for nk, loss_name, kappa in ((100, "hinge", 0.5), (200, "squared", None)):
+        runs.append((f"M=2 B=128 nk={nk}", *rows(4, nk, 47_236, 128), 2, 128,
+                     loss_name, kappa, 3))
+    wide = rows(2, 300, 65_536, 64)
+    runs += [(f"M=1 B={B:3d} d_loc=65536 (u in device memory)", *wide, 1, B,
+              loss_name, kappa, 2)
+             for B, loss_name, kappa in ((16, "hinge", 0.5),
+                                         (1, "smooth_hinge", None))]
+    for what, sh_, ins, M, B, loss_name, kappa, n_passes in runs:
+        fs = shard_features(sh_, M)
+        w = torch.nn.functional.pad(ins[5], (0, fs.d_padded - fs.d))
         sq = torch.sum(fs.vals * fs.vals, dim=(1, 3))
-        args = (fs.cols, fs.vals, *base[2:5], w, scale, sq, base[6])
+        args = (fs.cols, fs.vals, *ins[2:5], w, scale, sq, ins[6])
         kw = dict(loss=get_loss(loss_name), n_passes=n_passes, block_rows=B,
                   prox_kappa=kappa)
         got = sk.sparse_local_sdca_zx(*args, **kw)
@@ -399,11 +494,11 @@ def _cut_zx(rng, dev, scale, bad):
         for part, g, p in zip(("dalpha", "du"), got, want):
             a, r, ok = _errors(g, p)
             worst = [max(worst[0], a), max(worst[1], r)]
-            log(f"  zx M={M} B={B:2d} {loss_name:12s} kappa={kappa} "
+            log(f"  zx {what} {loss_name:12s} kappa={kappa} "
                 f"passes={n_passes} {part:6s} max_abs={a:.3e} "
                 f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
-                bad.append(f"zx M={M} B={B} {loss_name} {part}")
+                bad.append(f"zx {what} {loss_name} {part}")
     fs = shard_features(sh, 1)
     hinge = get_loss("hinge")
     zx = sk.sparse_local_sdca_zx(fs.cols, fs.vals, *base[2:6], scale,
@@ -740,9 +835,11 @@ def _counts_zero():
         mod.LAUNCHES = 0
     sk.PIPELINED_LAUNCHES = 0
     sk.ZX_LAUNCHES = 0
+    sk.ZX_STEPS = 0
     return lambda: {"local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
                     "sparse_sdca_pipelined": sk.PIPELINED_LAUNCHES,
                     "sparse_sdca_zx": sk.ZX_LAUNCHES,
+                    "sparse_sdca_zx_steps": sk.ZX_STEPS,
                     "flash_attention": fa.LAUNCHES,
                     "ssm_scan": ss.LAUNCHES}
 
@@ -812,19 +909,29 @@ def phase_lm_kernels(dev):
         if not ok:
             bad.append(what)
 
-    for B, S, H, KV, hd, cap in ((2, 256, 8, 2, 64, None),      # GQA
-                                 (1, 200, 8, 1, 128, None),     # MQA, ragged
-                                 (2, 192, 4, 4, 64, 50.0),      # softcap
-                                 (1, 130, 4, 2, 256, None)):    # hd 256
-        for dtype in ("float32", "bfloat16"):
-            dt = getattr(torch, dtype)
-            q = _rand(rng, (B, S, H, hd), dev, dt)
-            k, v = (_rand(rng, (B, S, KV, hd), dev, dt) for _ in range(2))
-            note("flash_attention", f"flash B={B} S={S} H={H} KV={KV} "
-                 f"hd={hd} softcap={cap} {dtype}",
-                 fa.flash_attention(q, k, v, softcap=cap),
-                 fa.flash_attention_plain(q, k, v, softcap=cap),
-                 *FLASH_TOL[dtype])
+    cases = [(B, S, H, KV, hd, cap, dtype)
+             for B, S, H, KV, hd, cap in ((2, 256, 8, 2, 64, None),  # GQA
+                                          (1, 200, 8, 1, 128, None),  # MQA
+                                          (2, 192, 4, 4, 64, 50.0),  # softcap
+                                          (1, 130, 4, 2, 256, None))  # hd 256
+             for dtype in ("float32", "bfloat16")]
+    # the bfloat16 (tensor-core) instance at every head dim: S around the
+    # 64-row tile and a prefill's length at GQA 4, then MQA and softcap 50
+    cases += [(1, S, 8, 2, hd, None, "bfloat16") for hd in (32, 64, 128, 256)
+              for S in (1, 63, 64, 65, 200, 1345)]
+    cases += [(2, 130, 8, 1, hd, None, "bfloat16") for hd in (32, 64, 128,
+                                                              256)]
+    cases += [(1, 200, 4, 4, hd, 50.0, "bfloat16") for hd in (32, 64, 128,
+                                                              256)]
+    for B, S, H, KV, hd, cap, dtype in cases:
+        dt = getattr(torch, dtype)
+        q = _rand(rng, (B, S, H, hd), dev, dt)
+        k, v = (_rand(rng, (B, S, KV, hd), dev, dt) for _ in range(2))
+        note("flash_attention", f"flash B={B} S={S} H={H} KV={KV} hd={hd} "
+             f"softcap={cap} {dtype}",
+             fa.flash_attention(q, k, v, softcap=cap),
+             fa.flash_attention_plain(q, k, v, softcap=cap),
+             *FLASH_TOL[dtype])
     for B, S, di, N in ((2, 300, 256, 16), (1, 130, 8192, 16)):
         ins = _scan_case(rng, B, S, di, N, dev)
         note("ssm_scan", f"ssm_scan B={B} S={S} di={di} N={N}",
@@ -1257,16 +1364,19 @@ def phase_mesh2d(dev, csr_y):
     _check_gaps("rcv1 4x2 sdca_sparse_kernel zx", r.history, rounds)
     if not (used["zx"] is True and used["model_shards"] == M):
         fail(f"phase 12 did not run the z-exchange schedule: {used}")
-    if launches["sparse_sdca_zx"] != rounds * per_round or any(
-            launches[k] for k in ("local_sdca", "sparse_sdca",
-                                  "sparse_sdca_pipelined")):
-        fail(f"phase 12 launched {launches}, expected {rounds} x "
-             f"{per_round} zx launches")
+    if launches["sparse_sdca_zx"] != rounds or \
+            launches["sparse_sdca_zx_steps"] != rounds * per_round or any(
+                launches[k] for k in ("local_sdca", "sparse_sdca",
+                                      "sparse_sdca_pipelined")):
+        fail(f"phase 12 launched {launches}, expected {rounds} zx launches "
+             f"of {per_round} steps each")
     ex = r.history["execute_s"]
-    log(f"  {per_round} launches a round (n_passes {plan['n_passes']} x "
-        f"{plan['blocks']} blocks of {plan['block_rows']}); execute_s per "
-        f"round " + ", ".join(f"{e:.4f}" for e in ex) + "; us per launch "
+    log(f"  1 launch a round of {per_round} steps (n_passes "
+        f"{plan['n_passes']} x {plan['blocks']} blocks of "
+        f"{plan['block_rows']}); execute_s per round "
+        + ", ".join(f"{e:.4f}" for e in ex) + "; us per step "
         + ", ".join(f"{1e6 * e / per_round:.3f}" for e in ex)
+        + f"; gaps " + " ".join(f"{g:.5f}" for g in r.history["gap"])
         + f"; comm_floats per round {r.history['comm_floats'][0]}")
     del csr
     return {"fs": fs, "yp": yp, "mk": mk, "r": r, "cfg": cfg,
@@ -1316,10 +1426,12 @@ def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
     inv = mesh["per_round"]
     zx_nnz = int(fs.nnz.sum())
     # each pass reads every nonzero once (col id and value: a block's rows
-    # are read again as the next launch's walk, from L2); per launch the z
-    # vectors (M read, one written); once a round the rows' y, alpha, mask,
-    # sqnorms, perm and dalpha, w and du. Per nonzero and pass, the
-    # scatter's and the next partial dot's multiply-adds
+    # are read again as the next step's walk); per step the z vectors (M
+    # read, one written -- counted though the one-launch kernel keeps them
+    # in shared memory: the bound is the work's, not an implementation's);
+    # once a round the rows' y, alpha, mask, sqnorms, perm and dalpha, w
+    # and du. Per nonzero and pass, the scatter's and the next partial
+    # dot's multiply-adds
     nbytes = (n_passes * 8 * zx_nnz + inv * K * M * B * (M + 1) * 4
               + 4 * (6 * K * nk + M * fs.d_local + K * M * fs.d_local))
     flops = n_passes * 4 * zx_nnz
@@ -1331,8 +1443,10 @@ def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
         cut_errs["sparse_sdca_zx"], ms, errs[2], None, nbytes, flops,
         F32_FLOPS_PER_S, "67 TFLOP/s f32",
         f"K={K} M={M} nk={nk} r_loc={r_loc} d_local={fs.d_local} B={B} "
-        f"(one call: {inv} launches)", rounds=rounds,
-        us_per_launch=1e3 * ms / inv))
+        f"(one call: 1 launch of {inv} steps)", rounds=rounds,
+        steps_per_round=inv, us_per_step=1e3 * ms / inv))
+    log(f"  sparse_sdca_zx: {ms:.3f} ms a round, 1 launch, {inv} steps, "
+        f"{1e3 * ms / inv:.3f} us a step")
     return rows
 
 

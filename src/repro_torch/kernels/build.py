@@ -135,11 +135,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.sparse_sdca_pipelined_launch.restype = I
     elif name == "sparse_sdca_zx":
         lib.sparse_sdca_zx_launch.argtypes = ([P] * 10 + [I] * 7
-                                              + [F, I, F, I, F, P])
+                                              + [F, I, F, I, F, I, P])
         lib.sparse_sdca_zx_launch.restype = I
+        lib.sparse_sdca_zx_smem_bytes.argtypes = [I] * 4
+        lib.sparse_sdca_zx_smem_bytes.restype = ctypes.c_longlong
+        lib.sparse_sdca_zx_max_clusters.argtypes = [I] * 5 + [
+            ctypes.POINTER(I)]
+        lib.sparse_sdca_zx_max_clusters.restype = I
     elif name == "flash_attention":
         lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 6 + [F, P]
         lib.flash_attention_launch.restype = I
+        lib.flash_attention_smem_bytes.argtypes = [I, I]
+        lib.flash_attention_smem_bytes.restype = I
     elif name == "ssm_scan":
         lib.ssm_scan_launch.argtypes = [P] * 7 + [I] * 4 + [P]
         lib.ssm_scan_launch.restype = I

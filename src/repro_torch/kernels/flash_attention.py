@@ -10,7 +10,9 @@ not padded.
 
 `flash_attention` launches the kernel for CUDA tensors and runs
 `flash_attention_plain` for CPU tensors; there is no fallback between the
-two. `LAUNCHES` counts kernel launches.
+two. The kernel has two instances, picked by dtype: bfloat16 on tensor
+cores (mma.sync, 16-byte aligned inputs), float32 on SIMT FMAs (tensor
+cores would round float32 to TF32). `LAUNCHES` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -22,15 +24,31 @@ from . import build
 
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64                 # q rows per block, keys per tile (BQ, BK in the .cu)
+# q rows per block of both kernels; keys per tile of the plain version and
+# of the kernels but the bf16 one at hd 256 (BQ, BK and kv_tile in the .cu)
+TILE = 64
 NEG = -1e30
+PAD = 8                   # bf16 elements padding a row of the bf16 tiles
 
 LAUNCHES = 0
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block (`smem_floats` in the .cu)."""
-    return 4 * (2 * TILE * (hd + 1) + TILE * hd + TILE * (TILE + 1))
+def kv_tile(hd: int, dtype: torch.dtype) -> int:
+    """Keys per K/V tile of the kernel instance: 64, but 32 for the
+    bfloat16 instance at hd 256 (its registers would not hold more)."""
+    return 32 if dtype == torch.bfloat16 and hd >= 256 else TILE
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the (hd, dtype) instance
+    (`simt::smem_floats` and `tc::smem_bytes` in the .cu): float32 stages
+    q, K, V and p as float32; bfloat16 holds the q tile and a two-stage
+    ring of K and V tiles in bf16, rows padded by 16 bytes."""
+    if dtype == torch.bfloat16:
+        return 2 * (hd + PAD) * (TILE + 4 * kv_tile(hd, dtype))
+    if dtype == torch.float32:
+        return 4 * (2 * TILE * (hd + 1) + TILE * hd + TILE * (TILE + 1))
+    raise ValueError(f"flash_attention takes {list(DTYPES)}, got {dtype}")
 
 
 def _check_shapes(q, k, v):
@@ -52,7 +70,10 @@ def flash_attention_plain(q, k, v, *, softcap=None):
     """Plain PyTorch version: the kernel's schedule -- the online softmax
     over 64-key tiles -- for all query rows at once. Tiles past a row's
     diagonal add p = 0 with a correction of 1, so skipping them (as the
-    kernel does) changes nothing."""
+    kernel does) changes nothing. The bfloat16 kernel at hd 256 takes
+    32-key tiles (`kv_tile`), so there p is rounded to bf16 against a
+    running max that can differ from this version's; both stay within
+    the tests' tolerance of the reference."""
     B, S, H, KV, hd = _check_shapes(q, k, v)
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
@@ -103,8 +124,15 @@ def flash_attention(q, k, v, *, softcap=None):
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if softcap is not None and softcap < 0:
         raise ValueError(f"softcap must be positive or None, got {softcap}")
-    if B * H > 65_535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's 65535 rows")
+    # float32 puts B * H on grid.y, bfloat16 the q tiles (grid.y <= 65,535)
+    rows, what = ((B * H, "B * H") if q.dtype == torch.float32
+                  else (-(-S // TILE), "ceil(S / 64)"))
+    if rows > 65_535:
+        raise ValueError(f"{what} = {rows} exceeds the grid's 65535 rows")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("the bfloat16 kernel copies 16-byte chunks: q, k "
+                         "and v must start at 16-byte aligned addresses")
     out = torch.empty_like(q)
     lib = build.load("flash_attention")
     code = lib.flash_attention_launch(

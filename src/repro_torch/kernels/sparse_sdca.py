@@ -23,10 +23,13 @@ norms, then emits the next block's partial dots at the updated u.
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors. `LAUNCHES` counts the 1-D kernel's launches at
 depth 1 (the counterpart of `_sparse_sdca_kernel`), `PIPELINED_LAUNCHES`
-those at depth >= 2, `ZX_LAUNCHES` the zx kernel's.
+those at depth >= 2, `ZX_LAUNCHES` the zx kernel's (one a round: the
+round's invocations run inside it, one thread-block cluster of M blocks
+per worker) and `ZX_STEPS` the invocations those launches ran.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -38,8 +41,13 @@ from .local_sdca import MAX_SMEM_BYTES, SCRATCH_BYTES, loss_code
 
 LAUNCHES = 0                # csrc/sparse_sdca_pipelined.cu at depth 1
 PIPELINED_LAUNCHES = 0      # the same kernel at depth >= 2
-ZX_LAUNCHES = 0             # csrc/sparse_sdca_zx.cu, one per invocation
+ZX_LAUNCHES = 0             # csrc/sparse_sdca_zx.cu, one per round
+ZX_STEPS = 0                # the invocations (blocks of rows) they ran
 MAX_DEPTH = 8               # ring stages the 1-D kernel is built for
+ZX_MAX_CLUSTER = 16         # with the non-portable cluster-size attribute
+ZX_ID_SLOTS, ZX_SCALARS = 4, 5   # ID_SLOTS, SCALARS in the .cu
+ZX_ROADMAP = ("ROADMAP.md Queue 2, 'The z-exchange round beyond one "
+              "cluster'")
 
 
 def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
@@ -48,18 +56,27 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
     """Dynamic shared memory one block of the launch uses, in bytes (the
     counterpart of the reference's `vmem_budget`). The 1-D kernel holds u
     (4 d), the reduction scratch and a ring of min(buffer_depth, nk) rows
-    (cols, vals, y, alpha, mask, dalpha and the row id); the zx kernel
-    keeps u in device memory and holds a coefficient and a row id per
-    block row."""
+    (cols, vals, y, alpha, mask, dalpha and the row id).
+
+    The zx kernel (d = d_local, r_max = r_loc) holds the two z buffers and
+    a coefficient per block row (scratch), its prefetch (two row stages of
+    B rows' cols, vals and five scalars, and four slots of B row ids:
+    ring), and u (4 d) when that fits beside them; else u stays in device
+    memory (`u_in_smem` False, `u_bytes` 0)."""
     if zx:
-        u, ring, scratch = 0, 0, 8 * block_rows
+        B = block_rows
+        scratch = 4 * 3 * B
+        ring = 4 * (ZX_ID_SLOTS * B + 2 * (2 * B * r_max + ZX_SCALARS * B))
+        u_in_smem = 4 * d + ring + scratch <= MAX_SMEM_BYTES
+        u = 4 * d if u_in_smem else 0
     else:
-        u, scratch = 4 * d, SCRATCH_BYTES
+        u, scratch, u_in_smem = 4 * d, SCRATCH_BYTES, True
         stages = min(buffer_depth, nk) if nk is not None else buffer_depth
         ring = 4 * stages * (2 * r_max + 5)
     total = u + ring + scratch
     return dict(u_bytes=u, ring_bytes=ring, scratch_bytes=scratch,
-                total_bytes=total, fits=total <= MAX_SMEM_BYTES)
+                total_bytes=total, fits=total <= MAX_SMEM_BYTES,
+                u_in_smem=u_in_smem)
 
 
 def _enforce_smem(budget: dict, where: str) -> None:
@@ -191,6 +208,37 @@ def zx_exchanges(nk: int, block_rows: int, n_passes: int = 1) -> int:
     return n_passes * (-(-nk // block_rows)) + 1
 
 
+def zx_launch_plan(K: int, M: int, nk: int, d_loc: int, B: int, *,
+                   r_loc: int, n_passes: int = 1) -> dict:
+    """How the zx kernel runs one round on the card -- shape arithmetic
+    only: `launches` (1) of K thread-block clusters of `cluster` (M)
+    blocks; `steps` invocations inside it; `u_in_smem`, `smem_bytes` and
+    `fits` from `smem_budget(zx=True)`. Raises ValueError for M above 16,
+    the largest cluster the card schedules (the CPU plain version takes
+    any M)."""
+    if not 1 <= M <= ZX_MAX_CLUSTER:
+        raise ValueError(
+            f"the zx kernel runs a worker's M = {M} model shards as one "
+            f"thread-block cluster, at most {ZX_MAX_CLUSTER} blocks on this "
+            f"card; see {ZX_ROADMAP}")
+    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
+    return dict(launches=1, cluster=M,
+                steps=n_passes * (-(-nk // B)),
+                u_in_smem=budget["u_in_smem"],
+                smem_bytes=budget["total_bytes"], fits=budget["fits"])
+
+
+def _zx_clusters_fit(lib, M: int, B: int, r_loc: int, d_loc: int,
+                     u_in_smem: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of the instance: how many clusters
+    of M blocks the card holds at once (0: a cluster does not fit)."""
+    out = ctypes.c_int(0)
+    code = lib.sparse_sdca_zx_max_clusters(M, B, r_loc, d_loc,
+                                           int(u_in_smem), ctypes.byref(out))
+    build.check(lib, "sparse_sdca_zx", code)
+    return out.value
+
+
 def _check_zx_shapes(cols, vals, y, alpha, mask, w, sqnorms, perm):
     if cols.dim() != 4 or tuple(vals.shape) != tuple(cols.shape):
         raise ValueError(f"cols/vals must both be (K, M, nk, r_loc), got "
@@ -274,9 +322,10 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
                          block_rows: int = 16,
                          prox_kappa: Optional[float] = None):
     """One round of the z-exchange schedule for all K workers and M model
-    shards: on CUDA tensors n_passes * ceil(nk / block_rows) launches of
-    the zx kernel (the loop runs in its C launcher), on CPU tensors
-    `sparse_local_sdca_zx_plain`.
+    shards: on CUDA tensors one launch of the zx kernel, K clusters of M
+    blocks walking the round's n_passes * ceil(nk / block_rows)
+    invocations (`zx_launch_plan`; M <= 16), on CPU tensors
+    `sparse_local_sdca_zx_plain` (any M).
 
     cols/vals (K, M, nk, r_loc) with shard-local ids (a `FeatureShards`);
     y, alpha, mask (K, nk) f32; w the padded (M d_local,) f32 vector;
@@ -298,24 +347,38 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
     _require(vals.device, vals=vals, y=y, alpha=alpha, mask=mask, w=w,
              sqnorms=sqnorms, cols=cols, perm=perm)
     B = int(block_rows)
-    _enforce_smem(smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True),
-                  "sparse_local_sdca_zx")
-    w3 = w.reshape(1, M, d_loc)
-    u = w3.expand(K, M, d_loc).contiguous()
-    dalpha = torch.zeros((K, M, nk), dtype=torch.float32, device=vals.device)
-    zbuf = torch.zeros((2, K, M, B), dtype=torch.float32, device=vals.device)
-    z0 = zx_partial_dots(cols, vals, u, _block_rows_of(perm, nk, B, 0),
-                         prox_kappa)
-    zbuf[0, :, :, :z0.shape[2]] = z0
+    plan = zx_launch_plan(K, M, nk, d_loc, B, r_loc=r_loc,
+                          n_passes=int(n_passes))
+    if not plan["fits"]:
+        raise ValueError(
+            f"sparse_local_sdca_zx: needs {plan['smem_bytes']} bytes of "
+            f"shared memory per block for B = {B} rows of r_loc = {r_loc} "
+            f"(z buffers and prefetch stage); the limit is {MAX_SMEM_BYTES} "
+            f"bytes")
     lib = build.load("sparse_sdca_zx")
+    if _zx_clusters_fit(lib, M, B, r_loc, d_loc, plan["u_in_smem"]) < 1:
+        raise ValueError(
+            f"sparse_local_sdca_zx: a cluster of M = {M} blocks of "
+            f"{plan['smem_bytes']} bytes of shared memory does not fit this "
+            f"card; see {ZX_ROADMAP}")
+    w3 = w.reshape(1, M, d_loc)
+    # a copy even at K = 1, where the expanded view is w itself: the kernel
+    # updates u in place
+    u = w3.expand(K, M, d_loc).clone()
+    dalpha = torch.zeros((K, M, nk), dtype=torch.float32, device=vals.device)
+    z0 = torch.zeros((K, M, B), dtype=torch.float32, device=vals.device)
+    z0[:, :, :min(B, nk)] = zx_partial_dots(
+        cols, vals, u, _block_rows_of(perm, nk, B, 0), prox_kappa)
     code = lib.sparse_sdca_zx_launch(
         cols.data_ptr(), vals.data_ptr(), y.data_ptr(), alpha.data_ptr(),
         mask.data_ptr(), sqnorms.data_ptr(), perm.data_ptr(), u.data_ptr(),
-        dalpha.data_ptr(), zbuf.data_ptr(), K, M, nk, r_loc, d_loc, B,
+        dalpha.data_ptr(), z0.data_ptr(), K, M, nk, r_loc, d_loc, B,
         int(n_passes), float(scale), lid, g, int(prox_kappa is not None),
         float(prox_kappa) if prox_kappa is not None else 0.0,
+        int(plan["u_in_smem"]),
         torch.cuda.current_stream(vals.device).cuda_stream)
     build.check(lib, "sparse_sdca_zx", code)
-    global ZX_LAUNCHES
-    ZX_LAUNCHES += int(n_passes) * (-(-nk // B))
+    global ZX_LAUNCHES, ZX_STEPS
+    ZX_LAUNCHES += 1
+    ZX_STEPS += plan["steps"]
     return dalpha[:, 0].contiguous(), (u - w3).reshape(K, M * d_loc)

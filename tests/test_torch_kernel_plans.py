@@ -1,0 +1,152 @@
+"""Launch plans and shared-memory budgets of the port's redesigned kernels,
+checked on the CPU (shape arithmetic only; the card-only tests run the
+kernels).
+
+The zx kernel runs a round in one launch, one thread-block cluster of M
+blocks per worker, with u in shared memory where it fits beside its
+buffers (`zx_launch_plan`, `smem_budget(zx=True)`); flash attention's
+bfloat16 instance holds bf16 tiles with padded rows, its float32 instance
+float32 tiles (`smem_bytes(hd, dtype)`). Every block must fit the H100's
+232,448 bytes of shared memory.
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.losses import get_loss
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import sparse_sdca as sk
+
+SMEM_LIMIT = 232_448
+
+
+def _zx_bytes(B, r_loc, d_loc=0):
+    """The zx block's layout written out: u, two z buffers and a
+    coefficient per row, four id slots and two stages of B rows."""
+    return 4 * (d_loc + 3 * B + 4 * B + 2 * (2 * B * r_loc + 5 * B))
+
+
+def test_zx_plan_at_rcv1_4x2_holds_u_in_shared_memory():
+    plan = sk.zx_launch_plan(4, 2, 169_350, 23_618, 16, r_loc=70)
+    assert plan == dict(launches=1, cluster=2, steps=10_585, u_in_smem=True,
+                        smem_bytes=_zx_bytes(16, 70, 23_618), fits=True)
+    assert plan["smem_bytes"] == 113_480 <= SMEM_LIMIT
+    budget = sk.smem_budget(d=23_618, r_max=70, block_rows=16, zx=True)
+    assert budget["u_bytes"] == 94_472 and budget["u_in_smem"]
+    assert budget["total_bytes"] == plan["smem_bytes"]
+
+
+def test_zx_plan_at_a_wide_slice_keeps_u_in_device_memory():
+    plan = sk.zx_launch_plan(8, 1, 2_000, 65_536, 16, r_loc=64,
+                             n_passes=2)
+    assert not plan["u_in_smem"] and plan["fits"]
+    assert plan["smem_bytes"] == _zx_bytes(16, 64)
+    assert (plan["launches"], plan["steps"]) == (1, 2 * 125)
+
+
+def test_zx_u_placement_switches_at_the_limit():
+    B, r = 16, 70
+    rest = _zx_bytes(B, r)
+    widest = (SMEM_LIMIT - rest) // 4
+    at = sk.smem_budget(d=widest, r_max=r, block_rows=B, zx=True)
+    past = sk.smem_budget(d=widest + 1, r_max=r, block_rows=B, zx=True)
+    assert at["u_in_smem"] and at["total_bytes"] <= SMEM_LIMIT
+    assert not past["u_in_smem"] and past["total_bytes"] == rest
+    assert widest == 53_360                # B = 16, r_loc = 70
+
+
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 16])
+def test_zx_plan_cluster_sizes(M):
+    """Up to 8 blocks a cluster is portable, 9-16 need the non-portable
+    attribute (set by the launcher); all run a round in one launch."""
+    plan = sk.zx_launch_plan(3, M, 100, 50, 4, r_loc=3)
+    assert (plan["launches"], plan["cluster"]) == (1, M)
+
+
+@pytest.mark.parametrize("M", [0, 17, 32])
+def test_zx_plan_refuses_clusters_the_card_cannot_schedule(M):
+    with pytest.raises(ValueError, match="Queue 2"):
+        sk.zx_launch_plan(4, M, 100, 50, 16, r_loc=4)
+
+
+@pytest.mark.parametrize("nk,B,n_passes", [(1, 1, 1), (203, 16, 2),
+                                           (203, 128, 3), (100, 128, 1),
+                                           (169_350, 16, 1)])
+def test_zx_plan_steps_are_the_schedules_invocations(nk, B, n_passes):
+    plan = sk.zx_launch_plan(2, 2, nk, 40, B, r_loc=5, n_passes=n_passes)
+    assert plan["steps"] == n_passes * (-(-nk // B))
+    assert plan["steps"] + 1 == sk.zx_exchanges(nk, B, n_passes)
+
+
+def test_zx_plan_agrees_with_the_dispatch_plan():
+    """`ops.sparse_zx_plan` (the wire plan) and `zx_launch_plan` count the
+    same invocations at rcv1's 4 x 2 shape."""
+    wire = ops.sparse_zx_plan(169_350, 23_618, 169_350, r_max=70,
+                              model_shards=2, backend="cuda")
+    plan = sk.zx_launch_plan(4, 2, 169_350, 23_618, wire["block_rows"],
+                             r_loc=70, n_passes=wire["n_passes"])
+    assert plan["steps"] == wire["n_passes"] * wire["blocks"]
+    assert wire["exchanges"] == plan["steps"] + 1
+
+
+def test_zx_cpu_path_takes_any_m_and_counts_nothing():
+    """M = 17 is beyond a cluster, but the CPU plain version runs it; the
+    launch and step counts are the card's and do not move."""
+    rng = np.random.default_rng(0)
+    K, M, nk, d_loc, r = 1, 17, 6, 3, 2
+    cols = torch.from_numpy(rng.integers(0, d_loc, (K, M, nk, r))
+                            .astype(np.int32))
+    vals = torch.from_numpy(rng.standard_normal((K, M, nk, r))
+                            .astype(np.float32))
+    y = torch.ones(K, nk)
+    z = torch.zeros(K, nk)
+    sq = torch.sum(vals * vals, dim=(1, 3))
+    perm = torch.arange(nk, dtype=torch.int32)[None]
+    before = (sk.ZX_LAUNCHES, sk.ZX_STEPS)
+    da, du = sk.sparse_local_sdca_zx(cols, vals, y, z, torch.ones(K, nk),
+                                     torch.zeros(M * d_loc), 0.5, sq, perm,
+                                     loss=get_loss("hinge"), block_rows=2)
+    assert (sk.ZX_LAUNCHES, sk.ZX_STEPS) == before
+    assert da.shape == (K, nk) and du.shape == (K, M * d_loc)
+    assert torch.isfinite(da).all() and torch.isfinite(du).all()
+
+
+@pytest.mark.parametrize("hd,dtype,want", [
+    (32, torch.bfloat16, 25_600), (64, torch.bfloat16, 46_080),
+    (128, torch.bfloat16, 87_040), (256, torch.bfloat16, 101_376),
+    (32, torch.float32, 41_728), (64, torch.float32, 66_304),
+    (128, torch.float32, 115_456), (256, torch.float32, 213_760)])
+def test_flash_smem_bytes_of_every_instance(hd, dtype, want):
+    """bf16: the q tile and two K and two V tiles of (hd + 8) bf16 a row
+    (64 keys a tile, 32 at hd 256); float32: q and K padded by a float a
+    row, V, and p, all float32. Every instance fits a block."""
+    assert fa.smem_bytes(hd, dtype) == want <= SMEM_LIMIT
+    tile = 32 if (hd, dtype) == (256, torch.bfloat16) else 64
+    assert fa.kv_tile(hd, dtype) == tile
+
+
+def test_flash_smem_bytes_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="flash_attention takes"):
+        fa.smem_bytes(64, torch.float16)
+
+
+def test_python_layouts_match_the_cuda_sources():
+    """The budgets above restate constants of the .cu files; hold them to
+    the sources, so an edit of one side shows here."""
+    zx = (build.CSRC / "sparse_sdca_zx.cu").read_text()
+    assert re.search(r"constexpr int ID_SLOTS = (\d+);", zx).group(1) == \
+        str(sk.ZX_ID_SLOTS)
+    assert re.search(r"constexpr int SCALARS = (\d+);", zx).group(1) == \
+        str(sk.ZX_SCALARS)
+    assert re.search(r"constexpr int MAX_CLUSTER = (\d+);", zx).group(1) == \
+        str(sk.ZX_MAX_CLUSTER)
+    flash = (build.CSRC / "flash_attention.cu").read_text()
+    tc = flash[flash.index("namespace tc {"):]
+    assert re.search(r"constexpr int PAD = (\d+);", tc).group(1) == \
+        str(fa.PAD)
+    assert re.search(r"constexpr int BQ = (\d+);", tc).group(1) == \
+        str(fa.TILE)
+    assert "HD >= 256 ? 32 : 64" in tc

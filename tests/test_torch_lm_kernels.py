@@ -10,7 +10,8 @@ their float32 sums in another order than XLA's. bfloat16 at rtol/atol
 output is ~4e-3 relative.
 
 The `cuda` tests build the CUDA kernels and hold them against the plain
-versions on the card; they skip where there is no card or nvcc. Run them
+versions on the card -- flash's bfloat16 instance (tensor cores) at every
+head dim -- and skip where there is no card or nvcc. Run them
 on the card with `PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_lm_kernels.py`.
 """
@@ -162,7 +163,8 @@ def test_build_hashes_each_kernel_with_its_own_headers():
 
 
 def test_flash_smem_fits_every_head_dim():
-    assert max(fa.smem_bytes(hd) for hd in fa.HEAD_DIMS) <= 232_448
+    assert max(fa.smem_bytes(hd, dt) for hd in fa.HEAD_DIMS
+               for dt in fa.DTYPES) <= 232_448
 
 
 @pytest.fixture
@@ -215,3 +217,61 @@ def test_cuda_ssm_scan_matches_plain_on_the_card(card, B, S, di, N):
     assert ss.LAUNCHES == before + 1
     torch.testing.assert_close(got, ss.ssm_scan_plain(*ins), rtol=RTOL,
                                atol=ATOL)
+
+
+# the bfloat16 instance (tensor cores) at every head dim: S around the
+# 64-row tile and a prefill's length, GQA 4, MQA, softcap 50
+FLASH_TC_CASES = [(1, S, 8, 2, None) for S in (1, 63, 64, 65, 200, 1345)] \
+    + [(2, 130, 8, 1, None), (1, 200, 4, 4, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("B,S,H,KV,cap", FLASH_TC_CASES)
+def test_cuda_flash_bf16_tensor_cores_match_plain(card, hd, B, S, H, KV,
+                                                  cap):
+    """The mma.sync kernel against the plain version in bf16, at
+    chip_smoke.py's FLASH_TOL for bf16 (rtol 2e-2, atol 2e-3: the output's
+    bf16 rounding, and p rounded against another running max where the
+    kernel's key tile is 32)."""
+    rng = np.random.default_rng(S * hd + H)
+    q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16)
+               for a in _qkv(rng, B, S, H, KV, hd))
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, softcap=cap)
+    assert fa.LAUNCHES == before + 1 and got.dtype == torch.bfloat16
+    want = fa.flash_attention_plain(q, k, v, softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_smem_bytes_match_the_library(card):
+    from repro_torch.kernels import build
+    lib = build.load("flash_attention")
+    for dt, code in fa.DTYPES.items():
+        for hd in fa.HEAD_DIMS:
+            assert lib.flash_attention_smem_bytes(hd, code) == \
+                fa.smem_bytes(hd, dt)
+    q = torch.zeros(1, 9, 2, 64, dtype=torch.bfloat16, device=card)
+    buf = torch.zeros(1 + q.numel(), dtype=torch.bfloat16, device=card)
+    shifted = buf[1:].view(1, 9, 2, 64)        # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(shifted, q, q)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_grid_limit_follows_the_dtype(card):
+    """float32 puts B * H on grid.y (at most 65,535 rows) and refuses more;
+    bfloat16 puts B * H on grid.x and its q tiles on grid.y, so it runs
+    65,536 heads, held to the plain version at the bf16 tolerance."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(a).to(card)
+               for a in _qkv(rng, 4_096, 2, 16, 16, 32))
+    with pytest.raises(ValueError, match="B \\* H = 65536"):
+        fa.flash_attention(q, k, v)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-3)

@@ -8,8 +8,10 @@ mode takes the named axis); the 2-D `solve` to the reference's on a (2, 2)
 mesh of forced host devices, run in a child process
 (`torch_parity.reference_in_child`) with the same visit orders.
 
-The `cuda` tests hold the zx kernel against its plain version on the card;
-run them there with `python -m pytest -q -m cuda tests/test_torch_mesh2d.py`.
+The `cuda` tests hold the zx kernel (one launch a round, a cluster of M
+blocks per worker) against its plain version on the card, with u in
+shared memory and in device memory; run them there with
+`python -m pytest -q -m cuda tests/test_torch_mesh2d.py`.
 """
 import types
 
@@ -551,24 +553,90 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,B,kappa", [(1, 1, None), (1, 16, 0.3),
-                                       (2, 16, None), (2, 1, 0.3),
-                                       (4, 16, None), (4, 5, 0.3)])
-def test_cuda_zx_kernel_matches_plain(card, M, B, kappa):
-    """Kernel vs plain on the card, nk = 203 (ragged for B = 16 and 5),
-    two passes (tolerance rtol 1e-4, atol 1e-5: warp reductions and
-    device-memory atomics reorder the float32 sums)."""
+@pytest.mark.parametrize("K,M,B,kappa,n_passes,nk", [
+    (3, 1, 1, None, 2, 203), (3, 1, 16, 0.3, 2, 203),
+    (3, 2, 16, None, 2, 203), (3, 2, 1, 0.3, 2, 203),
+    (3, 4, 16, None, 3, 203), (3, 4, 5, 0.3, 2, 203),
+    (3, 1, 1, None, 1, 203), (3, 2, 1, 0.3, 1, 203),    # one pass
+    (3, 8, 16, 0.3, 2, 203), (3, 8, 1, None, 1, 203),
+    (3, 8, 1, 0.3, 2, 203), (3, 4, 1, None, 3, 203),
+    (3, 8, 128, None, 3, 203),               # nb = 2, the last block ragged
+    (3, 4, 128, 0.3, 2, 203), (3, 2, 128, None, 2, 100),   # nb = 1
+    (3, 2, 1, 0.3, 3, 3), (3, 4, 2, None, 3, 4),     # nb = 3, 2: dalpha
+    (3, 2, 3, None, 3, 5), (3, 8, 3, 0.3, 3, 3),     # prefetched across
+    (1, 4, 16, None, 2, 203), (1, 1, 1, 0.3, 1, 203)])     # one worker
+def test_cuda_zx_kernel_matches_plain(card, K, M, B, kappa, n_passes, nk):
+    """Kernel vs plain on the card, u in shared memory (tolerance rtol
+    1e-4, atol 1e-5: warp reductions and shared-memory atomics reorder the
+    float32 sums). One launch a round, its steps the schedule's
+    invocations; the caller's w is left as it was (at K = 1 too)."""
     rng = np.random.default_rng(8)
-    K, nk, d_loc, r = 3, 203, 600, 24
+    d_loc, r = 600, 24
     ins = [torch.from_numpy(a).to(card)
            for a in _zx_inputs(rng, K, M, nk, d_loc, r)]
+    w0 = ins[5].clone()
+    assert sk.zx_launch_plan(K, M, nk, d_loc, B, r_loc=r)["u_in_smem"]
     for loss_name in CLOSED_FORM:
-        kw = dict(loss=get_loss(loss_name), n_passes=2, block_rows=B,
+        kw = dict(loss=get_loss(loss_name), n_passes=n_passes, block_rows=B,
                   prox_kappa=kappa)
-        before = sk.ZX_LAUNCHES
+        before = (sk.ZX_LAUNCHES, sk.ZX_STEPS)
         got = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
-        assert sk.ZX_LAUNCHES == before + 2 * (-(-nk // B))
+        assert (sk.ZX_LAUNCHES, sk.ZX_STEPS) == (
+            before[0] + 1, before[1] + n_passes * (-(-nk // B)))
+        torch.cuda.synchronize()
+        assert torch.equal(ins[5], w0)
         want = sk.sparse_local_sdca_zx_plain(*ins[:6], 0.5, *ins[6:], **kw)
         torch.cuda.synchronize()
         for g, p in zip(got, want):
             torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,B,kappa,n_passes", [(1, 16, None, 2),
+                                                (1, 1, 0.3, 1),
+                                                (2, 128, 0.3, 3)])
+def test_cuda_zx_kernel_with_u_in_device_memory(card, M, B, kappa, n_passes):
+    """d_loc = 65,536 (news_sparse's width at M = 1) does not fit shared
+    memory beside the buffers: the instance with u in device memory, held
+    to the plain version under the same tolerance."""
+    rng = np.random.default_rng(9)
+    K, nk, d_loc, r = 2, 203, 65_536, 24
+    ins = [torch.from_numpy(a).to(card)
+           for a in _zx_inputs(rng, K, M, nk, d_loc, r)]
+    assert not sk.zx_launch_plan(K, M, nk, d_loc, B, r_loc=r)["u_in_smem"]
+    for loss_name in ("hinge", "squared"):
+        kw = dict(loss=get_loss(loss_name), n_passes=n_passes, block_rows=B,
+                  prox_kappa=kappa)
+        got = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
+        want = sk.sparse_local_sdca_zx_plain(*ins[:6], 0.5, *ins[6:], **kw)
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_zx_cluster_limits_and_layout(card):
+    """The library's shared-memory layout is `smem_budget`'s; M = 17 is
+    refused before a launch; a cluster the card cannot hold is refused
+    naming the ROADMAP item, never run elsewhere."""
+    from repro_torch.kernels import build
+    lib = build.load("sparse_sdca_zx")
+    for B, r, d_loc in ((16, 70, 23_618), (1, 24, 600), (128, 24, 65_536)):
+        plan = sk.zx_launch_plan(4, 2, 1_000, d_loc, B, r_loc=r)
+        assert lib.sparse_sdca_zx_smem_bytes(
+            B, r, d_loc, int(plan["u_in_smem"])) == plan["smem_bytes"]
+    rng = np.random.default_rng(10)
+    for M in (16, 17):
+        ins = [torch.from_numpy(a).to(card)
+               for a in _zx_inputs(rng, 1, M, 40, 30, 4)]
+        kw = dict(loss=get_loss("hinge"), block_rows=8)
+        if M <= 16 and sk._zx_clusters_fit(lib, M, 8, 4, 30, True) > 0:
+            got = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
+            want = sk.sparse_local_sdca_zx_plain(*ins[:6], 0.5, *ins[6:],
+                                                 **kw)
+            torch.cuda.synchronize()
+            for g, p in zip(got, want):
+                torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-5)
+        else:
+            with pytest.raises(ValueError, match="Queue 2"):
+                sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)

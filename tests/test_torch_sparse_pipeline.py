@@ -254,7 +254,10 @@ def test_smem_budget_rejects_what_does_not_fit():
     with pytest.raises(ValueError, match="232448 bytes"):
         sk._enforce_smem(sk.smem_budget(d=65_536, r_max=64), "here")
     zx = sk.smem_budget(d=3_200_000, r_max=500, block_rows=16, zx=True)
-    assert zx["fits"] and zx["total_bytes"] == 128     # u in device memory
+    assert zx["fits"] and not zx["u_in_smem"]          # u in device memory
+    assert zx["u_bytes"] == 0 and zx["scratch_bytes"] == 12 * 16
+    assert zx["total_bytes"] == 12 * 16 + 4 * (4 * 16 + 2 * (2 * 16 * 500
+                                                           + 5 * 16))
     assert not sk.smem_budget(d=1, r_max=1, block_rows=40_000,
                               zx=True)["fits"]
 
@@ -334,4 +337,33 @@ def test_cuda_pipelined_matches_plain_with_duplicates(card, depth):
         want = sk.sparse_local_sdca_plain(*t[:6], 0.3, t[6], **kw)
         torch.cuda.synchronize()
         for g, r_ in zip(got, want):
+            torch.testing.assert_close(g, r_, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_passes,kappa", [(1, None), (2, 0.2), (3, None)])
+def test_cuda_zx_block1_single_shard_equals_depth_one(card, n_passes, kappa):
+    """The one-launch zx kernel at B = 1, M = 1 is the sequential walk:
+    against the 1-D kernel at depth 1 on the card, rows with duplicate
+    ids (rtol 1e-4, atol 1e-5: the gather is a warp sum in the zx kernel
+    and a block sum in the 1-D one, and the shared-memory atomics land in
+    no fixed order)."""
+    rng = np.random.default_rng(31 + n_passes)
+    K, nk, d = 3, 300, 2_000
+    cols, vals, y, alpha, mask, w, perm = (
+        torch.from_numpy(a).to(card) for a in _case(rng, K, nk, d, 40))
+    sq = torch.sum(vals * vals, dim=-1)
+    for loss_name in CLOSED_FORM:
+        kw = dict(loss=get_loss(loss_name), n_passes=n_passes,
+                  prox_kappa=kappa)
+        before = (sk.ZX_LAUNCHES, sk.ZX_STEPS)
+        zx = sk.sparse_local_sdca_zx(cols[:, None], vals[:, None], y, alpha,
+                                     mask, w, 0.3, sq, perm, block_rows=1,
+                                     **kw)
+        assert (sk.ZX_LAUNCHES, sk.ZX_STEPS) == (before[0] + 1,
+                                                 before[1] + n_passes * nk)
+        one = sk.sparse_local_sdca(cols, vals, y, alpha, mask, w, 0.3, perm,
+                                   **kw)
+        torch.cuda.synchronize()
+        for g, r_ in zip(zx, one):
             torch.testing.assert_close(g, r_, rtol=1e-4, atol=1e-5)
