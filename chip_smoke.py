@@ -12,15 +12,23 @@ order, each failing the run with a non-zero exit:
                (six kernels: the 1-D sparse source is rows 2 and 3 of the
                kernel table, at ring depth 1 and at depth >= 2); each
                library's shared-memory layout against the wrappers'
-               budgets; cuobjdump -sass of flash attention: HMMA (tensor
+               budgets (the dense kernel at every window and phase 3's
+               widths); cuobjdump -sass of flash attention: HMMA (tensor
                core) instructions in every bfloat16 instance
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the real widths (d = 2,000 dense, d = 47,236 sparse) and a cut
                row count, every closed-form loss, prox on and off, rows with
                duplicate column ids and column-0 entries next to padding;
-               the sparse kernel at depths 2-4 (nk below and above the
-               depth) also bit for bit against itself at depth 1 on rows
-               with unique column ids; the z-exchange kernel (one launch a
+               the windowed dense kernel also at d = 54 and 2,001, windows
+               B = 1, 4, 16, 32, nk = 1, below B and not a multiple of B,
+               1-3 passes, zero and masked rows, and in column tiles at
+               d = 20,000 and 20,001 (B = 8, 2); the sparse kernel at
+               depths 2-4 and 8 (nk below and above the depth) also bit
+               for bit against itself at depth 1 on rows with unique
+               column ids, and at depths 1, 2, 4, 8 with 4-byte row
+               copies (K = 3, nk = 101, r_max = 117) and rows wider than
+               a lane's 128 register slots (r_max = 200, duplicate ids
+               across slot 128); the z-exchange kernel (one launch a
                round, a cluster of M blocks per worker) at M = 1, 2, 4, 8,
                B = 1, 16, 128 with ragged last blocks, 1-3 passes, one and
                two blocks a pass, u in shared memory and (d_loc = 65,536)
@@ -30,7 +38,7 @@ order, each failing the run with a non-zero exit:
                published shape, 677,399 x 47,236 at density 0.0016, K = 8,
                hinge, lambda = 1e-6, after a small-input cross-check of the
                card against the CPU: the sparse kernel at the card's
-               cache-miss ring depth, 2 (the prefetching walk)
+               cache-miss ring depth, 4 (the prefetching walk)
   5. dense     the main path (`solve`, sdca_kernel) at epsilon's published
                shape, 400,000 x 2,000, K = 8 (3.2 GB of X on the card),
                hinge, lambda = 1e-4
@@ -39,8 +47,9 @@ order, each failing the run with a non-zero exit:
                (those are the errors and the plain time the summary
                reports), within phase 3's tolerance with its absolute part
                scaled by the walk's length (`_against_plain`); the kernel's
-               time with CUDA events beside its bound; one more round split
-               on the host clock
+               time with CUDA events beside its bound, and us a step; the
+               dense kernel at windows B = 4, 8, 16, 32 in turns; one more
+               round split on the host clock
   7. lm-kernels  flash attention and the selective scan against their plain
                versions on the card at cut shapes: GQA, MQA, softcap, ragged
                tails, float32 and bfloat16, head_dim 64, 128 and 256; the
@@ -73,7 +82,7 @@ order, each failing the run with a non-zero exit:
                with buffer_depth 1 resolved from a one-entry autotune cache
                named by REPRO_TORCH_AUTOTUNE_CACHE: the sparse kernel walks
                without prefetching, and the state equals phase 4's bit for
-               bit; its time per launch at depth 1, 2 and 4
+               bit; its time per launch and per step at depth 1, 2, 4, 8
  12. mesh2d    the feature-sharded path: after a small-input cross-check of
                card against CPU, phase 4's CSR partitioned K = 4, M = 2 (the
                reference's --mesh 4x2) and solved through `solve` on
@@ -114,7 +123,10 @@ CUT_NK = 1024                  # phase 3's rows per worker
 CACHE_DEPTH = 1                # phase 11's cached buffer_depth
 TABLE_ORDER = ("local_sdca", "sparse_sdca", "sparse_sdca_pipelined",
                "sparse_sdca_zx", "ssm_scan", "flash_attention")
-DEPTHS = (1, 2, 4)             # phase 11's timed ring depths
+DEPTHS = (1, 2, 4, 8)          # phase 11's timed ring depths
+SWEEP_B = (4, 8, 16, 32)       # phase 6's timed dense windows
+DENSE_WIDTHS = (54, 2_000, 2_001)   # phase 3's dense widths
+WIDE_D = 20_000                # phase 3's dense width in column tiles
 SEED = 0
 DENSE_LAM, SPARSE_LAM = 1e-4, 1e-6
 
@@ -154,29 +166,45 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s (parallel nvcc, sm_90a)")
     if set(infos) != set(build.KERNELS):
         fail(f"built {sorted(infos)}, expected {sorted(build.KERNELS)}")
-    from repro_torch.kernels.local_sdca import SCRATCH_BYTES
+    from repro_torch.kernels import sparse_sdca as sk
     for info in infos.values():
         log(f"  {info.name}: nvcc {info.seconds:.2f} s -> {info.path.name}")
         for line in info.log.splitlines():
             if any(k in line for k in ("registers", "smem", "Compiling",
                                        "spill")):
                 log(f"    {line.strip()}")
-    log(f"  dynamic shared memory per block, limit 232448 B: local_sdca "
-        f"{SCRATCH_BYTES} + 4 d bytes (d=2000: {SCRATCH_BYTES + 8000} B)")
-    log(f"  sparse_sdca_pipelined: {SCRATCH_BYTES} + 4 d + 4 depth "
-        f"(2 r_max + 5) bytes (d=47236, r_max=118: " + ", ".join(
-            f"depth {k}: {SCRATCH_BYTES + 4 * 47236 + 4 * k * 241} B"
-            for k in DEPTHS) + ")")
+    log(f"  sparse_sdca_pipelined dynamic shared memory per block, limit "
+        f"232448 B: 4 d + 4 depth (2 r_max + {sk.STAGE_SCALARS}) bytes "
+        f"(d=47236, r_max=118: " + ", ".join(
+            f"depth {k}: "
+            f"{sk.smem_budget(d=47_236, r_max=118, buffer_depth=k)['total_bytes']}"
+            f" B" for k in DEPTHS) + ")")
     _layouts()
     _tensor_cores(infos["flash_attention"].path)
 
 
 def _layouts():
     """Each library's shared-memory layout against its wrapper's budget:
-    flash at every (head dim, dtype), the zx kernel at rcv1's 4 x 2 shape
-    (u in shared memory) and at d_loc = 65,536 (u in device memory)."""
+    the dense kernel at every window and phase 3's widths (whole rows and
+    column tiles), flash at every (head dim, dtype), the zx kernel at
+    rcv1's 4 x 2 shape (u in shared memory) and at d_loc = 65,536 (u in
+    device memory)."""
     from repro_torch.kernels import build, flash_attention as fa
+    from repro_torch.kernels import local_sdca as dk
     from repro_torch.kernels import sparse_sdca as sk
+    lib = build.load("local_sdca")
+    for d in DENSE_WIDTHS + (WIDE_D,):
+        parts = []
+        for B in dk.BLOCK_ROWS:
+            want = dk.dense_smem_budget(d, B)
+            got = lib.local_sdca_smem_bytes(d, B, want["d_tile"])
+            parts.append(f"B={B}: {got} B ({want['chunks']} x "
+                         f"{want['d_tile']})")
+            if got != want["total_bytes"]:
+                fail(f"local_sdca's shared memory at d={d} B={B}: {got}, "
+                     f"dense_smem_budget {want}")
+        log(f"  local_sdca d={d} shared memory per block (column tiles x "
+            f"d_tile), equal to dense_smem_budget: " + ", ".join(parts))
     lib = build.load("flash_attention")
     for dt, code in fa.DTYPES.items():
         got = {hd: lib.flash_attention_smem_bytes(hd, code)
@@ -349,6 +377,8 @@ def phase_kernels(dev):
                     f"{'ok' if ok else 'FAIL'}")
                 if not ok:
                     bad.append(f"dense {loss_name} passes={n_passes} {part}")
+    errs["local_sdca"] = [max(a, b) for a, b in zip(
+        errs["local_sdca"], _cut_dense(rng, dev, scale, bad))]
     sparse_in = sparse_case(rng, K, nk, 47_236, 128, dev)
     for loss_name, kappa, n_passes in (
             ("hinge", None, 1), ("smooth_hinge", None, 1),
@@ -380,17 +410,79 @@ def phase_kernels(dev):
     return errs
 
 
+def _dense_rows(rng, K, nk, d, dev):
+    """A dense case with a zero row of mask 1 (q = 0, the guarded no-op),
+    a masked row with values and a zero masked row where nk allows."""
+    import numpy as np
+    import torch
+    X = rng.standard_normal((K, nk, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=-1, keepdims=True)
+    y = np.where(rng.random((K, nk)) < 0.5, -1.0, 1.0).astype(np.float32)
+    alpha = (y * rng.random((K, nk)) * 0.5).astype(np.float32)
+    mask = np.ones((K, nk), np.float32)
+    if nk >= 4:
+        X[:, 1] = 0.0
+        mask[:, 2] = 0.0
+        X[:, -1], mask[:, -1], alpha[:, -1] = 0.0, 0.0, 0.0
+    w = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(X), t(y), t(alpha), t(mask), t(w), t(_perm(rng, K, nk)))
+
+
+def _cut_dense(rng, dev, scale, bad):
+    """The windowed dense kernel at cut shapes against its plain version:
+    d = 54 (fewer columns than threads), 2,000 (16-byte copies; column
+    tiles at B = 16 and 32) and 2,001 (4-byte copies); B = 1, 4, 16, 32;
+    column tiles at the default B = 8 (d = 20,000 and 20,001) and B = 2;
+    nk = 1, below B and not a multiple of B; 1-3 passes; every loss; zero
+    and masked rows. Returns the max (abs, rel) errors."""
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import local_sdca as dk
+    losses = ("hinge", "smooth_hinge", "squared", "absolute")
+    runs = []
+    for i, (d, B) in enumerate((d, B) for d in DENSE_WIDTHS
+                               for B in (1, 4, 16, 32)):
+        runs.append((8, 1000, d, B, losses[i % 4], 1 + i % 3))
+    runs += [(8, nk, 2_000, B, losses[i % 4], 2 + i % 2)
+             for i, (nk, B) in enumerate(((1, 16), (1, 32), (5, 16),
+                                          (13, 32), (40, 16), (3, 4)))]
+    # column tiles at the default window and at B = 2 (9 and 2 tiles)
+    runs += [(8, 40, WIDE_D, 8, "hinge", 2),
+             (4, 19, WIDE_D + 1, 8, "squared", 3),
+             (4, 13, WIDE_D, 2, "smooth_hinge", 2)]
+    worst = [0.0, 0.0]
+    for K, nk, d, B, loss_name, n_passes in runs:
+        ins = _dense_rows(rng, K, nk, d, dev)
+        kw = dict(loss=get_loss(loss_name), n_passes=n_passes)
+        got = dk.local_sdca(*ins[:5], scale, ins[5], block_rows=B, **kw)
+        want = dk.local_sdca_plain(*ins[:5], scale, ins[5], **kw)
+        torch.cuda.synchronize()
+        for part, g, p in zip(("dalpha", "du"), got, want):
+            a, r, ok = _errors(g, p)
+            worst = [max(worst[0], a), max(worst[1], r)]
+            log(f"  dense d={d} B={B:2d} nk={nk} {loss_name:12s} "
+                f"passes={n_passes} {part:6s} max_abs={a:.3e} "
+                f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"dense d={d} B={B} nk={nk} {loss_name} {part}")
+        if nk >= 4 and not bool((got[0][:, [2, nk - 1]] == 0).all()):
+            bad.append(f"dense d={d} B={B} nk={nk}: a masked row moved")
+    return worst
+
+
 def _cut_pipelined(rng, dev, sparse_in, scale, bad):
     """The prefetching kernel at cut shapes: against the plain version on
     rows with duplicate ids, and bit for bit against the depth-1 kernel on
-    rows with unique ids, at depths 2-4 with nk above and below the depth.
+    rows with unique ids, at depths 2-4 and 8 with nk above and below the
+    depth.
     Returns the max (abs, rel) errors against the plain version."""
     import torch
     from repro_torch.core.losses import get_loss
     from repro_torch.kernels import sparse_sdca as sk
     worst = [0.0, 0.0]
     cases = [(loss_name, kappa, depth, n_passes)
-             for depth in (2, 3, 4)
+             for depth in (2, 3, 4, 8)
              for loss_name, kappa, n_passes in (
                  ("hinge", None, 1), ("smooth_hinge", 0.5, 2),
                  ("squared", None, 2), ("absolute", 0.5, 1))]
@@ -412,7 +504,8 @@ def _cut_pipelined(rng, dev, sparse_in, scale, bad):
                 bad.append(f"pipelined depth={depth} {loss_name} {part}")
     K, d = 8, 47_236
     for nk, depth, n_passes in ((CUT_NK, 2, 2), (CUT_NK, 3, 1),
-                                (CUT_NK, 4, 2), (3, 4, 3), (1, 2, 2)):
+                                (CUT_NK, 4, 2), (CUT_NK, 8, 2), (97, 8, 3),
+                                (3, 4, 3), (1, 2, 2), (40, 8, 2)):
         uniq = _rows_case(rng, *_unique_ell(rng, K, nk, d, 118), d, dev)
         same = []
         for loss_name in ("hinge", "smooth_hinge", "squared", "absolute"):
@@ -430,6 +523,68 @@ def _cut_pipelined(rng, dev, sparse_in, scale, bad):
             f"{'bit for bit' if all(same) else 'DIFFER'}")
         if not all(same):
             bad.append(f"pipelined nk={nk} depth={depth} not bit-equal")
+    worst = [max(a, b) for a, b in zip(worst, _cut_walk_branches(
+        rng, dev, scale, bad))]
+    return worst
+
+
+def _straddle(cols, vals, slot=128):
+    """A copy of padded-ELL `cols` where every row live at slot + 2 repeats
+    ids across `slot`, the first slot a walk lane reads from the stage and
+    not from its registers: slot -> slot 0 (the same lane), slot + 1 ->
+    slot - 1 and slot + 2 -> slot / 2 (other lanes)."""
+    import numpy as np
+    cols = cols.copy()
+    live = vals[..., slot + 2] != 0
+    for dst, src in ((slot, 0), (slot + 1, slot - 1), (slot + 2, slot // 2)):
+        cols[..., dst] = np.where(live, cols[..., src], cols[..., dst])
+    return cols
+
+
+def _cut_walk_branches(rng, dev, scale, bad):
+    """The 1-D walk's two other branches at depths 1, 2, 4 and 8: 4-byte
+    row copies (K * nk * r_max % 4 != 0: K = 3, nk = 101, r_max = 117) and
+    rows wider than the 128 slots a lane keeps in registers (r_max = 200,
+    duplicate ids across slot 128). Against the plain version on rows with
+    duplicate ids, and bit for bit against depth 1 on rows with unique ids.
+    Returns the max (abs, rel) errors against the plain version."""
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import sparse_sdca as sk
+    worst = [0.0, 0.0]
+    d = 47_236
+    for K, nk, r_max in ((3, 101, 117), (4, 96, 200)):
+        cols, vals, _ = _ell(rng, K, nk, d, r_max)
+        if r_max > 130:
+            cols = _straddle(cols, vals)
+        dup = _rows_case(rng, cols, vals, d, dev)
+        uniq = _rows_case(rng, *_unique_ell(rng, K, nk, d, r_max), d, dev)
+        held = {depth: [0.0, True, True] for depth in (1, 2, 4, 8)}
+        for i, (loss_name, kappa) in enumerate(
+                (ln, kp) for ln in ("hinge", "smooth_hinge", "squared",
+                                    "absolute") for kp in (None, 0.5)):
+            kw = dict(loss=get_loss(loss_name), n_passes=1 + i % 2,
+                      prox_kappa=kappa)
+            want = sk.sparse_local_sdca_plain(*dup[:6], scale, dup[6], **kw)
+            one = sk.sparse_local_sdca(*uniq[:6], scale, uniq[6], **kw)
+            for depth, h in held.items():
+                got = sk.sparse_local_sdca(*dup[:6], scale, dup[6],
+                                           buffer_depth=depth, **kw)
+                deep = sk.sparse_local_sdca(*uniq[:6], scale, uniq[6],
+                                            buffer_depth=depth, **kw)
+                torch.cuda.synchronize()
+                h[2] &= all(torch.equal(a, b) for a, b in zip(deep, one))
+                for g, p in zip(got, want):
+                    a, r, ok = _errors(g, p)
+                    worst = [max(worst[0], a), max(worst[1], r)]
+                    h[0], h[1] = max(h[0], a), h[1] and ok
+        for depth, (a, ok, same) in held.items():
+            log(f"  walk K={K} nk={nk} r_max={r_max} depth={depth}, 4 "
+                f"losses x prox on/off, 1-2 passes: vs plain max_abs="
+                f"{a:.3e} {'ok' if ok else 'FAIL'}; unique ids vs depth 1 "
+                f"{'bit for bit' if same else 'DIFFER'}")
+            if not (ok and same):
+                bad.append(f"walk K={K} r_max={r_max} depth={depth}")
     return worst
 
 
@@ -619,6 +774,21 @@ def _time_ms(fn, reps=1, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
+def _in_turns(keys, call, reps=1, each=None):
+    """Times `call(key)` for every key in turns (keys in order, then
+    reversed), `reps` calls a turn after a warm-up, with CUDA events;
+    `each(key, result)` sees every turn's last result. Returns ({key: mean
+    ms a call}, {key: the last result})."""
+    keys = tuple(keys)
+    ms, outs = {k: [] for k in keys}, {}
+    for k in keys + keys[::-1]:
+        t, outs[k] = _time_ms(lambda: call(k), reps=reps)
+        ms[k].append(t)
+        if each is not None:
+            each(k, outs[k])
+    return {k: sum(v) / len(v) for k, v in ms.items()}, outs
+
+
 def _round_inputs(cfg, X, y, mask, state):
     """The wrapper's inputs for the main path's next round, as kernels.ops
     builds them: w = conj_grad(v), scale = sigma'/(tau n), the visit perm."""
@@ -723,7 +893,7 @@ def _sparse_bytes(nnz, K, nk, d):
 
 def phase_times(dense, sparse, cut_errs):
     from repro_torch.core.losses import get_loss
-    from repro_torch.kernels import local_sdca as dk, sparse_sdca as sk
+    from repro_torch.kernels import local_sdca as dk, ops, sparse_sdca as sk
     hinge = {"loss": get_loss("hinge")}
     log("[6 times] kernel vs plain on the main path's next-round inputs; "
         "CUDA events, mean of repeated launches after a warm-up")
@@ -733,15 +903,19 @@ def phase_times(dense, sparse, cut_errs):
     K, nk, d = Xp.shape
     w, scale, perm = _round_inputs(cfg, Xp, yp, mk, r.state)
     args = (Xp, yp, r.state.alpha, mk, w, scale, perm)
-    errs = _against_plain("local_sdca", dk.local_sdca, dk.local_sdca_plain,
-                          args, hinge)[:3]
+    *errs, dense_want = _against_plain("local_sdca", dk.local_sdca,
+                                       dk.local_sdca_plain, args, hinge)
     ms, _ = _time_ms(lambda: dk.local_sdca(*args, **hinge), reps=3)
+    steps = ops.n_passes_of(cfg.H, nk) * nk       # the chain of one worker
+    sweep = _dense_sweep(args, hinge, dense_want)
     out.append(("local_sdca", "src/repro_torch/kernels/csrc/local_sdca.cu",
                 "src/repro/kernels/local_sdca.py:56", launches, r, errs,
                 cut_errs["local_sdca"], ms,
                 4 * (K * nk * d + 5 * K * nk + d + K * d), 6 * K * nk * d,
-                f"K={K} nk={nk} d={d}",
-                _host_split(cfg, Xp, yp, mk, r.state)))
+                f"K={K} nk={nk} d={d} block_rows={dk.DEFAULT_BLOCK_ROWS}",
+                _host_split(cfg, Xp, yp, mk, r.state),
+                dict(us_per_step=1e3 * ms / steps,
+                     block_rows=dk.DEFAULT_BLOCK_ROWS, block_rows_ms=sweep)))
     # sparse at rcv1's shape, at the main path's ring depth
     sh, yp, mk, r, cfg, launches, nnz, _, depth = sparse
     K, nk, r_max = sh.cols.shape
@@ -752,6 +926,7 @@ def phase_times(dense, sparse, cut_errs):
         "sparse_sdca_pipelined", walk, sk.sparse_local_sdca_plain, args,
         hinge)
     ms, _ = _time_ms(lambda: walk(*args, **hinge), reps=3)
+    steps = ops.n_passes_of(cfg.H, nk) * nk
     out.append(("sparse_sdca_pipelined",
                 "src/repro_torch/kernels/csrc/sparse_sdca_pipelined.cu",
                 "src/repro/kernels/sparse_sdca.py:205", launches, r, errs,
@@ -759,16 +934,19 @@ def phase_times(dense, sparse, cut_errs):
                 _sparse_bytes(nnz, K, nk, sh.d), 6 * nnz,
                 f"K={K} nk={nk} r_max={r_max} d={sh.d} nnz={nnz} "
                 f"depth={depth}",
-                _host_split(cfg, sh, yp, mk, r.state)))
+                _host_split(cfg, sh, yp, mk, r.state),
+                dict(us_per_step=1e3 * ms / steps)))
     rows = []
     for (name, src, repl, launches, r, (abs_err, rel_err, plain), cut, ms,
-         nbytes, flops, shape, split) in out:
+         nbytes, flops, shape, split, extra) in out:
         rounds = len(r.history["round"])
         rows.append(_row(name, src, repl, launches, launches / rounds,
                          "per round", (abs_err, rel_err), cut, ms, plain,
                          None, nbytes, flops, F32_FLOPS_PER_S,
                          "67 TFLOP/s f32", shape, rounds=rounds,
-                         host_split_ms=split))
+                         host_split_ms=split, **extra))
+        log(f"  {name}: {extra['us_per_step']:.4f} us a step (the "
+            f"{ms:.3f} ms over one worker's chain of steps)")
         steady = r.history["execute_s"][1:] or r.history["execute_s"]
         log(f"  {name} one round on the host clock (ms): " + ", ".join(
             f"{k}={v:.3f}" for k, v in split.items())
@@ -777,6 +955,33 @@ def phase_times(dense, sparse, cut_errs):
             f"mean={1e3 * sum(steady) / len(steady):.3f}")
     sparse_plain = (rows[1]["plain_ms"], sparse_want)
     return rows, sparse_plain
+
+
+def _dense_sweep(args, hinge, want):
+    """The dense kernel at every window of SWEEP_B on the main path's
+    next-round inputs, in turns (B ascending, then descending), each result
+    held to the plain version's `want` with `_against_plain`'s tolerance.
+    Returns {B: ms a call}."""
+    from repro_torch.kernels import local_sdca as dk
+    nk = args[-1].shape[1]
+    atol = ATOL * max(1.0, nk / CUT_NK)
+
+    def held(B, got):
+        for part, g, p in zip(("dalpha", "du"), got, want):
+            a, _, ok = _errors(g, p, atol)
+            if not ok:
+                fail(f"local_sdca at block_rows={B} disagrees with its plain "
+                     f"version on the main path's inputs: {part} {a:.3e}")
+    ms, _ = _in_turns(SWEEP_B, lambda B: dk.local_sdca(
+        *args, block_rows=B, **hinge), each=held)
+    order = SWEEP_B + SWEEP_B[::-1]
+    log(f"  local_sdca window sweep, ms a call (CUDA events, in turns "
+        f"{', '.join(map(str, order))}; each held to the plain version): "
+        + ", ".join(f"B={B}: {t:.3f} ({1e3 * t / nk:.4f} us a step)"
+                    for B, t in ms.items())
+        + f"; fastest B={min(ms, key=ms.get)}, default "
+        f"{dk.DEFAULT_BLOCK_ROWS}")
+    return ms
 
 
 def _row(name, src, repl, launches, per, per_what, errs, cut, ms, plain_ms,
@@ -1300,18 +1505,18 @@ def phase_depth_one(sparse):
     w, scale, perm = _round_inputs(cfg, sh, yp, mk, r.state)
     args = (sh.cols, sh.vals, yp, r.state.alpha, mk, w, scale, perm)
     hinge = {"loss": get_loss("hinge")}
-    outs, ms = {}, {depth: [] for depth in DEPTHS}
-    for depth in DEPTHS + DEPTHS[::-1]:                     # in turns
-        t, outs[depth] = _time_ms(lambda: sk.sparse_local_sdca(
-            *args, buffer_depth=depth, **hinge), reps=2)
-        ms[depth].append(t)
-    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    ms, outs = _in_turns(DEPTHS, lambda depth: sk.sparse_local_sdca(
+        *args, buffer_depth=depth, **hinge), reps=2)
+    cfg_passes = ops.n_passes_of(cfg.H, nk)
     equal = all(torch.equal(a, b) for depth in DEPTHS[1:]
                 for a, b in zip(outs[depth], outs[1]))
     order = DEPTHS + DEPTHS[::-1]
     log(f"  ms per launch on the next round's inputs (CUDA events, depths "
         f"in turns {', '.join(map(str, order))}): " + ", ".join(
             f"depth {k}: {v:.3f}" for k, v in ms.items())
+        + f"; us a step: " + ", ".join(
+            f"depth {k}: {1e3 * v / (nk * cfg_passes):.4f}"
+            for k, v in ms.items())
         + f"; depths {DEPTHS[1:]} equal depth 1 bit for bit: {equal}")
     if not equal:
         fail("the sparse kernel at depth >= 2 differs from depth 1 on "
@@ -1411,7 +1616,8 @@ def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
         cut_errs["sparse_sdca"], pipe["ms"][1], errs[2], None,
         _sparse_bytes(nnz, K, nk, d), 6 * nnz, F32_FLOPS_PER_S,
         "67 TFLOP/s f32", f"K={K} nk={nk} r_max={r_max} d={d} nnz={nnz} "
-        f"depth=1", rounds=rounds, depth_ms=pipe["ms"]))
+        f"depth=1", rounds=rounds, depth_ms=pipe["ms"],
+        us_per_step=1e3 * pipe["ms"][1] / nk))
     # zx at rcv1's 4 x 2 shape
     fs, yp, mk, r, cfg = (mesh[k] for k in ("fs", "yp", "mk", "r", "cfg"))
     w, scale, perm = _round_inputs(cfg, fs, yp, mk, r.state)

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import DEFAULT_DEVICE, resolve_device
+
 
 class NoCompression:
     """The identity compressor with error feedback:
@@ -22,6 +24,7 @@ class NoCompression:
 
 
 def init_residual(K: int, d: int, dtype=torch.float32,
-                  device="cpu") -> torch.Tensor:
-    """Fresh per-worker EF residuals (zeros; identity for 'none')."""
-    return torch.zeros((K, d), dtype=dtype, device=device)
+                  device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Fresh per-worker EF residuals (zeros; identity for 'none'), on the
+    card unless the caller names another device."""
+    return torch.zeros((K, d), dtype=dtype, device=resolve_device(device))

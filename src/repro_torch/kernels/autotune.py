@@ -10,7 +10,7 @@ What the knobs mean here:
 
     buffer_depth  the 1-D kernel's ring (csrc/sparse_sdca_pipelined.cu):
                   1 fetches each row in its own step, >= 2 prefetches the
-                  next rows. On a cache miss 2 on the card, where it was
+                  next rows. On a cache miss 4 on the card, where it was
                   the fastest depth measured (PERF.md), and the
                   reference's 1 elsewhere, where no kernel runs
     block_rows    the z-exchange schedule's block (its staleness window and
@@ -46,7 +46,7 @@ ENV_VAR = "REPRO_TORCH_AUTOTUNE_CACHE"
 DEFAULT_CONFIG = {"block_rows": 128, "buffer_depth": 1}
 
 # cache-miss ring on the card (PERF.md, the 1-D kernel's depths)
-CUDA_DEFAULT_BUFFER_DEPTH = 2
+CUDA_DEFAULT_BUFFER_DEPTH = 4
 
 # cache-miss block for the M > 1 z-exchange schedule: block_rows is its
 # staleness window, so it starts an order of magnitude below the default

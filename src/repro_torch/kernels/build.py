@@ -127,8 +127,11 @@ def load(name: str) -> ctypes.CDLL:
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "local_sdca":
-        lib.local_sdca_launch.argtypes = [P] * 8 + [I] * 4 + [F, I, F, P]
+        lib.local_sdca_launch.argtypes = [P] * 8 + [I] * 4 + [F, I, F, I,
+                                                              I, P]
         lib.local_sdca_launch.restype = I
+        lib.local_sdca_smem_bytes.argtypes = [I] * 3
+        lib.local_sdca_smem_bytes.restype = ctypes.c_longlong
     elif name == "sparse_sdca_pipelined":
         lib.sparse_sdca_pipelined_launch.argtypes = ([P] * 9 + [I] * 5
                                                      + [F, I, F, I, F, I, P])

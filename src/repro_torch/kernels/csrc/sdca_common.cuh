@@ -1,7 +1,7 @@
 // Shared pieces of the LocalSDCA kernels (local_sdca.cu,
 // sparse_sdca_pipelined.cu, sparse_sdca_zx.cu):
 // the closed-form coordinate update of every kernel-supported loss, the
-// soft-threshold of the fused prox, and the per-step block reduction.
+// soft-threshold of the fused prox, and the per-step warp reduction.
 //
 // The closed forms follow src/repro_torch/core/losses.py (and the reference
 // src/repro/core/losses.py) line for line, including the q == 0 guards and
@@ -14,14 +14,6 @@ namespace sdca {
 
 // loss ids: the wrapper maps Loss.name onto these (logistic is rejected)
 enum LossId : int { HINGE = 0, SMOOTH_HINGE = 1, SQUARED = 2, ABSOLUTE = 3 };
-
-// threads of one block; 32 warps at most, so the reduction scratch below
-// always has room for one float2 per warp
-constexpr int MAX_WARPS = 32;
-
-// dynamic shared memory ahead of u: MAX_WARPS float2 partial sums plus a
-// 16-byte broadcast slot (keeps u 16-byte aligned)
-constexpr int SCRATCH_BYTES = MAX_WARPS * 8 + 16;
 
 __device__ __forceinline__ float safe_div(float a, float b) {
   return a / (b == 0.0f ? 1.0f : b);
@@ -61,29 +53,17 @@ __device__ __forceinline__ float soft_threshold(float u, float kappa) {
   return u > 0.0f ? m : (u < 0.0f ? -m : 0.0f);
 }
 
-// Sum (a, b) over the block. Every thread passes its partials; the totals
-// are valid in thread 0 only. Ends with the scratch published: the caller
-// must __syncthreads() before the scratch is written again.
-__device__ __forceinline__ float2 block_sum2(float a, float b,
-                                             float2* scratch) {
+// Sum (a, b) over one warp: a butterfly of __shfl_xor_sync, so every lane
+// ends with the totals, the same bits in every lane (each level adds the
+// same two values in each pair of lanes, and float addition commutes). The
+// whole warp must call it; no shared memory, no barrier.
+__device__ __forceinline__ float2 warp_sum2(float a, float b) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     a += __shfl_xor_sync(0xffffffffu, a, off);
     b += __shfl_xor_sync(0xffffffffu, b, off);
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = make_float2(a, b);
-  __syncthreads();
-  float2 tot = make_float2(0.0f, 0.0f);
-  if (threadIdx.x == 0) {
-    const int nwarps = (blockDim.x + 31) >> 5;
-    for (int w = 0; w < nwarps; ++w) {
-      tot.x += scratch[w].x;
-      tot.y += scratch[w].y;
-    }
-  }
-  return tot;
+  return make_float2(a, b);
 }
 
 }  // namespace sdca

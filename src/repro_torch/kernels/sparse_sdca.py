@@ -37,26 +37,38 @@ import torch
 from ..core.losses import Loss
 from ..core.regularizers import soft_threshold
 from . import build
-from .local_sdca import MAX_SMEM_BYTES, SCRATCH_BYTES, loss_code
+from .local_sdca import MAX_SMEM_BYTES, loss_code
 
 LAUNCHES = 0                # csrc/sparse_sdca_pipelined.cu at depth 1
 PIPELINED_LAUNCHES = 0      # the same kernel at depth >= 2
 ZX_LAUNCHES = 0             # csrc/sparse_sdca_zx.cu, one per round
 ZX_STEPS = 0                # the invocations (blocks of rows) they ran
 MAX_DEPTH = 8               # ring stages the 1-D kernel is built for
+STAGE_SCALARS = 8           # words of a 1-D ring stage after cols and vals
 ZX_MAX_CLUSTER = 16         # with the non-portable cluster-size attribute
 ZX_ID_SLOTS, ZX_SCALARS = 4, 5   # ID_SLOTS, SCALARS in the .cu
 ZX_ROADMAP = ("ROADMAP.md Queue 2, 'The z-exchange round beyond one "
               "cluster'")
 
 
+def stage_row_words(r_max: int) -> int:
+    """Words a 1-D ring stage gives one row's cols (and its vals): the row
+    and up to 3 words before it, from its 16-byte chunk on, rounded up to
+    16 bytes (`row_words` in csrc/sparse_sdca_pipelined.cu)."""
+    return (r_max + 6) // 4 * 4
+
+
 def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
                 buffer_depth: int = 1, block_rows: int = 16,
                 zx: bool = False) -> dict:
     """Dynamic shared memory one block of the launch uses, in bytes (the
-    counterpart of the reference's `vmem_budget`). The 1-D kernel holds u
-    (4 d), the reduction scratch and a ring of min(buffer_depth, nk) rows
-    (cols, vals, y, alpha, mask, dalpha and the row id).
+    counterpart of the reference's `vmem_budget`). The 1-D kernel (a walk
+    warp and a fetch warp a worker, no reduction scratch) holds u (4 d)
+    and a ring of
+    min(buffer_depth, nk) rows: cols and vals, each in a region of
+    `stage_row_words(r_max)` words (the row's 16-byte chunks), then y,
+    alpha, mask, dalpha, the row id and three spare words
+    (`STAGE_SCALARS`), and the stage's two 8-byte mbarriers.
 
     The zx kernel (d = d_local, r_max = r_loc) holds the two z buffers and
     a coefficient per block row (scratch), its prefetch (two row stages of
@@ -70,9 +82,10 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
         u_in_smem = 4 * d + ring + scratch <= MAX_SMEM_BYTES
         u = 4 * d if u_in_smem else 0
     else:
-        u, scratch, u_in_smem = 4 * d, SCRATCH_BYTES, True
+        u, scratch, u_in_smem = 4 * d, 0, True
         stages = min(buffer_depth, nk) if nk is not None else buffer_depth
-        ring = 4 * stages * (2 * r_max + 5)
+        ring = stages * (4 * (2 * stage_row_words(r_max) + STAGE_SCALARS)
+                         + 16)          # and two 8-byte mbarriers a stage
     total = u + ring + scratch
     return dict(u_bytes=u, ring_bytes=ring, scratch_bytes=scratch,
                 total_bytes=total, fits=total <= MAX_SMEM_BYTES,

@@ -62,6 +62,24 @@ def test_entry_points_default_to_cuda():
                 make()
 
 
+def test_init_residual_defaults_to_cuda():
+    """The error-feedback residual follows the port's device rule: on the
+    card unless the caller names another device."""
+    from repro_torch import comm
+    if torch.cuda.is_available():
+        assert comm.init_residual(2, 3).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            comm.init_residual(2, 3)
+
+
+def test_init_residual_on_the_cpu_when_asked():
+    from repro_torch import comm
+    ef = comm.init_residual(4, 5, torch.float64, device="cpu")
+    assert ef.device.type == "cpu" and ef.dtype == torch.float64
+    assert tuple(ef.shape) == (4, 5) and not ef.any()
+
+
 def test_cli_defaults_to_cuda():
     argv = ["--dataset", "tiny", "--rounds", "1", "--solver", "sdca_kernel"]
     if torch.cuda.is_available():

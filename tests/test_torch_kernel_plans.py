@@ -2,7 +2,11 @@
 checked on the CPU (shape arithmetic only; the card-only tests run the
 kernels).
 
-The zx kernel runs a round in one launch, one thread-block cluster of M
+The dense walk runs windows of B rows with u, a two-stage row ring, the
+window's Gram and its reduction buffers in shared memory
+(`dense_smem_budget`); the 1-D sparse walk, one walk warp and one fetch
+warp a worker, holds u and a ring of one-row stages (`smem_budget`). The
+zx kernel runs a round in one launch, one thread-block cluster of M
 blocks per worker, with u in shared memory where it fits beside its
 buffers (`zx_launch_plan`, `smem_budget(zx=True)`); flash attention's
 bfloat16 instance holds bf16 tiles with padded rows, its float32 instance
@@ -18,6 +22,7 @@ import torch
 from repro_torch.core.losses import get_loss
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import local_sdca as dk
 from repro_torch.kernels import sparse_sdca as sk
 
 SMEM_LIMIT = 232_448
@@ -133,6 +138,81 @@ def test_flash_smem_bytes_refuses_other_dtypes():
         fa.smem_bytes(64, torch.float16)
 
 
+def _dense_bytes(d, B, d_tile):
+    """The dense block's layout written out: u, two stages of B x d_tile
+    floats, G, z0 and c, two reduction buffers of 8 x 64 words and four
+    windows of B row ids."""
+    return 4 * ((d + 3) // 4 * 4 + 2 * B * d_tile + B * B + 2 * B
+                + 2 * 8 * 64 + 4 * B)
+
+
+@pytest.mark.parametrize("B,chunks,d_tile", [(1, 1, 2_000), (2, 1, 2_000),
+                                             (4, 1, 2_000), (8, 1, 2_000),
+                                             (16, 2, 1_000), (32, 3, 668)])
+def test_dense_budget_at_epsilons_width(B, chunks, d_tile):
+    """epsilon's d = 2,000: whole rows up to B = 8 (the default window),
+    rows cut into balanced column tiles beyond."""
+    got = dk.dense_smem_budget(2_000, B)
+    assert (got["chunks"], got["d_tile"]) == (chunks, d_tile)
+    assert got["total_bytes"] == _dense_bytes(2_000, B, d_tile)
+    assert got["fits"] and got["total_bytes"] <= SMEM_LIMIT
+    assert got["u_bytes"] == 8_000
+    assert chunks * d_tile >= 2_000 > (chunks - 1) * d_tile
+
+
+def test_dense_budget_at_rcv1s_width_tiles_the_rows():
+    """d = 47,236 (rcv1's width, were it dense): u takes 188,944 bytes, so
+    the default window's rows are cut into 78 tiles of 608 columns."""
+    got = dk.dense_smem_budget(47_236)
+    assert dk.DEFAULT_BLOCK_ROWS == 8
+    assert (got["chunks"], got["d_tile"], got["u_bytes"]) == (78, 608,
+                                                               188_944)
+    assert got["fits"] and got["total_bytes"] == _dense_bytes(47_236, 8, 608)
+
+
+def test_dense_budget_at_its_limit():
+    """The widest d whose u and a 4-column ring still fit, per window (at
+    B = 8, 56,912); four columns more are refused by check_u_fits, naming
+    the limit."""
+    for B in dk.BLOCK_ROWS:
+        widest = max(d for d in range(55_000, 58_100, 4)
+                     if dk.dense_smem_budget(d, B)["fits"])
+        assert dk.dense_smem_budget(widest, B)["total_bytes"] <= SMEM_LIMIT
+        assert not dk.dense_smem_budget(widest + 4, B)["fits"]
+        with pytest.raises(ValueError, match="232448 bytes"):
+            dk.check_u_fits(widest + 4, B)
+        assert B != 8 or widest == 56_912
+    assert dk.check_u_fits(2_000)["fits"]
+
+
+@pytest.mark.parametrize("B", [0, 3, 64])
+def test_dense_budget_refuses_windows_the_kernel_lacks(B):
+    with pytest.raises(ValueError, match="block_rows must be one of"):
+        dk.dense_smem_budget(2_000, B)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_sparse_budget_at_rcv1(depth):
+    """rcv1's d = 47,236, r_max = 118: u, and per stage two regions of 124
+    words (the row from its 16-byte chunk), 8 scalar words and two
+    mbarriers; no reduction scratch. Every depth fits."""
+    got = sk.smem_budget(d=47_236, r_max=118, nk=84_675, buffer_depth=depth)
+    assert got["scratch_bytes"] == 0 and got["u_bytes"] == 188_944
+    assert got["ring_bytes"] == depth * (4 * (2 * 124 + 8) + 16)
+    assert got["fits"] and got["total_bytes"] <= SMEM_LIMIT
+
+
+def test_sparse_budget_at_its_limit():
+    """At depth 8 and r_max = 118 the widest u leaves the ring's 8,320
+    bytes; one float more does not fit."""
+    widest = (SMEM_LIMIT - 8 * 1_040) // 4
+    assert sk.smem_budget(d=widest, r_max=118, buffer_depth=8)["fits"]
+    assert not sk.smem_budget(d=widest + 1, r_max=118, buffer_depth=8)["fits"]
+    # the regions round r_max + 3 up to whole 16-byte chunks
+    assert [sk.stage_row_words(r) for r in (1, 2, 4, 5, 118, 125)] == \
+        [4, 8, 8, 8, 124, 128]
+
+
 def test_python_layouts_match_the_cuda_sources():
     """The budgets above restate constants of the .cu files; hold them to
     the sources, so an edit of one side shows here."""
@@ -150,3 +230,18 @@ def test_python_layouts_match_the_cuda_sources():
     assert re.search(r"constexpr int BQ = (\d+);", tc).group(1) == \
         str(fa.TILE)
     assert "HD >= 256 ? 32 : 64" in tc
+    dense = (build.CSRC / "local_sdca.cu").read_text()
+    assert re.search(r"constexpr int THREADS = (\d+);", dense).group(1) == \
+        str(32 * dk.WARPS)
+    assert re.search(r"constexpr int RED_WORDS = (\d+);", dense).group(1) \
+        == str(dk.RED_WORDS)
+    assert re.search(r"constexpr int ID_SLOTS = (\d+);", dense).group(1) == \
+        str(dk.ID_SLOTS)
+    assert tuple(int(b) for b in re.findall(r"LOCAL_SDCA_CASE\((\d+)\)",
+                                            dense)) == dk.BLOCK_ROWS
+    walk = (build.CSRC / "sparse_sdca_pipelined.cu").read_text()
+    assert re.search(r"constexpr int STAGE_SCALARS = (\d+);", walk).group(1) \
+        == str(sk.STAGE_SCALARS)
+    assert re.search(r"constexpr int MAX_DEPTH = (\d+);", walk).group(1) == \
+        str(sk.MAX_DEPTH)
+    assert "return (r_max + 3 + 3) & ~3;" in walk      # stage_row_words

@@ -170,12 +170,12 @@ def test_resolve_sources_and_zx_default(shared_cache):
 
 
 def test_cache_miss_depth_on_the_card_is_the_measured_best(shared_cache):
-    """On a miss the card's ring is 2 deep (PERF.md); elsewhere, where no
+    """On a miss the card's ring is 4 deep (PERF.md); elsewhere, where no
     kernel runs, the reference's 1."""
     got = autotune.resolve_sparse_config(d=9, r_max=2, block_rows=None,
                                          backend="cuda")
-    assert autotune.CUDA_DEFAULT_BUFFER_DEPTH == 2
-    assert got == {"block_rows": 128, "buffer_depth": 2, "source": "default"}
+    assert autotune.CUDA_DEFAULT_BUFFER_DEPTH == 4
+    assert got == {"block_rows": 128, "buffer_depth": 4, "source": "default"}
     assert autotune.resolve_sparse_config(
         d=9, r_max=2, block_rows=None, backend="cpu")["buffer_depth"] == 1
 
@@ -238,13 +238,15 @@ def test_buffer_depth_dispatch_equals_depth_one(depth):
 
 def test_smem_budget_rejects_what_does_not_fit():
     ok = sk.smem_budget(d=47_236, r_max=118, buffer_depth=4)
-    assert ok["fits"] and ok["ring_bytes"] == 4 * 4 * (2 * 118 + 5)
-    assert ok["u_bytes"] == 188_944
-    assert sk.smem_budget(d=47_236, r_max=118)["ring_bytes"] == 4 * 241
+    assert sk.stage_row_words(118) == 124        # 118 + 3, to 16 bytes
+    assert ok["fits"] and ok["ring_bytes"] == 4 * (4 * (2 * 124 + 8) + 16)
+    assert ok["u_bytes"] == 188_944 and ok["scratch_bytes"] == 0
+    assert sk.smem_budget(d=47_236, r_max=118)["ring_bytes"] == 1_040
     assert sk.smem_budget(d=47_236, r_max=118, nk=3,
-                          buffer_depth=4)["ring_bytes"] == 3 * 4 * 241
-    # u, a one-row stage and the scratch fill the limit to the last word
-    widest = (232_448 - 272 - 4 * 241) // 4
+                          buffer_depth=4)["ring_bytes"] == 3 * 1_040
+    # u and a one-row stage with its two mbarriers fill the limit to the
+    # last word (no reduction scratch)
+    widest = (232_448 - 1_040) // 4
     assert sk.smem_budget(d=widest, r_max=118)["fits"]
     assert not sk.smem_budget(d=widest + 1, r_max=118)["fits"]
     tight = sk.smem_budget(d=widest, r_max=118, buffer_depth=2)
@@ -293,14 +295,34 @@ def _unique_case(rng, K, nk, d, r_max):
     return cols, vals
 
 
+def _straddle(cols, vals, slot=128):
+    """`cols` with ids repeated across `slot`, the first slot a walk lane
+    reads from the stage and not from its registers, in every row live at
+    slot + 2: slot -> slot 0 (the same lane), slot + 1 -> slot - 1 and
+    slot + 2 -> slot / 2 (other lanes)."""
+    cols = cols.copy()
+    live = vals[..., slot + 2] != 0
+    for dst, src in ((slot, 0), (slot + 1, slot - 1), (slot + 2, slot // 2)):
+        cols[..., dst] = np.where(live, cols[..., src], cols[..., dst])
+    return cols
+
+
+# the walk's other branches: 4-byte row copies (K * nk * r_max % 4 != 0)
+# and rows wider than the 128 slots a lane keeps in registers
+WALK_BRANCHES = [(3, 101, 117), (4, 96, 200)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth,nk,n_passes", [(2, 300, 2), (3, 300, 1),
-                                               (4, 300, 2), (8, 97, 2),
-                                               (4, 3, 2), (4, 1, 3)])
+@pytest.mark.parametrize(
+    "depth,nk,n_passes,K,r",
+    [(2, 300, 2, 4, 40), (3, 300, 1, 4, 40), (4, 300, 2, 4, 40),
+     (8, 97, 2, 4, 40), (4, 3, 2, 4, 40), (4, 1, 3, 4, 40)]
+    + [(depth, nk, 2, K, r) for K, nk, r in WALK_BRANCHES
+       for depth in (2, 4, 8)])
 def test_cuda_pipelined_equals_depth_one_bit_for_bit(card, depth, nk,
-                                                     n_passes):
+                                                     n_passes, K, r):
     rng = np.random.default_rng(depth * 1000 + nk)
-    K, d, r = 4, 5_000, 40
+    d = 5_000
     cols, vals = _unique_case(rng, K, nk, d, r)
     _, _, y, alpha, mask, w, perm = _case(rng, K, nk, d, 2)
     t = [torch.from_numpy(a).to(card)
@@ -323,13 +345,20 @@ def test_cuda_pipelined_equals_depth_one_bit_for_bit(card, depth, nk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("depth", [2, 4])
-def test_cuda_pipelined_matches_plain_with_duplicates(card, depth):
-    """Rows with duplicate ids and column 0 next to padding (tolerance
-    rtol 1e-4, atol 1e-5: block reductions and shared-memory atomics
-    reorder the float32 sums)."""
+@pytest.mark.parametrize(
+    "depth,K,nk,r",
+    [(2, 4, 256, 48), (4, 4, 256, 48)]
+    + [(depth, K, nk, r) for K, nk, r in WALK_BRANCHES
+       for depth in (1, 2, 4, 8)])
+def test_cuda_pipelined_matches_plain_with_duplicates(card, depth, K, nk, r):
+    """Rows with duplicate ids and column 0 next to padding, and at r =
+    200 ids repeated across slot 128 (tolerance rtol 1e-4, atol 1e-5:
+    warp reductions and shared-memory atomics reorder the float32 sums)."""
     rng = np.random.default_rng(21)
-    t = [torch.from_numpy(a).to(card) for a in _case(rng, 4, 256, 3_000, 48)]
+    case = list(_case(rng, K, nk, 3_000, r))
+    if r > 130:
+        case[0] = _straddle(case[0], case[1])
+    t = [torch.from_numpy(a).to(card) for a in case]
     for loss_name in CLOSED_FORM:
         kw = dict(loss=get_loss(loss_name), n_passes=2, prox_kappa=0.1)
         got = sk.sparse_local_sdca(*t[:6], 0.3, t[6], buffer_depth=depth,
