@@ -13,7 +13,8 @@ order, each failing the run with a non-zero exit:
                kernel table, at ring depth 1 and at depth >= 2); each
                library's shared-memory layout against the wrappers'
                budgets (the dense kernel at every window and phase 3's
-               widths); cuobjdump -sass of flash attention: HMMA (tensor
+               widths, the scan at every G instance and phase 7's
+               N); cuobjdump -sass of flash attention: HMMA (tensor
                core) instructions in every bfloat16 instance
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the real widths (d = 2,000 dense, d = 47,236 sparse) and a cut
@@ -55,7 +56,11 @@ order, each failing the run with a non-zero exit:
                tails, float32 and bfloat16, head_dim 64, 128 and 256; the
                bfloat16 (tensor-core) instance at head_dim 32-256 and S = 1,
                63, 64, 65, 200, 1,345, GQA 4, MQA, softcap 50; scan
-               d_inner 256 and 8,192, N = 16, ragged S
+               d_inner 256 and 8,192, N = 16, ragged S, and the cut
+               shapes of the state-group kernel: N = 1, 5, 8, 16; S = 1,
+               63, 64, 65 and one past the second chunk edge (129); B =
+               3; d_inner 200 and 203 (not a multiple of a block's 32
+               channels; 203 takes the 4-byte copies); every G
   8. serve     the LM serving path: stablelm-1.6b at full width and depth
                (24 layers, d_model 2,048, 32 x 64 heads, vocab 100,352,
                bf16, 1.64 B random weights from the seed) with
@@ -77,7 +82,10 @@ order, each failing the run with a non-zero exit:
                inputs (layer 0's kernel arguments, kept as phase 8's first
                prompt and phase 9's batch ran), then its time with CUDA
                events beside its bound, the plain version's and, for flash,
-               scaled_dot_product_attention's
+               scaled_dot_product_attention's; the scan's exp floor on its
+               own line, and its G sweep (G = 4, 8, 16 states a thread,
+               in turns after half a second of launches, each held to
+               the plain version)
  11. depth-1   phase 4's main path again (rcv1 shape, K = 8, 5 rounds)
                with buffer_depth 1 resolved from a one-entry autotune cache
                named by REPRO_TORCH_AUTOTUNE_CACHE: the sparse kernel walks
@@ -118,6 +126,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 peak outside tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor-core peak
+SMS, MUFU_PER_CLOCK = 132, 16  # H100 SXM SMs; MUFU.EX2 lanes an SM
 RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain (reduction order differs)
 CUT_NK = 1024                  # phase 3's rows per worker
 CACHE_DEPTH = 1                # phase 11's cached buffer_depth
@@ -230,6 +239,19 @@ def _layouts():
             f"{plan['smem_bytes']}); clusters resident at once: {fit}")
         if got != plan["smem_bytes"] or fit < 1:
             fail(f"sparse_sdca_zx layout or cluster fit: {got}, {plan}, {fit}")
+    from repro_torch.kernels import ssm_scan as ss
+    lib = build.load("ssm_scan")
+    for N in SCAN_STATES:
+        got = {g: lib.ssm_scan_smem_bytes(N, g) for g in ss.GROUPS}
+        want = {g: ss.scan_launch_plan(1, 1, 1, N, g)["smem_bytes"]
+                for g in got}
+        log(f"  ssm_scan N={N} dynamic shared memory per block by G: "
+            + ", ".join(f"G={g}: {b} B" for g, b in got.items())
+            + f" (scan_launch_plan: {'equal' if got == want else want})")
+        if got != want:
+            fail("ssm_scan's shared memory differs from scan_launch_plan")
+    if lib.ssm_scan_smem_bytes(17, ss.DEFAULT_GROUP) != -1:
+        fail("ssm_scan's library takes N = 17")
 
 
 def _tensor_cores(path):
@@ -774,19 +796,28 @@ def _time_ms(fn, reps=1, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
-def _in_turns(keys, call, reps=1, each=None):
-    """Times `call(key)` for every key in turns (keys in order, then
-    reversed), `reps` calls a turn after a warm-up, with CUDA events;
-    `each(key, result)` sees every turn's last result. Returns ({key: mean
-    ms a call}, {key: the last result})."""
+def _in_turns(keys, call, reps=1, each=None, rounds=1, warm_s=0.5):
+    """Times `call(key)` for every key in turns: `rounds` rounds of keys
+    in order, then reversed, `reps` calls a turn after a warm-up, with CUDA
+    events, once `call` of the first key has run for `warm_s` seconds (the
+    card's first turn otherwise reads slow, its clocks still rising).
+    `each(key, result)` sees every turn's last result. Returns ({key: the
+    median of its turns' ms a call}, {key: the last result})."""
+    import statistics
+    import torch
     keys = tuple(keys)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        call(keys[0])
+        torch.cuda.synchronize()
     ms, outs = {k: [] for k in keys}, {}
-    for k in keys + keys[::-1]:
-        t, outs[k] = _time_ms(lambda: call(k), reps=reps)
-        ms[k].append(t)
-        if each is not None:
-            each(k, outs[k])
-    return {k: sum(v) / len(v) for k, v in ms.items()}, outs
+    for _ in range(rounds):
+        for k in keys + keys[::-1]:
+            t, outs[k] = _time_ms(lambda: call(k), reps=reps)
+            ms[k].append(t)
+            if each is not None:
+                each(k, outs[k])
+    return {k: statistics.median(v) for k, v in ms.items()}, outs
 
 
 def _round_inputs(cfg, X, y, mask, state):
@@ -1014,6 +1045,18 @@ def _row(name, src, repl, launches, per, per_what, errs, cut, ms, plain_ms,
 
 FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (2e-2, 2e-3)}
 SCAN_RTOL, SCAN_ATOL = 2e-4, 2e-5
+SCAN_STATES = (1, 5, 8, 16)    # phase 7's N: below, not dividing, equal to G
+# phase 7's scan shapes (B, S, di, N, G; None: the default G): N, then S
+# around the 64-step chunk, B = 3, di past a 32-channel block (203: the
+# 4-byte copies and stores), then every instance of G
+SCAN_CUTS = ([(2, 300, 256, 16, None), (1, 130, 8_192, 16, None)]
+             + [(1, 100, 256, N, None) for N in SCAN_STATES]
+             + [(1, S, 256, 16, None) for S in (1, 63, 64, 65, 129)]
+             + [(3, 70, 256, 16, None), (2, 70, 200, 16, None),
+                (1, 70, 203, 5, None)]
+             + [(B, S, di, N, G) for G in (4, 8, 16)
+                for B, S, di, N in ((3, 129, 200, 5), (1, 65, 256, 16),
+                                    (2, 33, 203, 8))])
 # prefill logits, flash kernel vs plain chunked_attention, both in bf16:
 # relative RMS of the difference over the logits. Each attention output
 # rounds to bf16 on both sides (p relative to the running max there, to
@@ -1137,11 +1180,12 @@ def phase_lm_kernels(dev):
              fa.flash_attention(q, k, v, softcap=cap),
              fa.flash_attention_plain(q, k, v, softcap=cap),
              *FLASH_TOL[dtype])
-    for B, S, di, N in ((2, 300, 256, 16), (1, 130, 8192, 16)):
+    for B, S, di, N, G in SCAN_CUTS:
         ins = _scan_case(rng, B, S, di, N, dev)
-        note("ssm_scan", f"ssm_scan B={B} S={S} di={di} N={N}",
-             ss.ssm_scan(*ins), ss.ssm_scan_plain(*ins), SCAN_RTOL,
-             SCAN_ATOL)
+        G = G or ss.DEFAULT_GROUP
+        note("ssm_scan", f"ssm_scan B={B} S={S} di={di} N={N} G={G}",
+             ss.ssm_scan(*ins, group=G), ss.ssm_scan_plain(*ins),
+             SCAN_RTOL, SCAN_ATOL)
     if bad:
         fail(f"LM kernel disagrees with its plain version: {bad}")
     return errs
@@ -1430,13 +1474,47 @@ def phase_lm_times(serve, mamba, cut_errs):
     # per (b, t, c): dt*x, D*x and its add
     flops = 7 * Bb * S * di * N + 3 * Bb * S * di
     nbytes = 4 * ((3 * di + 2 * N) * S * Bb + di * N + di)
+    exps = Bb * S * di * N
+    mhz = _max_sm_mhz()
+    exp_ms = exps / (SMS * MUFU_PER_CLOCK * mhz * 1e6) * 1e3
+    log(f"  ssm_scan exp floor: {exps} exps, one MUFU.EX2 each at "
+        f"{MUFU_PER_CLOCK} a clock on each of {SMS} SMs at the card's "
+        f"{mhz} MHz maximum SM clock: {exp_ms:.4f} ms (the bytes bound: "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    sweep_bad = []
+
+    def held(G, y):
+        a, _, ok = _errors(y, want, SCAN_ATOL * scale, SCAN_RTOL)
+        if not ok:
+            sweep_bad.append((G, a))
+    sweep, _ = _in_turns(ss.GROUPS, lambda G: ss.ssm_scan(
+        *args, **kw, group=G), reps=10, each=held)
+    log(f"  ssm_scan G sweep (states a thread, chunks of {ss.CHUNK} steps, "
+        f"in turns after half a second of launches, the mean of 10 launches "
+        f"a turn, each held to the plain version): " + ", ".join(
+            f"G={G}: {t:.4f} ms" for G, t in sweep.items())
+        + f"; default G={ss.DEFAULT_GROUP}")
+    if sweep_bad:
+        fail(f"ssm_scan instances disagree with the plain version on the "
+             f"scoring path's inputs: {sweep_bad}")
     rows.append(_row(
         "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "src/repro/kernels/ssm_scan.py:32", mamba["launches"],
         float(mamba["launches"]), "per forward", (abs_err, rel_err),
         cut_errs["ssm_scan"], ms, plain_ms, None, nbytes, flops,
-        F32_FLOPS_PER_S, "67 TFLOP/s f32", f"B={Bb} S={S} di={di} N={N} f32"))
+        F32_FLOPS_PER_S, "67 TFLOP/s f32", f"B={Bb} S={S} di={di} N={N} f32",
+        group_ms={str(G): t for G, t in sweep.items()}))
     return rows
+
+
+def _max_sm_mhz():
+    """The card's maximum SM clock in MHz, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm failed: {out.stderr.strip()}")
+    return int(out.stdout.split()[0])
 
 
 # ----------------------------------------------------------------------------

@@ -151,8 +151,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.flash_attention_smem_bytes.argtypes = [I, I]
         lib.flash_attention_smem_bytes.restype = I
     elif name == "ssm_scan":
-        lib.ssm_scan_launch.argtypes = [P] * 7 + [I] * 4 + [P]
+        lib.ssm_scan_launch.argtypes = [P] * 7 + [I] * 5 + [P]
         lib.ssm_scan_launch.restype = I
+        lib.ssm_scan_smem_bytes.argtypes = [I] * 2
+        lib.ssm_scan_smem_bytes.restype = ctypes.c_longlong
     else:
         raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
     err_fn = getattr(lib, f"{name}_error_string")

@@ -10,8 +10,10 @@ zx kernel runs a round in one launch, one thread-block cluster of M
 blocks per worker, with u in shared memory where it fits beside its
 buffers (`zx_launch_plan`, `smem_budget(zx=True)`); flash attention's
 bfloat16 instance holds bf16 tiles with padded rows, its float32 instance
-float32 tiles (`smem_bytes(hd, dtype)`). Every block must fit the H100's
-232,448 bytes of shared memory.
+float32 tiles (`smem_bytes(hd, dtype)`). The selective scan runs a block
+of 32 channels times ceil(N / G) warps, with two stages of its streams
+and two sets of y partials in shared memory (`scan_launch_plan`). Every
+block must fit the H100's 232,448 bytes of shared memory.
 """
 import re
 
@@ -24,6 +26,7 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import local_sdca as dk
 from repro_torch.kernels import sparse_sdca as sk
+from repro_torch.kernels import ssm_scan as ss
 
 SMEM_LIMIT = 232_448
 
@@ -245,3 +248,72 @@ def test_python_layouts_match_the_cuda_sources():
     assert re.search(r"constexpr int MAX_DEPTH = (\d+);", walk).group(1) == \
         str(sk.MAX_DEPTH)
     assert "return (r_max + 3 + 3) & ~3;" in walk      # stage_row_words
+    scan = (build.CSRC / "ssm_scan.cu").read_text()
+    assert re.search(r"constexpr int MAX_STATE = (\d+);", scan).group(1) \
+        == str(ss.MAX_STATE)
+    assert re.search(r"constexpr int CH = (\d+);", scan).group(1) == \
+        str(ss.CHANNELS)
+    assert re.search(r"constexpr int T = (\d+);", scan).group(1) == \
+        str(ss.CHUNK)
+    groups = re.search(r"#define SSM_SCAN_GROUPS\(X\) (.*)", scan).group(1)
+    assert tuple(int(g) for g in re.findall(r"X\((\d+)\)", groups)) == \
+        ss.GROUPS
+    assert "__launch_bounds__(CH * (MAX_STATE / G))" in scan   # threads
+    assert ("constexpr int STAGE_FLOATS = 2 * T * CH + 2 * T * MAX_STATE;"
+            in scan)                                           # a stage
+    assert ("return 2LL * STAGE_FLOATS + 2LL * n_groups(N, G) * T * CH;"
+            in scan)
+
+
+def _scan_bytes(N, G, T=64):
+    """The scan block's layout written out: two stages of x and dt (T x 32
+    floats) and B and C (T x 16), then two sets of ceil(N / G) planes of
+    T x 32 y partials (one written while the other is stored)."""
+    return 4 * (2 * (2 * T * 32 + 2 * T * 16) + 2 * -(-N // G) * T * 32)
+
+
+def test_scan_plan_at_the_scoring_shape():
+    """falcon-mamba-7b's scoring forward, B 1, S 2,048, di 8,192, N 16: 256
+    blocks of 4 warps (G = 4), 32 chunks of 64 steps, 112 KB a block, so
+    two blocks share an SM (233,472 bytes, 1 KB reserved a block)."""
+    plan = ss.scan_launch_plan(1, 2_048, 8_192, 16)
+    assert plan == dict(grid=(256, 1), threads=128, smem_bytes=114_688,
+                        group=4, chunks=32)
+    assert plan["smem_bytes"] == _scan_bytes(16, 4)
+    assert 2 * (plan["smem_bytes"] + 1_024) <= 233_472
+
+
+@pytest.mark.parametrize("B,S,di,N,G", [
+    (1, 100, 256, 1, 4), (1, 100, 256, 5, 4), (1, 100, 256, 8, 4),
+    (1, 100, 256, 16, 4), (1, 1, 256, 16, 4), (1, 63, 256, 16, 4),
+    (1, 64, 256, 16, 4), (1, 65, 256, 16, 4), (1, 129, 256, 16, 4),
+    (3, 70, 256, 16, 4), (2, 70, 200, 16, 4), (1, 70, 203, 5, 4),
+    (3, 129, 200, 5, 8), (1, 65, 256, 16, 16), (2, 33, 203, 8, 16)])
+def test_scan_plan_at_the_cut_shapes(B, S, di, N, G):
+    """chip_smoke.py phase 7's shapes: a block per 32 channels (the last
+    one ragged past di) and batch row, one warp per G states up to N."""
+    plan = ss.scan_launch_plan(B, S, di, N, group=G)
+    assert plan["grid"] == (-(-di // 32), B)
+    assert plan["threads"] == 32 * -(-N // G) <= 32 * 16 // G
+    assert plan["smem_bytes"] == _scan_bytes(N, G) <= SMEM_LIMIT
+    assert plan["chunks"] == -(-S // 64)
+
+
+def test_scan_instances_all_fit_a_block():
+    for G in ss.GROUPS:
+        got = ss.scan_launch_plan(1, 1, 1, 16, G)["smem_bytes"]
+        assert got == _scan_bytes(16, G) <= SMEM_LIMIT
+    assert max(ss.smem_bytes(16, G) for G in ss.GROUPS) == \
+        114_688                                  # G = 4
+    assert ss.GROUPS == (4, 8, 16) and ss.CHUNK == 64
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(N=0), "N=0 not in"), (dict(N=17), "N=17 not in"),
+    (dict(group=3), "not an instance"), (dict(di=0), "di=0"),
+    (dict(group=2), "not an instance"),
+    (dict(B=0), "batch 0"), (dict(B=65_536), "batch 65536"),
+    (dict(S=0), "S=0")])
+def test_scan_plan_refuses_what_the_kernel_cannot_run(kw, match):
+    with pytest.raises(ValueError, match=match):
+        ss.scan_launch_plan(**{**dict(B=1, S=8, di=64, N=16), **kw})
