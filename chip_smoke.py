@@ -101,6 +101,24 @@ order, each failing the run with a non-zero exit:
                versions on their paths' next-round inputs (phase 11's are
                phase 4's, so phase 6's plain result serves), times beside
                the bounds; the zx kernel's ms a round and us a step
+ 14. wire      the wire stack on the main path's tensors, each run through
+               `solve` with the launch counts at 0 just before it: phase
+               4's rcv1 path (K = 8, 5 rounds) under `topology="a2a"` (the
+               gaps equal phase 4's to their printed digits), `hier:4`
+               (within 1e-6 relative) and top-k 64 gathered over hier:4
+               (its gap is `gap_at_v`'s at the carried v; comm_floats is
+               the tracer's plan with inter_gather measured after the
+               pods' dedup and at most its bound; on the next round's du
+               the gathered sum equals the dense top-k sum within 1e-6 of
+               its largest entry, with the same EF residual; the
+               exchange's ms a round by CUDA events beside the kernel's);
+               phase 5's epsilon path (K = 8) 3 rounds each under int8 and
+               QSGD, sigma_k and the Table-1 ratio at the full (8, 50,000,
+               2,000) shape, and the gd and sdca_deadline solvers for 2
+               rounds at H = 2,048 with worker 3's budget cut to 204 (its
+               steps and its dalpha against a static 204-step run); phase
+               12's 4 x 2 mesh, top-k 64 split 32 / 32 over the model
+               shards and gathered over hier:2, 3 rounds of the zx kernel
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -1735,6 +1753,225 @@ def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
 
 
 
+# ----------------------------------------------------------------------------
+# the wire stack (phase 14): compression, error feedback, hier / a2a
+# reduces, compressed gather and the tracer, on the main path's tensors
+# ----------------------------------------------------------------------------
+
+WIRE_K = 64                    # phase 14's top-k budget
+
+
+def _wire_solve(name, cfg, X, y, mask, rounds, expect, mesh=None,
+                falling=True, **kw):
+    """`solve` with the launch counts at 0 just before and read just
+    after; `expect` names the kernel that must launch once a round."""
+    from repro_torch.core import solve
+    counts = _counts_zero()
+    r = solve(cfg, X, y, mask, rounds=rounds, gap_every=1, seed=SEED,
+              mesh=mesh, **kw)
+    launches = counts()
+    log(f"  {name}: launches {launches}")
+    if falling:
+        _check_gaps(name, r.history, rounds)
+    else:
+        gaps = r.history["gap"]
+        log(f"  {name}: gaps " + " ".join(f"{g:.4e}" for g in gaps)
+            + f"; execute_s " + ", ".join(
+                f"{e:.3f}" for e in r.history["execute_s"]))
+        if len(gaps) != rounds or not all(
+                math.isfinite(g) and g >= -1e-6 for g in gaps):
+            fail(f"{name}: gaps not finite and >= -1e-6: {gaps}")
+    if expect is not None and launches[expect] != rounds:
+        fail(f"{name}: {expect} launched {launches[expect]} times in "
+             f"{rounds} rounds")
+    return r
+
+
+def _measured_inter(name, hist, tracer):
+    """comm_floats against the tracer's plan: every hop as planned except
+    inter_gather, whose per-round volume is measured after the pods'
+    dedup and must be positive and at most its analytic bound."""
+    plan = {h.name: h.floats for h in tracer.hops}
+    fixed = sum(f for n, f in plan.items() if n != "inter_gather")
+    cf = hist["comm_floats"]
+    inters = [b - a - fixed for a, b in zip([0] + cf[:-1], cf)]
+    log(f"  {name} comm_floats {cf}: plan per round {plan}; inter_gather "
+        f"measured per round {inters} (bound {plan['inter_gather']})")
+    if not all(0 < v <= plan["inter_gather"] for v in inters):
+        fail(f"{name}: measured inter_gather {inters} outside (0, "
+             f"{plan['inter_gather']}]")
+    return inters
+
+
+def phase_wire(dev, sparse, dense, mesh):
+    """Phase 14: the wire stack on the main path's tensors: rcv1 (K = 8)
+    under a2a, hier:4 and top-k gathered over hier:4; epsilon (K = 8) under
+    int8 and QSGD, sigma_k and the Table-1 ratio at full width, and the gd
+    and deadline solvers; the 4 x 2 mesh with top-k split over M = 2 and
+    gathered over hier:2."""
+    import dataclasses
+    import torch
+    from repro_torch import comm
+    from repro_torch.core import cocoa, duality, sigma
+    from repro_torch.core.losses import get_loss
+    from repro_torch.device import synchronize
+    from repro_torch.launch.mesh import make_test_mesh
+    out = {}
+    # --- rcv1, K = 8: a2a and hier:4 against phase 4, then top-k gather
+    sh, yp, mk, r4, cfg4, _, _, _, depth = sparse
+    K, nk, r_max = sh.cols.shape
+    rounds = len(r4.history["round"])
+    log(f"[14 wire] rcv1 shape, K={K}, {rounds} rounds of "
+        f"{cfg4.solver} under each wire setting")
+    ra = _wire_solve("rcv1 a2a", dataclasses.replace(cfg4, topology="a2a"),
+                     sh, yp, mk, rounds, "sparse_sdca_pipelined")
+    printed = [f"{g:.4e}" for g in ra.history["gap"]]
+    if printed != [f"{g:.4e}" for g in r4.history["gap"]]:
+        fail(f"a2a gaps {printed} differ from phase 4's in their printed "
+             f"digits")
+    rh = _wire_solve("rcv1 hier:4",
+                     dataclasses.replace(cfg4, topology="hier:4"), sh, yp,
+                     mk, rounds, "sparse_sdca_pipelined")
+    hier_rel = max(abs(a / b - 1) for a, b in zip(rh.history["gap"],
+                                                  r4.history["gap"]))
+    log(f"  a2a gaps equal phase 4's to their printed digits; hier:4 gaps "
+        f"within {hier_rel:.2e} relative of phase 4's (limit 1e-6)")
+    if hier_rel > 1e-6:
+        fail(f"hier:4 gaps {hier_rel:.2e} from phase 4's")
+    cfg = dataclasses.replace(cfg4, topology="hier:4", compress="topk",
+                              compress_k=WIRE_K, gather=True)
+    rt = _wire_solve(f"rcv1 topk {WIRE_K} gather hier:4", cfg, sh, yp, mk,
+                     rounds, "sparse_sdca_pipelined", falling=False)
+    loss, reg = get_loss(cfg.loss), cfg.regularizer()
+    st = rt.state
+    _, _, g_v = duality.gap_at_v(st.w, st.alpha, sh, yp, mk, loss, cfg.lam,
+                                 reg)
+    _, _, g_a = duality.gap_decomposed(st.alpha, sh, yp, mk, loss, cfg.lam,
+                                       reg)
+    last = rt.history["gap"][-1]
+    log(f"  certificate: history {last:.6e}; gap_at_v at the carried v "
+        f"{float(g_v):.6e}; gap_decomposed at v(alpha) {float(g_a):.6e} "
+        f"(the point compression does not hold)")
+    if abs(float(g_v) / last - 1) > 1e-6:
+        fail(f"the top-k run's gap {last} is not gap_at_v's {float(g_v)}")
+    topo = comm.Topology.simulated(K, "hier:4")
+    comp = cfg.compressor()
+    tracer = comm.CommTracer.for_run(K=K, d_local=sh.d, compressor=comp,
+                                     topo=topo, gather=True)
+    out["rcv1_inter"] = _measured_inter("rcv1 topk gather", rt.history,
+                                        tracer)
+    # the gather form against the dense top-k form on the next round's du
+    solver = cocoa.resolve_solver(cfg.solver, True)
+    order = cocoa.draw_visit_orders(solver, K, nk, cfg.H, SEED, st.rounds)
+    p = cfg.agg_params(K)
+    n = float(duality.effective_n(mk))
+    du = solver.fn(sh, yp, st.alpha, mk, st.w, order, loss, cfg.lam, n,
+                   p.sigma_prime, cfg.H, reg=reg).du
+    g_sum, g_ef = comm.exchange(topo, du, st.ef, p, comp, gather=True,
+                                stats={})
+    d_sum, d_ef = comm.exchange(topo, du, st.ef, p, comp)
+    err = float((g_sum - d_sum).abs().max() / d_sum.abs().max())
+    same_ef = torch.equal(g_ef, d_ef)
+    log(f"  gathered sum vs dense top-k sum on the next round's du: max "
+        f"|diff| / max |dense| {err:.2e} (limit 1e-6); EF residuals equal "
+        f"bit for bit: {same_ef}")
+    if err > 1e-6 or not same_ef:
+        fail("the gather form differs from the dense top-k form")
+    flat = comm.Topology.simulated(K)
+    plain_comp = comm.NoCompression()
+    ms = {}
+    for key, fn in (
+            ("gather", lambda: comm.exchange(topo, du, st.ef, p, comp,
+                                             gather=True, stats={})),
+            ("dense_topk", lambda: comm.exchange(topo, du, st.ef, p, comp)),
+            ("flat_none", lambda: comm.exchange(flat, du, st.ef, p,
+                                                plain_comp))):
+        ms[key], _ = _time_ms(fn, reps=20)
+    w, scale, perm = _round_inputs(cfg, sh, yp, mk, st)
+    args = (sh.cols, sh.vals, yp, st.alpha, mk, w, scale, perm)
+    ms["kernel"], _ = _time_ms(lambda: _at_depth(depth)(
+        *args, loss=loss), reps=2)
+    steady = rt.history["execute_s"][1:]
+    ex_s = sum(steady) / len(steady)
+    log(f"  ms a round (CUDA events): exchange topk {WIRE_K} gathered over "
+        f"hier:4 {ms['gather']:.3f}, dense top-k {ms['dense_topk']:.3f}, "
+        f"flat uncompressed {ms['flat_none']:.3f}; the sparse kernel "
+        f"{ms['kernel']:.3f}; execute_s a round after round 1 "
+        f"{1e3 * ex_s:.3f} ms, the gathered exchange "
+        f"{ms['gather'] / (1e3 * ex_s):.3f} of it")
+    out["rcv1_ms"] = ms
+    # --- epsilon, K = 8: int8 and QSGD, sigma, gd and deadline
+    Xp, yp, mk, r5, cfg5, _ = dense
+    K, nk, d = Xp.shape
+    log(f"[14 wire] epsilon shape, K={K}: int8 and qsgd, 3 rounds each")
+    for scheme in ("int8", "qsgd"):
+        _wire_solve(f"epsilon {scheme}",
+                    dataclasses.replace(cfg5, compress=scheme), Xp, yp, mk,
+                    3, "local_sdca")
+    synchronize(dev)
+    t0 = time.perf_counter()
+    sk_ = sigma.sigma_k(Xp, mk)
+    ratio = float(sigma.table1_ratio(Xp, mk))
+    synchronize(dev)
+    log(f"  sigma_k at ({K}, {nk}, {d}): {[round(float(v), 3) for v in sk_]}"
+        f"; Table-1 ratio (n^2/K)/sigma {ratio:.4f} (both in "
+        f"{time.perf_counter() - t0:.2f} s, 50 power iterations each)")
+    if not (math.isfinite(ratio) and ratio >= 1.0):
+        fail(f"Table-1 ratio {ratio} is not finite and >= 1")
+    out["ratio"] = ratio
+    H = 2048
+    cut = 3
+    budgets = torch.full((K,), H, dtype=torch.long)
+    budgets[cut] = H // 10
+    log(f"[14 wire] epsilon, K={K}: gd and sdca_deadline, 2 rounds at "
+        f"H={H}, worker {cut}'s budget {H // 10}")
+    for name in ("gd", "sdca_deadline"):
+        rs = _wire_solve(f"epsilon {name}",
+                         dataclasses.replace(cfg5, solver=name, H=H), Xp,
+                         yp, mk, 2, None, falling=False,
+                         budget_fn=lambda t: budgets)
+    ls = cocoa.resolve_solver("sdca_deadline", False)
+    order = cocoa.draw_visit_orders(ls, K, nk, H, SEED, rs.state.rounds)
+    n = float(duality.effective_n(mk))
+    sp = cfg5.agg_params(K).sigma_prime
+    sq = torch.sum(Xp * Xp, dim=-1) * mk
+    run = lambda b: ls.fn(Xp, yp, rs.state.alpha, mk, rs.state.w, order,
+                          get_loss(cfg5.loss), cfg5.lam, n, sp, H,
+                          budget=b, sqnorms=sq)
+    per_worker, static = run(budgets), run(H // 10)
+    steps = per_worker.steps.tolist()
+    honored = (steps == budgets.tolist()
+               and torch.equal(per_worker.dalpha[cut], static.dalpha[cut])
+               and int(torch.count_nonzero(per_worker.dalpha[cut]))
+               <= H // 10)
+    log(f"  deadline steps per worker {steps}; worker {cut}'s dalpha "
+        f"equals a static {H // 10}-step run bit for bit, "
+        f"{int(torch.count_nonzero(per_worker.dalpha[cut]))} rows moved: "
+        f"{honored}")
+    if not honored:
+        fail("the deadline worker's step budget was not honored")
+    # --- the 4 x 2 mesh: top-k split over M = 2, gathered over hier:2
+    fs, yp, mk, cfg12 = (mesh[k] for k in ("fs", "yp", "mk", "cfg"))
+    K, M = fs.cols.shape[:2]
+    cfg = dataclasses.replace(cfg12, topology="hier:2", compress="topk",
+                              compress_k=WIRE_K, gather=True)
+    comp = cfg.compressor(M)
+    log(f"[14 wire] rcv1 {K} x {M} mesh, top-k {WIRE_K} split "
+        f"{[int(comp.live_budget(m)) for m in range(M)]} over the model "
+        f"shards ({comp.slots} slots each), gathered over hier:2, 3 rounds")
+    mesh_dev = make_test_mesh((K, M), device=dev)
+    rm = _wire_solve("rcv1 4x2 topk gather hier:2", cfg, fs, yp, mk, 3,
+                     "sparse_sdca_zx", mesh=mesh_dev, falling=False)
+    topo = comm.Topology.from_mesh(mesh_dev, "data", "model", "hier:2")
+    solver = cocoa.resolve_solver(cfg.solver, True, feature_sharded=True)
+    tracer = comm.CommTracer.for_run(
+        K=K, d_local=fs.d_local, compressor=comp, topo=topo, gather=True,
+        extra_hops=solver.model_hop(fs, cfg.H, cfg.regularizer()))
+    out["mesh_inter"] = _measured_inter("rcv1 4x2 topk gather", rm.history,
+                                        tracer)
+    return out
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -1752,7 +1989,6 @@ def main() -> None:
     sparse = phase_sparse(dev)
     dense = phase_dense(dev)
     rows, sparse_plain = phase_times(dense, sparse, cut_errs)
-    del dense
     gc.collect()
     torch.cuda.empty_cache()
     lm_cut_errs = phase_lm_kernels(dev)
@@ -1769,6 +2005,7 @@ def main() -> None:
     pipe = phase_depth_one(sparse)
     mesh = phase_mesh2d(dev, sparse[7])
     rows += phase_new_times(pipe, sparse_plain, mesh, cut_errs)
+    phase_wire(dev, sparse, dense, mesh)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -10,14 +10,17 @@ and the driver applies
     average  gamma = 1/K, sigma' = 1    original CoCoA (Remark 12)
     gamma:g  gamma = g,   sigma' = g*K  the full interpolation
 
-`exchange` is the communication step (damp, compress, reduce) and
-`apply_update` the gamma application.
+`exchange` is the communication step (damp, compress, reduce or
+gather), `apply_update` the gamma application and `flush_ef` the
+uncompressed delivery of the error-feedback residuals.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-from .compress import NoCompression
+import torch
+
+from .compress import Compressor, NoCompression, decode_sum
 from .topology import Topology
 
 
@@ -98,18 +101,70 @@ def from_config(gamma: float, sigma_p: Optional[float], K: int,
 
 
 def exchange(topo: Topology, du, ef, params: AggParams,
-             compressor: Optional[NoCompression] = None):
-    """Communicate-and-reduce one round's local updates, dense form.
+             compressor: Optional[Compressor] = None, gather: bool = False,
+             stats: Optional[dict] = None, draws=None):
+    """Communicate-and-reduce one round's local updates.
 
-    `du`/`ef` are (K, d): each worker's wire message is du_k / sigma',
-    compressed with error feedback, then summed over the workers.
-    Returns (dw_sum (d,), new_ef (K, d))."""
+    Each worker's wire message is Delta v_k = du_k / sigma', compressed
+    with error feedback, then reduced per the topology. `du`/`ef` are
+    (K, d); on a feature-sharded topology (M > 1) they are (K, M d_local)
+    and every step runs per model shard: each worker sends M messages of
+    d_local floats with shard-local coordinates, and the reduce crosses
+    the workers only. `draws` are the compressor's random draws, one row
+    per worker (`Compressor.draw`), shared by a worker's model shards.
+
+    With `gather=True` (a `supports_gather` sparsifier) the wire carries
+    each worker's SparseMessage, the topology gathers the K sets, and the
+    summed Delta v is rebuilt by scatter-add: the reduce moves ~2kK floats
+    instead of dK. The transmitted x_hat and the EF residual equal the
+    dense form's, so gather is a wire-routing choice, not an algorithm
+    change. `stats`, when a dict is passed, receives the measured
+    post-dedup hier gather volume (`inter_gather`), averaged over the
+    model shards as the reference's per-shard tracer units need.
+
+    Returns (dw_sum (d,), new_ef (K, d)), dw_sum already damped by
+    1/sigma'."""
     comp = compressor if compressor is not None else NoCompression()
-    msg, ef = comp(du / params.sigma_prime, ef)
-    return topo.all_sum(msg), ef
+    if gather and not comp.supports_gather:
+        raise ValueError(
+            f"compressed gather needs a sparse-set compressor "
+            f"(topk/randk); {comp.name!r} only has a dense wire form")
+    K, width = du.shape
+    M = topo.M
+    x = du / params.sigma_prime
+    if M > 1:
+        x, ef = x.reshape(K, M, -1), ef.reshape(K, M, -1)
+        if draws is not None:
+            draws = draws.unsqueeze(1)
+    if not gather:
+        msg, ef = comp(x, ef, draws)
+        return topo.all_sum(msg).reshape(width), ef.reshape(K, width)
+    msg, ef = comp.encode(x, ef, draws)
+    if M == 1:
+        idx, val = topo.gather_sets(msg.idx, msg.val, width, stats)
+        return decode_sum(idx, val, width), ef
+    d_loc = width // M
+    parts, wire = [], 0
+    for m in range(M):
+        shard_stats = {}
+        idx, val = topo.gather_sets(msg.idx[:, m], msg.val[:, m], d_loc,
+                                    shard_stats)
+        parts.append(decode_sum(idx, val, d_loc))
+        wire = wire + shard_stats.get("inter_gather", 0)
+    if stats is not None and topo.reduce == "hier":
+        stats["inter_gather"] = wire // M
+    return torch.cat(parts), ef.reshape(K, width)
 
 
 def apply_update(w, alpha, dw_sum, dalpha, params: AggParams):
     """Algorithm-1 line 9: the gamma application to (v, alpha). `dw_sum`
     comes from `exchange` (already 1/sigma'-damped)."""
     return w + params.gamma * dw_sum, alpha + params.gamma * dalpha
+
+
+def flush_ef(w, ef, params: AggParams):
+    """Send all outstanding error-feedback debt at once, uncompressed:
+    w += gamma sum_k ef_k. The residuals are un-transmitted message mass
+    (already 1/sigma'-damped), so this is what EF would eventually
+    deliver; use it before the residual state is rebuilt or dropped."""
+    return w + params.gamma * torch.sum(ef, dim=0)

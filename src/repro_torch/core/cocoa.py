@@ -4,7 +4,8 @@ Port of `repro.core.cocoa`. One outer round:
     1. every worker k solves the sigma'-damped local subproblem (eq. 9)
        Theta-approximately -- all K at once, in one kernel launch on the
        kernel solvers,
-    2. communicates Delta v_k = du_k / sigma' (comm.exchange, flat reduce),
+    2. communicates Delta v_k = du_k / sigma', compressed with error
+       feedback and reduced or gathered per the topology (comm.exchange),
     3. the driver applies v <- v + gamma sum_k Delta v_k,
        alpha <- alpha + gamma Delta alpha (comm.apply_update).
 
@@ -29,7 +30,16 @@ a threefry key carried in its state. torch cannot reproduce threefry, so
 the port's state carries no key: round r draws its orders from a CPU
 `torch.Generator` seeded with (seed, r), and `solve(visit_orders=...)`
 lets a caller supply them instead -- the parity tests feed the reference's
-own permutations and index streams through it.
+own permutations and index streams through it. The wire compressors'
+draws (rand-k's index sets, QSGD's uniforms) work the same way: a second
+generator seeded with (seed, r), or `solve(comm_draws=...)`.
+
+Communication accounting comes from `comm.CommTracer`: the topology's
+reduce plan priced by the compressor's wire model, plus the solver's
+model-axis hops on a feature-sharded mesh, with hier gather's measured
+post-dedup inter volume (`CoCoAState.wire`) in place of its bound. Under
+compression the carried v drifts from v(alpha), so every certificate is
+`duality.gap_at_v` at the carried v, as in the reference.
 """
 from __future__ import annotations
 
@@ -47,7 +57,8 @@ from ..device import DEFAULT_DEVICE, resolve_device, synchronize
 from . import duality
 from .losses import get_loss
 from .regularizers import Regularizer, get_regularizer
-from .solvers import LocalSolver, SOLVERS, get_solver, sparse_counterpart
+from .solvers import (LocalSolver, SOLVERS, get_solver, importance_probs,
+                      sparse_counterpart)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +76,11 @@ class CoCoAConfig:
     aggregator: Optional[str] = None   # "add"|"average"|"gamma:<g>" strategy;
                                        # overrides (gamma, sigma_p) when set
     reg: str = "l2"                    # "l2" | "elastic:<eta>" | "l1s:<eps>"
+    compress: str = "none"             # comm.compress scheme for Delta v_k
+    compress_k: int = 0                # sparsifier budget for topk/randk
+    topology: str = "flat"             # reduce plan: "flat"|"hier:<g>"|"a2a"
+    gather: bool = False               # compressed sparse gather: the reduce
+                                       # moves (idx, val) sets, ~2kK floats
 
     def agg_params(self, K: int) -> comm.AggParams:
         """The (gamma, sigma') pair this config runs with at K workers."""
@@ -73,6 +89,22 @@ class CoCoAConfig:
 
     def regularizer(self) -> Regularizer:
         return get_regularizer(self.reg)
+
+    def compressor(self, M: int = 1) -> comm.Compressor:
+        """The wire compressor. Under compressed gather on a feature-
+        sharded mesh (M > 1) the sparsifier's budget k is split over the M
+        model shards (ceil(k/M) slots, the remainder to low shards), so
+        the gathered volume stays ~2kK floats a round at any M. The dense
+        reduce form is not split: each shard's d/M message already
+        shrinks with M."""
+        comp = comm.resolve_compressor(self.compress, self.compress_k)
+        if self.gather and not comp.supports_gather:
+            raise ValueError(
+                f"gather=True needs a sparse-set compressor (topk/randk); "
+                f"compress={self.compress!r} only has a dense wire form")
+        if M > 1 and self.gather:
+            comp = comp.with_shards(M)
+        return comp
 
     @staticmethod
     def averaging(K: int, **kw) -> "CoCoAConfig":
@@ -90,7 +122,10 @@ class CoCoAState(NamedTuple):
     alpha: torch.Tensor      # (K, nk) partitioned duals
     rounds: int              # rounds run so far
     alpha_bar: torch.Tensor  # (K, nk) running sum for the averaged iterate
-    ef: torch.Tensor         # (K, d) error-feedback residuals (zeros)
+    ef: torch.Tensor         # (K, d) error-feedback residuals
+    wire: Optional[torch.Tensor] = None
+                             # measured post-dedup inter_gather floats of
+                             # the last round (hier compressed gather only)
 
 
 def init_state(d: int, K: int, nk: int, dtype=torch.float32,
@@ -108,7 +143,8 @@ def init_state(d: int, K: int, nk: int, dtype=torch.float32,
 def state_from_reference(arrays: Dict[str, np.ndarray],
                          device=DEFAULT_DEVICE) -> CoCoAState:
     """The port's state from a reference `repro.core.cocoa.CoCoAState`'s
-    leaves converted to numpy (`w`, `alpha`, `rounds`, `alpha_bar`, `ef`).
+    leaves converted to numpy (`w`, `alpha`, `rounds`, `alpha_bar`, `ef`,
+    and `wire` when the reference run carried one).
 
     The reference's threefry key (`rng`) is dropped: the port carries no
     key, and a resumed run draws its visit orders from its own generator
@@ -119,9 +155,12 @@ def state_from_reference(arrays: Dict[str, np.ndarray],
         # np.array copies: the leaves may be read-only views of device arrays
         return torch.from_numpy(np.array(arrays[name], np.float32)).to(dev)
 
+    wire = arrays.get("wire")
     return CoCoAState(w=t("w"), alpha=t("alpha"),
                       rounds=int(np.asarray(arrays["rounds"])),
-                      alpha_bar=t("alpha_bar"), ef=t("ef"))
+                      alpha_bar=t("alpha_bar"), ef=t("ef"),
+                      wire=None if wire is None else torch.as_tensor(
+                          int(np.asarray(wire)), device=dev))
 
 
 def primal_w(state: CoCoAState, cfg: CoCoAConfig) -> torch.Tensor:
@@ -160,20 +199,52 @@ def resolve_solver(name, sparse: bool,
 
 
 def visit_shape(solver: LocalSolver, K: int, nk: int, H: int):
-    """Shape of the visit input `solver` takes for one round."""
+    """Shape of the visit input `solver` takes for one round (None: it
+    takes none)."""
+    if solver.visit == "none":
+        return None
     return (K, nk) if solver.visit == "permutation" else (K, H)
 
 
+def _round_generator(seed: int, round_index: int,
+                     salt: int = 0) -> torch.Generator:
+    """The CPU generator of round `round_index`'s draws; `salt` keeps the
+    wire compressor's stream apart from the visit orders'."""
+    return torch.Generator().manual_seed(
+        (int(seed) * 1_000_003 + int(round_index) + salt) % (2 ** 63))
+
+
+_COMM_SALT = 0x5EED * 1_000_003 ** 2
+
+
 def draw_visit_orders(solver: LocalSolver, K: int, nk: int, H: int,
-                      seed: int, round_index: int) -> torch.Tensor:
+                      seed: int, round_index: int,
+                      probs: Optional[torch.Tensor] = None):
     """One round's visit input from a CPU generator seeded with
-    (seed, round_index): (K, nk) permutations or (K, H) uniform row ids."""
-    gen = torch.Generator().manual_seed(
-        (int(seed) * 1_000_003 + int(round_index)) % (2 ** 63))
+    (seed, round_index): (K, nk) permutations, (K, H) uniform row ids, or
+    (K, H) row ids drawn from `probs` (K, nk) for the importance kind;
+    None for a solver that takes none."""
+    if solver.visit == "none":
+        return None
+    gen = _round_generator(seed, round_index)
     if solver.visit == "permutation":
         return torch.stack([torch.randperm(nk, generator=gen)
                             for _ in range(K)])
+    if solver.visit == "importance":
+        if probs is None:
+            raise ValueError(f"solver {solver.name!r} draws its rows from "
+                             f"the importance distribution; pass probs")
+        return torch.multinomial(probs.cpu(), H, replacement=True,
+                                 generator=gen)
     return torch.randint(0, nk, (K, H), generator=gen)
+
+
+def draw_comm(comp: comm.Compressor, K: int, d_msg: int, seed: int,
+              round_index: int):
+    """One round's wire-compressor draws for K workers' d_msg-float
+    messages (None for the deterministic schemes)."""
+    return comp.draw(K, d_msg, _round_generator(seed, round_index,
+                                                _COMM_SALT))
 
 
 def _dims(X):
@@ -190,34 +261,45 @@ def _dims(X):
 
 def _round(cfg: CoCoAConfig, topo: comm.Topology, solver: LocalSolver,
            n: float) -> Callable[..., CoCoAState]:
-    """`round_fn(state, X, y, mask, order, sqnorms=None)`: every worker
-    solves in one solver call -- one kernel launch, or one launch per
-    z-exchange block, on the kernel solvers -- then the flat exchange and
-    the update. On a feature-sharded topology the solver also gets the
-    model axis and the global row norms: `sqnorms` when the caller computed
-    them once for the run (`solve` does), else computed here."""
+    """`round_fn(state, X, y, mask, order, sqnorms=None, budget=None,
+    draws=None)`: every worker solves in one solver call -- one kernel
+    launch on the kernel solvers -- then the exchange (compress, reduce or
+    gather) and the update. On a feature-sharded topology the solver also
+    gets the model axis and the global row norms: `sqnorms` when the
+    caller computed them once for the run (`solve` does), else computed
+    here; a solver flagged `sqnorms` takes them when given. `budget` goes
+    to a deadline solver (None: H); `draws` are the compressor's."""
     loss = get_loss(cfg.loss)
     reg = cfg.regularizer()
     p = cfg.agg_params(topo.K)
-    compressor = comm.NoCompression()
+    compressor = cfg.compressor(topo.M)
     feature_sharded = topo.M > 1
 
     def round_fn(state: CoCoAState, X, y, mask, order,
-                 sqnorms: Optional[torch.Tensor] = None) -> CoCoAState:
+                 sqnorms: Optional[torch.Tensor] = None, budget=None,
+                 draws=None) -> CoCoAState:
         kw = {}
         if feature_sharded:
             if sqnorms is None:
                 sqnorms = sparse_data.row_sqnorms(X) * mask
             kw = dict(sqnorms=sqnorms, model_axis=cfg.model_axis)
+        elif solver.sqnorms and sqnorms is not None:
+            kw = dict(sqnorms=sqnorms)
+        if solver.deadline:
+            kw["budget"] = budget
         # `order` goes in as given (on the host when drawn here): the
         # kernel solvers range-check it there before copying it over
         res = solver.fn(X, y, state.alpha, mask, state.w, order, loss,
                         cfg.lam, n, p.sigma_prime, cfg.H, reg=reg, **kw)
-        dw_sum, ef = comm.exchange(topo, res.du, state.ef, p, compressor)
+        stats = {}
+        dw_sum, ef = comm.exchange(topo, res.du, state.ef, p, compressor,
+                                   gather=cfg.gather, stats=stats,
+                                   draws=draws)
         w, alpha = comm.apply_update(state.w, state.alpha, dw_sum,
                                      res.dalpha, p)
         return CoCoAState(w, alpha, state.rounds + 1,
-                          state.alpha_bar + alpha, ef)
+                          state.alpha_bar + alpha, ef,
+                          stats.get("inter_gather"))
 
     return round_fn
 
@@ -227,18 +309,23 @@ def make_round(cfg: CoCoAConfig, K: int, sparse: bool,
     """The simulated K-worker round (`make_round_vmap`'s counterpart). `n`
     is the global effective row count; `round_fn(state, X, y, mask,
     order)` takes the round's visit input `order` (see `visit_shape`)."""
-    return _round(cfg, comm.Topology.simulated(K),
+    return _round(cfg, comm.Topology.simulated(K, cfg.topology),
                   resolve_solver(cfg.solver, sparse), n)
+
+
+def _mesh_topology(cfg: CoCoAConfig, mesh) -> comm.Topology:
+    return comm.Topology.from_mesh(mesh, cfg.data_axis, cfg.model_axis,
+                                   topology=cfg.topology)
 
 
 def make_round_sharded(cfg: CoCoAConfig, mesh, sparse: bool,
                        n: float) -> Callable[..., CoCoAState]:
     """The mesh round on one card (`make_round_sharded`'s counterpart): K
     workers from the mesh's data axis, M model shards from its model axis.
-    At M > 1 the round takes `FeatureShards` and the padded w; at M = 1 it
-    is the simulated round (`place_on_mesh` turns M = 1 FeatureShards into
-    SparseShards)."""
-    topo = comm.Topology.from_mesh(mesh, cfg.data_axis, cfg.model_axis)
+    At M > 1 the round takes `FeatureShards` and the padded w, and the
+    exchange runs per model shard; at M = 1 it is the simulated round
+    (`place_on_mesh` turns M = 1 FeatureShards into SparseShards)."""
+    topo = _mesh_topology(cfg, mesh)
     return _round(cfg, topo, resolve_solver(cfg.solver, sparse,
                                             feature_sharded=topo.M > 1), n)
 
@@ -248,7 +335,7 @@ def place_on_mesh(cfg: CoCoAConfig, mesh, X):
     reference's guards (M mismatch, SparseShards at M > 1), the data on the
     mesh's device, and M = 1 FeatureShards as SparseShards. Dense data at
     M > 1 is not ported."""
-    topo = comm.Topology.from_mesh(mesh, cfg.data_axis, cfg.model_axis)
+    topo = _mesh_topology(cfg, mesh)
     K, _, _, _, dev = _dims(X)
     if K != topo.K:
         raise ValueError(f"the data has K={K} workers but the mesh's data "
@@ -275,13 +362,19 @@ def place_on_mesh(cfg: CoCoAConfig, mesh, X):
 class SolveResult(NamedTuple):
     state: CoCoAState
     history: dict   # lists per certified round: round, gap, primal, dual,
-                    # comm_floats (cumulative), execute_s, certificate_s
+                    # comm_vectors, comm_floats, comm_bytes, comm_psums
+                    # (cumulative, `CommTracer.totals`), execute_s,
+                    # certificate_s
+    tracer: Optional[comm.CommTracer] = None   # the run's wire plan and
+                                               # its measured hops
 
 
 def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
           seed: int = 0, gap_every: int = 1,
           state: Optional[CoCoAState] = None,
           visit_orders: Optional[Callable[[int], torch.Tensor]] = None,
+          comm_draws: Optional[Callable[[int], torch.Tensor]] = None,
+          budget_fn: Optional[Callable[[int], object]] = None,
           mesh=None) -> SolveResult:
     """Run CoCoA+/CoCoA until `rounds` or duality gap <= eps_gap.
 
@@ -290,30 +383,33 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     `FeatureShards`, whose state w is the padded (M d_local,) vector.
     `visit_orders(t) -> order` supplies round t's visit input (0-based
     within this call): (K, nk) permutations for the kernel solvers, (K, H)
-    row ids for the eager twins; every model shard of worker k walks row k
+    row ids for the eager ones; every model shard of worker k walks row k
     of it. By default each round draws its own (`draw_visit_orders`).
+    `comm_draws(t)` supplies round t's compressor draws the same way
+    (`draw_comm`). `budget_fn(t) -> (K,)` gives a deadline solver its
+    per-worker step budgets (without it, H).
 
     History, one entry per certified round (every `gap_every` rounds and
-    the last): `round`, `gap`, `primal`, `dual`, `comm_floats` (cumulative
-    wire floats: K d_local per round for the flat reduce, plus on a
-    feature-sharded mesh the model axis's K M H floats of per-step partial
-    dots, or K M exchanges block_rows on the z-exchange kernel path),
+    the last): `round`, `gap`, `primal`, `dual`, the tracer's cumulative
+    `comm_vectors`, `comm_floats`, `comm_bytes` and `comm_psums`,
     `execute_s` (host seconds of the rounds since the previous entry, each
     fenced by a device synchronize) and `certificate_s` (the same for the
-    gap computation).
+    gap computation). `comm_floats` prices the topology's reduce plan with
+    the compressor's wire model per model shard, plus the solver's
+    model-axis hops on a feature-sharded mesh.
     """
     if cfg.backend == "shard_map":
         if mesh is None:
             raise ValueError("the shard_map backend needs a mesh "
                              "(launch.mesh.make_test_mesh)")
         X = place_on_mesh(cfg, mesh, X)
-        topo = comm.Topology.from_mesh(mesh, cfg.data_axis, cfg.model_axis)
+        topo = _mesh_topology(cfg, mesh)
     elif cfg.backend == "vmap":
         if isinstance(X, FeatureShards):
             raise ValueError("FeatureShards need the shard_map backend on "
                              "a 2-D mesh; the vmap reference runs on "
                              "SparseShards with the global column ids")
-        topo = comm.Topology.simulated(_dims(X)[0])
+        topo = comm.Topology.simulated(_dims(X)[0], cfg.topology)
     else:
         raise ValueError(f"unknown backend {cfg.backend!r}; use 'vmap' or "
                          f"'shard_map'")
@@ -332,21 +428,30 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     if state is None:
         state = init_state(d, K, nk, dtype, dev)
     d_true = X.d if sparse else d
-    floats_per_round = topo.floats_per_round(
-        comm.NoCompression().floats_per_message(topo.d_local(d_true)))
-    sqnorms = None
+    d_local = topo.d_local(d_true)
+    compressor = cfg.compressor(topo.M)
+    tracer = comm.CommTracer.for_run(
+        K=K, d_local=d_local, compressor=compressor, topo=topo,
+        gather=cfg.gather,
+        extra_hops=(solver.model_hop(X, cfg.H, reg) if topo.M > 1 else ()))
+    sqnorms = probs = None
     if topo.M > 1:
-        floats_per_round += solver.model_hop(X, cfg.H, reg)
         # the global row norms, fixed for the run
         sqnorms = sparse_data.row_sqnorms(X) * mask
+    elif solver.sqnorms and not sparse:
+        sqnorms = torch.sum(X * X, dim=-1) * mask
+    if solver.visit == "importance":
+        probs = importance_probs(X, mask)
+    compressed = cfg.compress not in (None, "", "none")
 
     hist = {"round": [], "gap": [], "primal": [], "dual": [],
-            "comm_floats": [], "execute_s": [], "certificate_s": []}
+            "comm_vectors": [], "comm_floats": [], "comm_bytes": [],
+            "comm_psums": [], "execute_s": [], "certificate_s": []}
     exec_acc = 0.0
     base_round = state.rounds
     for t in range(rounds):
         t0 = time.perf_counter()
-        if visit_orders is not None:
+        if visit_orders is not None and want is not None:
             order = visit_orders(t)
             if tuple(order.shape) != want:
                 raise ValueError(f"visit_orders({t}) gave shape "
@@ -354,28 +459,43 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
                                  f"{solver.name!r} takes {want}")
         else:
             order = draw_visit_orders(solver, K, nk, cfg.H, seed,
-                                      base_round + t)
-        state = round_fn(state, X, y, mask, order, sqnorms)
+                                      base_round + t, probs)
+        draws = (comm_draws(t) if comm_draws is not None else
+                 draw_comm(compressor, K, d_local, seed, base_round + t))
+        budget = budget_fn(t) if budget_fn is not None else None
+        state = round_fn(state, X, y, mask, order, sqnorms, budget, draws)
         synchronize(dev)
         exec_acc += time.perf_counter() - t0
+        tracer.tick()
+        if state.wire is not None:
+            # hier compressed gather: the measured post-dedup inter volume
+            # replaces the hop's analytic bound
+            tracer.observe("inter_gather", state.wire)
         if (t + 1) % gap_every and t != rounds - 1:
             continue
         alpha_eval = state.alpha
         if cfg.average_iterates:
             alpha_eval = state.alpha_bar / max(state.rounds, 1)
         t0 = time.perf_counter()
-        pval, dval, g = duality.gap_decomposed(alpha_eval, X, y, mask, loss,
-                                               cfg.lam, reg)
+        if compressed:
+            # lossy messages let the carried v drift from v(alpha): certify
+            # the primal point the run holds
+            pval, dval, g = duality.gap_at_v(state.w, alpha_eval, X, y,
+                                             mask, loss, cfg.lam, reg)
+        else:
+            pval, dval, g = duality.gap_decomposed(alpha_eval, X, y, mask,
+                                                   loss, cfg.lam, reg)
         gap = float(g)
         cert_s = time.perf_counter() - t0
         hist["round"].append(t + 1)
         hist["gap"].append(gap)
         hist["primal"].append(float(pval))
         hist["dual"].append(float(dval))
-        hist["comm_floats"].append(floats_per_round * (t + 1))
+        for key, value in tracer.totals().items():
+            hist[key].append(value)
         hist["execute_s"].append(exec_acc)
         hist["certificate_s"].append(cert_s)
         exec_acc = 0.0
         if gap <= eps_gap:
             break
-    return SolveResult(state, hist)
+    return SolveResult(state, hist, tracer)

@@ -25,9 +25,10 @@ import torch
 from ..data import sparse as sparse_data
 from ..data.sparse import FeatureShards, SparseShards
 
-_SPARSE = (SparseShards, FeatureShards)
 from .losses import Loss
 from .regularizers import L2, Regularizer
+
+_SPARSE = (SparseShards, FeatureShards)
 
 
 def effective_n(mask: torch.Tensor) -> torch.Tensor:
@@ -50,6 +51,13 @@ def v_of_alpha(X, alpha: torch.Tensor, lam: float, n,
     return torch.einsum("kid,ki->d", X, alpha) / (tau * n)
 
 
+def w_of_alpha(X, alpha: torch.Tensor, lam: float, n,
+               reg: Regularizer = L2) -> torch.Tensor:
+    """w(alpha) = grad g*(tau v(alpha)) -- eq. 3 through the conjugate map
+    (the identity under L2)."""
+    return reg.conj_grad(v_of_alpha(X, alpha, lam, n, reg), lam)
+
+
 def primal(w: torch.Tensor, X, y: torch.Tensor, mask: torch.Tensor,
            loss: Loss, lam: float, reg: Regularizer = L2) -> torch.Tensor:
     n = effective_n(mask)
@@ -69,6 +77,19 @@ def dual_at_v(v: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor,
             - reg.conj(v.double(), lam))
 
 
+def dual(alpha: torch.Tensor, X, y: torch.Tensor, mask: torch.Tensor,
+         loss: Loss, lam: float, reg: Regularizer = L2) -> torch.Tensor:
+    n = effective_n(mask)
+    v = v_of_alpha(X, alpha, lam, n, reg)
+    return dual_at_v(v, alpha, y, mask, loss, lam, reg)
+
+
+def duality_gap(alpha, X, y, mask, loss: Loss, lam: float,
+                reg: Regularizer = L2) -> torch.Tensor:
+    """G(alpha) = P(w(alpha)) - D(alpha) (eq. 4); >= 0 by weak duality."""
+    return gap_decomposed(alpha, X, y, mask, loss, lam, reg)[2]
+
+
 def gap_decomposed(alpha, X, y, mask, loss, lam, reg: Regularizer = L2):
     """(P, D, gap) sharing the one v(alpha) rmatvec between both sides."""
     n = effective_n(mask)
@@ -79,12 +100,22 @@ def gap_decomposed(alpha, X, y, mask, loss, lam, reg: Regularizer = L2):
     return p, d, p - d
 
 
-def gap_at_v(v, alpha, X, y, mask, loss, lam, reg: Regularizer = L2):
-    """(P(w), D(alpha), gap) for a carried v-space iterate: certifies the
-    primal point w = grad g*(tau v) the run serves."""
-    w = reg.conj_grad(v, lam)
+def gap_at_w(w, alpha, X, y, mask, loss, lam, reg: Regularizer = L2):
+    """(P(w), D(alpha), P(w) - D(alpha)) for any primal iterate w. Under
+    compressed communication the carried v drifts from v(alpha); weak
+    duality still gives P(w) >= D(alpha) for every w, so certifying the w
+    the run serves stays a valid gap certificate."""
     p = primal(w, X, y, mask, loss, lam, reg)
-    n = effective_n(mask)
-    d = dual_at_v(v_of_alpha(X, alpha, lam, n, reg), alpha, y, mask, loss,
-                  lam, reg)
+    d = dual(alpha, X, y, mask, loss, lam, reg)
     return p, d, p - d
+
+
+def gap_at_v(v, alpha, X, y, mask, loss, lam, reg: Regularizer = L2):
+    """`gap_at_w` for a carried v-space iterate: certifies the primal
+    point w = grad g*(tau v) the run serves."""
+    return gap_at_w(reg.conj_grad(v, lam), alpha, X, y, mask, loss, lam, reg)
+
+
+def u_vector(w: torch.Tensor, X, y: torch.Tensor, loss: Loss) -> torch.Tensor:
+    """u with -u_i in d l_i(x_i^T w) (eq. 17)."""
+    return loss.u_subgrad(_Atw(X, w), y)

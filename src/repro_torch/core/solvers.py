@@ -20,18 +20,29 @@ and the two kinds are kept apart by `LocalSolver.visit`:
                    round(H / nk) passes -- the kernel solvers
                    `sdca_kernel` / `sdca_sparse_kernel` (the reference's
                    `jax.random.permutation` at kernels/ops.py:88 and :206)
+    "importance"   a (K, H) stream of row ids drawn with p_i ~ ||x_i||^2 +
+                   mean ||x||^2 (`importance_probs`) -- `sdca_importance`
+                   (the reference's `jax.random.choice(..., p=)` at
+                   solvers.py:262)
+    "none"         no visit input -- `gd`, which steps every row at once
 
-The eager twins are plain PyTorch loops: on the GPU they would launch a
-dozen tiny kernels per coordinate step, so there the kernel solvers are the
-solver and the twins are what they are tested against on the CPU.
+The eager solvers are plain PyTorch loops: on the GPU they launch a dozen
+tiny kernels per coordinate step, so there the kernel solvers are the
+solver and the twins are what they are tested against on the CPU. The
+deadline, importance and gradient solvers have no Pallas counterpart in
+the reference either (they are jnp there); on the card they run as these
+per-step loops.
 """
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..comm.placement import WSpec
+from ..comm.tracer import model_hops
 from .losses import Loss
 from .regularizers import L2, Regularizer
 
@@ -43,25 +54,111 @@ class SDCAResult(NamedTuple):
 
 
 def local_sdca(X, y, alpha, mask, v, idxs, loss: Loss, lam: float, n,
-               sigma_p: float, H: int, reg: Regularizer = L2) -> SDCAResult:
+               sigma_p: float, H: int, reg: Regularizer = L2,
+               sqnorms: Optional[torch.Tensor] = None) -> SDCAResult:
     """H randomized coordinate-ascent steps on G_k^{sigma'} for every worker.
-    X (K, nk, d); `idxs` (K, H) row ids; `v` the shared scaled vector."""
+    X (K, nk, d); `idxs` (K, H) row ids; `v` the shared scaled vector;
+    `sqnorms` the rows' ||x_i||^2 (K, nk) when the caller hoisted them.
+    The deadline solver's walk with no deadline."""
+    return local_sdca_deadline(X, y, alpha, mask, v, idxs, loss, lam, n,
+                               sigma_p, H, reg=reg, sqnorms=sqnorms)
+
+
+def local_sdca_deadline(X, y, alpha, mask, v, idxs, loss: Loss, lam: float,
+                        n, sigma_p: float, H: int, budget=None,
+                        reg: Regularizer = L2,
+                        sqnorms: Optional[torch.Tensor] = None
+                        ) -> SDCAResult:
+    """Straggler-tolerant LocalSDCA: worker k runs min(H, budget_k) of the
+    H steps its (K, H) `idxs` stream lists, and its steps past the
+    deadline are exact no-ops. `budget` is a python int (every worker; the
+    loop itself stops at min(H, budget)), a (K,) tensor of per-worker
+    budgets, or None (H). A per-worker budget equal to a static one gives
+    the same result bit for bit, as the reference's traced and static
+    budgets do (tests/test_solver_conformance.py). `steps` is the (K,)
+    tensor of live steps (an int for a static budget)."""
     K, nk, _ = X.shape
-    sqnorms = torch.sum(X * X, dim=-1) * mask          # padded rows -> 0
+    if sqnorms is None:
+        sqnorms = torch.sum(X * X, dim=-1) * mask      # padded rows -> 0
     scale = sigma_p / (reg.tau(lam) * n)
     ks = torch.arange(K, device=X.device)
     idxs = idxs.to(X.device, torch.long)
+    if budget is None or isinstance(budget, numbers.Integral):
+        hmax = H if budget is None else min(int(H), int(budget))
+        trip, live = hmax, None
+    else:
+        hmax = torch.clamp(torch.as_tensor(budget).long().cpu(), max=H)
+        trip = int(hmax.max()) if hmax.numel() else 0
+        live = hmax.to(X.device)
     dalpha = torch.zeros((K, nk), dtype=X.dtype, device=X.device)
     u = v.to(X.dtype).expand(K, -1).clone()
-    for h in range(H):
+    for h in range(trip):
         i = idxs[:, h]
         x = X[ks, i]
         z = torch.sum(x * reg.conj_grad(u, lam), dim=-1)
         abar = alpha[ks, i] + dalpha[ks, i]
         q = scale * sqnorms[ks, i]
         delta = loss.cd_update(abar, z, q, y[ks, i]) * mask[ks, i]
+        if live is not None:
+            # a worker past its deadline takes a zero step: dalpha and u
+            # are left as they are
+            delta = torch.where(h < live, delta, torch.zeros_like(delta))
         dalpha[ks, i] += delta
         u += (scale * delta)[:, None] * x
+    return SDCAResult(dalpha, u - v, hmax)
+
+
+def importance_probs(X, mask) -> torch.Tensor:
+    """The (K, nk) row distribution of `local_sdca_importance`:
+    p_i ~ ||x_i||^2 + mean ||x||^2 over the worker's real rows, masked."""
+    sqnorms = torch.sum(X * X, dim=-1) * mask
+    mean_sq = (torch.sum(sqnorms, dim=-1, keepdim=True)
+               / torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1.0))
+    probs = (sqnorms + mean_sq) * mask
+    return probs / torch.sum(probs, dim=-1, keepdim=True)
+
+
+def local_sdca_importance(X, y, alpha, mask, v, idxs, loss: Loss,
+                          lam: float, n, sigma_p: float, H: int,
+                          reg: Regularizer = L2,
+                          sqnorms: Optional[torch.Tensor] = None
+                          ) -> SDCAResult:
+    """LocalSDCA with importance sampling: the same closed-form steps as
+    `local_sdca`, over a (K, H) stream drawn from `importance_probs`
+    (Zhao & Zhang-style mixed sampling; the draw is the caller's)."""
+    return local_sdca(X, y, alpha, mask, v, idxs, loss, lam, n, sigma_p, H,
+                      reg=reg, sqnorms=sqnorms)
+
+
+def local_gd(X, y, alpha, mask, v, idxs, loss: Loss, lam: float, n,
+             sigma_p: float, H: int, reg: Regularizer = L2,
+             lr_scale: float = 1.0) -> SDCAResult:
+    """Projected-gradient ascent on G_k over each worker's whole local
+    batch -- the "arbitrary local solver" of Assumption 1. Takes no visit
+    input (`idxs` is ignored).
+
+    grad_i(n G_k) = -conj'(a_i + da_i) - x_i^T grad g*(tau v_loc), with
+    v_loc = v + (sigma'/(tau n)) A da; step 1/L with L = sigma' max_i
+    ||x_i||^2 nk / (tau n) + max(mu, 1), per worker; the iterate is
+    projected onto the dual-feasible set after every step
+    (`Loss.project`)."""
+    if loss.conj_grad is None or loss.project is None:
+        raise ValueError(f"local_gd needs a loss with conj_grad and "
+                         f"project; {loss.name!r} has none")
+    K, nk, _ = X.shape
+    scale = sigma_p / (reg.tau(lam) * n)
+    sqmax = torch.amax(torch.sum(X * X, dim=-1) * mask, dim=-1)     # (K,)
+    lr = (lr_scale / (scale * sqmax * nk + max(loss.mu, 1.0)))[:, None]
+    dalpha = torch.zeros((K, nk), dtype=X.dtype, device=X.device)
+    u = v.to(X.dtype).expand(K, -1).clone()
+    for _ in range(H):
+        a = alpha + dalpha
+        g = (-loss.conj_grad(a, y)
+             - torch.einsum("kid,kd->ki", X, reg.conj_grad(u, lam))) * mask
+        a_new = loss.project(a + lr * g, y) * mask
+        step = a_new - a
+        dalpha = dalpha + step
+        u = u + scale * torch.einsum("kid,ki->kd", X, step)
     return SDCAResult(dalpha, u - v, H)
 
 
@@ -144,13 +241,21 @@ class LocalSolver:
     `fn(X, y, alpha, mask, v, order, loss, lam, n, sigma_p, H, reg=)`
     returns an `SDCAResult` for all K workers. `X` is dense (K, nk, d)
     when `dense`, a `SparseShards` when `sparse`; `order` is the visit
-    input of kind `visit` ("draws" (K, H) or "permutation" (K, nk)).
-    `sparse_name` is the registry key of the padded-ELL counterpart the
-    driver maps to when the data is sparse. `model_axis` marks a solver
-    that runs feature-sharded (M > 1): it takes a `FeatureShards` and the
-    padded v, with `sqnorms=` (the global row norms) and `model_axis=`;
-    `model_hop(X, H, reg)` is then the floats its model axis carries in
-    one round on the `FeatureShards` X."""
+    input of kind `visit` (see the module docstring). The capability
+    flags, as the reference's:
+
+        sparse_name  registry key of the padded-ELL counterpart the driver
+                     maps to when the data is sparse
+        model_axis   runs feature-sharded (M > 1): takes a `FeatureShards`
+                     and the padded v, with `sqnorms=` (the global row
+                     norms) and `model_axis=`; `model_hop(X, H, reg)` is
+                     then its model-axis wire plan on the `FeatureShards`
+                     X, a tuple of `comm.Hop`s (`comm.model_hops`)
+        deadline     takes `budget=`, the round's step budget (an int, or
+                     (K,) per worker)
+        sqnorms      takes `sqnorms=`, the rows' ||x_i||^2 hoisted by the
+                     driver once for the run
+    """
     name: str
     fn: Callable[..., SDCAResult]
     dense: bool = True
@@ -158,7 +263,9 @@ class LocalSolver:
     visit: str = "draws"
     sparse_name: Optional[str] = None
     model_axis: bool = False
-    model_hop: Optional[Callable[..., int]] = None
+    model_hop: Optional[Callable[..., tuple]] = None
+    deadline: bool = False
+    sqnorms: bool = False
 
     def __hash__(self):
         return hash(self.name)
@@ -170,7 +277,7 @@ class LocalSolver:
 
 
 SOLVERS: dict = {}
-VISIT_KINDS = ("draws", "permutation")
+VISIT_KINDS = ("draws", "permutation", "importance", "none")
 
 
 def register_solver(solver: LocalSolver, *,
@@ -203,12 +310,10 @@ def get_solver(name) -> LocalSolver:
                        f"{sorted(SOLVERS)}") from None
 
 
-def per_step_hop_floats(X, H: int, reg: Regularizer = L2) -> int:
-    """Floats the model axis carries in one round of the eager
-    feature-sharded `local_sdca_sparse`: one partial dot per (worker,
-    shard) per step."""
-    K, M = X.cols.shape[:2]
-    return K * M * H
+def per_step_model_hops(X, H: int, reg: Regularizer = L2) -> tuple:
+    """The eager feature-sharded `local_sdca_sparse`'s model-axis plan on
+    the `FeatureShards` X: one partial dot per (worker, shard) per step."""
+    return model_hops(WSpec(X.d, X.M, "model"), X.cols.shape[0], H)
 
 
 def _lazy_kernel(attr: str) -> Callable[..., SDCAResult]:
@@ -221,17 +326,23 @@ def _lazy_kernel(attr: str) -> Callable[..., SDCAResult]:
     return call
 
 
-register_solver(LocalSolver("sdca", local_sdca, sparse_name="sdca_sparse"))
+register_solver(LocalSolver("sdca", local_sdca, sparse_name="sdca_sparse",
+                            sqnorms=True))
+register_solver(LocalSolver("sdca_deadline", local_sdca_deadline,
+                            deadline=True, sqnorms=True))
+register_solver(LocalSolver("sdca_importance", local_sdca_importance,
+                            visit="importance", sqnorms=True))
+register_solver(LocalSolver("gd", local_gd, visit="none"))
 register_solver(LocalSolver("sdca_sparse", local_sdca_sparse, dense=False,
                             sparse=True, model_axis=True,
-                            model_hop=per_step_hop_floats))
+                            model_hop=per_step_model_hops))
 register_solver(LocalSolver(
     "sdca_kernel", _lazy_kernel("local_sdca_block"), visit="permutation",
     sparse_name="sdca_sparse_kernel"))
 register_solver(LocalSolver(
     "sdca_sparse_kernel", _lazy_kernel("sparse_local_sdca_block"),
     dense=False, sparse=True, visit="permutation", model_axis=True,
-    model_hop=_lazy_kernel("sparse_zx_hop_floats")))
+    model_hop=_lazy_kernel("sparse_zx_model_hops")))
 
 
 def sparse_counterpart(name) -> Optional[str]:

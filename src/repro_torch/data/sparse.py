@@ -2,10 +2,14 @@
 
 Port of `repro.data.sparse` for the main path:
 
-  * `CSRMatrix` -- host-side CSR triple (data, indices, indptr), numpy.
-  * `csr_to_ell` -- the padded-ELL layout `(n, r_max)` of (col, value)
-    pairs. Padding entries are (col 0, val 0.0): every gather adds
-    u[0] * 0 and every scatter adds 0 to u[0], exact no-ops.
+  * `CSRMatrix` -- host-side CSR triple (data, indices, indptr), numpy,
+    from `load_libsvm` (LIBSVM text, whole or streamed in row chunks by
+    `iter_libsvm_chunks`, stitched by `csr_vstack`) or the synthetic
+    generator.
+  * `csr_to_ell` / `ell_to_csr` -- the padded-ELL layout `(n, r_max)` of
+    (col, value) pairs and back. Padding entries are (col 0, val 0.0):
+    every gather adds u[0] * 0 and every scatter adds 0 to u[0], exact
+    no-ops.
   * `SparseShards` -- a dataclass of tensors mirroring the dense
     `(K, nk, d)` partition: `cols`/`vals` are `(K, nk, r_max)`, `nnz` the
     true per-row entry count.
@@ -14,16 +18,19 @@ Port of `repro.data.sparse` for the main path:
     shard-local column ids (`shard_features`).
   * `partition_sparse` -- the worker partitioner (same shuffle, padding and
     mask as `data.synthetic.partition`); `M > 1` returns `FeatureShards`.
+  * `shard_features_streaming` -- `FeatureShards` built chunk by chunk from
+    a CSR stream, rows dealt round-robin, with no full-width host array.
   * `matvec` / `rmatvec` / `row_sqnorms` / `densify` -- the sparse matvec
     family the duality certificate uses, over both layouts; `rmatvec` is an
     `index_add_`.
 
-The LIBSVM parser and the streaming ingest are still to port.
+Every host array here equals the reference's (same dtypes, same layout).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import pathlib
+from typing import Iterable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,6 +67,115 @@ class CSRMatrix(NamedTuple):
         return out
 
 
+def _iter_source_lines(source: Union[str, pathlib.Path, Iterable[str]]
+                       ) -> Iterable[str]:
+    """Lazily yield lines: a path streams through open(), an iterable
+    passes through."""
+    if isinstance(source, (str, pathlib.Path)):
+        with open(source, "r") as f:
+            yield from f
+    else:
+        yield from source
+
+
+def iter_libsvm_chunks(source: Union[str, pathlib.Path, Iterable[str]], *,
+                       chunk_rows: int,
+                       n_features: Optional[int] = None,
+                       zero_based: bool = False
+                       ) -> Iterable[Tuple[CSRMatrix, np.ndarray]]:
+    """Stream LIBSVM text as (CSRMatrix, labels) blocks of <= chunk_rows
+    rows, in O(chunk nnz) memory. `n_features` fixes the column count of
+    every chunk; without it each chunk's width is its own max index + 1
+    (`load_libsvm` widens to the global max when it stitches)."""
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
+    off = 0 if zero_based else 1
+    labels, data, indices, indptr = [], [], [], [0]
+    row_no = 0   # global data-row count, for error messages across chunks
+
+    def flush():
+        top = int(max(indices)) + 1 if indices else 0
+        d = n_features if n_features is not None else top
+        if top > d:
+            raise ValueError(f"feature index {top - 1} out of range for "
+                             f"n_features={d}")
+        csr = CSRMatrix(np.asarray(data, np.float32),
+                        np.asarray(indices, np.int32),
+                        np.asarray(indptr, np.int64),
+                        (len(labels), d))
+        return csr, np.asarray(labels, np.float32)
+
+    for line in _iter_source_lines(source):
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            continue
+        parts = line.split()
+        labels.append(float(parts[0]))
+        row_no += 1
+        row = []
+        for tok in parts[1:]:
+            i, v = tok.split(":")
+            idx = int(i) - off
+            if idx < 0:
+                raise ValueError(f"negative feature index in {tok!r} "
+                                 f"(zero_based={zero_based})")
+            row.append((idx, float(v)))
+        row.sort()
+        for (a, _), (b, _) in zip(row, row[1:]):
+            if a == b:
+                raise ValueError(f"duplicate feature index {a + off} on "
+                                 f"line {row_no}")
+        indices.extend(i for i, _ in row)
+        data.extend(v for _, v in row)
+        indptr.append(len(indices))
+        if len(labels) == chunk_rows:
+            yield flush()
+            labels, data, indices, indptr = [], [], [], [0]
+    if labels or row_no == 0:     # trailing partial chunk, or empty input
+        yield flush()
+
+
+def csr_vstack(blocks: Iterable[CSRMatrix],
+               d: Optional[int] = None) -> CSRMatrix:
+    """Stack CSR blocks row-wise; `d` defaults to the widest block."""
+    blocks = list(blocks)
+    if not blocks:
+        raise ValueError("csr_vstack needs at least one block")
+    d = max(b.shape[1] for b in blocks) if d is None else d
+    for b in blocks:
+        if b.shape[1] > d:
+            raise ValueError(f"block width {b.shape[1]} exceeds d={d}")
+    indptr = [np.asarray([0], np.int64)]
+    base = 0
+    for b in blocks:
+        indptr.append(b.indptr[1:] + base)
+        base += b.nnz
+    return CSRMatrix(np.concatenate([b.data for b in blocks]),
+                     np.concatenate([b.indices for b in blocks]),
+                     np.concatenate(indptr),
+                     (sum(b.shape[0] for b in blocks), d))
+
+
+def load_libsvm(source: Union[str, pathlib.Path, Iterable[str]], *,
+                n_features: Optional[int] = None,
+                zero_based: bool = False,
+                chunk_rows: Optional[int] = None
+                ) -> Tuple[CSRMatrix, np.ndarray]:
+    """Parse LIBSVM-format text: ``<label> <idx>:<val> <idx>:<val> ...``.
+
+    `source` is a path or an iterable of lines. Indices are 1-based by
+    default; '#' starts a comment; columns are sorted within each row.
+    Returns (CSRMatrix, labels float32). `chunk_rows` parses in CSR
+    blocks of that many rows (the same result)."""
+    chunks = list(iter_libsvm_chunks(
+        source, chunk_rows=chunk_rows if chunk_rows is not None else 2**62,
+        n_features=n_features, zero_based=zero_based))
+    labels = np.concatenate([y for _, y in chunks])
+    if len(chunks) == 1:
+        return chunks[0][0], labels
+    return csr_vstack([c for c, _ in chunks], d=n_features), labels
+
+
 def csr_to_ell(csr: CSRMatrix, r_max: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(cols (n, r_max) int32, vals (n, r_max) f32, nnz (n,) int32).
@@ -77,6 +193,20 @@ def csr_to_ell(csr: CSRMatrix, r_max: Optional[int] = None
     cols[slot] = csr.indices
     vals[slot] = csr.data
     return cols, vals, nnz
+
+
+def ell_to_csr(cols: np.ndarray, vals: np.ndarray, nnz: np.ndarray,
+               d: int) -> CSRMatrix:
+    """Inverse of `csr_to_ell` (drops padding entries)."""
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    nnz = np.asarray(nnz).astype(np.int64)
+    n, r_max = cols.shape
+    slot = np.arange(max(r_max, 1))[None, :] < nnz[:, None]
+    indptr = np.concatenate([[0], np.cumsum(nnz)])
+    return CSRMatrix(vals[slot].astype(np.float32),
+                     cols[slot].astype(np.int32),
+                     indptr, (n, d))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +294,96 @@ def shard_features(sh: SparseShards, M: int) -> FeatureShards:
                          torch.from_numpy(out_v).to(dev),
                          torch.from_numpy(slice_nnz.astype(np.int32)).to(dev),
                          d=sh.d, M=M, d_local=d_local)
+
+
+def shard_features_streaming(chunks, K: int, M: int = 1, *,
+                             n_features: Optional[int] = None,
+                             device=DEFAULT_DEVICE):
+    """`FeatureShards` built incrementally from streamed (CSRMatrix,
+    labels) blocks -- e.g. `iter_libsvm_chunks` -- without a host-side
+    full-width array: peak host memory is O(nnz) entry lists plus the
+    final padded blocks, independent of n r_max.
+
+    Rows are dealt round-robin in arrival order (row j -> worker j % K) and
+    sliced into their M feature blocks on arrival with shard-local column
+    ids (d_local = ceil(d/M)), so the result is the `FeatureShards`
+    `shard_features` gives for the same row assignment. `n_features` fixes
+    d up front (required unless the chunks carry a stable width). Returns
+    (FeatureShards, y (K, nk), mask (K, nk)) on `device`, zero-padded and
+    masked at each worker's tail."""
+    if K < 1 or M < 1:
+        raise ValueError(f"need K >= 1 and M >= 1, got K={K} M={M}")
+    dev = resolve_device(device)
+    d = n_features
+    d_local = None
+    # one tuple of flat per-entry arrays per chunk (k, m, local row, ELL
+    # slot, local col, val) and one (rows, M) slice-count block; the padded
+    # output is allocated once at the end, when n and r_loc are known
+    entry_blocks, count_blocks, label_blocks = [], [], []
+    n = 0
+    for csr, y in chunks:
+        if d is None:
+            d = csr.shape[1]
+            if d < 1:
+                raise ValueError("cannot infer d from an empty first chunk; "
+                                 "pass n_features")
+        if csr.shape[1] > d:
+            raise ValueError(f"chunk width {csr.shape[1]} exceeds d={d}; "
+                             f"pass n_features for a stable column count")
+        if d_local is None:
+            d_local = -(-d // M)
+        nc = csr.shape[0]
+        if nc == 0:
+            continue
+        ip = csr.indptr.astype(np.int64)
+        row_nnz = np.diff(ip)
+        row_of = np.repeat(np.arange(nc, dtype=np.int64), row_nnz)
+        owner = csr.indices.astype(np.int64) // d_local
+        # entries are column-sorted within a row, so each row's m-slices
+        # are contiguous runs: the slice counts give every entry's slot
+        counts = np.zeros((nc, M), np.int64)
+        np.add.at(counts, (row_of, owner), 1)
+        starts = np.zeros((nc, M), np.int64)
+        starts[:, 1:] = np.cumsum(counts, axis=1)[:, :-1]
+        pos_in_row = np.arange(len(row_of)) - np.repeat(ip[:-1], row_nnz)
+        slot = pos_in_row - starts[row_of, owner]
+        g = n + row_of                       # global arrival row id
+        entry_blocks.append((
+            (g % K).astype(np.int32), owner.astype(np.int32),
+            (g // K).astype(np.int64), slot,
+            (csr.indices - owner * d_local).astype(np.int32),
+            csr.data.astype(np.float32)))
+        gr = n + np.arange(nc, dtype=np.int64)
+        count_blocks.append(((gr % K).astype(np.int32), gr // K, counts))
+        label_blocks.append(np.asarray(y, np.float32))
+        n += nc
+    if d is None:
+        raise ValueError("empty stream and no n_features; cannot size d")
+    if n == 0:
+        raise ValueError("empty stream: no rows to shard (a zero-row "
+                         "FeatureShards would certify NaN gaps downstream)")
+    d_local = -(-d // M)
+    nk = -(-n // K)
+    r_loc = max((int(c.max()) for _, _, c in count_blocks if c.size),
+                default=0)
+    r_loc = max(r_loc, 1)
+    cols = np.zeros((K, M, nk, r_loc), np.int32)
+    vals = np.zeros((K, M, nk, r_loc), np.float32)
+    nnz = np.zeros((K, M, nk), np.int32)
+    yp = np.zeros((K, nk), np.float32)
+    mask = np.zeros((K, nk), np.float32)
+    for (ke, me, re, se, ce, ve), (kr, rr, cnt), yb in zip(
+            entry_blocks, count_blocks, label_blocks):
+        cols[ke, me, re, se] = ce
+        vals[ke, me, re, se] = ve
+        nnz[kr, :, rr] = cnt
+        yp[kr, rr] = yb
+        mask[kr, rr] = 1.0
+    fs = FeatureShards(torch.from_numpy(cols).to(dev),
+                       torch.from_numpy(vals).to(dev),
+                       torch.from_numpy(nnz).to(dev), d=d, M=M,
+                       d_local=d_local)
+    return fs, torch.from_numpy(yp).to(dev), torch.from_numpy(mask).to(dev)
 
 
 def check_cols(cols: np.ndarray, d: int) -> None:

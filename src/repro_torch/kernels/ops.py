@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from ..comm.placement import WSpec
+from ..comm.tracer import model_hops
 from ..core.losses import Loss
 from ..core.regularizers import L2, Regularizer
 from ..core.solvers import SDCAResult
@@ -175,13 +177,13 @@ def sparse_zx_plan(nk: int, d: int, H: int, *, r_max: int,
                 exchanges=zx_exchanges(nk, br, n_passes))
 
 
-def sparse_zx_hop_floats(X, H: int, reg: Regularizer = L2) -> int:
-    """Floats the model axis carries in one round of the z-exchange
-    schedule on the `FeatureShards` X: every (worker, shard) sends
-    `exchanges` partial-dot vectors of `block_rows` floats
-    (`LocalSolver.model_hop` of `sdca_sparse_kernel`)."""
+def sparse_zx_model_hops(X, H: int, reg: Regularizer = L2) -> tuple:
+    """The z-exchange schedule's model-axis wire plan on the
+    `FeatureShards` X: every (worker, shard) sends `exchanges` partial-dot
+    vectors of `block_rows` floats (`LocalSolver.model_hop` of
+    `sdca_sparse_kernel`)."""
     K, M, nk, r_loc = X.cols.shape
     plan = sparse_zx_plan(nk, X.d_local, H, r_max=r_loc,
                           reg_family=reg.family, model_shards=M,
                           backend=X.cols.device.type)
-    return K * M * plan["exchanges"] * plan["block_rows"]
+    return model_hops(WSpec(X.d, M, "model"), K, H, zx_plan=plan)

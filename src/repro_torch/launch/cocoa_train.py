@@ -12,6 +12,13 @@
     PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
         --dataset rcv1_sparse --mesh 4x2 --solver sdca_kernel --rounds 40
 
+    # compressed communication: top-64 with error feedback, a two-level
+    # reduce over pods of 4 workers, the sets gathered instead of dense
+    # vectors -- the summary prints the tracer's per-hop table
+    PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
+        --dataset rcv1_sparse --solver sdca_kernel --rounds 40 \
+        --compress topk --compress-k 64 --topology hier:4 --gather
+
 Same flags as `repro.launch.cocoa_train`, plus `--device` (default cuda;
 `--device cpu` runs the plain PyTorch versions). The default `--solver
 sdca` runs the eager twin, as the reference's default runs its jnp solver;
@@ -24,18 +31,16 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
+from .. import comm
 from ..core import CoCoAConfig, primal_w, solve
 from ..core.regularizers import get_regularizer
-from ..data import DATASETS, FeatureShards, load, partition, \
+from ..data import DATASETS, FeatureShards, SparseShards, load, partition, \
     partition_sparse
 from ..device import resolve_device
 from .mesh import make_test_mesh
 
 # flag -> (value that is ported, ROADMAP.md item that ports the rest)
 _UNPORTED = {
-    "compress": ("none", "Queue 1 item 8 (comm: the rest of the wire stack)"),
-    "topology": ("flat", "Queue 1 item 8 (comm: the rest of the wire stack)"),
-    "gather": (False, "Queue 1 item 8 (comm: the rest of the wire stack)"),
     "accel": ("none", "Queue 1 item 9 (core/accel.py)"),
     "ckpt": ("", "Queue 1 item 12 (runtime, checkpoint)"),
     "simulate_failure": (0, "Queue 1 item 12 (runtime, checkpoint)"),
@@ -44,11 +49,6 @@ _UNPORTED = {
     "metrics_out": ("", "Queue 1 item 11 (obs)"),
     "dashboard": (False, "Queue 1 item 11 (obs)"),
     "profile": ("", "Queue 1 item 11 (obs)"),
-}
-_UNPORTED_SOLVERS = {
-    "gd": "Queue 1 item 4 (core/solvers.py: deadline, importance, gd)",
-    "sdca_deadline": "Queue 1 item 4 (core/solvers.py: deadline, "
-                     "importance, gd)",
 }
 
 
@@ -68,10 +68,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--aggregator", default="",
                     help="add | avg | gamma:<g> (overrides --gamma)")
     ap.add_argument("--compress", default="none",
-                    choices=["none", "topk", "randk", "qsgd", "int8"])
-    ap.add_argument("--compress-k", type=int, default=64)
-    ap.add_argument("--topology", default="flat")
-    ap.add_argument("--gather", action="store_true")
+                    choices=["none", "topk", "randk", "qsgd", "int8"],
+                    help="wire compression for Delta v_k (error feedback)")
+    ap.add_argument("--compress-k", type=int, default=64,
+                    help="kept coordinates for --compress topk/randk")
+    ap.add_argument("--topology", default="flat",
+                    help="reduce plan: flat | hier:<g> (two-level, groups "
+                         "of g workers) | a2a (reduce-scatter + all-gather)")
+    ap.add_argument("--gather", action="store_true",
+                    help="compressed sparse gather: the reduce moves each "
+                         "worker's (idx, val) set instead of dense vectors; "
+                         "needs --compress topk or randk")
     ap.add_argument("--solver", default="sdca",
                     choices=["sdca", "sdca_kernel", "sdca_sparse",
                              "sdca_sparse_kernel", "gd", "sdca_deadline"])
@@ -102,10 +109,6 @@ def _reject_unported(args) -> None:
             raise SystemExit(
                 f"--{flag.replace('_', '-')}={getattr(args, flag)!r} is not "
                 f"ported to repro_torch yet: ROADMAP.md {item}")
-    if args.solver in _UNPORTED_SOLVERS:
-        raise SystemExit(f"--solver {args.solver} is not ported to "
-                         f"repro_torch yet: ROADMAP.md "
-                         f"{_UNPORTED_SOLVERS[args.solver]}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -125,6 +128,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             raise SystemExit(f"--mesh axes must be >= 1, got {args.mesh}")
         args.workers = K_mesh
         args.backend = "shard_map"
+    # the comm flags fail here, in milliseconds, before the data is made
+    if args.gather and args.compress not in ("topk", "randk"):
+        raise SystemExit("--gather needs --compress topk or randk "
+                         "(the sparse (idx, val) wire form)")
+    try:
+        comm.Topology.simulated(args.workers, topology=args.topology)
+    except ValueError as e:
+        raise SystemExit(f"--topology: {e}")
     device = resolve_device(args.device)
 
     spec = DATASETS[args.dataset]
@@ -154,7 +165,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     common = dict(loss=args.loss, lam=args.lam, H=args.H, solver=args.solver,
                   reg=args.reg, backend=args.backend,
-                  model_axis="model" if M > 1 else None)
+                  model_axis="model" if M > 1 else None,
+                  compress=args.compress, compress_k=args.compress_k,
+                  topology=args.topology, gather=args.gather)
     if args.aggregator:
         cfg = CoCoAConfig(aggregator=args.aggregator, **common)
     elif args.gamma == "add":
@@ -181,7 +194,33 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           f"primal={hist['primal'][-1]:.6g} dual={hist['dual'][-1]:.6g} "
           f"comm={hist['comm_floats'][-1] // hist['round'][-1]} floats/round "
           f"device={device}{f' mesh={K}x{M}' if M > 1 else ''}")
+    _print_wire(cfg, r.tracer, Xp, K, M)
     return hist
+
+
+def _print_wire(cfg: CoCoAConfig, tracer, X, K: int, M: int) -> None:
+    """The run's per-round wire plan and per-hop table, as the reference's
+    trainer prints them."""
+    d = X.d if isinstance(X, (SparseShards, FeatureShards)) else X.shape[-1]
+    pr = tracer.per_round()
+    dense_floats = K * d
+    print(f"comm[{cfg.topology}{'+gather' if cfg.gather else ''}"
+          f"{f' mesh={K}x{M}' if M > 1 else ''}]: "
+          f"{pr['floats']} floats/round "
+          f"({pr['bytes']} bytes, {pr['psums']} hop) -- "
+          f"{dense_floats / max(pr['floats'], 1):.1f}x cut vs flat "
+          f"uncompressed {dense_floats}")
+    for h in tracer.per_hop():
+        print(f"  hop {h['hop']}[{h['axis']}]: {h['messages']} msgs x "
+              f"{h['floats_per_message']} floats = {h['floats']}/round"
+              + (f" (measured after dedup, last round: "
+                 f"{h['measured_floats_round']})"
+                 if "measured_floats_round" in h else ""))
+    if M > 1:
+        ax = tracer.per_axis()
+        print(f"  per-axis floats/round: data={ax.get('data', 0)} "
+              f"model={ax.get('model', 0)}; w memory/device: "
+              f"{-(-d // M)} floats (replicated would be {d})")
 
 
 if __name__ == "__main__":

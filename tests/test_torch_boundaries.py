@@ -108,12 +108,8 @@ def test_cli_dense_default_solver_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--compress", "topk"], "item 8"),
-    (["--topology", "hier:2"], "item 8"),
-    (["--gather"], "item 8"),
     (["--accel", "nesterov"], "item 9"),
     (["--mesh", "2x2"], "item 10"),                 # dense M > 1
-    (["--mesh", "2x2", "--topology", "hier:2"], "item 8"),
     (["--ckpt", "ckpt_dir"], "item 12"),
     (["--simulate-failure", "3"], "item 12"),
     (["--simulate-straggler", "1"], "item 12"),
@@ -121,8 +117,6 @@ def test_cli_dense_default_solver_on_cpu(capsys):
     (["--metrics-out", "m.jsonl"], "item 11"),
     (["--dashboard"], "item 11"),
     (["--profile", "prof"], "item 11"),
-    (["--solver", "gd"], "item 4"),
-    (["--solver", "sdca_deadline"], "item 4"),
 ])
 def test_cli_unported_flags_name_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
@@ -143,3 +137,55 @@ def test_cli_mesh_and_backend_run_on_tiny_sparse(capsys, flags):
     assert len(gaps) == 3 and all(b < a for a, b in zip(gaps, gaps[1:]))
     if "--mesh" in flags:
         assert "sparse feature shards: M=2" in out and "mesh=2x2" in out
+
+
+def _falling(hist, rounds):
+    gaps = hist["gap"]
+    assert len(gaps) == rounds, gaps
+    assert all(b < a for a, b in zip(gaps, gaps[1:])), gaps
+
+
+@pytest.mark.parametrize("flags", [
+    ["--compress", "topk", "--compress-k", "16"],
+    ["--topology", "hier:2"],
+    ["--compress", "randk", "--compress-k", "64", "--gather"],
+    ["--compress", "topk", "--compress-k", "16", "--topology", "hier:2",
+     "--gather"],
+    ["--mesh", "2x2", "--solver", "sdca_kernel", "--topology", "hier:2",
+     "--compress", "topk", "--compress-k", "15", "--gather"],
+])
+def test_cli_wire_flags_run_on_tiny_sparse(capsys, flags):
+    """The comm flags run on the CPU (they exited naming ROADMAP Queue 1
+    item 8 before it was ported), and the summary prints the tracer's
+    per-hop table."""
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", "tiny_sparse",
+                             "--rounds", "4", "--H", "256", "--lam", "1e-3",
+                             "--eps", "0", *flags])
+    out = capsys.readouterr().out
+    _falling(hist, 4)
+    assert "comm[" in out and "  hop " in out
+    if "--gather" in flags and "hier:2" in flags:
+        assert "hop inter_gather[data]" in out
+        assert "(measured after dedup, last round: " in out
+
+
+@pytest.mark.parametrize("solver", ["gd", "sdca_deadline"])
+def test_cli_other_solvers_run_on_tiny(capsys, solver):
+    """`--solver gd|sdca_deadline` run on the CPU (they exited naming
+    ROADMAP Queue 1 item 4 before it was ported)."""
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", "tiny",
+                             "--solver", solver, "--rounds", "3", "--H",
+                             "64", "--lam", "1e-3", "--eps", "0"])
+    _falling(hist, 3)
+    assert "final: rounds=3" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--gather"], "--gather needs --compress topk or randk"),
+    (["--compress", "int8", "--gather"], "--gather needs"),
+    (["--topology", "hier:3"], "hier group 3 must divide K=8"),
+    (["--topology", "ring"], "unknown topology"),
+])
+def test_cli_rejects_bad_wire_flags(flags, match):
+    with pytest.raises(SystemExit, match=match):
+        cocoa_train.main(["--device", "cpu", "--dataset", "tiny", *flags])

@@ -106,8 +106,10 @@ def test_topology_from_mesh():
     assert topo.d_local(47_236) == 23_618
     assert topo.wspec(47_236).d_padded == 47_236
     assert comm.Topology.from_mesh(mesh, "data").M == 1
-    with pytest.raises(ValueError, match="item 8"):
-        comm.Topology.from_mesh(mesh, "data", "model", topology="hier:2")
+    hier = comm.Topology.from_mesh(mesh, "data", "model", topology="hier:2")
+    assert (hier.reduce, hier.group, hier.M) == ("hier", 2, 2)
+    with pytest.raises(ValueError, match="must divide K=4"):
+        comm.Topology.from_mesh(mesh, "data", "model", topology="hier:3")
     with pytest.raises(ValueError, match="model axis"):
         comm.Topology.from_mesh(mesh, "data", "feat")
     with pytest.raises(ValueError):

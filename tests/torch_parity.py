@@ -66,6 +66,39 @@ def reference_visit_orders(seed_or_key, rounds: int, K: int, nk: int, H: int,
     return lambda t: orders[t]
 
 
+COMM_RNG_SALT = 0x5EED     # repro/comm/aggregate.py: comm_rng's fold_in salt
+
+
+def comm_draws_from_keys(keys, kind: str, d: int, slots: int = 0):
+    """The draws the reference's compressors take from per-worker keys, as
+    the port's explicit inputs: rand-k's `choice(key, d, (slots,),
+    replace=False)` index sets (K, slots) or QSGD's `uniform(key, (d,))`
+    (K, d) (its `bernoulli` is `uniform < p`)."""
+    import jax
+    if kind == "randk":
+        rows = [np.asarray(jax.random.choice(kk, d, (min(slots, d),),
+                                             replace=False)) for kk in keys]
+        return torch.as_tensor(np.stack(rows).astype(np.int64))
+    if kind == "qsgd":
+        rows = [np.asarray(jax.random.uniform(kk, (d,))) for kk in keys]
+        return torch.as_tensor(np.stack(rows))
+    return None
+
+
+def reference_comm_draws(seed: int, rounds: int, K: int, d: int, kind: str,
+                         slots: int = 0):
+    """`solve(comm_draws=...)` hook replaying a reference solve's compressor
+    draws: round t, worker k draws from fold_in(fold_in(sub_t, k), salt)
+    (repro/core/cocoa.py's `comm_rng` of the worker key)."""
+    import jax
+    out = []
+    for sub in round_keys(jax.random.PRNGKey(seed), rounds):
+        keys = [jax.random.fold_in(jax.random.fold_in(sub, k), COMM_RNG_SALT)
+                for k in range(K)]
+        out.append(comm_draws_from_keys(keys, kind, d, slots))
+    return lambda t: out[t]
+
+
 def dense_block(rng: np.random.Generator, K: int, nk: int, d: int,
                 pad_rows: int = 0):
     """(X (K, nk, d), y, alpha, mask) with ||x|| <= 1, labels in {-1, 1},
