@@ -119,6 +119,33 @@ order, each failing the run with a non-zero exit:
                steps and its dalpha against a static 204-step run); phase
                12's 4 x 2 mesh, top-k 64 split 32 / 32 over the model
                shards and gathered over hier:2, 3 rounds of the zx kernel
+ 15. mesh-dense  epsilon's tensors (K = 4, phase 5's rows) on
+               `make_test_mesh((4, 2))` through `solve` with the eager
+               `sdca`, H = 2,048, 3 rounds: the dense feature-sharded
+               round, held each round within 1e-5 relative to the one-card
+               K = 4 vmap run on the same visit orders, no kernel launched
+ 16. dist      the multi-process backend: 4 ranks spawned (spawn start
+               method) on cuda:0, joined over gloo, each given only its
+               worker's block (written by this process), the kernels
+               already built by phase 2: rcv1 K = 4 (the ring kernel at
+               its default depth, lambda = 1e-6), epsilon K = 4 (the dense
+               kernel), and a 2 x 2 dense mesh at d = 2,000 cut to 4,096
+               rows a worker and H = 512 (the eager sdca, one scalar
+               all_reduce a step over the model column), 3 rounds each.
+               Each rank's per-round gaps equal every other rank's and
+               match the one-process run on the card (1e-6 relative; 5e-6
+               for epsilon, whose first run read 1.19e-6); each rank
+               launches its kernel once a round (none on the 2 x 2 mesh,
+               which sums over the model column at least rounds x H
+               times); s a round, each rank's kernel ms and exchange ms.
+               A rank that fails, or the spawn not done in 240 s, fails
+               the run: the rest are killed first
+ 17. accel     `tests/test_accel.py`'s pinned problem on the card (eager
+               sdca, K = 8, squared, lambda = 5e-4, H = 128) to gap 1e-4
+               under none, nesterov:16 and catalyst:20, both accelerated
+               runs at least 1.3x fewer rounds; epsilon K = 8 through the
+               dense kernel under nesterov:16, 3 rounds, its first round's
+               state equal to the plain first round's bit for bit
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -1972,6 +1999,354 @@ def phase_wire(dev, sparse, dense, mesh):
     return out
 
 
+# ----------------------------------------------------------------------------
+# the eighth slice: dense feature sharding (phase 15), the multi-process
+# backend on one card (16) and accelerated rounds (17)
+# ----------------------------------------------------------------------------
+
+MESH_DENSE_RTOL = 1e-5         # phase 15: 4 x 2 mesh vs the K = 4 run
+DIST_RANKS = 4                 # phase 16's ranks, all on cuda:0
+DIST_TIMEOUT = 240             # s for phase 16's spawn: start, data, runs
+# phase 16: ranks vs the one-process runs, relative per round: 1e-6, but
+# epsilon's, whose first card run read 1.19e-6 at round 3 (gap 2.09e-3):
+# gloo sums the 4 workers' du in its own order, and the float32 rounding
+# of w that leaves is carried through the next round's walk
+DIST_RTOL = {"rcv1 K=4": 1e-6, "epsilon K=4": 5e-6, "epsilon-cut 2x2": 1e-6}
+MESH_CUT_NK, MESH_CUT_H = 4_096, 512  # phase 16's 2 x 2 dense mesh
+ACCEL_PIN = dict(loss="squared", lam=5e-4, H=128, solver="sdca",
+                 aggregator="add")   # tests/test_accel.py's pinned problem
+
+
+def _rel(got, want):
+    return max(abs(a / b - 1) for a, b in zip(got, want))
+
+
+def phase_mesh_dense(dev, dense):
+    """Phase 15: epsilon's tensors on a (4, 2) one-card mesh through the
+    eager `sdca`, against the one-card K = 4 vmap run on the same orders."""
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.launch.mesh import make_test_mesh
+    Xp, yp, mk = dense[:3]
+    K, M, H, rounds = 4, 2, 2_048, 3
+    X, y, mask = (Xp.view(K, -1, Xp.shape[-1]), yp.view(K, -1),
+                  mk.view(K, -1))
+    kw = dict(loss="hinge", lam=DENSE_LAM, H=H, solver="sdca")
+    counts = _counts_zero()
+    r = solve(CoCoAConfig.adding(K, backend="shard_map", model_axis="model",
+                                 **kw), X, y, mask, rounds=rounds,
+              seed=SEED, mesh=make_test_mesh((K, M), device=dev))
+    launches = counts()
+    one = solve(CoCoAConfig.adding(K, **kw), X, y, mask, rounds=rounds,
+                seed=SEED)
+    rel = _rel(r.history["gap"], one.history["gap"])
+    per_round = K * Xp.shape[-1] // M + K * M * H
+    log(f"[15 mesh-dense] epsilon (K={K}, nk={y.shape[1]}, d=2000) on a "
+        f"{K} x {M} mesh, eager sdca, H={H}: s a round "
+        + ", ".join(f"{e:.3f}" for e in r.history["execute_s"])
+        + f" (the K={K} vmap run: "
+        + ", ".join(f"{e:.3f}" for e in one.history["execute_s"])
+        + f"); gaps max rel diff {rel:.3e} (limit {MESH_DENSE_RTOL}); "
+        f"comm_floats per round {r.history['comm_floats'][0]} "
+        f"(K d_local + K M H = {per_round})")
+    _check_gaps("epsilon 4x2 sdca", r.history, rounds)
+    if rel > MESH_DENSE_RTOL:
+        fail(f"phase 15 gaps {r.history['gap']} differ from the K={K} "
+             f"run's {one.history['gap']}")
+    if any(launches.values()):
+        fail(f"phase 15 launched kernels {launches}: the feature-sharded "
+             f"dense round is the eager sdca's")
+    if r.history["comm_floats"][0] != per_round:
+        fail(f"phase 15 priced {r.history['comm_floats'][0]} floats a "
+             f"round, not {per_round}")
+
+
+def _dist_rank(rank, world, jobs):
+    """Phase 16's rank on cuda:0: each job's `solve` on a process mesh,
+    from this rank's worker's block (numpy files the parent wrote), with
+    its own launch counts, kernel ms (CUDA events) and exchange ms (host
+    clock, synchronized: the staging through the host included)."""
+    import numpy as np
+    import torch
+    from repro_torch import comm
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data import SparseShards
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_process_mesh
+    out = []
+    for job in jobs:
+        dev = torch.device(job["device"])
+        mesh = make_process_mesh(job["shape"], job["axes"], device=dev)
+        cfg = CoCoAConfig(**job["cfg"])
+        k = comm.Topology.from_mesh(mesh, "data", cfg.model_axis).worker
+        arr = {n: torch.from_numpy(np.load(f"{job['blocks']}-{k}-{n}.npy"))
+               for n in job["arrays"]}
+        X = (SparseShards(arr["cols"], arr["vals"], arr["nnz"],
+                          d=job["d"]) if "cols" in arr else arr["X"])
+        kernel_ms, exchange_ms, model_sums = [], [], [0]
+
+        def kernel(real, *a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = real(*a, **kw)
+            end.record()
+            end.synchronize()
+            kernel_ms.append(start.elapsed_time(end))
+            return res
+
+        def exchange(real, *a, **kw):
+            synchronize(dev)
+            t0 = time.perf_counter()
+            res = real(*a, **kw)
+            synchronize(dev)
+            exchange_ms.append(1e3 * (time.perf_counter() - t0))
+            return res
+
+        def model_sum(real, *a, **kw):
+            model_sums[0] += 1
+            return real(*a, **kw)
+
+        counts = _counts_zero()
+        ops.LAST_SPARSE_CONFIG = None
+        with _wrapped(ops, job["kernel"], kernel), \
+                _wrapped(comm, "exchange", exchange), \
+                _wrapped(comm.Topology, "model_sum", model_sum):
+            r = solve(cfg, X, arr["y"], arr["mask"], rounds=job["rounds"],
+                      seed=SEED, mesh=mesh)
+        out.append({"gap": r.history["gap"],
+                    "execute_s": r.history["execute_s"],
+                    "certificate_s": r.history["certificate_s"],
+                    "kernel_ms": kernel_ms, "exchange_ms": exchange_ms,
+                    "launches": counts(), "model_sums": model_sums[0],
+                    "depth": (ops.LAST_SPARSE_CONFIG or {}).get(
+                        "buffer_depth"),
+                    "coords": mesh.coords()})
+    return out
+
+
+def _save_blocks(path, K, **arrays):
+    """Worker k's rows of every (K, ...) array, as `{path}-{k}-{name}.npy`."""
+    import numpy as np
+    for k in range(K):
+        for name, a in arrays.items():
+            np.save(f"{path}-{k}-{name}.npy", a[k:k + 1].cpu().numpy())
+
+
+def _blocks_vs_plain(runs, one, data, depth):
+    """Rows 3 and 1 at the shapes a rank of phase 16 launches them: worker
+    0's block (K = 1, the rank's nk) on the next round's inputs of the
+    one-process K = 4 run (its alpha row, w, sigma'/(tau n) of the global
+    n, and row 0 of the round's visit order, as every rank draws it), each
+    held to its plain version with `_against_plain`'s tolerance. The ranks'
+    gaps are held to those one-process runs, so the ranks' longer walks are
+    held to plain on one side and to the K = 4 launches on the other."""
+    from repro_torch.core import CoCoAConfig
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import local_sdca as dk, sparse_sdca as sk
+    hinge = {"loss": get_loss("hinge")}
+    for name, kernel, plain in (
+            ("rcv1 K=4", _at_depth(depth), sk.sparse_local_sdca_plain),
+            ("epsilon K=4", dk.local_sdca, dk.local_sdca_plain)):
+        X, y, mask = data[name]
+        cfg = CoCoAConfig(**{**runs[name]["cfg"], "backend": "vmap"})
+        state = one[name].state
+        w, scale, perm = _round_inputs(cfg, X, y, mask, state)
+        block = (X.cols[:1], X.vals[:1]) if name.startswith("rcv1") else (
+            X[:1],)
+        args = (*block, y[:1], state.alpha[:1], mask[:1], w, scale, perm[:1])
+        t0 = time.perf_counter()
+        abs_err, rel_err, plain_ms, _ = _against_plain(
+            f"{runs[name]['expect']} at a rank's block (K=1, "
+            f"nk={y.shape[1]})", kernel, plain, args, hinge)
+        log(f"  {name}: worker 0's block held to plain, max_abs "
+            f"{abs_err:.3e}; the plain walk {plain_ms:.1f} ms (the check "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_dist(dev, sparse, dense):
+    """Phase 16: the multi-process backend, 4 ranks spawned on cuda:0 over
+    gloo, each with its worker's block only: rcv1 K = 4 (the ring kernel,
+    one launch a round per rank), epsilon K = 4 (the dense kernel) and a
+    2 x 2 dense mesh at d = 2,000 (the eager sdca, a scalar all_reduce a
+    step over the model column), each against the one-process run on the
+    card on the same orders; first worker 0's blocks of the two kernel
+    runs are held to the plain versions (`_blocks_vs_plain`)."""
+    import tempfile
+    import torch
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data import SparseShards, partition_sparse
+    from repro_torch.launch.mesh import make_test_mesh, spawn_ranks
+    t0 = time.perf_counter()
+    csr, y = sparse[7]
+    sh, ys, ms = partition_sparse(csr, y, DIST_RANKS, device="cpu")
+    Xp, yp, mk = dense[:3]
+    K = DIST_RANKS
+    Xe, ye, me = (Xp.view(K, -1, Xp.shape[-1]), yp.view(K, -1),
+                  mk.view(K, -1))
+    cut = slice(0, MESH_CUT_NK)
+    Xc, yc, mc = Xe[:2, cut], ye[:2, cut], me[:2, cut]
+    rounds = 3
+    base = dict(loss="hinge", backend="shard_map")
+    where = dict(device=str(dev), rounds=rounds)
+    runs = {
+        "rcv1 K=4": dict(
+            shape=(K,), axes=("data",), kernel="sparse_local_sdca_block",
+            expect="sparse_sdca_pipelined", d=sh.d, **where,
+            cfg=dict(base, lam=SPARSE_LAM, H=ys.shape[1],
+                     solver="sdca_sparse_kernel", gamma=1.0, sigma_p=K)),
+        "epsilon K=4": dict(
+            shape=(K,), axes=("data",), kernel="local_sdca_block",
+            expect="local_sdca", d=Xe.shape[-1], **where,
+            cfg=dict(base, lam=DENSE_LAM, H=ye.shape[1],
+                     solver="sdca_kernel", gamma=1.0, sigma_p=K)),
+        "epsilon-cut 2x2": dict(
+            shape=(2, 2), axes=("data", "model"), kernel="local_sdca_block",
+            expect=None, d=Xe.shape[-1], **where,
+            cfg=dict(base, lam=DENSE_LAM, H=MESH_CUT_H, solver="sdca",
+                     model_axis="model", gamma=1.0, sigma_p=2)),
+    }
+    sd = SparseShards(sh.cols.to(dev), sh.vals.to(dev), sh.nnz.to(dev),
+                      d=sh.d)
+    data = {"rcv1 K=4": (sd, ys.to(dev), ms.to(dev)),
+            "epsilon K=4": (Xe, ye, me)}
+    t0 = time.perf_counter()
+    one = {
+        name: solve(CoCoAConfig(**{**runs[name]["cfg"], "backend": "vmap"}),
+                    *data[name], rounds=rounds, seed=SEED)
+        for name in data}
+    one["epsilon-cut 2x2"] = solve(
+        CoCoAConfig(**runs["epsilon-cut 2x2"]["cfg"]), Xc, yc, mc,
+        rounds=rounds, seed=SEED, mesh=make_test_mesh((2, 2), device=dev))
+    log(f"[16 dist] the one-process runs took "
+        f"{time.perf_counter() - t0:.1f} s")
+    depth = sparse[8]
+    _blocks_vs_plain(runs, one, data, depth)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        blocks = {"rcv1 K=4": dict(cols=sh.cols, vals=sh.vals, nnz=sh.nnz,
+                                   y=ys, mask=ms),
+                  "epsilon K=4": dict(X=Xe, y=ye, mask=me),
+                  "epsilon-cut 2x2": dict(X=Xc, y=yc, mask=mc)}
+        for i, (name, arrays) in enumerate(blocks.items()):
+            runs[name]["blocks"] = f"{tmp}/job{i}"
+            runs[name]["arrays"] = tuple(arrays)
+            _save_blocks(runs[name]["blocks"], len(arrays["y"]), **arrays)
+        log(f"  {K} ranks on {dev} over gloo; blocks written in "
+            f"{time.perf_counter() - t0:.1f} s (rcv1 K={K} nk={ys.shape[1]}"
+            f", epsilon K={K} nk={ye.shape[1]}, and the 2 x 2 dense mesh "
+            f"cut to epsilon's first {MESH_CUT_NK} rows of workers 0 and 1, "
+            f"H {MESH_CUT_H}, d = 2,000); limit {DIST_TIMEOUT} s")
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn_ranks(_dist_rank, K, (list(runs.values()),),
+                                timeout=DIST_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 16: {e}")
+        spawn_s = time.perf_counter() - t0
+    log(f"  the spawn took {spawn_s:.1f} s (start, load, 3 runs)")
+    for j, (name, run) in enumerate(runs.items()):
+        got = [rk[j] for rk in ranks]
+        want = one[name].history
+        rel = _rel(got[0]["gap"], want["gap"])
+        log(f"  {name}: gaps " + " ".join(f"{g:.6e}" for g in got[0]["gap"])
+            + f"; max rel diff {rel:.3e} from the one-process run (limit "
+            f"{DIST_RTOL[name]}); s a round across the ranks "
+            + ", ".join(f"{e:.3f}" for e in got[0]["execute_s"])
+            + " against " + ", ".join(f"{e:.3f}" for e in want["execute_s"])
+            + " in one process")
+        for rk in got:
+            log(f"    rank {rk['coords']}: kernel ms "
+                + ", ".join(f"{t:.3f}" for t in rk["kernel_ms"])
+                + "; exchange ms " + ", ".join(
+                    f"{t:.3f}" for t in rk["exchange_ms"])
+                + f"; certificate s " + ", ".join(
+                    f"{t:.3f}" for t in rk["certificate_s"])
+                + f"; launches {rk['launches']}; model sums "
+                f"{rk['model_sums']}; ring depth {rk['depth']}")
+            if rk["gap"] != got[0]["gap"]:
+                fail(f"phase 16 {name}: ranks disagree: {rk['gap']} vs "
+                     f"{got[0]['gap']}")
+            if run["expect"] == "sparse_sdca_pipelined" and \
+                    rk["depth"] != depth:
+                fail(f"phase 16 {name}: rank {rk['coords']} ran ring depth "
+                     f"{rk['depth']}, not the {depth} held to plain")
+            if run["expect"] is not None:
+                ran = {key: v for key, v in rk["launches"].items() if v}
+                if ran != {run["expect"]: rounds}:
+                    fail(f"phase 16 {name}: rank {rk['coords']} launched "
+                         f"{rk['launches']}, expected {rounds} of "
+                         f"{run['expect']}")
+            elif any(rk["launches"].values()) or \
+                    rk["model_sums"] < rounds * MESH_CUT_H:
+                fail(f"phase 16 {name}: rank {rk['coords']} launched "
+                     f"{rk['launches']} and summed over the model column "
+                     f"{rk['model_sums']} times (at least "
+                     f"{rounds * MESH_CUT_H})")
+        _check_gaps(f"{name} across {K} ranks", {
+            "round": list(range(1, rounds + 1)), "gap": got[0]["gap"],
+            "execute_s": got[0]["execute_s"],
+            "certificate_s": got[0]["certificate_s"]}, rounds)
+        if rel > DIST_RTOL[name]:
+            fail(f"phase 16 {name}: gaps {got[0]['gap']} differ from the "
+                 f"one-process run's {want['gap']}")
+
+
+def phase_accel(dev, dense):
+    """Phase 17: the pinned ill-conditioned problem to gap 1e-4 under
+    none, nesterov:16 and catalyst:20 (eager sdca), and epsilon K = 8
+    through the dense kernel under nesterov:16 (its first round equal to
+    the plain first round bit for bit)."""
+    import torch
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data import make_classification, partition
+    X, y = make_classification(2048, 128, seed=0, cond=100.0)
+    data = partition(X, y, 8, seed=0, device=dev)
+    took = {}
+    for accel in ("none", "nesterov:16", "catalyst:20"):
+        t0 = time.perf_counter()
+        r = solve(CoCoAConfig(accel=accel, **ACCEL_PIN), *data, rounds=300,
+                  eps_gap=1e-4, seed=SEED)
+        took[accel] = r.history["round"][-1]
+        head = "[17 accel]" if accel == "none" else " "
+        log(f"{head} illcond K=8 {accel}: {took[accel]} rounds to gap "
+            f"{r.history['gap'][-1]:.4e} in {time.perf_counter() - t0:.2f} s")
+        if r.history["gap"][-1] > 1e-4:
+            fail(f"phase 17 {accel} did not reach gap 1e-4 in 300 rounds")
+    for accel in ("nesterov:16", "catalyst:20"):
+        if took[accel] * 1.3 > took["none"]:
+            fail(f"phase 17: {accel} took {took[accel]} rounds, none "
+                 f"{took['none']}: not 1.3x fewer")
+    Xp, yp, mk = dense[:3]
+    kw = dict(loss="hinge", lam=DENSE_LAM, H=yp.shape[1],
+              solver="sdca_kernel")
+    plain = solve(CoCoAConfig.adding(8, **kw), Xp, yp, mk, rounds=1,
+                  seed=SEED)
+    cfg = CoCoAConfig.adding(8, accel="nesterov:16", **kw)
+    counts = _counts_zero()
+    first = solve(cfg, Xp, yp, mk, rounds=1, seed=SEED)
+    rest = solve(cfg, Xp, yp, mk, rounds=2, seed=SEED, state=first.state)
+    launches = counts()
+    same = (torch.equal(plain.state.w, first.state.w)
+            and torch.equal(plain.state.alpha, first.state.alpha))
+    gaps = first.history["gap"] + rest.history["gap"]
+    log(f"  epsilon K=8 sdca_kernel nesterov:16: gaps "
+        + " ".join(f"{g:.6e}" for g in gaps) + f" (plain round 1: "
+        f"{plain.history['gap'][0]:.6e}); round 1's state "
+        f"{'equal' if same else 'NOT equal'} to the plain round's bit for "
+        f"bit; launches {launches}")
+    if not same:
+        fail("phase 17: the first accelerated round is not the plain round")
+    if launches["local_sdca"] != 3:
+        fail(f"phase 17: local_sdca launched {launches['local_sdca']} "
+             f"times in 3 rounds")
+    _check_gaps("epsilon K=8 nesterov:16", {
+        "round": [1, 2, 3], "gap": gaps,
+        "execute_s": first.history["execute_s"] + rest.history["execute_s"],
+        "certificate_s": first.history["certificate_s"]
+        + rest.history["certificate_s"]}, 3)
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -2006,6 +2381,14 @@ def main() -> None:
     mesh = phase_mesh2d(dev, sparse[7])
     rows += phase_new_times(pipe, sparse_plain, mesh, cut_errs)
     phase_wire(dev, sparse, dense, mesh)
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    phase_mesh_dense(dev, dense)
+    phase_dist(dev, sparse, dense)
+    phase_accel(dev, dense)
+    log(f"  phases 15-17 took {time.perf_counter() - t_new:.1f} s")
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

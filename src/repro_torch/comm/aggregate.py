@@ -122,6 +122,11 @@ def exchange(topo: Topology, du, ef, params: AggParams,
     post-dedup hier gather volume (`inter_gather`), averaged over the
     model shards as the reference's per-shard tracer units need.
 
+    On a process mesh `du`/`ef` are the rank's (1, d_local) worker and
+    model shard, `draws` its worker's row, and the reduce or gather runs
+    over the rank's data row (`Topology.all_sum`, `gather_sets`); a
+    budget-split sparsifier keeps the rank's shard's share.
+
     Returns (dw_sum (d,), new_ef (K, d)), dw_sum already damped by
     1/sigma'."""
     comp = compressor if compressor is not None else NoCompression()
@@ -130,7 +135,8 @@ def exchange(topo: Topology, du, ef, params: AggParams,
             f"compressed gather needs a sparse-set compressor "
             f"(topk/randk); {comp.name!r} only has a dense wire form")
     K, width = du.shape
-    M = topo.M
+    # the model shards on the tensors: a rank of a process mesh holds one
+    M = 1 if topo.process else topo.M
     x = du / params.sigma_prime
     if M > 1:
         x, ef = x.reshape(K, M, -1), ef.reshape(K, M, -1)
@@ -139,7 +145,10 @@ def exchange(topo: Topology, du, ef, params: AggParams,
     if not gather:
         msg, ef = comp(x, ef, draws)
         return topo.all_sum(msg).reshape(width), ef.reshape(K, width)
-    msg, ef = comp.encode(x, ef, draws)
+    if topo.process and topo.M > 1:
+        msg, ef = comp.encode(x, ef, draws, shard=topo.model_index)
+    else:
+        msg, ef = comp.encode(x, ef, draws)
     if M == 1:
         idx, val = topo.gather_sets(msg.idx, msg.val, width, stats)
         return decode_sum(idx, val, width), ef

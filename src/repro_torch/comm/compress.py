@@ -126,7 +126,7 @@ class Compressor:
         the CPU; None for the deterministic schemes."""
         return None
 
-    def encode(self, x, residual, draws=None):
+    def encode(self, x, residual, draws=None, shard=None):
         """(SparseMessage, new_residual) -- only for `supports_gather`."""
         raise NotImplementedError(
             f"{self.name!r} has no sparse wire form; compressed gather "
@@ -162,7 +162,9 @@ class _Sparsifier(Compressor):
     shards -- ceil(k/M) slots per shard, of which shard m keeps
     k//M + (m < k%M) live entries (the remainder to low shards). The
     split form takes (K, M, d_local) messages; the shard index is the
-    position on axis -2 (the reference reads it from `lax.axis_index`)."""
+    position on axis -2 (the reference reads it from `lax.axis_index`), or
+    `shard=m` when the batch holds model shard m alone (a rank of a
+    process mesh holds one shard)."""
     supports_gather = True
 
     def __init__(self, k: int, shards: int = 1):
@@ -192,20 +194,23 @@ class _Sparsifier(Compressor):
     def _select(self, xc, draws):
         raise NotImplementedError
 
-    def encode(self, x, residual, draws=None):
+    def encode(self, x, residual, draws=None, shard=None):
         xc = x + residual
         idx = self._select(xc, draws)
         val = torch.gather(xc, -1, idx)
         d = xc.shape[-1]
         if self.shards > 1:
-            if xc.dim() < 2 or xc.shape[-2] != self.shards:
+            if shard is not None:
+                m = int(shard)
+            elif xc.dim() < 2 or xc.shape[-2] != self.shards:
                 raise ValueError(
                     f"a budget split over {self.shards} shards takes "
                     f"(..., {self.shards}, d_local) messages, got "
                     f"{tuple(xc.shape)}")
-            m = torch.arange(self.shards, device=xc.device)[:, None]
+            else:
+                m = torch.arange(self.shards, device=xc.device)[:, None]
             slot = torch.arange(idx.shape[-1], device=xc.device)[None, :]
-            live = slot < self.live_budget(m)              # (M, slots)
+            live = slot < self.live_budget(m)       # (M or 1, slots)
             # dead slots -> sentinel d / value 0: dropped by every scatter,
             # their mass stays in the EF residual (top-k's indices come in
             # magnitude order, so the live prefix is the largest entries)
@@ -214,8 +219,8 @@ class _Sparsifier(Compressor):
         xhat = _scatter_set(xc, idx, val)
         return SparseMessage(idx, val), xc - xhat
 
-    def __call__(self, x, residual, draws=None):
-        msg, res = self.encode(x, residual, draws)
+    def __call__(self, x, residual, draws=None, shard=None):
+        msg, res = self.encode(x, residual, draws, shard)
         return _scatter_set(x, msg.idx, msg.val), res
 
     def __repr__(self):

@@ -8,8 +8,9 @@
                                      d_local = ceil(d / M)
 
 On one card the M shards are the M contiguous slices of one padded
-(M d_local,) tensor. Padded coordinates carry no data (no column maps to
-them), so they stay exactly zero through every round.
+(M d_local,) tensor; on a process mesh each rank holds its own slice.
+Padded coordinates carry no data (no column maps to them), so they stay
+exactly zero through every round.
 """
 from __future__ import annotations
 
@@ -88,6 +89,22 @@ class WSpec:
             raise ValueError(f"({w.shape[-1]},) vector is neither d={self.d} "
                              f"nor d_padded={self.d_padded}")
         return w[..., :self.d]
+
+    def pad_cols(self, X: torch.Tensor) -> torch.Tensor:
+        """Dense (..., d) rows zero-padded to (..., d_padded), the M
+        model shards' slices side by side; X itself when already padded
+        (the reference's `jnp.pad` of X before a feature-sharded round)."""
+        if X.shape[-1] == self.d_padded:
+            return X
+        return torch.nn.functional.pad(X, (0, self.d_padded - self.d))
+
+    def slice_cols(self, X: torch.Tensor, m: int) -> torch.Tensor:
+        """Model shard m's (..., d_local) columns of dense (..., d) rows,
+        zero-padded past d: the block a rank of a process mesh holds."""
+        lo = self.shard_offset(m)
+        block = X[..., lo:lo + self.d_local]
+        return torch.nn.functional.pad(
+            block, (0, self.d_local - block.shape[-1]))
 
     def spec(self) -> Optional[str]:
         """The axis the stored w is split over: the model axis, or None

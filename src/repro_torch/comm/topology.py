@@ -1,15 +1,27 @@
 """Worker-topology descriptors and reduce plans. Port of
 `repro.comm.topology`.
 
-The K workers live on the leading axis of every tensor. Two flavors share
-the dataclass:
+Three flavors share the dataclass:
 
-  * `simulated(K)` -- the vmap backend's K simulated workers;
-  * `from_mesh(mesh, data_axis, model_axis)` -- the shard_map backend laid
-    onto one card: K = the data axis's size, M = the model axis's size,
-    and w is the padded (M d_local,) vector whose M slices are the model
-    shards. A reduce of (K, M d_local) deltas over K is then the per-model-
-    shard reduce, K messages of d_local floats for each shard.
+  * `simulated(K)` -- the vmap backend's K simulated workers, on the
+    leading axis of every tensor;
+  * `from_mesh(mesh, data_axis, model_axis)` on a one-card mesh -- the
+    shard_map backend laid onto one card: K = the data axes' sizes
+    multiplied (a tuple of axes is a mixed radix, the last fastest),
+    M = the model axis's size, and w is the padded (M d_local,) vector
+    whose M slices are the model shards. A reduce of (K, M d_local)
+    deltas over K is then the per-model-shard reduce, K messages of
+    d_local floats for each shard;
+  * `from_mesh` on a process mesh (`launch.mesh.make_process_mesh`) --
+    one rank per (worker, model shard). The rank's tensors hold its own
+    worker (a leading axis of 1) and its own d_local slice, and every
+    cross-worker step is a collective over the rank's data row
+    (`comm.collectives`, gloo): flat is one all_reduce; hier:<g> an
+    all_reduce within the rank's pod of g consecutive workers, then one
+    across the pods; a2a a reduce_scatter and an all_gather; compressed
+    gather all_gathers the (idx, val) sets, merged at the pod boundary
+    under hier. `data_sum` / `model_sum` reduce over the data row / the
+    model column, and are the identity on one card.
 
 On top of the flavor sits the reduce kind, from a spec string:
 
@@ -27,18 +39,19 @@ concatenated is elementwise the flat sum, as the reference's simulated
 flavor says. What changes between kinds is the wire plan, `hops()`, which
 `comm.tracer.CommTracer` turns into per-round volume.
 
-Everything here runs on one card. The collectives across processes -- the
-reference's grouped `all_gather`s and `psum_scatter` inside shard_map --
-are not ported: they belong to the multi-process backend (ROADMAP.md
-Queue 1 item 10).
+On a process mesh the reduce kinds reach the same sum in the
+association of their collectives: gloo's all_reduce sums in an order of
+its own, so the process mesh matches the one-card rounds to float32
+rounding, not bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from . import collectives
 from .compress import merge_sets
 from .placement import WSpec
 
@@ -85,6 +98,9 @@ class Topology:
     model_axis: Optional[str] = None    # the mesh axis carrying them
     reduce: str = "flat"                # "flat" | "hier" | "a2a"
     group: int = 0                      # hier intra-group size (divides K)
+    data_axes: Tuple[str, ...] = ("data",)
+    mesh: object = dataclasses.field(default=None, compare=False,
+                                     repr=False)   # the mesh it reads
 
     def __post_init__(self):
         if self.reduce not in REDUCE_KINDS:
@@ -95,6 +111,8 @@ class Topology:
             if not 2 <= g <= self.K or self.K % g:
                 raise ValueError(
                     f"hier group {g} must divide K={self.K} (2 <= g <= K)")
+            if self.mesh is not None and len(self.data_axes) > 1:
+                self._check_trailing_group()
 
     @staticmethod
     def simulated(K: int, topology: Optional[str] = None) -> "Topology":
@@ -103,23 +121,52 @@ class Topology:
         return Topology(K=K, reduce=kind, group=g)
 
     @staticmethod
-    def from_mesh(mesh, data_axis: str = "data",
+    def from_mesh(mesh, data_axis: Union[str, Tuple[str, ...]] = "data",
                   model_axis: Optional[str] = None,
                   topology: Optional[str] = None) -> "Topology":
-        """Workers = the data axis's size; model shards = the model axis's
-        size (1 when `model_axis` is None)."""
-        if data_axis not in mesh.shape:
-            raise ValueError(f"mesh has axes {tuple(mesh.shape)}, no data "
-                             f"axis {data_axis!r}")
+        """Workers = the data axes' sizes multiplied; model shards = the
+        model axis's size (1 when `model_axis` is None). On a process
+        mesh every axis must be a data axis or the model axis."""
+        daxes = ((data_axis,) if isinstance(data_axis, str)
+                 else tuple(data_axis))
+        K = 1
+        for a in daxes:
+            if a not in mesh.shape:
+                raise ValueError(f"mesh has axes {tuple(mesh.shape)}, no "
+                                 f"data axis {a!r}")
+            K *= mesh.shape[a]
         M = 1
         if model_axis is not None:
             if model_axis not in mesh.shape:
                 raise ValueError(f"mesh has axes {tuple(mesh.shape)}, no "
                                  f"model axis {model_axis!r}")
             M = mesh.shape[model_axis]
+        if getattr(mesh, "is_process", False):
+            used = daxes + ((model_axis,) if model_axis else ())
+            if tuple(a for a in mesh.axis_names if a in used) != used or \
+                    set(used) != set(mesh.axis_names):
+                raise ValueError(
+                    f"a process mesh's axes {mesh.axis_names} must be the "
+                    f"data axes {daxes} then the model axis {model_axis!r}, "
+                    f"in the mesh's order")
         kind, g = parse_reduce(topology)
-        return Topology(K=mesh.shape[data_axis], M=M, model_axis=model_axis,
-                        reduce=kind, group=g)
+        return Topology(K=K, M=M, model_axis=model_axis, reduce=kind,
+                        group=g, data_axes=daxes, mesh=mesh)
+
+    def _check_trailing_group(self):
+        """On a mixed-radix mesh a pod must be a block of the trailing
+        data axes (the reference's `_hier_axis_split`)."""
+        sizes = [self.mesh.shape[a] for a in self.data_axes]
+        prod = 1
+        for s in reversed(sizes):
+            prod *= s
+            if prod == self.group:
+                return
+            if prod > self.group:
+                break
+        raise ValueError(
+            f"hier group {self.group} must equal a trailing product of the "
+            f"data-axis sizes {dict(zip(self.data_axes, sizes))}")
 
     def wspec(self, d: int) -> WSpec:
         """The placement of a d-feature w under this topology."""
@@ -130,13 +177,110 @@ class Topology:
         """Floats of w each worker moves per reduce, per model shard."""
         return self.wspec(d).d_local
 
+    # -- the process form ------------------------------------------------
+
+    @property
+    def process(self) -> bool:
+        """Whether the workers are ranks of a process mesh (this process
+        holds one worker's model shard) rather than tensor rows."""
+        return getattr(self.mesh, "is_process", False)
+
+    @property
+    def worker(self) -> int:
+        """This rank's worker: the mixed-radix index over the data axes
+        (0 off a process mesh)."""
+        if not self.process:
+            return 0
+        at, w = self.mesh.coords(), 0
+        for a in self.data_axes:
+            w = w * self.mesh.shape[a] + at[a]
+        return w
+
+    @property
+    def model_index(self) -> int:
+        """This rank's model shard (0 off a process mesh or at M = 1)."""
+        if not self.process or self.model_axis is None:
+            return 0
+        return self.mesh.coords()[self.model_axis]
+
+    def _ranks(self, workers, m: int):
+        """The ranks of `workers` on model shard m."""
+        shape = self.mesh.shape
+        out = []
+        for w in workers:
+            at = {} if self.model_axis is None else {self.model_axis: m}
+            for a in reversed(self.data_axes):
+                w, at[a] = divmod(w, shape[a])
+            out.append(self.mesh.rank_at(at))
+        return out
+
+    def _hier_groups(self):
+        """(this rank's pod: g consecutive workers on its model shard, the
+        ranks holding its position in every pod)."""
+        K, g = self.K, self.group
+        parts_intra, parts_inter = [], []
+        for m in range(self.M):
+            parts_intra += [self._ranks(range(p * g, (p + 1) * g), m)
+                            for p in range(K // g)]
+            parts_inter += [self._ranks(range(j, K, g), m)
+                            for j in range(g)]
+        key = (self.data_axes, self.model_axis, g)
+        return (self.mesh.partition_group(("hier-intra",) + key,
+                                          parts_intra),
+                self.mesh.partition_group(("hier-inter",) + key,
+                                          parts_inter))
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the workers of this rank's data row (a rank's rows are
+        replicated over the model axis); the identity on one card."""
+        if not self.process:
+            return t
+        return collectives.all_reduce(t, self.mesh.subgroup(self.data_axes))
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the model shards of this rank's worker (a w slice is
+        replicated over the data axes); the identity on one card. The
+        feature-sharded solvers' per-step partial-dot completion."""
+        if not self.process or self.M == 1:
+            return t
+        return collectives.all_reduce(t, self.mesh.subgroup(
+            (self.model_axis,)))
+
+    def worker_stack(self, t: torch.Tensor) -> torch.Tensor:
+        """A (K, ...) tensor of every worker's row: the data row's ranks'
+        (1, ...) `t` gathered on a process mesh, `t` itself on one card."""
+        if not self.process:
+            return t
+        return collectives.all_gather(t[0],
+                                      self.mesh.subgroup(self.data_axes))
+
+    # -- reduces ---------------------------------------------------------
+
     def all_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Cross-worker sum of a (K, ...) tensor routed per the reduce
-        kind; on (K, M, d_local) messages, each model shard's reduce."""
+        kind; on (K, M, d_local) messages, each model shard's reduce. On
+        a process mesh `x` is the rank's (1, ...) message."""
+        if self.process:
+            return self._process_sum(x[0])
         if self.reduce == "hier":
             xg = x.reshape((self.K // self.group, self.group) + x.shape[1:])
             return torch.sum(torch.sum(xg, dim=1), dim=0)
         return torch.sum(x, dim=0)
+
+    def _process_sum(self, v: torch.Tensor) -> torch.Tensor:
+        row = self.mesh.subgroup(self.data_axes)
+        if self.reduce == "hier":
+            intra, inter = self._hier_groups()
+            return collectives.all_reduce(
+                collectives.all_reduce(v, intra), inter)
+        if self.reduce == "a2a":
+            flat = v.reshape(-1)
+            n = flat.shape[0]
+            flat = torch.nn.functional.pad(flat, (0, (-n) % self.K))
+            chunk = collectives.reduce_scatter(flat, row)
+            full = collectives.all_gather(chunk, row).reshape(-1)
+            return full[:n].reshape(v.shape)
+        return collectives.all_reduce(v, row)
 
     def gather_sets(self, idx: torch.Tensor, val: torch.Tensor, d: int,
                     stats: Optional[dict] = None):
@@ -148,7 +292,14 @@ class Topology:
         `stats["inter_gather"]` then receives the measured post-dedup inter
         volume in floats per round (2 words per live pair, summed over the
         pods), as a 0-d tensor. Flat and a2a return the sets as they are.
-        Merged duplicate slots sit at the sentinel index d with value 0."""
+        Merged duplicate slots sit at the sentinel index d with value 0.
+
+        On a process mesh `idx`/`val` are the rank's (1, k) set and the
+        sets come from the data row's ranks; there the measured volume is
+        also averaged over the model shards, as `exchange` does on one
+        card."""
+        if self.process:
+            return self._process_gather(idx[0], val[0], d, stats)
         if self.reduce != "hier":
             return idx, val
         g = self.group
@@ -158,6 +309,22 @@ class Topology:
         if stats is not None:
             stats["inter_gather"] = 2 * torch.sum(uniq)
         return mi, mv
+
+    def _process_gather(self, idx, val, d, stats):
+        if self.reduce != "hier":
+            row = self.mesh.subgroup(self.data_axes)
+            return (collectives.all_gather(idx, row),
+                    collectives.all_gather(val, row))
+        intra, inter = self._hier_groups()
+        mi, mv, uniq = merge_sets(collectives.all_gather(idx, intra),
+                                  collectives.all_gather(val, intra), d)
+        if stats is not None:
+            # every rank of a pod holds the pod's count: the row's sum
+            # counts each pod g times
+            wire = self.data_sum(2 * uniq) // self.group
+            stats["inter_gather"] = self.model_sum(wire) // self.M
+        return (collectives.all_gather(mi, inter),
+                collectives.all_gather(mv, inter))
 
     def hops(self, f_msg: int, d_local: int,
              f_set: Optional[int] = None) -> Tuple[Hop, ...]:

@@ -16,14 +16,29 @@ reg.conj_grad(v) (`primal_w`), the identity under L2.
 Two backends, as in the reference:
 
     "vmap"       K simulated workers on the leading tensor axis
-    "shard_map"  a (data=K, model=M) mesh (`launch.mesh.make_test_mesh`)
-                 laid onto one card: K workers, and w feature-sharded into
-                 M slices of d_local = ceil(d / M) (`comm.WSpec`) when the
-                 data is a `FeatureShards`. Each step's partial dots are
-                 summed over the M shards (the eager `sdca_sparse`), or the
+    "shard_map"  a (data=K, model=M) mesh: K workers, and w feature-sharded
+                 into M slices of d_local = ceil(d / M) (`comm.WSpec`) when
+                 M > 1 -- dense rows padded to M d_local columns, or a
+                 `FeatureShards`. Each step's partial dots are summed over
+                 the M shards (the eager `sdca` / `sdca_sparse`), or the
                  sparse kernel runs its z-exchange schedule; the per-round
                  reduce is then one d_local-float message per worker per
                  shard. At M = 1 it is the vmap round on the same tensors.
+
+The mesh is laid onto one card (`launch.mesh.make_test_mesh`: the workers
+and shards on the tensors' axes, K blocks of one launch), or across
+processes (`make_process_mesh`: one rank per (worker, shard)). On a
+process mesh every rank keeps only its own block -- (1, nk, d_local)
+dense rows, or its worker's ELL rows (its model shard's at M > 1) --
+and its slices of the state; the round is the same `_round` on those,
+the kernel solvers at K = 1, and every cross-worker sum is a collective
+over the rank's data row (`comm.Topology`). Every rank draws the round's
+global visit orders and wire draws from (seed, round) and takes its
+worker's row, so the run is the one-process run on the same orders, and
+every rank returns the same history.
+
+Outer momentum (`CoCoAConfig.accel`, `core.accel`) wraps either
+backend's round; the momentum leaves of `CoCoAState` are None without it.
 
 Visit orders. The reference derives every worker's coordinate order from
 a threefry key carried in its state. torch cannot reproduce threefry, so
@@ -44,6 +59,7 @@ compression the carried v drifts from v(alpha), so every certificate is
 from __future__ import annotations
 
 import dataclasses
+import numbers
 import time
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -55,6 +71,7 @@ from ..data import sparse as sparse_data
 from ..data.sparse import FeatureShards, SparseShards
 from ..device import DEFAULT_DEVICE, resolve_device, synchronize
 from . import duality
+from .accel import AccelSpec, init_accel_state, parse_accel, wrap_round
 from .losses import get_loss
 from .regularizers import Regularizer, get_regularizer
 from .solvers import (LocalSolver, SOLVERS, get_solver, importance_probs,
@@ -81,6 +98,8 @@ class CoCoAConfig:
     topology: str = "flat"             # reduce plan: "flat"|"hier:<g>"|"a2a"
     gather: bool = False               # compressed sparse gather: the reduce
                                        # moves (idx, val) sets, ~2kK floats
+    accel: str = "none"                # outer momentum (core.accel): "none"
+                                       # | "nesterov[:R]" | "catalyst:<k>"
 
     def agg_params(self, K: int) -> comm.AggParams:
         """The (gamma, sigma') pair this config runs with at K workers."""
@@ -89,6 +108,10 @@ class CoCoAConfig:
 
     def regularizer(self) -> Regularizer:
         return get_regularizer(self.reg)
+
+    def accel_spec(self) -> AccelSpec:
+        """The parsed outer-momentum schedule this config runs with."""
+        return parse_accel(self.accel)
 
     def compressor(self, M: int = 1) -> comm.Compressor:
         """The wire compressor. Under compressed gather on a feature-
@@ -126,6 +149,10 @@ class CoCoAState(NamedTuple):
     wire: Optional[torch.Tensor] = None
                              # measured post-dedup inter_gather floats of
                              # the last round (hier compressed gather only)
+    v_prev: Optional[torch.Tensor] = None      # core.accel: the last
+    alpha_prev: Optional[torch.Tensor] = None  # round's (v, alpha) and the
+    accel_a: Optional[torch.Tensor] = None     # catalyst scalar; None
+                                               # while accel="none"
 
 
 def init_state(d: int, K: int, nk: int, dtype=torch.float32,
@@ -144,7 +171,8 @@ def state_from_reference(arrays: Dict[str, np.ndarray],
                          device=DEFAULT_DEVICE) -> CoCoAState:
     """The port's state from a reference `repro.core.cocoa.CoCoAState`'s
     leaves converted to numpy (`w`, `alpha`, `rounds`, `alpha_bar`, `ef`,
-    and `wire` when the reference run carried one).
+    and `wire` and the momentum leaves `v_prev`, `alpha_prev`, `accel_a`
+    when the reference run carried them).
 
     The reference's threefry key (`rng`) is dropped: the port carries no
     key, and a resumed run draws its visit orders from its own generator
@@ -155,17 +183,42 @@ def state_from_reference(arrays: Dict[str, np.ndarray],
         # np.array copies: the leaves may be read-only views of device arrays
         return torch.from_numpy(np.array(arrays[name], np.float32)).to(dev)
 
+    def opt(name):
+        return t(name) if arrays.get(name) is not None else None
+
     wire = arrays.get("wire")
+    a = arrays.get("accel_a")
     return CoCoAState(w=t("w"), alpha=t("alpha"),
                       rounds=int(np.asarray(arrays["rounds"])),
                       alpha_bar=t("alpha_bar"), ef=t("ef"),
                       wire=None if wire is None else torch.as_tensor(
-                          int(np.asarray(wire)), device=dev))
+                          int(np.asarray(wire)), device=dev),
+                      v_prev=opt("v_prev"), alpha_prev=opt("alpha_prev"),
+                      accel_a=None if a is None else torch.as_tensor(
+                          float(np.asarray(a)), dtype=torch.float32))
 
 
 def primal_w(state: CoCoAState, cfg: CoCoAConfig) -> torch.Tensor:
     """The primal iterate the run serves: w = grad g*(tau v)."""
     return cfg.regularizer().conj_grad(state.w, cfg.lam)
+
+
+def reshard_w_state(state: CoCoAState, old: comm.WSpec, new: comm.WSpec,
+                    params: comm.AggParams) -> CoCoAState:
+    """Carry (w, ef) across a change of w's placement -- a replicated-w
+    state moved onto a feature-sharded mesh, or a change of M. The EF
+    residuals are un-transmitted message mass in the old placement's
+    frame, so they are flushed into w first (`comm.flush_ef`); w is then
+    lifted to the global frame and padded for the new placement, and the
+    residuals start at zero at the new width."""
+    if old.d != new.d:
+        raise ValueError(f"placements disagree on the feature count: "
+                         f"{old.d} vs {new.d}")
+    w = comm.flush_ef(state.w, state.ef, params)
+    w = new.pad_w(old.unpad_w(w))
+    K = state.ef.shape[0]
+    return state._replace(w=w, ef=comm.init_residual(
+        K, new.d_padded, state.ef.dtype, state.ef.device))
 
 
 def resolve_solver(name, sparse: bool,
@@ -193,8 +246,8 @@ def resolve_solver(name, sparse: bool,
     if feature_sharded and not resolved.model_axis:
         raise ValueError(
             f"solver {resolved.name!r} cannot run feature-sharded (M>1): "
-            f"use 'sdca_sparse' (eager) or 'sdca_sparse_kernel' (the "
-            f"z-exchange schedule) on FeatureShards")
+            f"use 'sdca' (dense, eager), 'sdca_sparse' (ELL, eager), or "
+            f"'sdca_sparse_kernel' (ELL kernel, z-exchange schedule)")
     return resolved
 
 
@@ -259,6 +312,18 @@ def _dims(X):
     return K, nk, d, X.dtype, X.device
 
 
+def global_row_sqnorms(X, mask, topo: Optional[comm.Topology] = None
+                       ) -> torch.Tensor:
+    """The rows' global ||x_i||^2 (K, nk), masked: on a feature-sharded
+    mesh the slices' masses summed over the model shards (over the rank's
+    model column on a process mesh)."""
+    if isinstance(X, (SparseShards, FeatureShards)):
+        sq = sparse_data.row_sqnorms(X)
+    else:
+        sq = torch.sum(X * X, dim=-1)
+    return (sq if topo is None else topo.model_sum(sq)) * mask
+
+
 def _round(cfg: CoCoAConfig, topo: comm.Topology, solver: LocalSolver,
            n: float) -> Callable[..., CoCoAState]:
     """`round_fn(state, X, y, mask, order, sqnorms=None, budget=None,
@@ -268,12 +333,16 @@ def _round(cfg: CoCoAConfig, topo: comm.Topology, solver: LocalSolver,
     gets the model axis and the global row norms: `sqnorms` when the
     caller computed them once for the run (`solve` does), else computed
     here; a solver flagged `sqnorms` takes them when given. `budget` goes
-    to a deadline solver (None: H); `draws` are the compressor's."""
+    to a deadline solver (None: H); `draws` are the compressor's. On a
+    process mesh every input is the rank's own (one worker, one shard)."""
     loss = get_loss(cfg.loss)
     reg = cfg.regularizer()
     p = cfg.agg_params(topo.K)
     compressor = cfg.compressor(topo.M)
     feature_sharded = topo.M > 1
+    # the model axis as the solvers take it: the axis of the tensors on
+    # one card, the model column's sum on a process mesh
+    model_axis = topo.model_sum if topo.process else cfg.model_axis
 
     def round_fn(state: CoCoAState, X, y, mask, order,
                  sqnorms: Optional[torch.Tensor] = None, budget=None,
@@ -281,8 +350,11 @@ def _round(cfg: CoCoAConfig, topo: comm.Topology, solver: LocalSolver,
         kw = {}
         if feature_sharded:
             if sqnorms is None:
-                sqnorms = sparse_data.row_sqnorms(X) * mask
-            kw = dict(sqnorms=sqnorms, model_axis=cfg.model_axis)
+                sqnorms = global_row_sqnorms(X, mask, topo)
+            kw = dict(sqnorms=sqnorms, model_axis=model_axis)
+            if isinstance(X, torch.Tensor) and not topo.process:
+                # dense rows on one card: the M slices on their own axis
+                X = X.view(X.shape[0], X.shape[1], topo.M, -1)
         elif solver.sqnorms and sqnorms is not None:
             kw = dict(sqnorms=sqnorms)
         if solver.deadline:
@@ -320,43 +392,67 @@ def _mesh_topology(cfg: CoCoAConfig, mesh) -> comm.Topology:
 
 def make_round_sharded(cfg: CoCoAConfig, mesh, sparse: bool,
                        n: float) -> Callable[..., CoCoAState]:
-    """The mesh round on one card (`make_round_sharded`'s counterpart): K
-    workers from the mesh's data axis, M model shards from its model axis.
-    At M > 1 the round takes `FeatureShards` and the padded w, and the
-    exchange runs per model shard; at M = 1 it is the simulated round
-    (`place_on_mesh` turns M = 1 FeatureShards into SparseShards)."""
+    """The mesh round (`make_round_sharded`'s counterpart): K workers from
+    the mesh's data axes, M model shards from its model axis. At M > 1
+    the round takes padded dense rows or `FeatureShards` and the padded
+    w, and the exchange runs per model shard; at M = 1 it is the
+    simulated round (`place_on_mesh` turns M = 1 FeatureShards into
+    SparseShards). On a process mesh it takes the rank's block
+    (`place_on_mesh`) and runs its one worker."""
     topo = _mesh_topology(cfg, mesh)
     return _round(cfg, topo, resolve_solver(cfg.solver, sparse,
                                             feature_sharded=topo.M > 1), n)
 
 
-def place_on_mesh(cfg: CoCoAConfig, mesh, X):
-    """Check X against the mesh and return what the rounds take: the
-    reference's guards (M mismatch, SparseShards at M > 1), the data on the
-    mesh's device, and M = 1 FeatureShards as SparseShards. Dense data at
-    M > 1 is not ported."""
+def place_on_mesh(cfg: CoCoAConfig, mesh, X, y, mask):
+    """Check the data against the mesh and return (X, y, mask) as the
+    rounds take them: the reference's guards (M mismatch, SparseShards at
+    M > 1), M = 1 FeatureShards as SparseShards, dense rows padded to
+    M d_local columns at M > 1.
+
+    On a process mesh the data may be all K workers (on any device) or
+    this rank's worker alone (a leading axis of 1); only the rank's
+    block goes to the mesh's device: (1, nk, d_local) dense rows, its
+    worker's `SparseShards`, or at M > 1 its model shard's ELL slice as
+    a `SparseShards` with shard-local ids."""
     topo = _mesh_topology(cfg, mesh)
     K, _, _, _, dev = _dims(X)
-    if K != topo.K:
+    if K != topo.K and not (topo.process and K == 1):
         raise ValueError(f"the data has K={K} workers but the mesh's data "
                          f"axis {cfg.data_axis!r} has {topo.K}")
-    if dev.type != mesh.device.type:
+    if not topo.process and dev.type != mesh.device.type:
         raise ValueError(f"the data lives on {dev}, the mesh on "
                          f"{mesh.device}")
     if isinstance(X, FeatureShards):
         if X.M != topo.M:
             raise ValueError(f"FeatureShards sliced for M={X.M} but the "
                              f"mesh's model axis carries M={topo.M}")
-        return X.model_shard_view() if topo.M == 1 else X
-    if topo.M > 1:
-        if isinstance(X, SparseShards):
-            raise ValueError(
-                "feature sharding (M>1) needs FeatureShards with "
-                "shard-local column ids; slice the shards with "
-                "data.sparse.shard_features (or partition_sparse with M=...)")
-        raise ValueError("dense feature sharding (M>1) is not ported yet: "
-                         "ROADMAP.md Queue 1 item 10")
-    return X
+    elif topo.M > 1 and isinstance(X, SparseShards):
+        raise ValueError(
+            "feature sharding (M>1) needs FeatureShards with "
+            "shard-local column ids; slice the shards with "
+            "data.sparse.shard_features (or partition_sparse with M=...)")
+    if not topo.process:
+        if isinstance(X, FeatureShards):
+            return (X.model_shard_view() if topo.M == 1 else X), y, mask
+        if topo.M > 1 and isinstance(X, torch.Tensor):
+            X = topo.wspec(X.shape[-1]).pad_cols(X)
+        return X, y, mask
+    rows = slice(topo.worker, topo.worker + 1) if K > 1 else slice(0, 1)
+    m, to = topo.model_index, mesh.device
+
+    def block(t):
+        return t[rows].to(to).contiguous()
+
+    if isinstance(X, FeatureShards):
+        X = SparseShards(block(X.cols[:, m]), block(X.vals[:, m]),
+                         block(X.nnz[:, m]), d=X.d_local)
+    elif isinstance(X, SparseShards):
+        X = SparseShards(block(X.cols), block(X.vals), block(X.nnz), d=X.d)
+    else:
+        X = topo.wspec(X.shape[-1]).slice_cols(X[rows], m).to(
+            to).contiguous()
+    return X, block(y), block(mask)
 
 
 class SolveResult(NamedTuple):
@@ -380,14 +476,18 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
 
     `X` is a dense (K, nk, d) tensor or a `SparseShards`, on the device the
     run uses; on the shard_map backend (with `mesh`) also a
-    `FeatureShards`, whose state w is the padded (M d_local,) vector.
+    `FeatureShards`, and at M > 1 the state's w is the padded
+    (M d_local,) vector. On a process mesh X, y and mask may live
+    anywhere and hold all K workers or the rank's own (`place_on_mesh`);
+    the state is the rank's slices.
     `visit_orders(t) -> order` supplies round t's visit input (0-based
     within this call): (K, nk) permutations for the kernel solvers, (K, H)
     row ids for the eager ones; every model shard of worker k walks row k
     of it. By default each round draws its own (`draw_visit_orders`).
     `comm_draws(t)` supplies round t's compressor draws the same way
     (`draw_comm`). `budget_fn(t) -> (K,)` gives a deadline solver its
-    per-worker step budgets (without it, H).
+    per-worker step budgets (without it, H). Every one of these is global
+    (all K workers) on a process mesh too.
 
     History, one entry per certified round (every `gap_every` rounds and
     the last): `round`, `gap`, `primal`, `dual`, the tracer's cumulative
@@ -396,13 +496,15 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     fenced by a device synchronize) and `certificate_s` (the same for the
     gap computation). `comm_floats` prices the topology's reduce plan with
     the compressor's wire model per model shard, plus the solver's
-    model-axis hops on a feature-sharded mesh.
+    model-axis hops on a feature-sharded mesh. Under compression or
+    momentum the certificate is `gap_at_v` at the carried v (with the duals
+    projected under momentum).
     """
     if cfg.backend == "shard_map":
         if mesh is None:
             raise ValueError("the shard_map backend needs a mesh "
                              "(launch.mesh.make_test_mesh)")
-        X = place_on_mesh(cfg, mesh, X)
+        X, y, mask = place_on_mesh(cfg, mesh, X, y, mask)
         topo = _mesh_topology(cfg, mesh)
     elif cfg.backend == "vmap":
         if isinstance(X, FeatureShards):
@@ -413,42 +515,50 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     else:
         raise ValueError(f"unknown backend {cfg.backend!r}; use 'vmap' or "
                          f"'shard_map'")
-    K, nk, d, dtype, dev = _dims(X)
+    K_here, nk, d, dtype, dev = _dims(X)
+    K = topo.K
     sparse = isinstance(X, (SparseShards, FeatureShards))
     loss = get_loss(cfg.loss)
     reg = cfg.regularizer()
-    n = float(duality.effective_n(mask))
+    n = float(duality.effective_n(mask, topo))
     if cfg.backend == "shard_map":
-        round_fn = make_round_sharded(cfg, mesh, sparse, n)
+        base_round = make_round_sharded(cfg, mesh, sparse, n)
     else:
-        round_fn = make_round(cfg, K, sparse, n)
+        base_round = make_round(cfg, K, sparse, n)
+    aspec = cfg.accel_spec()
+    round_fn = wrap_round(base_round, aspec)
     solver = resolve_solver(cfg.solver, sparse,
                             feature_sharded=topo.M > 1)
     want = visit_shape(solver, K, nk, cfg.H)
     if state is None:
-        state = init_state(d, K, nk, dtype, dev)
-    d_true = X.d if sparse else d
-    d_local = topo.d_local(d_true)
+        state = init_state(d, K_here, nk, dtype, dev)
+    state = init_accel_state(state, aspec)
+    # the floats a worker moves per shard: a rank's block is its slice
+    d_local = d if topo.process else topo.d_local(X.d if sparse else d)
     compressor = cfg.compressor(topo.M)
     tracer = comm.CommTracer.for_run(
         K=K, d_local=d_local, compressor=compressor, topo=topo,
         gather=cfg.gather,
-        extra_hops=(solver.model_hop(X, cfg.H, reg) if topo.M > 1 else ()))
+        extra_hops=(solver.model_hop(X, cfg.H, reg, K=K, M=topo.M)
+                    if topo.M > 1 else ()) + comm.accel_hops(cfg.accel))
     sqnorms = probs = None
     if topo.M > 1:
         # the global row norms, fixed for the run
-        sqnorms = sparse_data.row_sqnorms(X) * mask
+        sqnorms = global_row_sqnorms(X, mask, topo)
     elif solver.sqnorms and not sparse:
         sqnorms = torch.sum(X * X, dim=-1) * mask
     if solver.visit == "importance":
-        probs = importance_probs(X, mask)
+        probs = topo.worker_stack(importance_probs(X, mask))
     compressed = cfg.compress not in (None, "", "none")
+    drifted = compressed or aspec.enabled
+    # a rank takes its worker's row of every global draw
+    mine = slice(topo.worker, topo.worker + 1) if topo.process else None
 
     hist = {"round": [], "gap": [], "primal": [], "dual": [],
             "comm_vectors": [], "comm_floats": [], "comm_bytes": [],
             "comm_psums": [], "execute_s": [], "certificate_s": []}
     exec_acc = 0.0
-    base_round = state.rounds
+    base = state.rounds
     for t in range(rounds):
         t0 = time.perf_counter()
         if visit_orders is not None and want is not None:
@@ -459,10 +569,16 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
                                  f"{solver.name!r} takes {want}")
         else:
             order = draw_visit_orders(solver, K, nk, cfg.H, seed,
-                                      base_round + t, probs)
+                                      base + t, probs)
         draws = (comm_draws(t) if comm_draws is not None else
-                 draw_comm(compressor, K, d_local, seed, base_round + t))
+                 draw_comm(compressor, K, d_local, seed, base + t))
         budget = budget_fn(t) if budget_fn is not None else None
+        if mine is not None:
+            order = None if order is None else order[mine]
+            draws = None if draws is None else draws[mine]
+            if budget is not None and not isinstance(budget,
+                                                     numbers.Integral):
+                budget = torch.as_tensor(budget)[mine]
         state = round_fn(state, X, y, mask, order, sqnorms, budget, draws)
         synchronize(dev)
         exec_acc += time.perf_counter() - t0
@@ -476,15 +592,19 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
         alpha_eval = state.alpha
         if cfg.average_iterates:
             alpha_eval = state.alpha_bar / max(state.rounds, 1)
+        if aspec.enabled and loss.project is not None:
+            # extrapolated duals may sit a whisker outside the conjugate's
+            # domain: certify a feasible dual point (still a true bound)
+            alpha_eval = loss.project(alpha_eval, y)
         t0 = time.perf_counter()
-        if compressed:
-            # lossy messages let the carried v drift from v(alpha): certify
-            # the primal point the run holds
+        if drifted:
+            # lossy messages and extrapolated exchange points let the
+            # carried v drift from v(alpha): certify the point the run holds
             pval, dval, g = duality.gap_at_v(state.w, alpha_eval, X, y,
-                                             mask, loss, cfg.lam, reg)
+                                             mask, loss, cfg.lam, reg, topo)
         else:
             pval, dval, g = duality.gap_decomposed(alpha_eval, X, y, mask,
-                                                   loss, cfg.lam, reg)
+                                                   loss, cfg.lam, reg, topo)
         gap = float(g)
         cert_s = time.perf_counter() - t0
         hist["round"].append(t + 1)

@@ -3,11 +3,20 @@
 Port of `repro.core.solvers`. The reference writes each solver for one
 worker and vmaps it over K; here every solver takes all K workers at once,
 with the K axis written out: X is (K, nk, d) or a `SparseShards`, the duals
-and labels are (K, nk) and the shared v is (d,). The solvers flagged
-`model_axis` also take a `FeatureShards` (K, M, nk, r_loc) and the padded
-(M d_local,) v of a (data=K, model=M) mesh on one card. Each returns an
+and labels are (K, nk) and the shared v is (d,). Each returns an
 `SDCAResult` with dalpha (K, nk) and du (K, d), the sigma'-scaled v-space
 delta (sigma'/(tau n)) A_[k] dalpha of every worker.
+
+Feature sharding. The solvers flagged `model_axis` take `model_axis=`
+and the global row norms `sqnorms=`. On a one-card (data=K, model=M)
+mesh `model_axis` is the axis's name and the M shards lie on the
+tensors: a `FeatureShards` (K, M, nk, r_loc), or dense rows viewed as
+(K, nk, M, d_local), with v the padded (M d_local,) vector; each step's
+partial dots are summed over the M shards in a fixed order. On a process
+mesh it is the callable that sums a partial dot over the rank's model
+column (`comm.Topology.model_sum`, one scalar all_reduce a step): the
+rank's tensors hold its own worker and d_local slice, and the
+reference's `psum` over the model axis is that call.
 
 The reference draws its visit order inside the solver from a threefry key.
 torch cannot reproduce threefry, so here the order is an explicit input,
@@ -55,20 +64,23 @@ class SDCAResult(NamedTuple):
 
 def local_sdca(X, y, alpha, mask, v, idxs, loss: Loss, lam: float, n,
                sigma_p: float, H: int, reg: Regularizer = L2,
-               sqnorms: Optional[torch.Tensor] = None) -> SDCAResult:
+               sqnorms: Optional[torch.Tensor] = None,
+               model_axis=None) -> SDCAResult:
     """H randomized coordinate-ascent steps on G_k^{sigma'} for every worker.
     X (K, nk, d); `idxs` (K, H) row ids; `v` the shared scaled vector;
     `sqnorms` the rows' ||x_i||^2 (K, nk) when the caller hoisted them.
-    The deadline solver's walk with no deadline."""
+    The deadline solver's walk with no deadline; `model_axis` set, the
+    feature-sharded walk (module docstring)."""
     return local_sdca_deadline(X, y, alpha, mask, v, idxs, loss, lam, n,
-                               sigma_p, H, reg=reg, sqnorms=sqnorms)
+                               sigma_p, H, reg=reg, sqnorms=sqnorms,
+                               model_axis=model_axis)
 
 
 def local_sdca_deadline(X, y, alpha, mask, v, idxs, loss: Loss, lam: float,
                         n, sigma_p: float, H: int, budget=None,
                         reg: Regularizer = L2,
-                        sqnorms: Optional[torch.Tensor] = None
-                        ) -> SDCAResult:
+                        sqnorms: Optional[torch.Tensor] = None,
+                        model_axis=None) -> SDCAResult:
     """Straggler-tolerant LocalSDCA: worker k runs min(H, budget_k) of the
     H steps its (K, H) `idxs` stream lists, and its steps past the
     deadline are exact no-ops. `budget` is a python int (every worker; the
@@ -76,10 +88,21 @@ def local_sdca_deadline(X, y, alpha, mask, v, idxs, loss: Loss, lam: float,
     budgets, or None (H). A per-worker budget equal to a static one gives
     the same result bit for bit, as the reference's traced and static
     budgets do (tests/test_solver_conformance.py). `steps` is the (K,)
-    tensor of live steps (an int for a static budget)."""
-    K, nk, _ = X.shape
+    tensor of live steps (an int for a static budget).
+
+    `model_axis` set: the feature-sharded walk (module docstring), X
+    (K, nk, M, d_local) on one card or the rank's (1, nk, d_local) block
+    on a process mesh, with the global `sqnorms` the slices cannot
+    rebuild. The coordinate decisions are then the same on every shard.
+    Without it X is walked as (K, nk, 1, d): one shard, no sum."""
+    if model_axis is not None and sqnorms is None:
+        raise ValueError("feature-sharded local_sdca needs global sqnorms; "
+                         "the local slice can't reconstruct ||x_i||^2")
     if sqnorms is None:
         sqnorms = torch.sum(X * X, dim=-1) * mask      # padded rows -> 0
+    psum = model_axis if callable(model_axis) else None
+    X4 = X if X.dim() == 4 else X[:, :, None, :]
+    K, nk, M, d_loc = X4.shape
     scale = sigma_p / (reg.tau(lam) * n)
     ks = torch.arange(K, device=X.device)
     idxs = idxs.to(X.device, torch.long)
@@ -91,11 +114,17 @@ def local_sdca_deadline(X, y, alpha, mask, v, idxs, loss: Loss, lam: float,
         trip = int(hmax.max()) if hmax.numel() else 0
         live = hmax.to(X.device)
     dalpha = torch.zeros((K, nk), dtype=X.dtype, device=X.device)
-    u = v.to(X.dtype).expand(K, -1).clone()
+    v3 = v.to(X.dtype).reshape(1, M, d_loc)
+    u = v3.expand(K, M, d_loc).clone()
     for h in range(trip):
         i = idxs[:, h]
-        x = X[ks, i]
-        z = torch.sum(x * reg.conj_grad(u, lam), dim=-1)
+        x = X4[ks, i]                                     # (K, M, d_loc)
+        zm = torch.sum(x * reg.conj_grad(u, lam), dim=-1)
+        z = zm[:, 0]
+        for m in range(1, M):                 # the psum, in a fixed order
+            z = z + zm[:, m]
+        if psum is not None:
+            z = psum(z)
         abar = alpha[ks, i] + dalpha[ks, i]
         q = scale * sqnorms[ks, i]
         delta = loss.cd_update(abar, z, q, y[ks, i]) * mask[ks, i]
@@ -104,8 +133,8 @@ def local_sdca_deadline(X, y, alpha, mask, v, idxs, loss: Loss, lam: float,
             # are left as they are
             delta = torch.where(h < live, delta, torch.zeros_like(delta))
         dalpha[ks, i] += delta
-        u += (scale * delta)[:, None] * x
-    return SDCAResult(dalpha, u - v, hmax)
+        u += (scale * delta)[:, None, None] * x
+    return SDCAResult(dalpha, (u - v3).reshape(K, M * d_loc), hmax)
 
 
 def importance_probs(X, mask) -> torch.Tensor:
@@ -165,24 +194,31 @@ def local_gd(X, y, alpha, mask, v, idxs, loss: Loss, lam: float, n,
 def local_sdca_sparse(shard, y, alpha, mask, v, idxs, loss: Loss, lam: float,
                       n, sigma_p: float, H: int, reg: Regularizer = L2,
                       sqnorms: Optional[torch.Tensor] = None,
-                      model_axis: Optional[str] = None) -> SDCAResult:
+                      model_axis=None) -> SDCAResult:
     """LocalSDCA over padded-ELL shards: per step one r_max gather-dot
     through the conjugate map and one r_max scatter-axpy (scatter_add_,
     so duplicate columns all land). Padding slots are exact no-ops.
 
-    `model_axis` set: the feature-sharded form. `shard` is a
+    `model_axis` set: the feature-sharded form. On one card `shard` is a
     `FeatureShards` (cols (K, M, nk, r_loc), shard-local ids) and `v` the
     padded (M d_local,) vector; each step's partial dots are summed over
     the M shards in a fixed order (the reference's psum over the model
-    axis), q comes from the global `sqnorms` (K, nk), which the slices
-    cannot rebuild, and each shard's scatter touches its own slice only."""
+    axis). On a process mesh `shard` is the rank's slice as a
+    `SparseShards` with shard-local ids and `model_axis` the model
+    column's sum. Either way q comes from the global `sqnorms` (K, nk),
+    which the slices cannot rebuild, and each shard's scatter touches its
+    own slice only."""
+    psum = None
     if model_axis is not None:
         if sqnorms is None:
             raise ValueError("feature-sharded local_sdca_sparse needs global "
                              "sqnorms; the local ELL slices can't rebuild "
                              "||x_i||^2")
-        return _local_sdca_sparse_fs(shard, y, alpha, mask, v, idxs, loss,
-                                     lam, n, sigma_p, H, reg, sqnorms)
+        if not callable(model_axis):
+            return _local_sdca_sparse_fs(shard, y, alpha, mask, v, idxs,
+                                         loss, lam, n, sigma_p, H, reg,
+                                         sqnorms)
+        psum = model_axis
     cols, vals = shard.cols.long(), shard.vals
     K, nk, _ = cols.shape
     if sqnorms is None:
@@ -196,6 +232,8 @@ def local_sdca_sparse(shard, y, alpha, mask, v, idxs, loss: Loss, lam: float,
         i = idxs[:, h]
         ci, vi = cols[ks, i], vals[ks, i]
         z = torch.sum(vi * reg.conj_grad(u.gather(1, ci), lam), dim=-1)
+        if psum is not None:
+            z = psum(z)
         abar = alpha[ks, i] + dalpha[ks, i]
         q = scale * sqnorms[ks, i]
         delta = loss.cd_update(abar, z, q, y[ks, i]) * mask[ks, i]
@@ -246,10 +284,11 @@ class LocalSolver:
 
         sparse_name  registry key of the padded-ELL counterpart the driver
                      maps to when the data is sparse
-        model_axis   runs feature-sharded (M > 1): takes a `FeatureShards`
-                     and the padded v, with `sqnorms=` (the global row
-                     norms) and `model_axis=`; `model_hop(X, H, reg)` is
-                     then its model-axis wire plan on the `FeatureShards`
+        model_axis   runs feature-sharded (M > 1): takes the sharded
+                     inputs of the module docstring, with `sqnorms=` (the
+                     global row norms) and `model_axis=`;
+                     `model_hop(X, H, reg, K=, M=)` is then its model-axis
+                     wire plan for K workers and M shards on the round's
                      X, a tuple of `comm.Hop`s (`comm.model_hops`)
         deadline     takes `budget=`, the round's step budget (an int, or
                      (K,) per worker)
@@ -310,10 +349,16 @@ def get_solver(name) -> LocalSolver:
                        f"{sorted(SOLVERS)}") from None
 
 
-def per_step_model_hops(X, H: int, reg: Regularizer = L2) -> tuple:
-    """The eager feature-sharded `local_sdca_sparse`'s model-axis plan on
-    the `FeatureShards` X: one partial dot per (worker, shard) per step."""
-    return model_hops(WSpec(X.d, X.M, "model"), X.cols.shape[0], H)
+def per_step_model_hops(X, H: int, reg: Regularizer = L2,
+                        K: Optional[int] = None,
+                        M: Optional[int] = None) -> tuple:
+    """The eager feature-sharded walks' model-axis plan: one partial dot
+    per (worker, shard) per step. K and M default to the `FeatureShards`
+    X's; dense rows, and a rank's block on a process mesh, pass them."""
+    K = X.cols.shape[0] if K is None else K
+    M = X.M if M is None else M
+    # the plan depends on M alone, not on the width
+    return model_hops(WSpec(d=M, M=M, model_axis="model"), K, H)
 
 
 def _lazy_kernel(attr: str) -> Callable[..., SDCAResult]:
@@ -327,7 +372,8 @@ def _lazy_kernel(attr: str) -> Callable[..., SDCAResult]:
 
 
 register_solver(LocalSolver("sdca", local_sdca, sparse_name="sdca_sparse",
-                            sqnorms=True))
+                            sqnorms=True, model_axis=True,
+                            model_hop=per_step_model_hops))
 register_solver(LocalSolver("sdca_deadline", local_sdca_deadline,
                             deadline=True, sqnorms=True))
 register_solver(LocalSolver("sdca_importance", local_sdca_importance,

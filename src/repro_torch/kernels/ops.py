@@ -30,8 +30,8 @@ from ..core.regularizers import L2, Regularizer
 from ..core.solvers import SDCAResult
 from .autotune import resolve_sparse_config
 from .local_sdca import local_sdca
-from .sparse_sdca import sparse_local_sdca, sparse_local_sdca_zx, \
-    zx_exchanges
+from .sparse_sdca import ZX_PROCESSES, sparse_local_sdca, \
+    sparse_local_sdca_zx, zx_exchanges
 
 # The launch the sparse dispatch last ran: {"block_rows", "buffer_depth",
 # "source", "clamped", "model_shards", "prox_fused", "zx"} (the reference's
@@ -59,11 +59,19 @@ def perm_i32(perm: torch.Tensor, nk: int,
 
 
 def local_sdca_block(X, y, alpha, mask, v, perm, loss: Loss, lam: float, n,
-                     sigma_p: float, H: int,
-                     reg: Regularizer = L2) -> SDCAResult:
+                     sigma_p: float, H: int, reg: Regularizer = L2,
+                     model_axis=None) -> SDCAResult:
     """Drop-in solver: permutation-epoch SDCA through the dense kernel, for
     all K workers in one launch. The conjugate map is hoisted outside the
-    kernel (the exact subproblem under L2, the linearized one otherwise)."""
+    kernel (the exact subproblem under L2, the linearized one otherwise).
+    It has no model-axis schedule, as the reference's has none: a
+    `model_axis` is refused."""
+    if model_axis is not None:
+        raise NotImplementedError(
+            "local_sdca_block has no model-axis exchange schedule; "
+            "feature-sharded (M>1) dense rounds use the eager solver "
+            "('sdca'). The sparse kernel path ('sdca_sparse_kernel') runs "
+            "M>1 via the z-exchange schedule.")
     w0 = reg.conj_grad(v, lam).float().contiguous()
     K, nk, _ = X.shape
     n_passes = n_passes_of(H, nk)
@@ -102,7 +110,11 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
     shards, with `sqnorms` (K, nk) the global row norms (summed over the
     shards here when not given); `zx=True` forces that schedule at M = 1,
     and `zx=False` with a model axis is refused, as in the reference. The
-    launch knobs are resolved by `autotune.resolve_sparse_config`."""
+    launch knobs are resolved by `autotune.resolve_sparse_config`.
+    A process mesh's model axis (a callable) is refused: the schedule
+    exchanges within one launch on one card."""
+    if callable(model_axis):
+        raise ValueError(ZX_PROCESSES)
     cols, vals = shard.cols, shard.vals
     sharded = cols.dim() == 4
     M = cols.shape[1] if sharded else 1
@@ -177,12 +189,22 @@ def sparse_zx_plan(nk: int, d: int, H: int, *, r_max: int,
                 exchanges=zx_exchanges(nk, br, n_passes))
 
 
-def sparse_zx_model_hops(X, H: int, reg: Regularizer = L2) -> tuple:
+def sparse_zx_model_hops(X, H: int, reg: Regularizer = L2,
+                         K: Optional[int] = None,
+                         M: Optional[int] = None) -> tuple:
     """The z-exchange schedule's model-axis wire plan on the
     `FeatureShards` X: every (worker, shard) sends `exchanges` partial-dot
     vectors of `block_rows` floats (`LocalSolver.model_hop` of
-    `sdca_sparse_kernel`)."""
-    K, M, nk, r_loc = X.cols.shape
+    `sdca_sparse_kernel`). `K`/`M`, when given, must be X's own: the
+    schedule runs on one card only, and a rank's block of a process mesh
+    is refused here, before its first round."""
+    if X.cols.dim() != 4:
+        raise ValueError(ZX_PROCESSES)
+    K_x, M_x, nk, r_loc = X.cols.shape
+    if (K or K_x, M or M_x) != (K_x, M_x):
+        raise ValueError(f"the z-exchange plan is for the FeatureShards' "
+                         f"own K={K_x}, M={M_x}, not K={K}, M={M}")
+    K, M = K_x, M_x
     plan = sparse_zx_plan(nk, X.d_local, H, r_max=r_loc,
                           reg_family=reg.family, model_shards=M,
                           backend=X.cols.device.type)

@@ -49,6 +49,11 @@ ZX_MAX_CLUSTER = 16         # with the non-portable cluster-size attribute
 ZX_ID_SLOTS, ZX_SCALARS = 4, 5   # ID_SLOTS, SCALARS in the .cu
 ZX_ROADMAP = ("ROADMAP.md Queue 2, 'The z-exchange round beyond one "
               "cluster'")
+ZX_PROCESSES = ("the z-exchange kernel exchanges z inside a thread-block "
+                "cluster of one launch and has no form across processes: "
+                "ROADMAP.md Queue 2, 'The z-exchange round across "
+                "processes'; a process mesh at M > 1 runs the eager "
+                "'sdca_sparse'")
 
 
 def stage_row_words(r_max: int) -> int:

@@ -19,29 +19,46 @@
         --dataset rcv1_sparse --solver sdca_kernel --rounds 40 \
         --compress topk --compress-k 64 --topology hier:4 --gather
 
+    # outer momentum on the ill-conditioned spec
+    PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
+        --dataset illcond --loss squared --lam 5e-4 --H 128 \
+        --accel nesterov:16
+
+    # the multi-process backend: one rank per worker (K M ranks for
+    # --mesh KxM), gloo between them; every rank on the CPU here, on
+    # cuda:0 with --device cuda (the ranks share the card); rank 0 prints
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.cocoa_train --device cpu --dataset tiny \
+        --workers 2 --backend shard_map --rounds 10
+
 Same flags as `repro.launch.cocoa_train`, plus `--device` (default cuda;
 `--device cpu` runs the plain PyTorch versions). The default `--solver
 sdca` runs the eager twin, as the reference's default runs its jnp solver;
 `--solver sdca_kernel` (mapped to `sdca_sparse_kernel` on sparse data)
-runs the kernels. Flag values this port does not carry yet exit with the
-ROADMAP.md item that will bring them.
+runs the kernels. Under `torch.distributed.run` the mesh spans the ranks
+and the world size must equal its size. Flag values this port does not
+carry yet exit with the ROADMAP.md item that will bring them.
 """
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
 
+import torch
+import torch.distributed
+
 from .. import comm
 from ..core import CoCoAConfig, primal_w, solve
+from ..core.accel import parse_accel
+from ..core.cocoa import resolve_solver
 from ..core.regularizers import get_regularizer
 from ..data import DATASETS, FeatureShards, SparseShards, load, partition, \
     partition_sparse
 from ..device import resolve_device
-from .mesh import make_test_mesh
+from .mesh import initialize_distributed, make_process_mesh, make_test_mesh
 
 # flag -> (value that is ported, ROADMAP.md item that ports the rest)
 _UNPORTED = {
-    "accel": ("none", "Queue 1 item 9 (core/accel.py)"),
     "ckpt": ("", "Queue 1 item 12 (runtime, checkpoint)"),
     "simulate_failure": (0, "Queue 1 item 12 (runtime, checkpoint)"),
     "simulate_straggler": (-1, "Queue 1 item 12 (runtime, checkpoint)"),
@@ -82,12 +99,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--solver", default="sdca",
                     choices=["sdca", "sdca_kernel", "sdca_sparse",
                              "sdca_sparse_kernel", "gd", "sdca_deadline"])
-    ap.add_argument("--accel", default="none")
+    ap.add_argument("--accel", default="none",
+                    help="outer momentum: none | nesterov[:<restart>] | "
+                         "catalyst:<kappa>")
     ap.add_argument("--backend", default="vmap", choices=["vmap", "shard_map"])
     ap.add_argument("--mesh", default="",
-                    help="'KxM' (data x model) mesh on one card: K workers, "
-                         "w in M feature shards (sets --workers K and "
-                         "--backend shard_map)")
+                    help="'KxM' (data x model) mesh: K workers, w in M "
+                         "feature shards (sets --workers K and --backend "
+                         "shard_map); on one card, or K M ranks under "
+                         "torch.distributed.run")
     ap.add_argument("--format", default="auto",
                     choices=["auto", "dense", "sparse"])
     ap.add_argument("--ckpt", default="")
@@ -118,6 +138,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         get_regularizer(args.reg)
     except (KeyError, ValueError) as e:
         raise SystemExit(f"--reg: {e}")
+    try:
+        parse_accel(args.accel)
+    except ValueError as e:
+        raise SystemExit(f"--accel: {e}")
     M = 1
     if args.mesh:
         try:
@@ -137,37 +161,64 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     except ValueError as e:
         raise SystemExit(f"--topology: {e}")
     device = resolve_device(args.device)
-
     spec = DATASETS[args.dataset]
     fmt = spec.format if args.format == "auto" else args.format
-    if M > 1 and fmt != "sparse":
-        raise SystemExit(f"--mesh {args.mesh} feature-shards w, which "
-                         f"dense data cannot do in repro_torch yet: "
-                         f"ROADMAP.md Queue 1 item 10 (dense M > 1)")
+    try:
+        resolve_solver(args.solver, fmt == "sparse", feature_sharded=M > 1)
+    except ValueError as e:
+        raise SystemExit(f"--solver: {e}")
     K = args.workers
+    joined = torch.distributed.is_initialized()
+    rank, world = initialize_distributed(device=device)
+    try:
+        return _run(args, device, fmt, spec, K, M, rank, world)
+    finally:
+        if world > 1 and not joined:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device, fmt, spec, K, M, rank, world) -> dict:
+    if world > 1:
+        if args.backend != "shard_map":
+            raise SystemExit(f"{world} ranks need --backend shard_map or "
+                             f"--mesh KxM: the vmap backend runs in one "
+                             f"process")
+        if K * M != world:
+            raise SystemExit(f"the mesh {K}x{M} has {K * M} positions but "
+                             f"{world} ranks were started: start K*M ranks "
+                             f"(--nproc-per-node) or change --workers / "
+                             f"--mesh")
+    say = print if rank == 0 else _quiet
+    # a rank keeps only its block on the card: make the data on the host
+    data_dev = "cpu" if world > 1 else device
     if fmt == "sparse":
         if spec.format != "sparse":
             raise SystemExit(f"--format sparse needs a sparse dataset spec; "
                              f"{args.dataset!r} is {spec.format}")
         csr, y = load(args.dataset)
-        Xp, yp, mk = partition_sparse(csr, y, K, seed=0, M=M, device=device)
+        Xp, yp, mk = partition_sparse(csr, y, K, seed=0, M=M,
+                                      device=data_dev)
         if isinstance(Xp, FeatureShards):
-            print(f"sparse feature shards: M={M} d_local={Xp.d_local} "
-                  f"r_loc={Xp.r_loc} density={csr.density:.4g} d={Xp.d}")
+            say(f"sparse feature shards: M={M} d_local={Xp.d_local} "
+                f"r_loc={Xp.r_loc} density={csr.density:.4g} d={Xp.d}")
         else:
-            print(f"sparse shards: nnz/row r_max={Xp.r_max} "
-                  f"density={csr.density:.4g} d={Xp.d}")
+            say(f"sparse shards: nnz/row r_max={Xp.r_max} "
+                f"density={csr.density:.4g} d={Xp.d}")
     else:
         X, y = load(args.dataset)
         if spec.format == "sparse":
             X = X.toarray()     # --format dense on a sparse spec
-        Xp, yp, mk = partition(X, y, K, seed=0, device=device)
+        Xp, yp, mk = partition(X, y, K, seed=0, device=data_dev)
+        if M > 1:
+            say(f"dense feature shards: M={M} d_local={-(-X.shape[1] // M)} "
+                f"d={X.shape[1]}")
 
     common = dict(loss=args.loss, lam=args.lam, H=args.H, solver=args.solver,
                   reg=args.reg, backend=args.backend,
                   model_axis="model" if M > 1 else None,
                   compress=args.compress, compress_k=args.compress_k,
-                  topology=args.topology, gather=args.gather)
+                  topology=args.topology, gather=args.gather,
+                  accel=args.accel)
     if args.aggregator:
         cfg = CoCoAConfig(aggregator=args.aggregator, **common)
     elif args.gamma == "add":
@@ -177,50 +228,64 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     mesh = None
     if args.backend == "shard_map":
-        mesh = (make_test_mesh((K, M), ("data", "model"), device) if M > 1
-                else make_test_mesh((K,), ("data",), device))
-    r = solve(cfg, Xp, yp, mk, rounds=args.rounds, eps_gap=args.eps,
-              gap_every=1, mesh=mesh)
+        shape, axes = ((K, M), ("data", "model")) if M > 1 else \
+            ((K,), ("data",))
+        mesh = (make_process_mesh(shape, axes, device) if world > 1
+                else make_test_mesh(shape, axes, device))
+    try:
+        r = solve(cfg, Xp, yp, mk, rounds=args.rounds, eps_gap=args.eps,
+                  gap_every=1, mesh=mesh)
+    except ValueError as e:       # a configuration the mesh cannot run
+        raise SystemExit(str(e))
     hist = r.history
     for t, gap, ex in zip(hist["round"], hist["gap"], hist["execute_s"]):
-        print(f"round {t}: gap={gap:.3e} execute_s={ex:.4f}")
+        say(f"round {t}: gap={gap:.3e} execute_s={ex:.4f}")
     reg = cfg.regularizer()
     if args.reg != "l2":
         w_fin = primal_w(r.state, cfg)
-        nz = int((w_fin.abs() > 0).sum())
-        print(f"reg[{reg.name}]: tau={reg.tau(args.lam):.3g} "
-              f"primal w nonzeros: {nz}/{w_fin.shape[0]}")
-    print(f"final: rounds={hist['round'][-1]} gap={hist['gap'][-1]:.3e} "
-          f"primal={hist['primal'][-1]:.6g} dual={hist['dual'][-1]:.6g} "
-          f"comm={hist['comm_floats'][-1] // hist['round'][-1]} floats/round "
-          f"device={device}{f' mesh={K}x{M}' if M > 1 else ''}")
-    _print_wire(cfg, r.tracer, Xp, K, M)
+        nz = torch.tensor([int((w_fin.abs() > 0).sum()), w_fin.shape[0]])
+        if world > 1:             # a rank holds its model shard's slice
+            nz = comm.Topology.from_mesh(mesh, "data",
+                                         cfg.model_axis).model_sum(nz)
+        say(f"reg[{reg.name}]: tau={reg.tau(args.lam):.3g} "
+            f"primal w nonzeros: {int(nz[0])}/{int(nz[1])}")
+    say(f"final: rounds={hist['round'][-1]} gap={hist['gap'][-1]:.3e} "
+        f"primal={hist['primal'][-1]:.6g} dual={hist['dual'][-1]:.6g} "
+        f"comm={hist['comm_floats'][-1] // hist['round'][-1]} floats/round "
+        f"device={device}{f' mesh={K}x{M}' if M > 1 else ''}"
+        f"{f' ranks={world}' if world > 1 else ''}")
+    _print_wire(cfg, r.tracer, Xp, K, M, say)
     return hist
 
 
-def _print_wire(cfg: CoCoAConfig, tracer, X, K: int, M: int) -> None:
+def _quiet(*args, **kwargs) -> None:
+    """`print` on every rank but 0."""
+
+
+def _print_wire(cfg: CoCoAConfig, tracer, X, K: int, M: int,
+                say=print) -> None:
     """The run's per-round wire plan and per-hop table, as the reference's
     trainer prints them."""
     d = X.d if isinstance(X, (SparseShards, FeatureShards)) else X.shape[-1]
     pr = tracer.per_round()
     dense_floats = K * d
-    print(f"comm[{cfg.topology}{'+gather' if cfg.gather else ''}"
-          f"{f' mesh={K}x{M}' if M > 1 else ''}]: "
-          f"{pr['floats']} floats/round "
-          f"({pr['bytes']} bytes, {pr['psums']} hop) -- "
-          f"{dense_floats / max(pr['floats'], 1):.1f}x cut vs flat "
-          f"uncompressed {dense_floats}")
+    say(f"comm[{cfg.topology}{'+gather' if cfg.gather else ''}"
+        f"{f' mesh={K}x{M}' if M > 1 else ''}]: "
+        f"{pr['floats']} floats/round "
+        f"({pr['bytes']} bytes, {pr['psums']} hop) -- "
+        f"{dense_floats / max(pr['floats'], 1):.1f}x cut vs flat "
+        f"uncompressed {dense_floats}")
     for h in tracer.per_hop():
-        print(f"  hop {h['hop']}[{h['axis']}]: {h['messages']} msgs x "
-              f"{h['floats_per_message']} floats = {h['floats']}/round"
-              + (f" (measured after dedup, last round: "
-                 f"{h['measured_floats_round']})"
-                 if "measured_floats_round" in h else ""))
+        say(f"  hop {h['hop']}[{h['axis']}]: {h['messages']} msgs x "
+            f"{h['floats_per_message']} floats = {h['floats']}/round"
+            + (f" (measured after dedup, last round: "
+               f"{h['measured_floats_round']})"
+               if "measured_floats_round" in h else ""))
     if M > 1:
         ax = tracer.per_axis()
-        print(f"  per-axis floats/round: data={ax.get('data', 0)} "
-              f"model={ax.get('model', 0)}; w memory/device: "
-              f"{-(-d // M)} floats (replicated would be {d})")
+        say(f"  per-axis floats/round: data={ax.get('data', 0)} "
+            f"model={ax.get('model', 0)}; w memory/device: "
+            f"{-(-d // M)} floats (replicated would be {d})")
 
 
 if __name__ == "__main__":

@@ -108,8 +108,6 @@ def test_cli_dense_default_solver_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--accel", "nesterov"], "item 9"),
-    (["--mesh", "2x2"], "item 10"),                 # dense M > 1
     (["--ckpt", "ckpt_dir"], "item 12"),
     (["--simulate-failure", "3"], "item 12"),
     (["--simulate-straggler", "1"], "item 12"),
@@ -189,3 +187,31 @@ def test_cli_other_solvers_run_on_tiny(capsys, solver):
 def test_cli_rejects_bad_wire_flags(flags, match):
     with pytest.raises(SystemExit, match=match):
         cocoa_train.main(["--device", "cpu", "--dataset", "tiny", *flags])
+
+
+@pytest.mark.parametrize("accel", ["nesterov:16", "catalyst:20"])
+def test_cli_accel_runs_on_tiny(capsys, accel):
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", "tiny",
+                             "--rounds", "4", "--H", "64", "--eps", "0",
+                             "--accel", accel])
+    gaps = hist["gap"]
+    assert len(gaps) == 4 and gaps[-1] < gaps[0]
+    assert all(g >= -1e-6 for g in gaps)
+    assert "final: rounds=4" in capsys.readouterr().out
+
+
+def test_cli_dense_mesh_runs_on_tiny(capsys):
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", "tiny",
+                             "--rounds", "3", "--H", "64", "--eps", "0",
+                             "--mesh", "2x2"])
+    out = capsys.readouterr().out
+    gaps = hist["gap"]
+    assert len(gaps) == 3 and all(b < a for a, b in zip(gaps, gaps[1:]))
+    assert "dense feature shards: M=2 d_local=32" in out
+    assert "mesh=2x2" in out and "hop model_z[model]" in out
+
+
+def test_cli_dense_mesh_refuses_the_dense_kernel():
+    with pytest.raises(SystemExit, match="cannot run feature-sharded"):
+        cocoa_train.main(["--device", "cpu", "--dataset", "tiny",
+                          "--mesh", "2x2", "--solver", "sdca_kernel"])

@@ -367,11 +367,17 @@ def test_feature_sharded_guards():
     with pytest.raises(ValueError, match="FeatureShards"):
         solve(CoCoAConfig.adding(3, **shard_map), sh, y1, mk1, rounds=1,
               mesh=make_test_mesh((3, 2), device="cpu"))
+    # dense rows at M > 1 run on the eager solver; the dense kernel keeps
+    # the reference's refusal
     X, yd = load("tiny")
     Xp, yp, mkp = partition(X, yd, 2, device="cpu")
-    with pytest.raises(ValueError, match="item 10"):
-        solve(CoCoAConfig.adding(2, **shard_map), Xp, yp, mkp, rounds=1,
+    r = solve(CoCoAConfig.adding(2, **shard_map), Xp, yp, mkp, rounds=2,
               mesh=make_test_mesh((2, 2), device="cpu"))
+    assert len(r.history["gap"]) == 2 and r.state.w.shape == (64,)
+    assert r.history["gap"][1] < r.history["gap"][0]
+    with pytest.raises(ValueError, match="cannot run feature-sharded"):
+        solve(CoCoAConfig.adding(2, solver="sdca_kernel", **shard_map), Xp,
+              yp, mkp, rounds=1, mesh=make_test_mesh((2, 2), device="cpu"))
     with pytest.raises(ValueError, match="backend"):
         solve(CoCoAConfig.adding(3, backend="pmap", **kw), sh, y1, mk1,
               rounds=1)

@@ -184,3 +184,68 @@ def reference_in_child(code: str, *, devices: int = 4,
                                f"{p.returncode}):\n{p.stderr[-4000:]}")
         with np.load(path) as z:
             return {k: z[k] for k in z.files}
+
+
+# ----------------------------------------------------------------------------
+# process meshes: a `launch.mesh.spawn_ranks` target (imports no jax, so a
+# spawned rank starts in torch's import time alone)
+# ----------------------------------------------------------------------------
+
+def job_data(job: dict):
+    """The global (X, y, mask) of a process-mesh job on the CPU: the
+    dataset `job["data"]` partitioned over `job["K"]` workers (sparse
+    specs as `FeatureShards` when `job["M"]` > 1)."""
+    from repro_torch.data import DATASETS, load, partition, partition_sparse
+    name, K, M = job["data"], job["K"], job.get("M", 1)
+    if DATASETS[name].format == "sparse":
+        csr, y = load(name)
+        return partition_sparse(csr, y, K, seed=0, M=M, device="cpu")
+    X, y = load(name)
+    return partition(X, y, K, seed=0, device="cpu")
+
+
+def job_orders(job: dict):
+    """`solve`'s visit_orders hook of a job (None: the port's own draws)."""
+    orders = job.get("orders")
+    if orders is None:
+        return None
+    return lambda t: torch.as_tensor(orders[t])
+
+
+def solve_on_ranks(rank: int, world: int, jobs: list) -> list:
+    """Each job's `solve` on a process mesh of `job["shape"]` over
+    `job["axes"]`, on `job["device"]` (default the CPU; "cuda:0" puts
+    every rank on one card). A job is a dict: `shape`, `axes`, `cfg`
+    (CoCoAConfig keywords), `data`, `K`, `M`, `rounds`, `seed`,
+    `orders` (per-round numpy visit orders, or None) and, for a deadline
+    solver, `budgets` (per-round (K,) step budgets). Returns, per job,
+    the history, the rank's state slices (the momentum leaves None where
+    the run has none) and the measured hops as numpy,
+    or {"error": message} when the mesh or `solve` raised ValueError."""
+    torch.set_num_threads(1)
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.launch.mesh import make_process_mesh
+    out = []
+    for job in jobs:
+        X, y, mask = job_data(job)
+        try:
+            mesh = make_process_mesh(job["shape"], job["axes"],
+                                     device=job.get("device", "cpu"))
+            budgets = job.get("budgets")
+            r = solve(CoCoAConfig(**job["cfg"]), X, y, mask,
+                      rounds=job["rounds"], seed=job.get("seed", 0),
+                      visit_orders=job_orders(job), mesh=mesh,
+                      budget_fn=None if budgets is None else (
+                          lambda t: torch.as_tensor(budgets[t])))
+        except ValueError as e:
+            out.append({"error": str(e)})
+            continue
+        res = {k: np.asarray(v) for k, v in r.history.items()}
+        res.update(w=to_np(r.state.w), alpha=to_np(r.state.alpha),
+                   ef=to_np(r.state.ef), coords=mesh.coords(),
+                   measured=dict(r.tracer.measured))
+        for leaf in ("v_prev", "alpha_prev", "accel_a"):
+            x = getattr(r.state, leaf)
+            res[leaf] = None if x is None else to_np(x)
+        out.append(res)
+    return out
