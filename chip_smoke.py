@@ -146,6 +146,28 @@ order, each failing the run with a non-zero exit:
                runs at least 1.3x fewer rounds; epsilon K = 8 through the
                dense kernel under nesterov:16, 3 rounds, its first round's
                state equal to the plain first round's bit for bit
+ 18. obs       phase 4's rcv1 path (K = 8, ring depth 4, 5 rounds) under
+               the full `obs` bus: the aggregator, a JSONL file, round
+               profiles on `default_hardware()` (h100_sxm), the dashboard
+               into a buffer and the torch.profiler sink. Its 5 records
+               valid with phase 4's gaps to their printed digits, the
+               files through `repro_torch.obs.validate`, the profiles'
+               bound phase 6's within 1% and their bw_frac and
+               model_vs_measured at most 1.05, the trace with 5 ranges of
+               each of cocoa/local_solve, cocoa/exchange and
+               cocoa/certificate and the 5 ring launches inside
+               cocoa/local_solve ranges, the sink not disabled (a trace
+               that lost a device record of the rounds or certificates,
+               or holds one that starts before its launch, is taken
+               again, at most 5 times); printed:
+               execute_s without the bus, with it, and with the profiler,
+               each round's device-busy ms over its host ms (the idle
+               share) and the certificate's busy share. Then the CLI on
+               the card: rcv1_sparse with --metrics-out --profile
+               --dashboard, its files through `python -m
+               repro_torch.obs.validate`, and epsilon_like through
+               sdca_deadline with --simulate-straggler 1 (every record K
+               budgets and K rates, worker 1's the lowest)
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -162,15 +184,13 @@ import contextlib
 import gc
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-F32_FLOPS_PER_S = 67e12        # H100 SXM float32 peak outside tensor cores
-BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 dense tensor-core peak
 SMS, MUFU_PER_CLOCK = 132, 16  # H100 SXM SMs; MUFU.EX2 lanes an SM
 RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain (reduction order differs)
 CUT_NK = 1024                  # phase 3's rows per worker
@@ -961,15 +981,17 @@ def _at_depth(depth):
         *args, buffer_depth=depth, **kw)
 
 
-def _sparse_bytes(nnz, K, nk, d):
-    """Bytes a 1-D sparse round must move: 8 per nonzero (col id and
-    value), the rows' y, alpha, mask, dalpha and perm, w, and du."""
-    return 8 * nnz + 4 * (5 * K * nk + d + K * d)
+def _hw(bf16=False):
+    """The card's peaks (`repro_torch.obs.prof`'s H100 SXM specs: float32
+    outside the tensor cores, or bf16 on them)."""
+    from repro_torch.obs import prof
+    return prof.H100_SXM_BF16 if bf16 else prof.H100_SXM
 
 
 def phase_times(dense, sparse, cut_errs):
     from repro_torch.core.losses import get_loss
     from repro_torch.kernels import local_sdca as dk, ops, sparse_sdca as sk
+    from repro_torch.obs import cost
     hinge = {"loss": get_loss("hinge")}
     log("[6 times] kernel vs plain on the main path's next-round inputs; "
         "CUDA events, mean of repeated launches after a warm-up")
@@ -986,8 +1008,7 @@ def phase_times(dense, sparse, cut_errs):
     sweep = _dense_sweep(args, hinge, dense_want)
     out.append(("local_sdca", "src/repro_torch/kernels/csrc/local_sdca.cu",
                 "src/repro/kernels/local_sdca.py:56", launches, r, errs,
-                cut_errs["local_sdca"], ms,
-                4 * (K * nk * d + 5 * K * nk + d + K * d), 6 * K * nk * d,
+                cut_errs["local_sdca"], ms, cost.round_stats(cfg, Xp, mk),
                 f"K={K} nk={nk} d={d} block_rows={dk.DEFAULT_BLOCK_ROWS}",
                 _host_split(cfg, Xp, yp, mk, r.state),
                 dict(us_per_step=1e3 * ms / steps,
@@ -1007,19 +1028,18 @@ def phase_times(dense, sparse, cut_errs):
                 "src/repro_torch/kernels/csrc/sparse_sdca_pipelined.cu",
                 "src/repro/kernels/sparse_sdca.py:205", launches, r, errs,
                 cut_errs["sparse_sdca_pipelined"], ms,
-                _sparse_bytes(nnz, K, nk, sh.d), 6 * nnz,
+                cost.round_stats(cfg, sh, mk),
                 f"K={K} nk={nk} r_max={r_max} d={sh.d} nnz={nnz} "
                 f"depth={depth}",
                 _host_split(cfg, sh, yp, mk, r.state),
                 dict(us_per_step=1e3 * ms / steps)))
     rows = []
     for (name, src, repl, launches, r, (abs_err, rel_err, plain), cut, ms,
-         nbytes, flops, shape, split, extra) in out:
+         stats, shape, split, extra) in out:
         rounds = len(r.history["round"])
         rows.append(_row(name, src, repl, launches, launches / rounds,
                          "per round", (abs_err, rel_err), cut, ms, plain,
-                         None, nbytes, flops, F32_FLOPS_PER_S,
-                         "67 TFLOP/s f32", shape, rounds=rounds,
+                         None, stats, _hw(), shape, rounds=rounds,
                          host_split_ms=split, **extra))
         log(f"  {name}: {extra['us_per_step']:.4f} us a step (the "
             f"{ms:.3f} ms over one worker's chain of steps)")
@@ -1061,18 +1081,23 @@ def _dense_sweep(args, hinge, want):
 
 
 def _row(name, src, repl, launches, per, per_what, errs, cut, ms, plain_ms,
-         lib_ms, nbytes, flops, peak, peak_name, shape, **extra):
+         lib_ms, stats, hw, shape, **extra):
     """One kernel's entry of the summary line, logged as it is made. `errs`
     and `cut` are (max abs, max rel) errors against the plain version on
-    the path's inputs and at the cut shapes; `extra` adds keys."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / peak * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    the path's inputs and at the cut shapes; `stats` the call's bytes and
+    flops (`hbm_bytes`, `flops`: `obs.cost`'s keys), its bound the larger
+    of their times on `hw` (a `repro_torch.obs.prof.HardwareSpec`);
+    `extra` adds keys."""
+    nbytes, flops = stats["hbm_bytes"], stats["flops"]
+    roof = hw.roofline(flops, nbytes, 0.0)
+    bound_ms = 1e3 * max(roof["t_memory_s"], roof["t_compute_s"])
+    bound_by = ("bytes" if roof["t_memory_s"] >= roof["t_compute_s"]
+                else "operations")
     lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
     log(f"  {name}: {ms:.3f} ms a call at {shape}; bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes} B at 3.35 TB/s, {flops} flop at "
-        f"{peak_name}) -> {ms / bound_ms:.1f}x the bound; launches "
+        f"({bound_by}: {nbytes:.0f} B at {hw.hbm_bw / 1e12:g} TB/s, "
+        f"{flops:.0f} flop at {hw.peak_flops / 1e12:g} TFLOP/s, {hw.name}) "
+        f"-> {ms / bound_ms:.1f}x the bound; launches "
         f"{per:g} {per_what}; plain {plain_ms:.3f} ms at the same shape; "
         f"library call {lib}")
     return {"name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -1496,7 +1521,7 @@ def phase_lm_times(serve, mamba, cut_errs):
         "src/repro/kernels/flash_attention.py:34", serve["launches"],
         serve["launches"] / serve["prefills"], "per prefill",
         (abs_err, rel_err), cut_errs["flash_attention"], ms, plain_ms,
-        lib_ms, nbytes, flops, BF16_FLOPS_PER_S, "989 TFLOP/s bf16",
+        lib_ms, {"hbm_bytes": nbytes, "flops": flops}, _hw(bf16=True),
         f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal"))
     # the selective scan at the scoring forward's shape
     args, kw = mamba["call"]
@@ -1525,7 +1550,7 @@ def phase_lm_times(serve, mamba, cut_errs):
     log(f"  ssm_scan exp floor: {exps} exps, one MUFU.EX2 each at "
         f"{MUFU_PER_CLOCK} a clock on each of {SMS} SMs at the card's "
         f"{mhz} MHz maximum SM clock: {exp_ms:.4f} ms (the bytes bound: "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        f"{nbytes / _hw().hbm_bw * 1e3:.4f} ms)")
     sweep_bad = []
 
     def held(G, y):
@@ -1546,8 +1571,9 @@ def phase_lm_times(serve, mamba, cut_errs):
         "ssm_scan", "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "src/repro/kernels/ssm_scan.py:32", mamba["launches"],
         float(mamba["launches"]), "per forward", (abs_err, rel_err),
-        cut_errs["ssm_scan"], ms, plain_ms, None, nbytes, flops,
-        F32_FLOPS_PER_S, "67 TFLOP/s f32", f"B={Bb} S={S} di={di} N={N} f32",
+        cut_errs["ssm_scan"], ms, plain_ms, None,
+        {"hbm_bytes": nbytes, "flops": flops}, _hw(),
+        f"B={Bb} S={S} di={di} N={N} f32",
         group_ms={str(G): t for G, t in sweep.items()}))
     return rows
 
@@ -1578,6 +1604,7 @@ def phase_depth_one(sparse):
     from repro_torch.core.losses import get_loss
     from repro_torch.kernels import autotune, ops
     from repro_torch.kernels import sparse_sdca as sk
+    from repro_torch.obs import cost
     sh, yp, mk, r4, cfg, _, nnz, _, _ = sparse
     K, nk, r_max = sh.cols.shape
     with tempfile.TemporaryDirectory() as tmp:
@@ -1645,7 +1672,7 @@ def phase_depth_one(sparse):
         fail("the sparse kernel at depth >= 2 differs from depth 1 on "
              "rcv1's rows")
     return {"r": r, "launches": launches["sparse_sdca"], "args": args,
-            "ms": ms, "nnz": nnz}
+            "ms": ms, "nnz": nnz, "stats": cost.round_stats(cfg, sh, mk)}
 
 
 def phase_mesh2d(dev, csr_y):
@@ -1715,10 +1742,12 @@ def phase_mesh2d(dev, csr_y):
 def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
     """The depth-1 walk and the zx kernel against their plain versions on
     their paths' next-round inputs, and their times beside their bounds."""
-    import torch
+    from repro_torch import comm
     from repro_torch.core.losses import get_loss
     from repro_torch.data.sparse import row_sqnorms
     from repro_torch.kernels import sparse_sdca as sk
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.obs import cost
     hinge = {"loss": get_loss("hinge")}
     log("[13 new-times] the depth-1 walk and the zx kernel vs plain on "
         "their paths' next-round inputs; CUDA events")
@@ -1737,8 +1766,7 @@ def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
         "src/repro/kernels/sparse_sdca.py:172", pipe["launches"],
         pipe["launches"] / rounds, "per round", errs[:2],
         cut_errs["sparse_sdca"], pipe["ms"][1], errs[2], None,
-        _sparse_bytes(nnz, K, nk, d), 6 * nnz, F32_FLOPS_PER_S,
-        "67 TFLOP/s f32", f"K={K} nk={nk} r_max={r_max} d={d} nnz={nnz} "
+        pipe["stats"], _hw(), f"K={K} nk={nk} r_max={r_max} d={d} nnz={nnz} "
         f"depth=1", rounds=rounds, depth_ms=pipe["ms"],
         us_per_step=1e3 * pipe["ms"][1] / nk))
     # zx at rcv1's 4 x 2 shape
@@ -1753,24 +1781,17 @@ def phase_new_times(pipe, sparse_plain, mesh, cut_errs):
     ms, _ = _time_ms(lambda: sk.sparse_local_sdca_zx(*zargs, **zkw), reps=3)
     K, M, nk, r_loc = fs.cols.shape
     inv = mesh["per_round"]
-    zx_nnz = int(fs.nnz.sum())
-    # each pass reads every nonzero once (col id and value: a block's rows
-    # are read again as the next step's walk); per step the z vectors (M
-    # read, one written -- counted though the one-launch kernel keeps them
-    # in shared memory: the bound is the work's, not an implementation's);
-    # once a round the rows' y, alpha, mask, sqnorms, perm and dalpha, w
-    # and du. Per nonzero and pass, the scatter's and the next partial
-    # dot's multiply-adds
-    nbytes = (n_passes * 8 * zx_nnz + inv * K * M * B * (M + 1) * 4
-              + 4 * (6 * K * nk + M * fs.d_local + K * M * fs.d_local))
-    flops = n_passes * 4 * zx_nnz
+    # the zx round's bytes and flops (`obs.cost.zx_round`): every nonzero
+    # once a pass, every step's z vectors, the vectors once a round
+    topo = comm.Topology.from_mesh(make_test_mesh((K, M), device=fs.device),
+                                   "data", "model")
+    stats = cost.round_stats(cfg, fs, mk, topo)
     rounds = len(r.history["round"])
     rows.append(_row(
         "sparse_sdca_zx", "src/repro_torch/kernels/csrc/sparse_sdca_zx.cu",
         "src/repro/kernels/sparse_sdca.py:394", mesh["launches"],
         mesh["launches"] / rounds, "per round", errs[:2],
-        cut_errs["sparse_sdca_zx"], ms, errs[2], None, nbytes, flops,
-        F32_FLOPS_PER_S, "67 TFLOP/s f32",
+        cut_errs["sparse_sdca_zx"], ms, errs[2], None, stats, _hw(),
         f"K={K} M={M} nk={nk} r_loc={r_loc} d_local={fs.d_local} B={B} "
         f"(one call: 1 launch of {inv} steps)", rounds=rounds,
         steps_per_round=inv, us_per_step=1e3 * ms / inv))
@@ -2347,6 +2368,298 @@ def phase_accel(dev, dense):
         + rest.history["certificate_s"]}, 3)
 
 
+# ----------------------------------------------------------------------------
+# the ninth slice (phase 18): the observability stack on phase 4's path
+# ----------------------------------------------------------------------------
+
+OBS_REGIONS = ("cocoa/local_solve", "cocoa/exchange", "cocoa/certificate")
+RING_KERNEL = "sparse_sdca_pipelined_kernel"   # row 3's __global__ name
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# host calls that put work on the card, each with a device record
+DEVICE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+OBS_TRACES = 5                 # traces phase 18 takes before it gives up
+ALIGN_SLACK_US = 50            # a device record may not start earlier
+                               # than its launch by more than this
+CLI_TIMEOUT = 120              # s for each of phase 18's CLI runs
+
+
+def _trace_events(path):
+    """A torch.profiler Chrome trace's complete events: {"cpu": {range
+    name: [events]}, "gpu": {name: [events]}, "gpu_all": [device events],
+    "launch": {correlation id: launch event}}. CPU ranges are the
+    `record_function` ones (cat user_annotation), GPU ranges the same
+    names on the device timeline (gpu_user_annotation)."""
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    out = {"cpu": {}, "gpu": {}, "gpu_all": [], "launch": {}}
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        cat = ev.get("cat")
+        if cat == "user_annotation":
+            out["cpu"].setdefault(ev["name"], []).append(ev)
+        elif cat == "gpu_user_annotation":
+            out["gpu"].setdefault(ev["name"], []).append(ev)
+        elif cat in GPU_CATS:
+            out["gpu_all"].append(ev)
+        elif cat in LAUNCH_CATS and "correlation" in ev.get("args", {}):
+            out["launch"][ev["args"]["correlation"]] = ev
+    return out
+
+
+def _lost(ev):
+    """What makes a trace unfit to show what ran where in the run's rounds
+    and certificates: their launches and copies whose device record is
+    missing (on the card's host a profiler session late in a long process
+    has lost its first 19-65 device records, and once 253 of 4,000
+    kernels: PR 19's runs "diag18b", "probe18c"; `ProfilerSink` opens
+    with a burst of kernels that takes that loss), and device records
+    that start before their own launch (the two clocks apart)."""
+    recorded = {e.get("args", {}).get("correlation"): e
+                for e in ev["gpu_all"]}
+    run = ev["cpu"].get("cocoa_round", []) + ev["cpu"].get(
+        "cocoa/certificate", [])
+    out = []
+    for c, e in ev["launch"].items():
+        if not e["name"].startswith(DEVICE_CALLS) or not _inside(e, run):
+            continue
+        dev_ev = recorded.get(c)
+        if dev_ev is None or dev_ev["ts"] + ALIGN_SLACK_US < e["ts"]:
+            out.append(e)
+    return out
+
+
+def _inside(ev, ranges):
+    """Whether event `ev` lies inside one of `ranges` (trace us)."""
+    t0, t1 = ev["ts"], ev["ts"] + ev.get("dur", 0)
+    return any(r["ts"] <= t0 and t1 <= r["ts"] + r["dur"] for r in ranges)
+
+
+def _busy_in(gpu_events, rng):
+    """Device ms of the events that start inside the range `rng`."""
+    t0, t1 = rng["ts"], rng["ts"] + rng["dur"]
+    return sum(e["dur"] for e in gpu_events if t0 <= e["ts"] < t1) / 1e3
+
+
+def _cli(args, cwd):
+    """Start `python -m <args>` with the checkout's port, on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(name, proc):
+    """Wait for a CLI run of phase 18; fail the run when it fails."""
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"phase 18: {name} not done in {CLI_TIMEOUT} s")
+    if proc.returncode != 0:
+        fail(f"phase 18: {name} exited {proc.returncode}:\n{err[-3000:]}")
+    return out
+
+
+def phase_obs(dev, sparse, rows):
+    """Phase 4's rcv1 path (K = 8, ring depth 4, 5 rounds) under the full
+    bus -- the aggregator, a JSONL file, round profiles on the card's
+    spec, the dashboard and the torch.profiler sink -- with its records,
+    profiles and trace checked, the profiler's cost and the rounds' idle
+    share printed; then the CLI's telemetry flags on the card."""
+    import io
+    import statistics
+    import tempfile
+    from repro_torch.core import solve
+    from repro_torch.obs import (Aggregator, Dashboard, EventBus, JsonlSink,
+                                 ProfilerSink, RoundProfileSink, cost,
+                                 default_hardware, validate_record)
+    from repro_torch.obs import validate
+    t_start = time.perf_counter()
+    sh, yp, mk, r4, cfg, _, _, _, _ = sparse
+    rounds = len(r4.history["round"])
+    bound_ms = next(r["bound_ms"] for r in rows
+                    if r["name"] == "sparse_sdca_pipelined")
+    hw = default_hardware(dev)
+    log(f"[18 obs] phase 4's rcv1 path, {rounds} rounds, under the full "
+        f"bus; default_hardware() = {hw.name}")
+    if hw.name != "h100_sxm":
+        fail(f"phase 18: default_hardware() gave {hw.name}, not h100_sxm")
+    tmp = tempfile.TemporaryDirectory()
+    work = pathlib.Path(tmp.name)
+    stats = cost.round_stats(cfg, sh, mk)
+
+    def bus_run(profiled):
+        bus = EventBus()
+        trace = (bus.subscribe(ProfilerSink(work / "trace")) if profiled
+                 else None)
+        agg = bus.subscribe(Aggregator())
+        bus.subscribe(JsonlSink(work / f"m{int(profiled)}.jsonl"))
+        psink = bus.subscribe(RoundProfileSink(
+            work / f"m{int(profiled)}.prof.jsonl", stats, hw=hw,
+            device=dev, shape={"K": 8, "nk": int(yp.shape[1])}))
+        screen = io.StringIO()
+        bus.subscribe(Dashboard(out=screen, total_rounds=rounds,
+                                prof_source=psink))
+        counts = _counts_zero()
+        r = solve(cfg, sh, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
+                  obs=bus)
+        launches = counts()
+        bus.close()
+        return r, agg, psink, screen.getvalue(), trace, launches
+
+    _, agg_bus, _, _, _, _ = bus_run(profiled=False)
+    for attempt in range(1, OBS_TRACES + 1):
+        r, agg, psink, screen, trace, launches = bus_run(profiled=True)
+        if trace.disabled is not None or not trace.trace_path.exists():
+            fail(f"phase 18: the ProfilerSink disabled itself: "
+                 f"{trace.disabled}")
+        ev = _trace_events(trace.trace_path)
+        lost = _lost(ev)
+        if not lost:
+            break
+        h0 = min(e["ts"] for e in ev["launch"].values())
+        log(f"  trace {attempt}: the profiler lost (or put before their "
+            f"launch) the device records of {len(lost)} of the run's "
+            f"host calls ("
+            + ", ".join(sorted({e['name'] for e in lost}))
+            + f") at {min(e['ts'] - h0 for e in lost) / 1e3:.3f}-"
+            f"{max(e['ts'] - h0 for e in lost) / 1e3:.3f} ms into the run; "
+            f"the run's launch counts {launches}; tracing the run again")
+    else:
+        fail(f"phase 18: every one of {OBS_TRACES} traces lost device "
+             f"records")
+    # the CLI on the card: started once the timed runs are done (the two
+    # runs share the card), it imports and makes its data while the
+    # checks below read the records and the trace
+    cli = {
+        "rcv1_sparse": _cli(
+            ["repro_torch.launch.cocoa_train", "--dataset", "rcv1_sparse",
+             "--solver", "sdca_sparse_kernel", "--rounds", "6",
+             "--metrics-out", str(work / "cli.jsonl"), "--profile",
+             str(work / "cli_trace"), "--dashboard"], work),
+        "epsilon_like": _cli(
+            ["repro_torch.launch.cocoa_train", "--dataset", "epsilon_like",
+             "--solver", "sdca_deadline", "--H", "512", "--rounds", "4",
+             "--simulate-straggler", "1", "--metrics-out",
+             str(work / "straggler.jsonl")], work)}
+    log(f"  launches under the bus: {launches}; dashboard lines: "
+        f"{len(screen.splitlines())}, first: {screen.splitlines()[0]}")
+    if launches["sparse_sdca_pipelined"] != rounds:
+        fail(f"phase 18: the ring kernel launched {launches} in {rounds} "
+             f"rounds")
+    recs = agg.records
+    for rec in recs:
+        validate_record(rec.to_dict())
+    printed = [f"{rec.gap:.4e}" for rec in recs]
+    if len(recs) != rounds or printed != [f"{g:.4e}"
+                                          for g in r4.history["gap"]]:
+        fail(f"phase 18: records' gaps {printed} differ from phase 4's "
+             f"{r4.history['gap']}")
+    m, pp = work / "m1.jsonl", work / "m1.prof.jsonl"
+    if validate.main([str(m), "--prof", str(pp), "--require-timing"]) != 0:
+        fail("phase 18: repro_torch.obs.validate rejected the run's files")
+    for p in psink.profiles:
+        if abs(1e3 * p.bound_s / bound_ms - 1) > 0.01:
+            fail(f"phase 18: profile bound {1e3 * p.bound_s:.4f} ms is not "
+                 f"phase 6's {bound_ms:.4f} within 1%")
+        if p.bw_frac > 1.05 or p.model_vs_measured > 1.05:
+            fail(f"phase 18: bw_frac {p.bw_frac} or model_vs_measured "
+                 f"{p.model_vs_measured} above 1.05")
+    log(f"  {len(recs)} records valid, gaps equal phase 4's to their "
+        f"printed digits ({' '.join(printed)}); compile_s "
+        f"{[rec.compile_s for rec in recs]}; profiles on {hw.name}: bound "
+        f"{1e3 * psink.profiles[0].bound_s:.4f} ms (phase 6: "
+        f"{bound_ms:.4f}), {psink.profiles[0].dominant}-bound, bw_frac "
+        + ", ".join(f"{p.bw_frac:.5f}" for p in psink.profiles)
+        + ", model_vs_measured "
+        + ", ".join(f"{p.model_vs_measured:.5f}" for p in psink.profiles))
+    # the trace: the rounds' ranges, and the ring kernel inside them
+    counts = {name: len(ev["cpu"].get(name, ())) for name in
+              ("cocoa_round",) + OBS_REGIONS}
+    log(f"  trace {attempt}, {trace.trace_path.stat().st_size} bytes: ranges "
+        f"{counts}, {len(ev['gpu_all'])} device events, every device record "
+        f"of the rounds and certificates kept and none before its launch, "
+        f"device-side ranges "
+        f"{ {k: len(v) for k, v in ev['gpu'].items()} }")
+    if any(counts[name] != rounds for name in OBS_REGIONS):
+        fail(f"phase 18: the trace holds {counts}, not {rounds} of each of "
+             f"{OBS_REGIONS}")
+    ring = [e for e in ev["gpu_all"] if RING_KERNEL in e["name"]]
+    solves = ev["cpu"]["cocoa/local_solve"]
+    how, lag = [], []
+    for k in ring:
+        launch = ev["launch"].get(k.get("args", {}).get("correlation"))
+        if launch is not None:
+            lag.append((k["ts"] - launch["ts"]) / 1e3)
+        if launch is not None and _inside(launch, solves):
+            how.append("launched in")
+        elif _inside(k, ev["gpu"].get("cocoa/local_solve", ())):
+            how.append("ran in")
+        else:
+            how.append("outside")
+    log(f"  ring kernel in the trace: {len(ring)} launches, each "
+        f"{sorted(set(how))} a cocoa/local_solve range; ms "
+        + ", ".join(f"{k['dur'] / 1e3:.3f}" for k in ring)
+        + "; start after its launch call, ms "
+        + ", ".join(f"{v:.3f}" for v in lag))
+    if len(ring) != rounds or "outside" in how:
+        fail(f"phase 18: {len(ring)} ring kernels in the trace ({how}), "
+             f"expected {rounds} inside cocoa/local_solve ranges")
+    # the profiler's cost, and the rounds' idle share
+    ex = {"phase 4 (no bus)": r4.history["execute_s"],
+          "bus, no profiler": [rec.execute_s for rec in agg_bus.records],
+          "bus + profiler": r.history["execute_s"]}
+    log("  execute_s a round (host clock, each round ended by a "
+        "synchronize): " + "; ".join(
+            f"{k}: " + ", ".join(f"{1e3 * v:.3f}" for v in vals)
+            + f" ms (median {1e3 * statistics.median(vals):.3f})"
+            for k, vals in ex.items()))
+    busy = [_busy_in(ev["gpu_all"], rg) for rg in ev["cpu"]["cocoa_round"]]
+    host = [rg["dur"] / 1e3 for rg in ev["cpu"]["cocoa_round"]]
+    log("  device busy over cocoa_round host ms (profiled): " + ", ".join(
+        f"{b:.3f}/{h:.3f} (idle {1 - b / h:.3f})" for b, h in
+        zip(busy, host)) + "; against the unprofiled bus run's execute_s: "
+        + ", ".join(f"idle {1 - b / (1e3 * e):.3f}" for b, e in
+                    zip(busy, ex["bus, no profiler"])))
+    cert = ev["cpu"]["cocoa/certificate"]
+    cb = [_busy_in(ev["gpu_all"], rg) for rg in cert]
+    ch = [rg["dur"] / 1e3 for rg in cert]
+    log(f"  certificate: device busy {sum(cb):.3f} of {sum(ch):.3f} host ms "
+        f"over {len(cert)} certificates (busy share "
+        f"{sum(cb) / sum(ch):.3f}); per certificate " + ", ".join(
+            f"{b:.3f}/{h:.3f}" for b, h in zip(cb, ch)))
+    out = _finish("cocoa_train rcv1_sparse", cli["rcv1_sparse"])
+    log("  cli rcv1_sparse --metrics-out --profile --dashboard: " + " | ".join(
+        ln for ln in out.splitlines() if ln.startswith(("round ", "final",
+                                                        "time:"))))
+    v = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.validate",
+         str(work / "cli.jsonl"), "--prof", str(work / "cli.prof.jsonl")],
+        cwd=work, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    log(f"  python -m repro_torch.obs.validate: exit {v.returncode}: "
+        f"{v.stdout.strip()} {v.stderr.strip()}")
+    if v.returncode != 0:
+        fail("phase 18: the CLI's files did not validate")
+    _finish("cocoa_train epsilon_like", cli["epsilon_like"])
+    srecs = [json.loads(ln) for ln in
+             (work / "straggler.jsonl").read_text().splitlines()]
+    K = 8
+    for rec in srecs:
+        rates = rec["throughput"] or []
+        if len(rec["budgets"] or []) != K or len(rates) != K or min(
+                range(K), key=rates.__getitem__) != 1:
+            fail(f"phase 18: straggler record {rec}")
+    log(f"  cli epsilon_like --simulate-straggler 1: {len(srecs)} records, "
+        f"budgets {srecs[-1]['budgets']}, rates " + ", ".join(
+            f"{v:.4g}" for v in srecs[-1]["throughput"])
+        + " (worker 1 lowest)")
+    tmp.cleanup()
+    log(f"  phase 18 took {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -2389,6 +2702,7 @@ def main() -> None:
     phase_dist(dev, sparse, dense)
     phase_accel(dev, dense)
     log(f"  phases 15-17 took {time.perf_counter() - t_new:.1f} s")
+    phase_obs(dev, sparse, rows)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -60,16 +60,18 @@ from __future__ import annotations
 
 import dataclasses
 import numbers
-import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import comm
 from ..data import sparse as sparse_data
 from ..data.sparse import FeatureShards, SparseShards
-from ..device import DEFAULT_DEVICE, resolve_device, synchronize
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..obs.events import Aggregator, EventBus
+from ..obs.metrics import RoundRecord, aot_compile, fenced_call
 from . import duality
 from .accel import AccelSpec, init_accel_state, parse_accel, wrap_round
 from .losses import get_loss
@@ -361,14 +363,16 @@ def _round(cfg: CoCoAConfig, topo: comm.Topology, solver: LocalSolver,
             kw["budget"] = budget
         # `order` goes in as given (on the host when drawn here): the
         # kernel solvers range-check it there before copying it over
-        res = solver.fn(X, y, state.alpha, mask, state.w, order, loss,
-                        cfg.lam, n, p.sigma_prime, cfg.H, reg=reg, **kw)
+        with record_function("cocoa/local_solve"):
+            res = solver.fn(X, y, state.alpha, mask, state.w, order, loss,
+                            cfg.lam, n, p.sigma_prime, cfg.H, reg=reg, **kw)
         stats = {}
-        dw_sum, ef = comm.exchange(topo, res.du, state.ef, p, compressor,
-                                   gather=cfg.gather, stats=stats,
-                                   draws=draws)
-        w, alpha = comm.apply_update(state.w, state.alpha, dw_sum,
-                                     res.dalpha, p)
+        with record_function("cocoa/exchange"):
+            dw_sum, ef = comm.exchange(topo, res.du, state.ef, p,
+                                       compressor, gather=cfg.gather,
+                                       stats=stats, draws=draws)
+            w, alpha = comm.apply_update(state.w, state.alpha, dw_sum,
+                                         res.dalpha, p)
         return CoCoAState(w, alpha, state.rounds + 1,
                           state.alpha_bar + alpha, ef,
                           stats.get("inter_gather"))
@@ -455,12 +459,33 @@ def place_on_mesh(cfg: CoCoAConfig, mesh, X, y, mask):
     return X, block(y), block(mask)
 
 
+def _d_msg(X, topo: comm.Topology) -> int:
+    """The floats a worker moves per shard: a rank's block is its slice."""
+    d = _dims(X)[2]
+    sparse = isinstance(X, (SparseShards, FeatureShards))
+    return d if topo.process else topo.d_local(X.d if sparse else d)
+
+
+def run_tracer(cfg: CoCoAConfig, X, topo: comm.Topology,
+               solver: LocalSolver) -> comm.CommTracer:
+    """The run's `comm.CommTracer`: the topology's reduce plan priced by
+    the compressor's wire model, plus the solver's model-axis hops on a
+    feature-sharded mesh. `X` is the data as the rounds take it
+    (`place_on_mesh`)."""
+    return comm.CommTracer.for_run(
+        K=topo.K, d_local=_d_msg(X, topo), compressor=cfg.compressor(topo.M),
+        topo=topo, gather=cfg.gather,
+        extra_hops=(solver.model_hop(X, cfg.H, cfg.regularizer(), K=topo.K,
+                                     M=topo.M)
+                    if topo.M > 1 else ()) + comm.accel_hops(cfg.accel))
+
+
 class SolveResult(NamedTuple):
     state: CoCoAState
     history: dict   # lists per certified round: round, gap, primal, dual,
                     # comm_vectors, comm_floats, comm_bytes, comm_psums
                     # (cumulative, `CommTracer.totals`), execute_s,
-                    # certificate_s
+                    # certificate_s -- a view over the emitted RoundRecords
     tracer: Optional[comm.CommTracer] = None   # the run's wire plan and
                                                # its measured hops
 
@@ -471,7 +496,10 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
           visit_orders: Optional[Callable[[int], torch.Tensor]] = None,
           comm_draws: Optional[Callable[[int], torch.Tensor]] = None,
           budget_fn: Optional[Callable[[int], object]] = None,
-          mesh=None) -> SolveResult:
+          mesh=None,
+          on_round: Optional[Callable[[int, CoCoAState, float], None]] = None,
+          obs: Optional[EventBus] = None,
+          throughput=None) -> SolveResult:
     """Run CoCoA+/CoCoA until `rounds` or duality gap <= eps_gap.
 
     `X` is a dense (K, nk, d) tensor or a `SparseShards`, on the device the
@@ -489,16 +517,33 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     per-worker step budgets (without it, H). Every one of these is global
     (all K workers) on a process mesh too.
 
-    History, one entry per certified round (every `gap_every` rounds and
-    the last): `round`, `gap`, `primal`, `dual`, the tracer's cumulative
-    `comm_vectors`, `comm_floats`, `comm_bytes` and `comm_psums`,
-    `execute_s` (host seconds of the rounds since the previous entry, each
-    fenced by a device synchronize) and `certificate_s` (the same for the
-    gap computation). `comm_floats` prices the topology's reduce plan with
-    the compressor's wire model per model shard, plus the solver's
-    model-axis hops on a feature-sharded mesh. Under compression or
-    momentum the certificate is `gap_at_v` at the carried v (with the duals
-    projected under momentum).
+    Every certified round (every `gap_every` rounds and the last) emits
+    one frozen, schema-versioned `obs.RoundRecord`: gap, primal, dual,
+    the compile / execute / certificate split, the tracer's per-hop wire
+    plan and cumulative totals, and the budgets and EMA rates when a
+    `throughput` tracker (`runtime.straggler.ThroughputTracker`) is
+    attached -- it is fed each round's steps and fenced seconds. `obs`
+    (an `obs.EventBus`) receives every record; `on_round(t, state, gap)`
+    is called after each. On a process mesh every rank emits its own
+    records: the same certificates, its own clocks.
+
+    The returned history is derived from the records
+    (`obs.Aggregator.history()`): `round`, `gap`, `primal`, `dual`, the
+    tracer's cumulative `comm_vectors`, `comm_floats`, `comm_bytes` and
+    `comm_psums`, plus `execute_s` (host seconds of the rounds since the
+    previous entry, each ended by a synchronize of the state's card) and
+    `certificate_s` (the same for the gap computation). The first build
+    and load of the solver's kernel library is the first record's
+    `compile_s`, not part of its execute_s. `comm_floats` prices the
+    topology's reduce plan with the compressor's wire model per model
+    shard, plus the solver's model-axis hops on a feature-sharded mesh.
+    Under compression or momentum the certificate is `gap_at_v` at the
+    carried v (with the duals projected under momentum).
+
+    The rounds open `torch.profiler` ranges: `cocoa_round` around each,
+    `cocoa/local_solve` around the solver, `cocoa/exchange` around the
+    exchange and update, `cocoa/certificate` around the gap
+    (`obs.ProfilerSink` records them).
     """
     if cfg.backend == "shard_map":
         if mesh is None:
@@ -533,14 +578,9 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     if state is None:
         state = init_state(d, K_here, nk, dtype, dev)
     state = init_accel_state(state, aspec)
-    # the floats a worker moves per shard: a rank's block is its slice
-    d_local = d if topo.process else topo.d_local(X.d if sparse else d)
+    d_local = _d_msg(X, topo)
     compressor = cfg.compressor(topo.M)
-    tracer = comm.CommTracer.for_run(
-        K=K, d_local=d_local, compressor=compressor, topo=topo,
-        gather=cfg.gather,
-        extra_hops=(solver.model_hop(X, cfg.H, reg, K=K, M=topo.M)
-                    if topo.M > 1 else ()) + comm.accel_hops(cfg.accel))
+    tracer = run_tracer(cfg, X, topo, solver)
     sqnorms = probs = None
     if topo.M > 1:
         # the global row norms, fixed for the run
@@ -554,13 +594,14 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     # a rank takes its worker's row of every global draw
     mine = slice(topo.worker, topo.worker + 1) if topo.process else None
 
-    hist = {"round": [], "gap": [], "primal": [], "dual": [],
-            "comm_vectors": [], "comm_floats": [], "comm_bytes": [],
-            "comm_psums": [], "execute_s": [], "certificate_s": []}
-    exec_acc = 0.0
+    agg = Aggregator()
+    # the kernel library's first build and load, apart from the rounds
+    from ..kernels.ops import round_libraries
+    pending_compile = aot_compile(round_libraries(solver.name, topo.M), dev)
     base = state.rounds
-    for t in range(rounds):
-        t0 = time.perf_counter()
+    exec_acc, covered, prev_floats = 0.0, 0, 0
+
+    def one_round(t, state, budget):
         if visit_orders is not None and want is not None:
             order = visit_orders(t)
             if tuple(order.shape) != want:
@@ -572,21 +613,35 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
                                       base + t, probs)
         draws = (comm_draws(t) if comm_draws is not None else
                  draw_comm(compressor, K, d_local, seed, base + t))
-        budget = budget_fn(t) if budget_fn is not None else None
         if mine is not None:
             order = None if order is None else order[mine]
             draws = None if draws is None else draws[mine]
             if budget is not None and not isinstance(budget,
                                                      numbers.Integral):
                 budget = torch.as_tensor(budget)[mine]
-        state = round_fn(state, X, y, mask, order, sqnorms, budget, draws)
-        synchronize(dev)
-        exec_acc += time.perf_counter() - t0
+        return round_fn(state, X, y, mask, order, sqnorms, budget, draws)
+
+    for t in range(rounds):
+        budget = budget_fn(t) if budget_fn is not None else None
+        with record_function("cocoa_round"):
+            state, dt = fenced_call(one_round, t, state, budget)
+        exec_acc += dt
+        covered += 1
         tracer.tick()
         if state.wire is not None:
             # hier compressed gather: the measured post-dedup inter volume
             # replaces the hop's analytic bound
             tracer.observe("inter_gather", state.wire)
+        budgets = None
+        if budget is not None:
+            budgets = np.broadcast_to(
+                np.asarray(budget.cpu() if torch.is_tensor(budget)
+                           else budget), (K,))
+        if throughput is not None:
+            # bulk-synchronous round: every worker shares the fenced round
+            # wall-clock; the steps run are the budgets (or H)
+            throughput.observe_round(
+                budgets if budgets is not None else float(cfg.H), dt)
         if (t + 1) % gap_every and t != rounds - 1:
             continue
         alpha_eval = state.alpha
@@ -596,26 +651,42 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
             # extrapolated duals may sit a whisker outside the conjugate's
             # domain: certify a feasible dual point (still a true bound)
             alpha_eval = loss.project(alpha_eval, y)
-        t0 = time.perf_counter()
-        if drifted:
-            # lossy messages and extrapolated exchange points let the
-            # carried v drift from v(alpha): certify the point the run holds
-            pval, dval, g = duality.gap_at_v(state.w, alpha_eval, X, y,
-                                             mask, loss, cfg.lam, reg, topo)
-        else:
-            pval, dval, g = duality.gap_decomposed(alpha_eval, X, y, mask,
-                                                   loss, cfg.lam, reg, topo)
+        with record_function("cocoa/certificate"):
+            if drifted:
+                # lossy messages and extrapolated exchange points let the
+                # carried v drift from v(alpha): certify the point the run
+                # holds
+                (pval, dval, g), cert_s = fenced_call(
+                    duality.gap_at_v, state.w, alpha_eval, X, y, mask, loss,
+                    cfg.lam, reg, topo)
+            else:
+                (pval, dval, g), cert_s = fenced_call(
+                    duality.gap_decomposed, alpha_eval, X, y, mask, loss,
+                    cfg.lam, reg, topo)
         gap = float(g)
-        cert_s = time.perf_counter() - t0
-        hist["round"].append(t + 1)
-        hist["gap"].append(gap)
-        hist["primal"].append(float(pval))
-        hist["dual"].append(float(dval))
-        for key, value in tracer.totals().items():
-            hist[key].append(value)
-        hist["execute_s"].append(exec_acc)
-        hist["certificate_s"].append(cert_s)
-        exec_acc = 0.0
+        totals = tracer.totals()
+        rec = RoundRecord(
+            round=t + 1, round_global=base + t + 1,
+            rounds_in_record=covered, gap=gap, primal=float(pval),
+            dual=float(dval), compile_s=pending_compile,
+            execute_s=exec_acc, certificate_s=cert_s,
+            wire_floats=totals["comm_floats"] - prev_floats,
+            wire_bytes=4 * (totals["comm_floats"] - prev_floats),
+            hops=tuple(tracer.per_hop()), comm=totals,
+            budgets=(tuple(int(b) for b in budgets)
+                     if budgets is not None else None),
+            throughput=(tuple(float(r) for r in throughput.rate)
+                        if throughput is not None else None))
+        prev_floats = totals["comm_floats"]
+        pending_compile, exec_acc, covered = 0.0, 0.0, 0
+        agg.emit(rec)
+        if obs is not None:
+            obs.emit(rec)
+        if on_round is not None:
+            on_round(t + 1, state, gap)
         if gap <= eps_gap:
             break
+    hist = agg.history()
+    hist["execute_s"] = [r.execute_s for r in agg.records]
+    hist["certificate_s"] = [r.certificate_s for r in agg.records]
     return SolveResult(state, hist, tracer)

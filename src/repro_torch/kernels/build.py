@@ -113,6 +113,11 @@ def build_all(names=KERNELS) -> Dict[str, BuildInfo]:
     return infos
 
 
+def is_loaded(name: str) -> bool:
+    """Whether this process has loaded kernel `name`'s library."""
+    return name in _LIBS
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built on first use."""
     lib = _LIBS.get(name)

@@ -82,6 +82,18 @@ def local_sdca_block(X, y, alpha, mask, v, perm, loss: Loss, lam: float, n,
     return SDCAResult(dalpha, du, n_passes * nk)
 
 
+def round_libraries(solver: str, model_shards: int = 1) -> tuple:
+    """The kernel libraries (`build.KERNELS` names) a round of `solver`
+    launches: the dense walk, the 1-D sparse walk, or the z-exchange
+    kernel on a feature-sharded mesh; none for the eager solvers."""
+    if solver == "sdca_kernel":
+        return ("local_sdca",)
+    if solver == "sdca_sparse_kernel":
+        return ("sparse_sdca_zx",) if model_shards > 1 else (
+            "sparse_sdca_pipelined",)
+    return ()
+
+
 def prox_kappa_of(reg: Regularizer, lam: float) -> Optional[float]:
     """The fused-prox threshold for `reg`, or None for the hoisted map.
     kappa = 0 (L2) is not fused: the identity needs no work."""

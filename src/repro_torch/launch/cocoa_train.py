@@ -24,6 +24,15 @@
         --dataset illcond --loss squared --lam 5e-4 --H 128 \
         --accel nesterov:16
 
+    # telemetry: one RoundRecord a certified round (every second round)
+    # to a JSONL file, a torch.profiler trace with the rounds' ranges, one
+    # KernelProfile a record beside it, and the terminal dashboard
+    PYTHONPATH=src python -m repro_torch.launch.cocoa_train \
+        --dataset rcv1_sparse --solver sdca_kernel --rounds 6 \
+        --metrics-out /tmp/m.jsonl --profile /tmp/prof --dashboard
+    PYTHONPATH=src python -m repro_torch.obs.validate /tmp/m.jsonl \
+        --prof /tmp/m.prof.jsonl
+
     # the multi-process backend: one rank per worker (K M ranks for
     # --mesh KxM), gloo between them; every rank on the CPU here, on
     # cuda:0 with --device cuda (the ranks share the card); rank 0 prints
@@ -42,30 +51,32 @@ carry yet exit with the ROADMAP.md item that will bring them.
 from __future__ import annotations
 
 import argparse
+import pathlib
+import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed
 
 from .. import comm
 from ..core import CoCoAConfig, primal_w, solve
 from ..core.accel import parse_accel
-from ..core.cocoa import resolve_solver
+from ..core.cocoa import place_on_mesh, resolve_solver
 from ..core.regularizers import get_regularizer
 from ..data import DATASETS, FeatureShards, SparseShards, load, partition, \
     partition_sparse
 from ..device import resolve_device
+from ..obs import (Aggregator, Dashboard, EventBus, JsonlSink, ProfilerSink,
+                   RoundProfileSink, cost)
+from ..runtime import straggler
 from .mesh import initialize_distributed, make_process_mesh, make_test_mesh
 
 # flag -> (value that is ported, ROADMAP.md item that ports the rest)
 _UNPORTED = {
     "ckpt": ("", "Queue 1 item 12 (runtime, checkpoint)"),
     "simulate_failure": (0, "Queue 1 item 12 (runtime, checkpoint)"),
-    "simulate_straggler": (-1, "Queue 1 item 12 (runtime, checkpoint)"),
     "elastic_to": ("", "Queue 1 item 12 (runtime, checkpoint)"),
-    "metrics_out": ("", "Queue 1 item 11 (obs)"),
-    "dashboard": (False, "Queue 1 item 11 (obs)"),
-    "profile": ("", "Queue 1 item 11 (obs)"),
 }
 
 
@@ -113,11 +124,27 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--simulate-failure", type=int, default=0)
-    ap.add_argument("--simulate-straggler", type=int, default=-1)
+    ap.add_argument("--simulate-straggler", type=int, default=-1,
+                    help="worker index running at 10%% speed: its measured "
+                         "round clock is scaled 10x and the deadline "
+                         "budgets follow (sdca_deadline takes them)")
     ap.add_argument("--elastic-to", default="")
-    ap.add_argument("--metrics-out", default="")
-    ap.add_argument("--dashboard", action="store_true")
-    ap.add_argument("--profile", default="")
+    ap.add_argument("--metrics-out", default="",
+                    help="write one schema-versioned JSONL RoundRecord per "
+                         "certified round (validate with python -m "
+                         "repro_torch.obs.validate)")
+    ap.add_argument("--dashboard", action="store_true",
+                    help="live terminal dashboard: gap trajectory, per-hop "
+                         "wire rates, per-worker throughput (plain "
+                         "per-round lines when stdout is not a tty)")
+    ap.add_argument("--profile", default="",
+                    help="torch.profiler trace directory (<dir>/trace.json, "
+                         "with cocoa_round, cocoa/local_solve, "
+                         "cocoa/exchange and cocoa/certificate ranges). "
+                         "With --metrics-out also one KernelProfile per "
+                         "certified round (<metrics-out>.prof.jsonl): the "
+                         "measured round beside its analytic cost "
+                         "(obs.cost) on the device's HardwareSpec")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     return ap
@@ -232,14 +259,27 @@ def _run(args, device, fmt, spec, K, M, rank, world) -> dict:
             ((K,), ("data",))
         mesh = (make_process_mesh(shape, axes, device) if world > 1
                 else make_test_mesh(shape, axes, device))
+    bus, agg, sinks = _observe(args, cfg, Xp, yp, mk, mesh, device, K,
+                               lead=rank == 0)
+    tracker = _tracker(args, K)
+    budget_fn = None
+    if 0 <= args.simulate_straggler < K:
+        budget_fn = straggler.budget_fn_from_tracker(
+            tracker, deadline_s=args.H / 1e4, H_max=args.H)
+        say(f"straggler budgets: {budget_fn(0).numpy()} (re-derived per "
+            f"round from measured throughput)")
     try:
         r = solve(cfg, Xp, yp, mk, rounds=args.rounds, eps_gap=args.eps,
-                  gap_every=1, mesh=mesh)
+                  gap_every=2, mesh=mesh, budget_fn=budget_fn, obs=bus,
+                  throughput=tracker)
     except ValueError as e:       # a configuration the mesh cannot run
         raise SystemExit(str(e))
+    finally:
+        bus.close()               # flush the JSONL files, export the trace
     hist = r.history
     for t, gap, ex in zip(hist["round"], hist["gap"], hist["execute_s"]):
         say(f"round {t}: gap={gap:.3e} execute_s={ex:.4f}")
+    say(agg.format_summary())
     reg = cfg.regularizer()
     if args.reg != "l2":
         w_fin = primal_w(r.state, cfg)
@@ -255,7 +295,70 @@ def _run(args, device, fmt, spec, K, M, rank, world) -> dict:
         f"device={device}{f' mesh={K}x{M}' if M > 1 else ''}"
         f"{f' ranks={world}' if world > 1 else ''}")
     _print_wire(cfg, r.tracer, Xp, K, M, say)
+    if "metrics" in sinks:
+        say(f"metrics: {agg.rounds} rounds -> {args.metrics_out} "
+            f"(validate: python -m repro_torch.obs.validate "
+            f"{args.metrics_out})")
+    if "trace" in sinks:
+        say(f"profile: trace written to {sinks['trace'].trace_path}")
+    if "prof" in sinks:
+        prof_path = sinks["prof"].path
+        say(f"profile: per-round KernelProfiles -> {prof_path} (validate "
+            f"both streams: python -m repro_torch.obs.validate "
+            f"{args.metrics_out} --prof {prof_path})")
     return hist
+
+
+def _observe(args, cfg, X, y, mask, mesh, device, K, lead):
+    """One bus for the run: `solve` emits a RoundRecord per certified
+    round and every sink sees the same frozen record. The profiler sink
+    comes first, so its trace brackets the first round's build, then the
+    aggregator, the JSONL file, the per-round profiles and the dashboard
+    last (it reads the profile of the record it draws). On a process
+    mesh only rank 0 (`lead`) subscribes the file and terminal sinks.
+    Returns (bus, aggregator, {kind: sink})."""
+    bus, sinks = EventBus(), {}
+    if args.profile and lead:
+        sinks["trace"] = bus.subscribe(ProfilerSink(args.profile))
+    agg = bus.subscribe(Aggregator())
+    if args.metrics_out and lead:
+        sinks["metrics"] = bus.subscribe(JsonlSink(args.metrics_out))
+    if args.profile and args.metrics_out and lead:
+        # the compute-side twin of the record stream: the round's analytic
+        # cost from its shapes, priced on the device's HardwareSpec
+        t0 = time.perf_counter()
+        topo = None
+        if mesh is not None:
+            X, y, mask = place_on_mesh(cfg, mesh, X, y, mask)
+            topo = comm.Topology.from_mesh(mesh, cfg.data_axis,
+                                           cfg.model_axis,
+                                           topology=cfg.topology)
+        stats = cost.round_stats(cfg, X, mask, topo)
+        d = X.d if isinstance(X, (SparseShards, FeatureShards)) else \
+            X.shape[-1]
+        sinks["prof"] = bus.subscribe(RoundProfileSink(
+            pathlib.Path(args.metrics_out).with_suffix(".prof.jsonl"),
+            stats, name="cocoa_round",
+            shape=dict(K=K, d=int(d), nk=int(y.shape[1]), H=args.H,
+                       solver=args.solver),
+            compile_s=time.perf_counter() - t0, device=device))
+    if args.dashboard and lead:
+        bus.subscribe(Dashboard(total_rounds=args.rounds,
+                                prof_source=sinks.get("prof")))
+    return bus, agg, sinks
+
+
+def _tracker(args, K: int) -> straggler.ThroughputTracker:
+    """The run's throughput tracker, fed each round's measured seconds; a
+    simulated straggler scales one worker's clock instead of inventing
+    rates."""
+    slow = np.ones(K)
+    if 0 <= args.simulate_straggler < K:
+        slow[args.simulate_straggler] = 10.0
+    tr = straggler.ThroughputTracker(K, slowdown=slow)
+    if 0 <= args.simulate_straggler < K:
+        tr.rate[args.simulate_straggler] = 1e3   # pre-measurement seed
+    return tr
 
 
 def _quiet(*args, **kwargs) -> None:

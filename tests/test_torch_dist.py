@@ -19,6 +19,7 @@ Each spawn has a time limit of 110 s; a rank that fails or overruns
 fails the test with its traceback. The `cuda` test puts the ranks on one
 card (`python -m pytest -m cuda tests/test_torch_dist.py` there).
 """
+import json
 import os
 import pathlib
 import subprocess
@@ -300,15 +301,22 @@ def _torchrun(nproc, argv):
 
 
 def _final(out):
-    return [ln for ln in out.splitlines() if ln.startswith("final:")]
+    """The port's closing line (after the records' `final: P=...`)."""
+    return [ln for ln in out.splitlines() if ln.startswith("final: rounds=")]
 
 
-def test_cli_runs_under_torchrun(capsys):
-    p = _torchrun(2, CLI + ["--workers", "2"])
+def test_cli_runs_under_torchrun(capsys, tmp_path):
+    m = tmp_path / "m.jsonl"
+    p = _torchrun(2, CLI + ["--workers", "2", "--metrics-out", str(m)])
     assert p.returncode == 0, p.stderr[-3000:]
     finals = _final(p.stdout)
     assert len(finals) == 1, p.stdout          # rank 0 prints, alone
     assert "ranks=2" in finals[0]
+    # rank 0 writes the one metrics file: one record a certified round
+    assert sorted(f.name for f in tmp_path.iterdir()) == ["m.jsonl"]
+    recs = [json.loads(ln) for ln in m.read_text().splitlines()]
+    assert [r["round"] for r in recs] == [2, 3]
+    assert f"gap={recs[-1]['gap']:.3e}" in finals[0]
     cocoa_train.main(CLI + ["--workers", "2"])
     one = _final(capsys.readouterr().out)[0]
     gap = lambda line: line.split("gap=")[1].split()[0]
