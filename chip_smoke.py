@@ -168,6 +168,33 @@ order, each failing the run with a non-zero exit:
                repro_torch.obs.validate`, and epsilon_like through
                sdca_deadline with --simulate-straggler 1 (every record K
                budgets and K rates, worker 1's the lowest)
+ 19. runtime   the tenth slice on the main path's tensors: phase 4's rcv1
+               path (K = 8, ring depth 4) 2 rounds, saved through an async
+               `CheckpointManager`, every tensor of the run dropped, the
+               checkpoint restored onto the card and 3 more rounds: the
+               state equal to phase 4's 5-round run bit for bit and the
+               gaps to their printed digits (the save's host ms, the
+               restore's ms and the file's MB printed); epsilon (K = 8,
+               the dense kernel) 2 rounds, `fail_and_recover(k=0)`:
+               alpha[0] zero, the certificate's gap >= -1e-6 |P|, w the
+               survivors' A alpha / (lambda n) within 1e-5, then 2 rounds
+               whose last gap is below the one at the drop; rcv1 re-split
+               K = 8 -> 4 on the card (the ring kernel on 4 blocks, nk =
+               169,350) and phase 12's 4 x 2 mesh -> 2 x 2 (the zx kernel
+               at K = 2), 2 rounds before and after each: P and D across
+               the re-split within 1e-6 relative, the gap falling after
+               it, the re-split's ms printed; the paper's Figure 2 at
+               epsilon's shape: phase 5's CoCoA+ (3 rounds) beside
+               mini-batch CD and SGD (3 rounds / steps, b_local 2,048,
+               the same 24 communicated vectors) and one-shot averaging
+               (H = 2,048), every number finite and CD's gap falling;
+               then the CLI on the card as subprocesses (rcv1_sparse,
+               --solver sdca_kernel): --ckpt D --ckpt-every 2 --rounds 4,
+               then --rounds 8 on D (`resumed from round 4`, its final
+               gap equal to an uninterrupted --rounds 8 run's to the
+               printed digits), --simulate-failure 2, --elastic-to 4@2
+               and --mesh 4x2 --elastic-to 2@2, each with the reference's
+               message
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -2449,16 +2476,17 @@ def _cli(args, cwd):
                             text=True)
 
 
-def _finish(name, proc):
-    """Wait for a CLI run of phase 18; fail the run when it fails."""
+def _finish(name, proc, phase=18):
+    """Wait for a CLI run of a phase; fail the run when it fails."""
     try:
         out, err = proc.communicate(timeout=CLI_TIMEOUT)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        fail(f"phase 18: {name} not done in {CLI_TIMEOUT} s")
+        fail(f"phase {phase}: {name} not done in {CLI_TIMEOUT} s")
     if proc.returncode != 0:
-        fail(f"phase 18: {name} exited {proc.returncode}:\n{err[-3000:]}")
+        fail(f"phase {phase}: {name} exited {proc.returncode}:\n"
+             f"{err[-3000:]}")
     return out
 
 
@@ -2660,6 +2688,318 @@ def phase_obs(dev, sparse, rows):
     log(f"  phase 18 took {time.perf_counter() - t_start:.1f} s")
 
 
+# ----------------------------------------------------------------------------
+# the tenth slice (phase 19): checkpoints, worker failure, elastic
+# re-partitioning and the paper's baselines on the main path's tensors
+# ----------------------------------------------------------------------------
+
+CKPT_LEAVES = ("w", "alpha", "rounds", "alpha_bar", "ef")   # the CLI's
+FIG2_B = 2_048                 # phase 19's mini-batch CD / SGD b_local
+FIG2_H = 2_048                 # phase 19's one-shot local steps
+RESPLIT_RTOL = 1e-6            # P and D across a re-split, relative
+
+
+def _sync_ms(fn):
+    """(host ms of fn() ended by a synchronize of the card, its result)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _printed(gaps):
+    return [f"{g:.4e}" for g in gaps]
+
+
+def _pd(alpha, X, y, mask, lam):
+    from repro_torch.core import duality
+    from repro_torch.core.losses import get_loss
+    p, d, _ = duality.gap_decomposed(alpha, X, y, mask, get_loss("hinge"),
+                                     lam)
+    return float(p), float(d)
+
+
+def _restart(dev, sparse):
+    """rcv1 (K = 8, the ring kernel at depth 4): 2 rounds, an async save,
+    every tensor of the run dropped, a restore onto the card and 3 more
+    rounds must equal phase 4's 5-round run bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import solve, state_from_tree, state_to_tree
+    sh, yp, mk, r4, cfg, *_ = sparse
+    counts = _counts_zero()
+    first = solve(cfg, sh, yp, mk, rounds=2, gap_every=1, seed=SEED)
+    gaps = list(first.history["gap"])
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=2, async_write=True)
+        tree = state_to_tree(first.state, seed=SEED)
+        save_ms, _ = _sync_ms(lambda: mgr.save(2, tree))
+        wait_ms, _ = _sync_ms(mgr.wait)
+        mb = (pathlib.Path(tmp) / "step_2" / "host0.npz").stat().st_size / 1e6
+        del first, tree
+        gc.collect()
+
+        def restore():
+            out, man = mgr.restore(dict.fromkeys(CKPT_LEAVES, 0),
+                                   device="cpu")
+            return state_from_tree(out, dev), man
+
+        restore_ms, (st, man) = _sync_ms(restore)
+    second = solve(cfg, sh, yp, mk, rounds=3, gap_every=1, seed=SEED,
+                   state=st)
+    launches = counts()
+    gaps += second.history["gap"]
+    same = {leaf: torch.equal(getattr(second.state, leaf),
+                              getattr(r4.state, leaf))
+            for leaf in ("w", "alpha", "alpha_bar", "ef")}
+    log(f"  restart (rcv1, K=8, ring depth 4): 2 rounds, save {save_ms:.1f} "
+        f"host ms (the snapshot copied to the host; the write's wait "
+        f"{wait_ms:.1f} ms more), {mb:.1f} MB on disk, restore onto the "
+        f"card {restore_ms:.1f} ms (step {man['step']}), 3 more rounds; "
+        f"launches {launches['sparse_sdca_pipelined']}; state equal to "
+        f"phase 4's 5-round run bit for bit: {same}; gaps "
+        f"{' '.join(_printed(gaps))} (phase 4: "
+        f"{' '.join(_printed(r4.history['gap']))})")
+    if not all(same.values()) or second.state.rounds != 5:
+        fail(f"phase 19: the restored run differs from phase 4's: {same}")
+    if _printed(gaps) != _printed(r4.history["gap"]):
+        fail("phase 19: the restored run's gaps differ from phase 4's")
+    if launches["sparse_sdca_pipelined"] != 5:
+        fail(f"phase 19: the ring kernel launched {launches} in 5 rounds")
+    return {"save_ms": save_ms, "restore_ms": restore_ms, "mb": mb}
+
+
+def _failure(dense):
+    """epsilon (K = 8, the dense kernel): worker 0 lost after 2 rounds; the
+    certificate stays valid and falls again in 2 more rounds."""
+    import torch
+    from repro_torch.core import duality, solve
+    from repro_torch.runtime import failures
+    Xp, yp, mk, _, cfg, _ = dense
+    counts = _counts_zero()
+    a = solve(cfg, Xp, yp, mk, rounds=2, gap_every=1, seed=SEED)
+    drop_ms, st = _sync_ms(lambda: failures.fail_and_recover(
+        a.state, Xp, mk, cfg.lam, k=0))
+    p, d = _pd(st.alpha, Xp, yp, mk, cfg.lam)
+    n = float(duality.effective_n(mk))
+    survivors = torch.einsum("kid,ki->d", Xp[1:], st.alpha[1:]) / (
+        cfg.lam * n)
+    w_err = float(torch.max(torch.abs(st.w - survivors)) /
+                  torch.max(torch.abs(survivors)))
+    b = solve(cfg, Xp, yp, mk, rounds=2, gap_every=1, seed=SEED, state=st)
+    launches = counts()
+    log(f"  failure (epsilon, K=8, dense kernel): after 2 rounds (gaps "
+        f"{' '.join(_printed(a.history['gap']))}) worker 0 dropped and v "
+        f"rebuilt in {drop_ms:.1f} ms; alpha[0] zero: "
+        f"{not bool(st.alpha[0].any())}; certificate P={p:.6f} D={d:.6f} "
+        f"gap={p - d:.4e}; w vs the 7 survivors' A alpha/(lam n): max rel "
+        f"{w_err:.2e}; 2 more rounds: gaps "
+        f"{' '.join(_printed(b.history['gap']))}; launches "
+        f"{launches['local_sdca']}")
+    if st.alpha[0].any() or st.alpha_bar[0].any() or st.ef[0].any():
+        fail("phase 19: worker 0's duals survived the drop")
+    if not p - d >= -1e-6 * abs(p) or w_err > 1e-5:
+        fail(f"phase 19: the certificate after the drop is invalid: P={p} "
+             f"D={d}, w off by {w_err}")
+    if not b.history["gap"][-1] < p - d:
+        fail(f"phase 19: the gap did not fall after the drop: {p - d} -> "
+             f"{b.history['gap']}")
+    if launches["local_sdca"] != 4:
+        fail(f"phase 19: the dense kernel launched {launches} in 4 rounds")
+    return {"drop_ms": drop_ms}
+
+
+def _resplit_check(name, before, after, gap_at, gaps_after):
+    rel = [abs(a / b - 1) for a, b in zip(after, before)]
+    log(f"    P, D before {before[0]:.9f} {before[1]:.9f}, after "
+        f"{after[0]:.9f} {after[1]:.9f} (rel {rel[0]:.1e}, {rel[1]:.1e}); "
+        f"gap at the re-split {gap_at:.4e}, then "
+        f"{' '.join(_printed(gaps_after))}")
+    if max(rel) > RESPLIT_RTOL:
+        fail(f"phase 19: {name} moved P or D by {rel}")
+    if not gaps_after[-1] < gap_at:
+        fail(f"phase 19: {name}: the gap did not fall after the re-split")
+
+
+def _elastic(dev, sparse, mesh):
+    """rcv1 K = 8 -> 4 through the ring kernel, and the 4 x 2 mesh ->
+    2 x 2 through the zx kernel: 2 rounds, the re-split on the card, 2
+    rounds at the new K."""
+    from repro_torch.core import CoCoAConfig, init_state, solve
+    from repro_torch.data import SparseShards
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime import elastic
+    out = {}
+    sh, yp, mk, _, cfg, *_ = sparse
+    counts = _counts_zero()
+    a = solve(cfg, sh, yp, mk, rounds=2, gap_every=1, seed=SEED)
+    before = _pd(a.state.alpha, sh, yp, mk, SPARSE_LAM)
+    out["ring_ms"], (new, m4) = _sync_ms(lambda: elastic.repartition(
+        {"cols": sh.cols, "vals": sh.vals, "nnz": sh.nnz, "y": yp,
+         "alpha": a.state.alpha}, mk, 4))
+    sh4 = SparseShards(new["cols"], new["vals"], new["nnz"], d=sh.d)
+    nk4 = new["y"].shape[1]
+    after = _pd(new["alpha"], sh4, new["y"], m4, SPARSE_LAM)
+    cfg4 = CoCoAConfig.adding(4, loss="hinge", lam=SPARSE_LAM, H=nk4,
+                              solver="sdca_sparse_kernel")
+    st = init_state(sh.d, 4, nk4, device=dev)._replace(
+        alpha=new["alpha"], w=a.state.w, rounds=a.state.rounds)
+    b = solve(cfg4, sh4, new["y"], m4, rounds=2, gap_every=1, seed=SEED,
+              state=st)
+    launches = counts()
+    used = dict(ops.LAST_SPARSE_CONFIG)
+    log(f"  elastic rcv1 K=8 -> 4 after 2 rounds: re-split on the card in "
+        f"{out['ring_ms']:.1f} ms, nk {yp.shape[1]} -> {nk4}; launches "
+        f"{launches['sparse_sdca_pipelined']} (ring depth "
+        f"{used['buffer_depth']})")
+    _resplit_check("rcv1 K=8 -> 4", before, after, after[0] - after[1],
+                   b.history["gap"])
+    if nk4 != 169_350 or launches["sparse_sdca_pipelined"] != 4:
+        fail(f"phase 19: rcv1 K=4 ran nk={nk4}, launches {launches}")
+    del new, sh4, m4, st, a, b
+    fs, yf, mf, cfg42 = mesh["fs"], mesh["yp"], mesh["mk"], mesh["cfg"]
+    counts = _counts_zero()
+    a = solve(cfg42, fs, yf, mf, rounds=2, gap_every=1, seed=SEED,
+              mesh=make_test_mesh((4, 2), device=dev))
+    before = _pd(a.state.alpha, fs, yf, mf, SPARSE_LAM)
+    out["zx_ms"], (fs2, y2, a2, m2) = _sync_ms(
+        lambda: elastic.repartition_features(fs, yf, a.state.alpha, mf, 2))
+    after = _pd(a2, fs2, y2, m2, SPARSE_LAM)
+    nk2 = y2.shape[1]
+    cfg22 = CoCoAConfig.adding(2, lam=SPARSE_LAM, H=nk2, loss="hinge",
+                               solver="sdca_sparse_kernel",
+                               backend="shard_map", model_axis="model")
+    st = init_state(fs.d_padded, 2, nk2, device=dev)._replace(
+        alpha=a2, w=a.state.w, rounds=a.state.rounds)
+    b = solve(cfg22, fs2, y2, m2, rounds=2, gap_every=1, seed=SEED,
+              state=st, mesh=make_test_mesh((2, 2), device=dev))
+    launches = counts()
+    log(f"  elastic rcv1 mesh 4x2 -> 2x2 after 2 rounds: re-split on the "
+        f"card in {out['zx_ms']:.1f} ms, nk {yf.shape[1]} -> {nk2}, "
+        f"r_loc {fs2.r_loc}; zx launches {launches['sparse_sdca_zx']}")
+    _resplit_check("rcv1 4x2 -> 2x2", before, after, after[0] - after[1],
+                   b.history["gap"])
+    if launches["sparse_sdca_zx"] != 4 or any(
+            launches[k] for k in ("local_sdca", "sparse_sdca",
+                                  "sparse_sdca_pipelined")):
+        fail(f"phase 19: the 2x2 mesh launched {launches}")
+    return out
+
+
+def _figure2(dense):
+    """The paper's Figure 2 at epsilon's shape: CoCoA+ (phase 5's 3 rounds
+    of the dense kernel) against mini-batch CD and SGD at the same count
+    of communicated vectors, and one-shot averaging."""
+    import torch
+    from repro_torch.core import baselines, duality
+    from repro_torch.core.losses import get_loss
+    Xp, yp, mk, r5, cfg, _ = dense
+    K = Xp.shape[0]
+    rounds = len(r5.history["round"])
+    vectors = r5.history["comm_vectors"][-1]
+    cd_ms, ((_, _), cd) = _sync_ms(lambda: baselines.run_minibatch_cd(
+        Xp, yp, mk, loss_name="hinge", lam=DENSE_LAM, rounds=rounds,
+        b_local=FIG2_B, seed=SEED, eval_every=1))
+    sgd_ms, (_, sgd) = _sync_ms(lambda: baselines.run_minibatch_sgd(
+        Xp, yp, mk, loss_name="hinge", lam=DENSE_LAM, steps=rounds,
+        b_local=FIG2_B, seed=SEED, eval_every=1))
+    one_ms, w1 = _sync_ms(lambda: baselines.one_shot_average(
+        Xp, yp, mk, loss_name="hinge", lam=DENSE_LAM, H=FIG2_H, seed=SEED))
+    p1 = float(duality.primal(w1, Xp, yp, mk, get_loss("hinge"), DENSE_LAM))
+    d_cocoa = r5.history["dual"][-1]
+    rows = [("CoCoA+ (dense kernel)", rounds, vectors,
+             r5.history["primal"][-1], r5.history["gap"][-1]),
+            (f"mini-batch CD b={FIG2_B}", rounds, cd["comm_vectors"][-1],
+             cd["primal"][-1], cd["gap"][-1]),
+            (f"mini-batch SGD b={FIG2_B}", rounds, sgd["comm_vectors"][-1],
+             sgd["primal"][-1], None),
+            (f"one-shot average H={FIG2_H}", 1, K, p1, None)]
+    log(f"  Figure 2 at epsilon's shape (K={K}, hinge, lambda={DENSE_LAM}), "
+        f"P - D(CoCoA+'s alpha) bounds each primal suboptimality from "
+        f"above (CD {cd_ms:.0f} ms, SGD {sgd_ms:.0f} ms, one-shot "
+        f"{one_ms:.0f} ms on the host clock):")
+    for name, its, vec, prim, gap in rows:
+        log(f"    {name:30s} rounds {its} vectors {vec:3d} P={prim:.6f} "
+            f"P-D_cocoa={prim - d_cocoa:.4e}"
+            + (f" own gap={gap:.4e}" if gap is not None else ""))
+    log(f"    CD gap per round {' '.join(_printed(cd['gap']))}; SGD P per "
+        f"step " + " ".join(f"{v:.6f}" for v in sgd["primal"]))
+    numbers = [v for row in rows for v in row[3:] if v is not None]
+    if not all(math.isfinite(v) for v in numbers) or not torch.isfinite(
+            w1).all():
+        fail(f"phase 19: Figure 2's numbers are not finite: {rows}")
+    if cd["comm_vectors"][-1] != vectors or sgd["comm_vectors"][-1] != vectors:
+        fail("phase 19: the baselines ran another count of vectors")
+    if not cd["gap"][-1] < cd["gap"][0]:
+        fail(f"phase 19: mini-batch CD's gap did not fall: {cd['gap']}")
+    return {name: prim - d_cocoa for name, _, _, prim, _ in rows}
+
+
+CLI_RCV1 = ("repro_torch.launch.cocoa_train", "--dataset", "rcv1_sparse",
+            "--solver", "sdca_kernel")
+
+
+def _cli_final(out):
+    return [ln for ln in out.splitlines() if ln.startswith("final: rounds=")]
+
+
+def phase_runtime(dev, sparse, dense, mesh):
+    """Checkpoint/restart, the dual-safe drop, elastic re-splits and the
+    paper's baselines on the main path's tensors, then the CLI's
+    operational flags on the card."""
+    import tempfile
+    t_start = time.perf_counter()
+    log("[19 runtime] checkpoints, worker failure, elastic re-partitioning "
+        "and Figure 2's baselines on the main path's tensors")
+    restart = _restart(dev, sparse)
+    drop = _failure(dense)
+    resplit = _elastic(dev, sparse, mesh)
+    tmp = tempfile.TemporaryDirectory()
+    work = pathlib.Path(tmp.name)
+    ck = ["--ckpt", str(work / "ck"), "--ckpt-every", "2"]
+    # started once the timed parts are done: the runs share the card
+    cli = {"ckpt 4": _cli([*CLI_RCV1, *ck, "--rounds", "4"], work),
+           "uninterrupted 8": _cli([*CLI_RCV1, "--rounds", "8"], work),
+           "failure": _cli([*CLI_RCV1, "--simulate-failure", "2",
+                            "--rounds", "6"], work),
+           "elastic": _cli([*CLI_RCV1, "--elastic-to", "4@2", "--rounds",
+                            "6"], work),
+           "mesh elastic": _cli([*CLI_RCV1, "--mesh", "4x2", "--elastic-to",
+                                 "2@2", "--rounds", "6"], work)}
+    fig2 = _figure2(dense)
+    outs = {"ckpt 4": _finish("cocoa_train ckpt 4", cli["ckpt 4"], 19)}
+    cli["ckpt 8"] = _cli([*CLI_RCV1, *ck, "--rounds", "8"], work)
+    want = {"failure": "simulating loss of worker 0 (dual-safe drop + "
+                       "recovery)",
+            "elastic": "elastic re-partition 8 -> 4 workers",
+            "mesh elastic": "elastic re-partition 4 -> 2 workers",
+            "ckpt 8": "resumed from round 4"}
+    for name in ("uninterrupted 8", "failure", "elastic", "mesh elastic",
+                 "ckpt 8"):
+        outs[name] = _finish(f"cocoa_train {name}", cli[name], 19)
+    for name, out in outs.items():
+        log(f"  cli {name}: " + " | ".join(
+            ln for ln in out.splitlines()
+            if ln.startswith(("resumed", "simulating", "elastic", "round ",
+                              "final: rounds"))))
+        if name in want and want[name] not in out:
+            fail(f"phase 19: cli {name} did not print {want[name]!r}")
+    resumed, full = _cli_final(outs["ckpt 8"]), _cli_final(
+        outs["uninterrupted 8"])
+    gap = lambda line: line.split("gap=")[1].split()[0]
+    if not resumed or not full or gap(resumed[0]) != gap(full[0]):
+        fail(f"phase 19: the resumed CLI run's final gap {resumed} differs "
+             f"from the uninterrupted run's {full}")
+    tmp.cleanup()
+    took = time.perf_counter() - t_start
+    log(f"  phase 19 took {took:.1f} s")
+    return {**restart, **drop, **resplit, "fig2": fig2, "s": took}
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -2694,7 +3034,6 @@ def main() -> None:
     mesh = phase_mesh2d(dev, sparse[7])
     rows += phase_new_times(pipe, sparse_plain, mesh, cut_errs)
     phase_wire(dev, sparse, dense, mesh)
-    del mesh
     gc.collect()
     torch.cuda.empty_cache()
     t_new = time.perf_counter()
@@ -2703,6 +3042,8 @@ def main() -> None:
     phase_accel(dev, dense)
     log(f"  phases 15-17 took {time.perf_counter() - t_new:.1f} s")
     phase_obs(dev, sparse, rows)
+    phase_runtime(dev, sparse, dense, mesh)
+    del mesh
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -67,6 +67,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import comm
+from ..comm import collectives
 from ..data import sparse as sparse_data
 from ..data.sparse import FeatureShards, SparseShards
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -198,6 +199,36 @@ def state_from_reference(arrays: Dict[str, np.ndarray],
                       v_prev=opt("v_prev"), alpha_prev=opt("alpha_prev"),
                       accel_a=None if a is None else torch.as_tensor(
                           float(np.asarray(a)), dtype=torch.float32))
+
+
+def state_to_tree(state: CoCoAState, seed: int = 0) -> dict:
+    """The state as the reference's checkpoint leaves (`checkpoint.
+    save_tree` writes them): `w`, `alpha`, `alpha_bar`, `ef`, `rounds` as
+    a 0-d int32, the optional `wire`, `v_prev`, `alpha_prev` and `accel_a`
+    where set, and `rng`, the reference's raw threefry key for `seed`
+    (uint32 [seed >> 32, seed & 0xffffffff], `jax.random.PRNGKey(seed)`),
+    so the reference trainer's restore template loads a port checkpoint.
+    The port itself carries no key: its visit orders come from
+    (seed, rounds), so a resumed run draws what an uninterrupted one
+    would have."""
+    key = np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                   np.uint32)
+    tree = {"w": state.w, "alpha": state.alpha, "rng": key,
+            "rounds": np.array(state.rounds, np.int32),
+            "alpha_bar": state.alpha_bar, "ef": state.ef}
+    for name in ("wire", "v_prev", "alpha_prev", "accel_a"):
+        if getattr(state, name) is not None:
+            tree[name] = getattr(state, name)
+    return tree
+
+
+def state_from_tree(tree: dict, device=DEFAULT_DEVICE) -> CoCoAState:
+    """The state from checkpoint leaves (`state_to_tree`'s, or a
+    reference `CoCoAState._asdict()`'s as `restore_tree` reads them) on
+    `device`; `rng` is dropped."""
+    return state_from_reference(
+        {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+         for k, v in tree.items()}, device)
 
 
 def primal_w(state: CoCoAState, cfg: CoCoAConfig) -> torch.Tensor:
@@ -457,6 +488,56 @@ def place_on_mesh(cfg: CoCoAConfig, mesh, X, y, mask):
         X = topo.wspec(X.shape[-1]).slice_cols(X[rows], m).to(
             to).contiguous()
     return X, block(y), block(mask)
+
+
+def gather_state(cfg: CoCoAConfig, mesh, state: CoCoAState) -> CoCoAState:
+    """The global state from the ranks' blocks on a process mesh -- the
+    one-card layout: alpha and alpha_bar (K, nk), w the padded
+    (M d_local,) vector, ef (K, M d_local) -- gathered over the ranks'
+    data rows and model columns (a collective: every rank calls it). Off
+    a process mesh (or without a mesh), the state itself."""
+    if mesh is None or not mesh.is_process:
+        return state
+    topo = _mesh_topology(cfg, mesh)
+
+    def rows(t):                       # (1, ...) -> (K, ...)
+        return None if t is None else topo.worker_stack(t)
+
+    def cols(t):                       # (..., d_local) -> (..., M d_local)
+        if t is None or topo.M == 1:
+            return t
+        g = collectives.all_gather(t, mesh.subgroup((topo.model_axis,)))
+        return torch.movedim(g, 0, -2).reshape(t.shape[:-1] + (-1,))
+
+    return state._replace(w=cols(state.w), alpha=rows(state.alpha),
+                          alpha_bar=rows(state.alpha_bar),
+                          ef=rows(cols(state.ef)), v_prev=cols(state.v_prev),
+                          alpha_prev=rows(state.alpha_prev))
+
+
+def state_block(cfg: CoCoAConfig, mesh, state: CoCoAState) -> CoCoAState:
+    """`gather_state`'s inverse: this rank's block of a global state on a
+    process mesh, on the mesh's device (its worker's rows and its model
+    shard's slice, as `place_on_mesh` cuts the data). Off a process
+    mesh (or without a mesh), the state itself."""
+    if mesh is None or not mesh.is_process:
+        return state
+    topo = _mesh_topology(cfg, mesh)
+    k, to = topo.worker, mesh.device
+    d_local = state.w.shape[-1] // topo.M
+    lo = topo.model_index * d_local
+
+    def rows(t):
+        return None if t is None else t[k:k + 1].to(to).contiguous()
+
+    def cols(t):
+        return None if t is None else t[..., lo:lo + d_local].to(
+            to).contiguous()
+
+    return state._replace(w=cols(state.w), alpha=rows(state.alpha),
+                          alpha_bar=rows(state.alpha_bar),
+                          ef=rows(cols(state.ef)), v_prev=cols(state.v_prev),
+                          alpha_prev=rows(state.alpha_prev))
 
 
 def _d_msg(X, topo: comm.Topology) -> int:

@@ -2,18 +2,26 @@
 accepts."""
 import ast
 import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import init_state
+from repro_torch.checkpoint import restore_tree, save_tree
+from repro_torch.core import init_state, state_to_tree
 from repro_torch.data import (load, partition, partition_sparse,
                               shards_from_arrays)
 from repro_torch.launch import cocoa_train
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.obs import validate as port_validate
 import repro.obs.validate as ref_validate
+from repro.launch import cocoa_train as ref_train
+
+import torch_parity as tp
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -42,7 +50,8 @@ def test_port_files_found():
     assert {"cocoa.py", "local_sdca.py", "sparse_sdca.py", "ops.py",
             "cocoa_train.py", "chip_smoke.py", "metrics.py", "events.py",
             "prof.py", "cost.py", "dashboard.py", "validate.py",
-            "regress.py", "straggler.py"} <= names
+            "regress.py", "straggler.py", "manager.py", "failures.py",
+            "elastic.py", "baselines.py"} <= names
 
 
 def _defaults():
@@ -118,14 +127,168 @@ def test_cli_dense_default_solver_on_cpu(capsys):
     assert "final: rounds=3" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--ckpt", "ckpt_dir"], "item 12"),
-    (["--simulate-failure", "3"], "item 12"),
-    (["--elastic-to", "4@2"], "item 12"),
+# ----------------------------------------------------------------------------
+# the operational flags (they exited naming ROADMAP.md Queue 1 item 12
+# before checkpoint and runtime were ported)
+# ----------------------------------------------------------------------------
+
+TINY = ["--device", "cpu", "--dataset", "tiny", "--H", "64", "--eps", "0"]
+
+
+def _final_gap(out):
+    return [ln for ln in out.splitlines()
+            if ln.startswith("final: rounds=")][-1].split("gap=")[1].split()[0]
+
+
+def test_cli_ckpt_resumes_and_equals_an_uninterrupted_run(tmp_path, capsys):
+    ck = ["--ckpt", str(tmp_path), "--ckpt-every", "2"]
+    first = cocoa_train.main(TINY + ck + ["--rounds", "4"])
+    assert first["round"] == [2, 4] and "resumed" not in (
+        capsys.readouterr().out)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2", "step_4"]
+    hist = cocoa_train.main(TINY + ck + ["--rounds", "8"])
+    out = capsys.readouterr().out
+    assert "resumed from round 4" in out and hist["round"] == [6, 8]
+    # keep=2: the newest two steps
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_6", "step_8"]
+    full = cocoa_train.main(TINY + ["--rounds", "8"])
+    assert _final_gap(out) == _final_gap(capsys.readouterr().out)
+    assert hist["gap"] == full["gap"][2:]
+
+
+def test_cli_ckpt_without_ef_leaf_resumes(tmp_path, capsys):
+    """A checkpoint from before the wire stack (no `ef` leaf) restores
+    with zero residuals."""
+    cocoa_train.main(TINY + ["--rounds", "2", "--ckpt", str(tmp_path / "a"),
+                             "--ckpt-every", "2"])
+    tree, _ = restore_tree(tmp_path / "a", dict.fromkeys(
+        ("w", "alpha", "rounds", "alpha_bar"), 0))
+    save_tree(tmp_path / "b", 2, tree)
+    capsys.readouterr()
+    hist = cocoa_train.main(TINY + ["--rounds", "4", "--ckpt",
+                                    str(tmp_path / "b")])
+    assert "resumed from round 2" in capsys.readouterr().out
+    assert hist["round"] == [4]
+
+
+def test_cli_ckpt_of_another_width_exits(tmp_path):
+    save_tree(tmp_path, 2, state_to_tree(init_state(10, 8, 128,
+                                                    device="cpu")))
+    with pytest.raises(SystemExit, match="only replicated"):
+        cocoa_train.main(TINY + ["--rounds", "4", "--ckpt", str(tmp_path)])
+
+
+def test_cli_simulate_failure_on_tiny(capsys):
+    hist = cocoa_train.main(TINY + ["--rounds", "6", "--simulate-failure",
+                                    "2"])
+    out = capsys.readouterr().out
+    assert "simulating loss of worker 0 (dual-safe drop + recovery)" in out
+    assert out.index("round 2: gap=") < out.index("simulating loss") < \
+        out.index("round 4: gap=")
+    assert hist["round"] == [2, 4, 6]
+    assert all(g >= -1e-6 for g in hist["gap"])
+    assert hist["gap"][-1] < hist["gap"][1]
+
+
+@pytest.mark.parametrize("data,flags,msg", [
+    ("tiny", ["--elastic-to", "4@2"], "elastic re-partition 8 -> 4 workers"),
+    ("tiny_sparse", ["--solver", "sdca_kernel", "--elastic-to", "5@2"],
+     "elastic re-partition 8 -> 5 workers"),
+    ("tiny_sparse", ["--mesh", "2x2", "--solver", "sdca_kernel",
+                     "--elastic-to", "3@2"],
+     "elastic re-partition 2 -> 3 workers"),
 ])
-def test_cli_unported_flags_name_their_roadmap_item(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-        cocoa_train.main(["--device", "cpu", "--dataset", "tiny", *flags])
+def test_cli_elastic_to_runs(capsys, data, flags, msg):
+    hist = cocoa_train.main(["--device", "cpu", "--dataset", data, "--H",
+                             "128", "--lam", "1e-3", "--eps", "0",
+                             "--rounds", "6", *flags])
+    out = capsys.readouterr().out
+    assert msg in out
+    _falling(hist, 6)
+    K = msg.split("-> ")[1].split()[0]
+    final = [ln for ln in out.splitlines() if ln.startswith("  hop ")][0]
+    assert f"{K} msgs" in final
+
+
+def test_cli_elastic_to_rejects_a_bad_target():
+    with pytest.raises(SystemExit, match="--elastic-to wants 'K@round'"):
+        cocoa_train.main(TINY + ["--elastic-to", "4"])
+    with pytest.raises(SystemExit, match="hier group 4 must divide K=6"):
+        cocoa_train.main(TINY + ["--topology", "hier:4", "--elastic-to",
+                                 "6@2"])
+
+
+def test_cli_resumes_a_reference_replicated_checkpoint_on_a_mesh(
+        tmp_path, capsys, monkeypatch):
+    """The reference trainer's checkpoint (w replicated, d = 512 floats)
+    resumed by the port under --mesh 2x3: w resharded into 3 feature
+    shards of 171 (513 floats placed)."""
+    common = ["--dataset", "tiny_sparse", "--H", "128", "--lam", "1e-3",
+              "--eps", "0", "--ckpt", str(tmp_path), "--ckpt-every", "2"]
+    monkeypatch.setattr(sys, "argv", ["cocoa_train", *common, "--workers",
+                                      "2", "--rounds", "2"])
+    ref_train.main()
+    ref_gap = float(_final_gap_ref(capsys.readouterr().out))
+    hist = cocoa_train.main(["--device", "cpu", *common, "--mesh", "2x3",
+                             "--solver", "sdca_kernel", "--rounds", "6"])
+    out = capsys.readouterr().out
+    assert "resharded legacy checkpoint w: 1 -> 3 feature shards" in out
+    assert "resumed from round 2" in out and "mesh=2x3" in out
+    assert hist["round"] == [4, 6]
+    assert hist["gap"][-1] < hist["gap"][0] < ref_gap
+
+
+def _final_gap_ref(out):
+    return [ln for ln in out.splitlines()
+            if ln.startswith("final: P=")][-1].split("gap=")[1].split()[0]
+
+
+def test_cli_elastic_to_exits_on_a_process_mesh():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=2", "-m", "repro_torch.launch.cocoa_train",
+         *TINY, "--workers", "2", "--backend", "shard_map", "--elastic-to",
+         "1@2"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=110)
+    assert p.returncode != 0
+    assert "ROADMAP.md Queue 1 item 14 (Elastic runs across processes)" in (
+        p.stderr)
+
+
+def test_cli_ckpt_and_failure_on_two_ranks_equal_one_process(tmp_path):
+    """--ckpt (saved by rank 0 from the gathered blocks, each rank
+    restoring its own) and --simulate-failure on a 2-rank gloo mesh, held
+    to the one-process runs within 1e-6 relative."""
+    base = TINY + ["--workers", "2", "--lam", "1e-3"]
+
+    def runs(where, extra):
+        ck = ["--ckpt", str(tmp_path / where), "--ckpt-every", "2"]
+        return [base + extra + ck + ["--rounds", "4"],
+                base + extra + ck + ["--rounds", "8"],
+                base + extra + ["--rounds", "6", "--simulate-failure", "2"]]
+
+    ranks = spawn_ranks(tp.cli_on_ranks, 2,
+                        (runs("ranks", ["--backend", "shard_map"]),),
+                        timeout=110)
+    one = [cocoa_train.main(argv) for argv in runs("one", [])]
+    clocks = ("execute_s", "certificate_s")
+    for a, b in zip(*ranks):
+        assert {k: v for k, v in a.items() if k not in clocks} == {
+            k: v for k, v in b.items() if k not in clocks}
+    for got, want in zip(ranks[0], one):
+        assert got["round"] == want["round"]
+        np.testing.assert_allclose(got["gap"], want["gap"], rtol=1e-6)
+        np.testing.assert_allclose(got["primal"], want["primal"], rtol=1e-6)
+    assert ranks[0][1]["round"] == [6, 8]
+    # the checkpoint rank 0 wrote holds the global layout
+    a, _ = restore_tree(tmp_path / "ranks", {"alpha": 0, "ef": 0, "w": 0})
+    b, _ = restore_tree(tmp_path / "one", {"alpha": 0, "ef": 0, "w": 0})
+    for k in a:
+        assert a[k].shape == b[k].shape
+        np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), rtol=1e-5,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("flags", [

@@ -249,3 +249,12 @@ def solve_on_ranks(rank: int, world: int, jobs: list) -> list:
             res[leaf] = None if x is None else to_np(x)
         out.append(res)
     return out
+
+
+def cli_on_ranks(rank: int, world: int, argvs: list) -> list:
+    """`launch.cocoa_train.main` on each argv in turn on every rank of a
+    spawned process group; returns the histories as lists."""
+    torch.set_num_threads(1)
+    from repro_torch.launch import cocoa_train
+    return [{k: list(v) for k, v in cocoa_train.main(argv).items()}
+            for argv in argvs]
