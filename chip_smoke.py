@@ -195,6 +195,32 @@ order, each failing the run with a non-zero exit:
                printed digits), --simulate-failure 2, --elastic-to 4@2
                and --mesh 4x2 --elastic-to 2@2, each with the reference's
                message
+ 20. train     the eleventh slice, the card's memory freed first:
+               stablelm-1.6b at full width and depth (24 layers, d_model
+               2,048, 32 x 64 heads, d_ff 5,632, vocab 100,352, bf16,
+               random weights from the seed) trained by
+               `launch.train.train_step` (AdamW, float32 masters) on one
+               fixed TokenStream batch, B = 4, S = 2,048, the plain
+               attention (no kernel has a backward) and remat "nothing":
+               1 cold and 5 warm steps at lr 3e-4, each step's loss,
+               grad_norm, seconds, tokens/s, peak memory, the AdamW
+               update's ms (CUDA events) beside its bytes bound, and
+               6 N tokens / s over 989 TFLOP/s. Checks: finite losses,
+               the loss after the 6th step below the 1st's; every
+               parameter a gradient, none all zeros; the last step's
+               update of final_norm's gain and block 0's wq recomputed in
+               float64 within 1e-6 of the masters; at 2 layers (full
+               width otherwise) the loss with remat ("nothing", "dots")
+               equal to the loss without bit for bit and the grads within
+               relative L2 1e-3; a step under use_flash_attention raising
+               the kernel's NotImplementedError. Then CoCoA-DP
+               (`optim.localdp`) on the same model at full width: K = 4
+               workers in turn, H = 2 SGD steps at 1e-2, B = 1, S = 1,024
+               a worker (its own TokenStream batch), one round each of
+               adding (gamma 1, sigma' 4, prox0 0.5), averaging, and
+               adding under int8 compression: the round's seconds,
+               |sum_k delta_k|, the mean worker loss before and after,
+               peak memory; everything finite
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -1203,10 +1229,13 @@ def _wrapped(module, attr, around):
 
 def _keep_first(seen):
     """An `around` that forwards every call and keeps the first call's
-    (args, kwargs) in `seen`: layer 0's own kernel inputs."""
+    (args, kwargs) in `seen`: layer 0's own kernel inputs, detached (a
+    weight among them is a trainable parameter, and the kernels refuse
+    inputs that require grad)."""
     def around(real, *args, **kw):
         if not seen:
-            seen.append((args, kw))
+            seen.append((tuple(a.detach() if hasattr(a, "detach") else a
+                               for a in args), kw))
         return real(*args, **kw)
     return around
 
@@ -2401,65 +2430,8 @@ def phase_accel(dev, dense):
 
 OBS_REGIONS = ("cocoa/local_solve", "cocoa/exchange", "cocoa/certificate")
 RING_KERNEL = "sparse_sdca_pipelined_kernel"   # row 3's __global__ name
-GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-# host calls that put work on the card, each with a device record
-DEVICE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 OBS_TRACES = 5                 # traces phase 18 takes before it gives up
-ALIGN_SLACK_US = 50            # a device record may not start earlier
-                               # than its launch by more than this
 CLI_TIMEOUT = 120              # s for each of phase 18's CLI runs
-
-
-def _trace_events(path):
-    """A torch.profiler Chrome trace's complete events: {"cpu": {range
-    name: [events]}, "gpu": {name: [events]}, "gpu_all": [device events],
-    "launch": {correlation id: launch event}}. CPU ranges are the
-    `record_function` ones (cat user_annotation), GPU ranges the same
-    names on the device timeline (gpu_user_annotation)."""
-    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
-    out = {"cpu": {}, "gpu": {}, "gpu_all": [], "launch": {}}
-    for ev in events:
-        if ev.get("ph") != "X":
-            continue
-        cat = ev.get("cat")
-        if cat == "user_annotation":
-            out["cpu"].setdefault(ev["name"], []).append(ev)
-        elif cat == "gpu_user_annotation":
-            out["gpu"].setdefault(ev["name"], []).append(ev)
-        elif cat in GPU_CATS:
-            out["gpu_all"].append(ev)
-        elif cat in LAUNCH_CATS and "correlation" in ev.get("args", {}):
-            out["launch"][ev["args"]["correlation"]] = ev
-    return out
-
-
-def _lost(ev):
-    """What makes a trace unfit to show what ran where in the run's rounds
-    and certificates: their launches and copies whose device record is
-    missing (on the card's host a profiler session late in a long process
-    has lost its first 19-65 device records, and once 253 of 4,000
-    kernels: PR 19's runs "diag18b", "probe18c"; `ProfilerSink` opens
-    with a burst of kernels that takes that loss), and device records
-    that start before their own launch (the two clocks apart)."""
-    recorded = {e.get("args", {}).get("correlation"): e
-                for e in ev["gpu_all"]}
-    run = ev["cpu"].get("cocoa_round", []) + ev["cpu"].get(
-        "cocoa/certificate", [])
-    out = []
-    for c, e in ev["launch"].items():
-        if not e["name"].startswith(DEVICE_CALLS) or not _inside(e, run):
-            continue
-        dev_ev = recorded.get(c)
-        if dev_ev is None or dev_ev["ts"] + ALIGN_SLACK_US < e["ts"]:
-            out.append(e)
-    return out
-
-
-def _inside(ev, ranges):
-    """Whether event `ev` lies inside one of `ranges` (trace us)."""
-    t0, t1 = ev["ts"], ev["ts"] + ev.get("dur", 0)
-    return any(r["ts"] <= t0 and t1 <= r["ts"] + r["dur"] for r in ranges)
 
 
 def _busy_in(gpu_events, rng):
@@ -2504,6 +2476,8 @@ def phase_obs(dev, sparse, rows):
                                  ProfilerSink, RoundProfileSink, cost,
                                  default_hardware, validate_record)
     from repro_torch.obs import validate
+    from repro_torch.obs.events import (inside, lost_device_records,
+                                        trace_events)
     t_start = time.perf_counter()
     sh, yp, mk, r4, cfg, _, _, _, _ = sparse
     rounds = len(r4.history["round"])
@@ -2543,8 +2517,11 @@ def phase_obs(dev, sparse, rows):
         if trace.disabled is not None or not trace.trace_path.exists():
             fail(f"phase 18: the ProfilerSink disabled itself: "
                  f"{trace.disabled}")
-        ev = _trace_events(trace.trace_path)
-        lost = _lost(ev)
+        ev = trace_events(trace.trace_path)
+        lost = lost_device_records(ev)
+        if trace.lost_records != len(lost):
+            fail(f"phase 18: the sink counted {trace.lost_records} lost "
+                 f"device records, the trace holds {len(lost)}")
         if not lost:
             break
         h0 = min(e["ts"] for e in ev["launch"].values())
@@ -2621,9 +2598,9 @@ def phase_obs(dev, sparse, rows):
         launch = ev["launch"].get(k.get("args", {}).get("correlation"))
         if launch is not None:
             lag.append((k["ts"] - launch["ts"]) / 1e3)
-        if launch is not None and _inside(launch, solves):
+        if launch is not None and inside(launch, solves):
             how.append("launched in")
-        elif _inside(k, ev["gpu"].get("cocoa/local_solve", ())):
+        elif inside(k, ev["gpu"].get("cocoa/local_solve", ())):
             how.append("ran in")
         else:
             how.append("outside")
@@ -3000,6 +2977,290 @@ def phase_runtime(dev, sparse, dense, mesh):
     return {**restart, **drop, **resplit, "fig2": fig2, "s": took}
 
 
+# ----------------------------------------------------------------------------
+# the eleventh slice (phase 20): training stablelm-1.6b, and CoCoA-DP on it
+# ----------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 2_048    # phase 20's batch: 8,192 tokens
+TRAIN_STEPS = 6                # 1 cold step and 5 warm ones
+TRAIN_LR = 3e-4
+# AdamW's bytes a parameter: float32 master, m and v read and written,
+# the bf16 grad read, the bf16 param written
+ADAMW_BYTES = 28
+ADAMW_CHECKED = ("final_norm.g", "blocks.0.attn.wq")
+ADAMW_RTOL = 1e-6              # the masters against a float64 update
+REMAT_LAYERS = 2               # the remat check's cut depth
+REMAT_GRAD_REL = 1e-3          # remat vs none, grads' relative L2 (the
+                               # embedding's backward lands atomics)
+LDP_K, LDP_H, LDP_LR = 4, 2, 1e-2
+LDP_B, LDP_S = 1, 1_024        # a worker's batch
+
+
+def _adamw_f64(g, master, m, v, step, gnorm, lr, b1=0.9, b2=0.95,
+               eps=1e-8, wd=0.1, clip=1.0):
+    """One AdamW update of one leaf in float64: the master after step
+    `step` from its grad and the state before it."""
+    import torch
+    g, master, m, v = (t.double() for t in (g, master, m, v))
+    gs = g * min(1.0, clip / max(gnorm, 1e-12))
+    m = b1 * m + (1 - b1) * gs
+    v = b2 * v + (1 - b2) * gs * gs
+    return master - lr * (m / (1 - b1 ** step)
+                          / (torch.sqrt(v / (1 - b2 ** step)) + eps)
+                          + wd * master)
+
+
+def _loss_grads(model, batch, cfg):
+    """(loss, {name: grad}) of one forward and backward under `cfg`."""
+    import torch
+    from repro_torch.models import model as M
+    model.zero_grad(set_to_none=True)
+    loss, _ = M.forward_train(model, batch, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def _train(dev, cfg):
+    """[20 train]: 6 steps of stablelm-1.6b at full width, with every
+    check of phase 20's first part but the cut-depth ones."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=SEED, device=dev)
+    opt = T.init_opt(model)
+    batch = TokenStream(cfg.vocab, TRAIN_B, TRAIN_S,
+                        seed=SEED).tensors_at(0, dev)
+    n = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_B * TRAIN_S
+    hw = _hw(bf16=True)
+    bound_ms = n * ADAMW_BYTES / hw.hbm_bw * 1e3
+    torch.cuda.synchronize()
+    log(f"[20 train] stablelm-1.6b: {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} {cfg.n_heads} x {cfg.head_dim} heads d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab} {cfg.dtype}, {n} params (random, "
+        f"made with the AdamW state in {time.perf_counter() - t0:.1f} s); "
+        f"B={TRAIN_B} S={TRAIN_S}, remat {cfg.remat_policy!r}, "
+        f"use_flash_attention={cfg.use_flash_attention}, lr {TRAIN_LR}; "
+        f"AdamW bound {n} x {ADAMW_BYTES} B = {n * ADAMW_BYTES / 1e9:.1f} "
+        f"GB at {hw.hbm_bw / 1e12:.2f} TB/s = {bound_ms:.1f} ms")
+    adamw_events = []
+
+    def timed(real, *args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(*args, **kw)
+        ev[1].record()
+        adamw_events.append(ev)
+        return out
+
+    losses, steps = [], []
+    counts = _counts_zero()
+    torch.cuda.reset_peak_memory_stats()
+    with _wrapped(T, "adamw_update", timed):
+        for step in range(1, TRAIN_STEPS + 1):
+            if step == TRAIN_STEPS:
+                before = {k: tuple(getattr(opt, leaf)[k].clone()
+                                   for leaf in ("master", "m", "v"))
+                          for k in ADAMW_CHECKED}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, m = T.train_step(model, opt, batch, cfg=cfg,
+                                         lr=TRAIN_LR)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            adamw_ms = adamw_events[-1][0].elapsed_time(adamw_events[-1][1])
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            losses.append(loss)
+            steps.append({"s": sec, "adamw_ms": adamw_ms, "peak_gb": peak})
+            log(f"  step {step} ({'cold' if step == 1 else 'warm'}): loss "
+                f"{loss:.4f} grad_norm {gnorm:.4f}, {sec:.3f} s, "
+                f"{tokens / sec:.0f} tokens/s, peak {peak:.2f} GB, AdamW "
+                f"{adamw_ms:.2f} ms ({adamw_ms / bound_ms:.2f}x its "
+                f"{bound_ms:.1f} ms bound), 6 N tokens / s = "
+                f"{6 * n * tokens / sec / 1e12:.1f} TFLOP/s, "
+                f"{6 * n * tokens / sec / hw.peak_flops:.3f} of 989 "
+                f"(counting neither attention nor remat)")
+    launches = counts()
+    with torch.no_grad():
+        after = float(M.forward_train(model, batch, cfg)[0])
+    log(f"  loss after step {TRAIN_STEPS}: {after:.4f} (step 1: "
+        f"{losses[0]:.4f}); kernel launches on the training path: "
+        f"{launches}")
+    if not all(math.isfinite(x) for x in losses + [after]):
+        fail(f"phase 20: a loss is not finite: {losses}, after {after}")
+    if not after < losses[0]:
+        fail(f"phase 20: the loss did not fall: {losses[0]} -> {after}")
+    if any(launches.values()):
+        fail(f"phase 20: the training path launched a kernel: {launches}")
+    named = dict(model.named_parameters())
+    missing = [k for k, p in named.items() if p.grad is None]
+    zero = [k for k, p in named.items()
+            if p.grad is not None and not bool(p.grad.any())]
+    if missing or zero:
+        fail(f"phase 20: no gradient for {missing}, all-zero for {zero}")
+    gnorm64 = math.sqrt(sum(float(p.grad.double().square().sum())
+                            for p in named.values()))
+    errs = {}
+    for k in ADAMW_CHECKED:
+        want = _adamw_f64(named[k].grad, *before[k], TRAIN_STEPS, gnorm64,
+                          TRAIN_LR)
+        errs[k] = float((opt.master[k].double() - want).abs().max()
+                        / want.abs().max())
+    log(f"  every one of {len(named)} parameters has a gradient, none all "
+        f"zeros; grad norm in float64 {gnorm64:.6f} (AdamW's float32 "
+        f"{float(m['grad_norm']):.6f}); step {TRAIN_STEPS}'s update "
+        f"against float64, max |err| / max |master|: "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f" (limit {ADAMW_RTOL})")
+    if any(e > ADAMW_RTOL for e in errs.values()):
+        fail(f"phase 20: the AdamW update differs from float64: {errs}")
+    return {"params": n, "losses": losses, "after": after, "steps": steps,
+            "bound_ms": bound_ms, "launches": launches}
+
+
+def _remat_and_refusal(dev, cfg):
+    """At 2 layers, full width otherwise: remat changes neither the loss
+    (bit for bit) nor the grads (relative L2); a step through the flash
+    kernel raises its NotImplementedError."""
+    import dataclasses
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    cut = dataclasses.replace(cfg, n_layers=REMAT_LAYERS)
+    model = M.init_params(cut, seed=SEED, device=dev)
+    batch = TokenStream(cfg.vocab, TRAIN_B, TRAIN_S,
+                        seed=SEED).tensors_at(0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    loss0, g0 = _loss_grads(model, batch,
+                            dataclasses.replace(cut, remat=False))
+    peak0 = torch.cuda.max_memory_allocated() / 1e9
+    g0 = {k: g.clone() for k, g in g0.items()}
+    for policy in ("nothing", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        loss1, g1 = _loss_grads(model, batch, dataclasses.replace(
+            cut, remat=True, remat_policy=policy))
+        peak1 = torch.cuda.max_memory_allocated() / 1e9
+        rel = max(float((g1[k].float() - g0[k].float()).norm()
+                        / g0[k].float().norm()) for k in g0)
+        log(f"  remat {policy!r} at {REMAT_LAYERS} layers: loss "
+            f"{float(loss1):.6f} vs {float(loss0):.6f} without, equal bit "
+            f"for bit: {bool(torch.equal(loss1, loss0))}; grads' largest "
+            f"relative L2 {rel:.2e} (limit {REMAT_GRAD_REL}); peak "
+            f"{peak1:.2f} GB vs {peak0:.2f} without")
+        if not torch.equal(loss1, loss0) or not rel <= REMAT_GRAD_REL:
+            fail(f"phase 20: remat {policy!r} changed the loss or grads")
+    flash = dataclasses.replace(cut, use_flash_attention=True)
+    try:
+        T.train_step(model, T.init_opt(model), batch, cfg=flash)
+    except NotImplementedError as e:
+        if "use_flash_attention=False" not in str(e):
+            fail(f"phase 20: the flash refusal does not name its flag: {e}")
+        log(f"  a train_step under use_flash_attention raised: {e}")
+    else:
+        fail("phase 20: a train_step through the flash kernel ran")
+
+
+def _localdp(dev, cfg):
+    """[20 localdp]: one CoCoA-DP round each of adding, averaging and
+    adding under int8, K = 4 workers at full width."""
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.optim import localdp as LDP
+    model = M.init_params(cfg, seed=SEED, device=dev)
+    loss_fn = LDP.decoder_loss_fn(model)
+    shards = [TokenStream(cfg.vocab, LDP_B * LDP_K, LDP_S, seed=SEED,
+                          shard=k, shards=LDP_K).batch_at(0)
+              for k in range(LDP_K)]
+    batches = {key: torch.from_numpy(np.stack(
+        [b[key] for b in shards]).astype(np.int64)).to(dev)
+        for key in ("tokens", "labels")}
+    theta = {n: p.detach() for n, p in model.named_parameters()}
+
+    def mean_loss(params):
+        with torch.no_grad():
+            return sum(float(loss_fn(params, {k: v[w] for k, v in
+                                              batches.items()}))
+                       for w in range(LDP_K)) / LDP_K
+
+    l0 = mean_loss(theta)
+    kw = dict(H=LDP_H, inner_lr=LDP_LR)
+    log(f"[20 localdp] stablelm-1.6b at full width, K={LDP_K} workers in "
+        f"turn, H={LDP_H} SGD steps at {LDP_LR}, B={LDP_B} S={LDP_S} a "
+        f"worker; mean worker loss at theta {l0:.4f}")
+    out = {}
+    for name, rule in (("adding", LDP.LocalDPConfig.adding(LDP_K, **kw)),
+                       ("averaging", LDP.LocalDPConfig.averaging(LDP_K,
+                                                                  **kw)),
+                       ("adding int8", LDP.LocalDPConfig.adding(
+                           LDP_K, compress="int8", **kw))):
+        summed = {}
+
+        def keep_sum(real, *args, **kw):
+            d = real(*args, **kw)
+            for n, x in d.items():
+                if n in summed:
+                    summed[n] += x
+                else:
+                    summed[n] = x.clone()
+            return d
+
+        torch.cuda.reset_peak_memory_stats()
+        round_fn = LDP.make_round_fn(loss_fn, rule)
+        with _wrapped(LDP, "_local_delta", keep_sum):
+            ms, st = _sync_ms(lambda: round_fn(LDP.init_state(theta, rule),
+                                               batches))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        norm = math.sqrt(sum(float(x.float().square().sum())
+                             for x in summed.values()))
+        moved = math.sqrt(sum(float((st.params[n].float()
+                                     - theta[n].float()).square().sum())
+                              for n in theta))
+        l1 = mean_loss(st.params)
+        del summed, st
+        log(f"  {name} (gamma {rule.gamma:g}, sigma' "
+            f"{rule.resolved_sigma():g}, prox0 {rule.prox0:g}, compress "
+            f"{rule.compress}): {ms / 1e3:.3f} s, |sum_k delta_k| "
+            f"{norm:.4e}, |theta' - theta| {moved:.4e}, mean worker loss "
+            f"{l0:.4f} -> {l1:.4f}, peak {peak:.2f} GB")
+        if not all(math.isfinite(x) for x in (norm, moved, l1)):
+            fail(f"phase 20: CoCoA-DP {name} gave a value that is not "
+                 f"finite")
+        out[name] = {"s": ms / 1e3, "norm": norm, "loss": (l0, l1),
+                     "peak_gb": peak}
+    return out
+
+
+def phase_train(dev):
+    """Phase 20: stablelm-1.6b trained at full width, the cut-depth remat
+    and refusal checks, then CoCoA-DP rounds on it."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              use_flash_attention=False, remat=True,
+                              remat_policy="nothing")
+    train = _train(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _remat_and_refusal(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ldp = _localdp(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_start
+    log(f"  phase 20 took {took:.1f} s")
+    return {"train": train, "localdp": ldp, "s": took}
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -3043,7 +3304,10 @@ def main() -> None:
     log(f"  phases 15-17 took {time.perf_counter() - t_new:.1f} s")
     phase_obs(dev, sparse, rows)
     phase_runtime(dev, sparse, dense, mesh)
-    del mesh
+    del mesh, sparse, dense, pipe, sparse_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(dev)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

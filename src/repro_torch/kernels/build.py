@@ -172,3 +172,15 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def refuse_grad(name: str, flag: str, *tensors) -> None:
+    """Raise when a forward-only kernel is asked for a graph: grad mode on
+    and an input that requires grad. The reference's Pallas kernels have
+    no VJP either (`jax.grad` through one fails); the caller trains on the
+    plain path instead, never silently routed there."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward, like the reference's Pallas kernel: "
+            f"train with {flag}=False, or call it under torch.no_grad()")

@@ -94,8 +94,10 @@ def ssm_scan_plain(xin, dt, Bm, Cm, A, D):
 def ssm_scan(xin, dt, Bm, Cm, A, D, *, group: int = DEFAULT_GROUP):
     """Fused selective scan: the CUDA kernel on CUDA tensors (its
     instance of `group` states a thread), `ssm_scan_plain` on CPU
-    tensors."""
+    tensors. Forward only: raises NotImplementedError under grad when an
+    input requires grad."""
     B, S, di, N = _check_shapes(xin, dt, Bm, Cm, A, D)
+    build.refuse_grad("ssm_scan", "use_fused_ssm", xin, dt, Bm, Cm, A, D)
     if xin.device.type == "cpu":
         return ssm_scan_plain(xin, dt, Bm, Cm, A, D)
     if xin.device.type != "cuda":

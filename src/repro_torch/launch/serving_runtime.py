@@ -15,6 +15,9 @@ prefill writes through views of its rows. A refilled slot keeps the last
 request's K/V rows past its prompt, as the reference's does; its SSM
 state (h and the conv tail) is zeroed first, since a prefill continues
 from whatever state it is given.
+
+`submit` and `step` run under `torch.inference_mode()`: the weights are
+trainable parameters, and a serving step records no autograd graph.
 """
 from __future__ import annotations
 
@@ -71,6 +74,7 @@ class ServingEngine:
         return logits
 
     # --- public API ---------------------------------------------------------
+    @torch.inference_mode()
     def submit(self, prompt: np.ndarray, max_new: int = 32) -> Request:
         r = Request(rid=len(self.queue) + 1000, prompt=np.asarray(prompt),
                     max_new=max_new)
@@ -91,6 +95,7 @@ class ServingEngine:
             self.pos[b] = len(r.prompt)
             self.last_tok[b, 0] = nxt
 
+    @torch.inference_mode()
     def step(self) -> int:
         """One engine step: refill slots, decode one token for all live
         slots. Returns the number of live requests."""

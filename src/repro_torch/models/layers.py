@@ -26,8 +26,9 @@ _ITEM13 = "not ported yet (ROADMAP.md Queue 1 item 13)"
 
 class Params(nn.Module):
     """A named group of weights (and nested groups): the counterpart of one
-    dict of the reference pytree. Weights are frozen parameters -- the port
-    runs inference and scoring only."""
+    dict of the reference pytree. Weights are trainable parameters
+    (`launch.train`, `optim.localdp`); serving and scoring run under
+    `torch.inference_mode()` / `torch.no_grad()` and record no graph."""
 
     def __init__(self, **entries):
         super().__init__()
@@ -35,8 +36,7 @@ class Params(nn.Module):
             if isinstance(value, nn.Module):
                 self.add_module(name, value)
             else:
-                self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value))
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules

@@ -16,18 +16,27 @@ applied as `x @ W`; `params_from_reference` loads a reference `init_params`
 pytree (nested dicts of numpy arrays) without transposes, unstacking its
 "scan" leaves (n_periods, ...) into one module per layer.
 
+The scoring forward is differentiable (`launch.train`); under grad each
+block runs inside `torch.utils.checkpoint` when `cfg.remat` is set, the
+counterpart of the reference's `jax.checkpoint` over the scanned periods.
+`prefill` and `decode_step` run under `torch.inference_mode()`.
+
 Not ported (ROADMAP.md Queue 1 item 13): MoE, RG-LRU, sliding windows,
 M-RoPE, embedding inputs and the encoder-decoder; asking for one raises.
-The reference's remat, sharding-constraint and FSDP hooks have no
-counterpart: one card runs eagerly.
+The reference's sharding-constraint and FSDP hooks have no counterpart:
+one card runs eagerly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.flash_attention import flash_attention
@@ -195,6 +204,12 @@ class Decoder(nn.Module):
     def device(self) -> torch.device:
         return self.embed.tok.device
 
+    def forward(self, batch):
+        """`forward_train(self, batch)`: (loss, metrics). Lets
+        `torch.func.functional_call` score the model under other weights
+        (`optim.localdp.decoder_loss_fn`)."""
+        return forward_train(self, batch)
+
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=DEFAULT_DEVICE):
     """A `Decoder` with random weights drawn from `seed` (the port's own
@@ -262,10 +277,46 @@ def _positions(cfg, batch, B, Sq, device):
     return torch.arange(Sq, dtype=torch.int32, device=device).expand(B, Sq)
 
 
+# remat_policy "dots": keep the outputs of the matmuls without batch
+# dimensions, recompute the rest (the counterpart of jax's
+# dots_with_no_batch_dims_saveable). Under grad `x @ W` folds to mm; the
+# attention's and the scan's einsums carry batch dimensions and lower to
+# bmm, which is recomputed, so no (B, KV, G, C, T) score is kept.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(block, x, cfg, ctx):
+    """`block(x)` under `torch.utils.checkpoint`. The block's weights are
+    taken now and handed to the recompute, so a backward under
+    `torch.func.functional_call` recomputes with the weights the forward
+    used, not the module's own."""
+    weights = dict(block.named_parameters())
+
+    def run(x, weights):
+        return torch.func.functional_call(block, weights,
+                                          (x, cfg, ctx, None))[0]
+
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_saveable)
+               if cfg.remat_policy == "dots" else noop_context_fn)
+    return checkpoint(run, x, weights, use_reentrant=False,
+                      context_fn=context)
+
+
 def _run_stack(model: Decoder, x, cfg, ctx, cache: Optional[List] = None):
-    """All layers, then the final norm. Returns (x, cache)."""
+    """All layers, then the final norm. Returns (x, cache). Under grad and
+    `cfg.remat` (no cache), each block is rematerialized in the backward."""
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, block in enumerate(model.blocks):
-        x, _ = block(x, cfg, ctx, None if cache is None else cache[i])
+        if remat:
+            x = _remat_block(block, x, cfg, ctx)
+        else:
+            x, _ = block(x, cfg, ctx, None if cache is None else cache[i])
     return L.apply_norm(model.final_norm, x, cfg.norm), cache
 
 
@@ -287,8 +338,11 @@ def chunked_xent(model: Decoder, x, labels, mask, cfg):
 
 
 def forward_train(model: Decoder, batch, cfg: Optional[ModelConfig] = None):
-    """The scoring forward. batch: tokens + labels (+ loss_mask) tensors on
-    the model's device. Returns (loss, metrics); no backward."""
+    """The training and scoring forward. batch: tokens + labels (+
+    loss_mask) tensors on the model's device. Returns (loss, metrics);
+    differentiable in the weights (`loss.backward()`, `launch.train`).
+    Score under `torch.no_grad()`: the flash and scan kernels have no
+    backward and refuse inputs that require grad."""
     cfg = cfg or model.cfg
     x = _embed_inputs(model, batch, cfg)
     B, Sq = x.shape[:2]
@@ -305,6 +359,7 @@ def forward_train(model: Decoder, batch, cfg: Optional[ModelConfig] = None):
     return loss, {"xent": loss, "moe_aux": aux}      # no MoE: aux is 0
 
 
+@torch.inference_mode()
 def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
     """Fill the cache (in place) with a prompt; returns (last_logits,
     cache)."""
@@ -317,6 +372,7 @@ def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
     return L.lm_logits(model.embed, x[:, -1:], cfg), cache
 
 
+@torch.inference_mode()
 def decode_step(model: Decoder, cache, tokens, pos: int,
                 cfg: Optional[ModelConfig] = None):
     """One decode step. tokens: (B,1) int; pos: int (write index, also the

@@ -11,7 +11,9 @@ telemetry, timing traces, roofline profiles, dashboards.
                  callback into composable sinks: `JsonlSink` (one record
                  per line), `Aggregator` (p50/p99 latency, floats/sec,
                  rounds-to-gap, the history view), and `ProfilerSink`
-                 (a torch.profiler Chrome trace with the `cocoa/*` ranges)
+                 (a torch.profiler Chrome trace with the `cocoa/*` ranges,
+                 read back by `trace_events`; `lost_device_records`
+                 counts the rounds' launches it lacks)
     dashboard -- zero-dependency live terminal dashboard
                  (`cocoa_train --dashboard`)
     validate  -- `python -m repro_torch.obs.validate run.jsonl` schema gate
@@ -28,7 +30,8 @@ The schemas are the reference's: a record or profile written by either
 package passes both packages' validators.
 """
 from .dashboard import Dashboard, sparkline
-from .events import Aggregator, EventBus, JsonlSink, ProfilerSink
+from .events import (Aggregator, EventBus, JsonlSink, ProfilerSink,
+                     lost_device_records, trace_events)
 from .metrics import (SCHEMA_VERSION, Counter, Gauge, Histogram, RoundRecord,
                       aot_compile, fenced_call, fenced_time, validate_record)
 from .prof import (PROF_SCHEMA_VERSION, HardwareSpec, KernelProfile,

@@ -205,6 +205,72 @@ class Aggregator:
         return "\n".join(lines)
 
 
+# ----------------------------------------------------------------------------
+# reading a torch.profiler Chrome trace
+# ----------------------------------------------------------------------------
+
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# host calls that put work on the card, each with a device record
+DEVICE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+# the ranges whose device records a trace must keep: the rounds and
+# their certificates (not the sink's own opening and closing bursts)
+RUN_RANGES = ("cocoa_round", "cocoa/certificate")
+ALIGN_SLACK_US = 50      # a device record may not start earlier than its
+                         # launch by more than this
+
+
+def trace_events(trace) -> dict:
+    """A torch.profiler Chrome trace's complete events (`trace`: the
+    trace's dict, or the path of its JSON file): {"cpu": {range name:
+    [events]}, "gpu": {name: [events]}, "gpu_all": [device events],
+    "launch": {correlation id: launch event}}. CPU ranges are the
+    `record_function` ones (cat user_annotation), GPU ranges the same
+    names on the device timeline (gpu_user_annotation)."""
+    if not isinstance(trace, dict):
+        trace = json.loads(pathlib.Path(trace).read_text())
+    out = {"cpu": {}, "gpu": {}, "gpu_all": [], "launch": {}}
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") != "X":
+            continue
+        cat = ev.get("cat")
+        if cat == "user_annotation":
+            out["cpu"].setdefault(ev["name"], []).append(ev)
+        elif cat == "gpu_user_annotation":
+            out["gpu"].setdefault(ev["name"], []).append(ev)
+        elif cat in GPU_CATS:
+            out["gpu_all"].append(ev)
+        elif cat in LAUNCH_CATS and "correlation" in ev.get("args", {}):
+            out["launch"][ev["args"]["correlation"]] = ev
+    return out
+
+
+def inside(ev, ranges) -> bool:
+    """Whether event `ev` lies inside one of `ranges` (trace us)."""
+    t0, t1 = ev["ts"], ev["ts"] + ev.get("dur", 0)
+    return any(r["ts"] <= t0 and t1 <= r["ts"] + r["dur"] for r in ranges)
+
+
+def lost_device_records(ev: dict) -> list:
+    """What makes a trace unfit to show what ran where: the launches and
+    copies inside the `RUN_RANGES` whose device record is missing, or
+    starts before its own launch (the two clocks apart). `ev` is
+    `trace_events`' result. On an H100 host a profiler session late in a
+    long process has lost its first 19-65 device records, and once 253
+    of 4,000 kernels (`chip_smoke.py` phase 18)."""
+    recorded = {e.get("args", {}).get("correlation"): e
+                for e in ev["gpu_all"]}
+    run = [r for name in RUN_RANGES for r in ev["cpu"].get(name, [])]
+    out = []
+    for c, e in ev["launch"].items():
+        if not e["name"].startswith(DEVICE_CALLS) or not inside(e, run):
+            continue
+        dev_ev = recorded.get(c)
+        if dev_ev is None or dev_ev["ts"] + ALIGN_SLACK_US < e["ts"]:
+            out.append(e)
+    return out
+
+
 class ProfilerSink:
     """`torch.profiler` trace over the run: starts on construction (so a
     kernel's first build and launch are captured), stops on `close()` and
@@ -220,6 +286,11 @@ class ProfilerSink:
     records -- the first round's kernels, without the burst
     (`chip_smoke.py` phase 18, PR 19's runs "diag18" and "diag18b").
 
+    `close()` reads the exported trace back and counts the launches and
+    copies of the rounds and certificates that have no device record
+    (`lost_device_records`): `lost_records` holds the count, and a
+    count above 0 prints `[obs] trace lacks N device records`.
+
     Never fails the run, as the reference's: a profiler error prints a
     note and disables the sink (`disabled` then holds the message)."""
 
@@ -230,6 +301,7 @@ class ProfilerSink:
         self.logdir = pathlib.Path(logdir)
         self.trace_path = self.logdir / self.TRACE_NAME
         self.disabled: Optional[str] = None
+        self.lost_records = 0
         self._prof = None
         try:
             from torch.profiler import (ProfilerActivity, profile,
@@ -274,3 +346,12 @@ class ProfilerSink:
             prof.export_chrome_trace(str(self.trace_path))
         except Exception as e:                        # pragma: no cover
             self._disable("profiler stop failed", e)
+            return
+        try:
+            self.lost_records = len(lost_device_records(
+                trace_events(self.trace_path)))
+        except Exception as e:
+            self._disable("profiler trace unreadable", e)
+            return
+        if self.lost_records:
+            print(f"[obs] trace lacks {self.lost_records} device records")

@@ -51,7 +51,10 @@ def test_port_files_found():
             "cocoa_train.py", "chip_smoke.py", "metrics.py", "events.py",
             "prof.py", "cost.py", "dashboard.py", "validate.py",
             "regress.py", "straggler.py", "manager.py", "failures.py",
-            "elastic.py", "baselines.py"} <= names
+            "elastic.py", "baselines.py", "adamw.py", "localdp.py",
+            "train.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "optim" / "compress.py"
+            in PORT_FILES)
 
 
 def _defaults():

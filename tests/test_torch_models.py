@@ -35,6 +35,15 @@ RTOL, ATOL = 1e-5, 1e-6
 ARCHS = ["stablelm-1.6b", "falcon-mamba-7b"]
 
 
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """The weights are trainable parameters: these tests compare forward
+    values, so they run without an autograd graph, as scoring does (the
+    training step's parity is tests/test_torch_train.py)."""
+    with torch.no_grad():
+        yield
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))     # a writable copy
 

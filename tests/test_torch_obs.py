@@ -9,6 +9,7 @@ fields, hops, comm totals and wire deltas equal, gap / primal / dual within
 """
 import io
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -484,3 +485,80 @@ def test_solve_records_budgets_and_rates(tiny):
         assert min(range(K), key=lambda k: rec.throughput[k]) == 2
         ref_obs.validate_record(rec.to_dict())
     assert agg.last.throughput == tuple(float(v) for v in tracker.rate)
+
+
+# ----------------------------------------------------------------------------
+# the profiler trace's lost device records (obs.events)
+# ----------------------------------------------------------------------------
+
+def _synthetic_trace():
+    """A Chrome trace of one round range holding two kernel launches, of
+    which only correlation 2 has its device record; a third launch
+    without a record lies outside every round range (the sink's burst),
+    and a host call that puts no work on the card has none either."""
+    X = "X"
+    return {"traceEvents": [
+        {"ph": X, "cat": "user_annotation", "name": "cocoa_round",
+         "ts": 100, "dur": 100},
+        {"ph": X, "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 110, "dur": 5, "args": {"correlation": 1}},
+        {"ph": X, "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 120, "dur": 5, "args": {"correlation": 2}},
+        {"ph": X, "cat": "cuda_runtime", "name": "cudaStreamSynchronize",
+         "ts": 130, "dur": 5, "args": {"correlation": 4}},
+        {"ph": X, "cat": "kernel", "name": "k2", "ts": 126, "dur": 10,
+         "args": {"correlation": 2}},
+        {"ph": X, "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 10, "dur": 5, "args": {"correlation": 3}},
+    ]}
+
+
+def test_lost_device_records_counts_the_rounds_launches_without_one():
+    ev = port_obs.trace_events(_synthetic_trace())
+    assert sorted(ev["launch"]) == [1, 2, 3, 4]
+    assert [e["name"] for e in ev["gpu_all"]] == ["k2"]
+    lost = port_obs.lost_device_records(ev)
+    assert [e["args"]["correlation"] for e in lost] == [1]
+
+
+def test_lost_device_records_counts_a_record_before_its_launch():
+    trace = _synthetic_trace()
+    trace["traceEvents"][4]["ts"] = 120 - 51        # 51 us before launch
+    lost = port_obs.lost_device_records(port_obs.trace_events(trace))
+    assert sorted(e["args"]["correlation"] for e in lost) == [1, 2]
+
+
+def test_profiler_sink_reports_lost_records(tmp_path, capsys, monkeypatch):
+    """The sink reads its exported trace back: on the CPU nothing is
+    lost; a trace lacking a round's device record is counted and
+    printed."""
+    import repro_torch.obs.events as events
+    sink = port_obs.ProfilerSink(tmp_path / "a")
+    with torch.profiler.record_function("cocoa_round"):
+        torch.ones(4).sum()
+    sink.close()
+    assert sink.disabled is None and sink.trace_path.exists()
+    assert sink.lost_records == 0
+    assert "lacks" not in capsys.readouterr().out
+    real = events.trace_events
+    monkeypatch.setattr(events, "trace_events",
+                        lambda _path: real(_synthetic_trace()))
+    sink = port_obs.ProfilerSink(tmp_path / "b")
+    sink.close()
+    assert sink.lost_records == 1
+    assert "[obs] trace lacks 1 device records" in capsys.readouterr().out
+
+
+def test_profiler_sink_survives_an_unreadable_trace(tmp_path, capsys):
+    """A trace that does not parse (cut short) disables the sink with a
+    note instead of failing the run."""
+    sink = port_obs.ProfilerSink(tmp_path)
+
+    def export_cut_short(path):
+        pathlib.Path(path).write_text('{"traceEvents": [{"ph": "X", ')
+
+    sink._prof.export_chrome_trace = export_cut_short
+    sink.close()
+    assert sink.lost_records == 0
+    assert sink.disabled.startswith("profiler trace unreadable")
+    assert "[obs] profiler trace unreadable" in capsys.readouterr().out

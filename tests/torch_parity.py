@@ -258,3 +258,45 @@ def cli_on_ranks(rank: int, world: int, argvs: list) -> list:
     from repro_torch.launch import cocoa_train
     return [{k: list(v) for k, v in cocoa_train.main(argv).items()}
             for argv in argvs]
+
+
+# ----------------------------------------------------------------------------
+# CoCoA-DP (optim.localdp): tests/test_optim.py's two-layer tanh network
+# ----------------------------------------------------------------------------
+
+def mlp_problem(K=4, n_per=64, d=8, seed=0):
+    """(params, Xs (K, n_per, d), ys (K, n_per, 1)) as numpy, drawn as
+    `tests/test_optim.py::_mlp_problem` draws them."""
+    rng = np.random.default_rng(seed)
+    Xs = rng.standard_normal((K, n_per, d)).astype(np.float32)
+    w_star = rng.standard_normal((d, 1)).astype(np.float32)
+    ys = (np.tanh(Xs @ w_star) + 0.01 * rng.standard_normal(
+        (K, n_per, 1)).astype(np.float32)).astype(np.float32)
+    params = {"w1": rng.standard_normal((d, 16)).astype(np.float32) * 0.3,
+              "w2": rng.standard_normal((16, 1)).astype(np.float32) * 0.3}
+    return params, Xs, ys
+
+
+def mlp_loss(p, batch):
+    """The port's loss of `mlp_problem`: mean squared error of
+    tanh(X w1) w2."""
+    X, y = batch
+    h = torch.tanh(X @ p["w1"])
+    return torch.mean((h @ p["w2"] - y) ** 2)
+
+
+def localdp_on_ranks(rank: int, world: int, params: dict, Xs, ys,
+                     cfg: dict, rounds: int) -> dict:
+    """`make_round_sharded(mlp_loss, LocalDPConfig(**cfg), mesh)` for
+    `rounds` rounds on a (world,) data mesh of CPU ranks; the final params
+    as numpy."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.optim.localdp import LocalDPConfig, make_round_sharded
+    mesh = make_process_mesh((world,), ("data",), device="cpu")
+    rf = make_round_sharded(mlp_loss, LocalDPConfig(**cfg), mesh)
+    p = {k: torch.from_numpy(v) for k, v in params.items()}
+    batches = (torch.from_numpy(Xs), torch.from_numpy(ys))
+    for _ in range(rounds):
+        p = rf(p, batches)
+    return {k: to_np(v) for k, v in p.items()}
