@@ -221,6 +221,38 @@ order, each failing the run with a non-zero exit:
                adding under int8 compression: the round's seconds,
                |sum_k delta_k|, the mean worker loss before and after,
                peak memory; everything finite
+ 21. windows   the twelfth slice, the card's memory freed first:
+               sliding-window attention, ring-buffer caches and the
+               RG-LRU (random bf16 weights from the seed,
+               use_flash_attention on). (a) gemma3-27b at full width and
+               depth (62 layers, 52 of them windowed at 1,024, d_model
+               5,376, 32 x 128 heads, kv 16, vocab 262,144, 27.0 B
+               weights): `ServingEngine(slots=4, s_max=4096)`, 6 requests
+               of 512-3,000 prompt tokens (multiples of 128; one below
+               the window, two above) and 32 new tokens, timed after the
+               same prompts warmed a throwaway engine; every request 32
+               in-range tokens, flash launched 10 times a prefill (the
+               global layers only), the longest prefill's logits with the
+               kernel within LOGITS_REL_RMS of the plain path's; then the
+               ring check: a 1,500-token prompt into one slot of 4,096,
+               16 teacher-forced decode steps, the last one's logits
+               against a cache-free forward over the 1,516 tokens (bf16,
+               LOGITS_REL_RMS), and at 8 layers in float32 the logits and
+               each windowed layer's output at that position within 1e-3
+               relative RMS, the same check with the ring write planted
+               one slot off failing. (b) recurrentgemma-9b at full width
+               and depth (38 layers: 26 RG-LRU, 12 windowed MQA at 2,048,
+               9.40 B weights): the same engine on prompts of 1,024-3,000
+               (two above the window), flash launched 0 times; the
+               scoring forward at B 1 x S 4,096, cold and warm; the ring
+               checks with a 2,500-token prompt, float32 at 4 layers.
+               (c) gemma2-27b at full width and 4 layers (softcaps 50 and
+               30, sandwich norms): a 4,500-token prompt past the 4,096
+               window, flash (2 launches) against the plain prefill, the
+               ring checks at 4 layers. Printed: prefill ms per request
+               and decode ms per engine step (host clock after a
+               synchronize), decode tokens/s, the idle share of one
+               decode step and one prefill, peak GB
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -3261,6 +3293,410 @@ def phase_train(dev):
     return {"train": train, "localdp": ldp, "s": took}
 
 
+# ----------------------------------------------------------------------------
+# the twelfth slice (phase 21): sliding windows, ring caches and the RG-LRU
+# ----------------------------------------------------------------------------
+
+WIN_SLOTS, WIN_S_MAX, WIN_NEW = 4, 4_096, 32    # phase 21's engines
+WIN_REQUESTS = 6
+WIN_DECODE = 16                # teacher-forced decode steps of a ring check
+# float32 ring check: the last decode's logits, and every windowed
+# attention layer's output at that position, against a cache-free forward
+# over the same tokens, relative RMS. Both sides are float32 without TF32
+# and part by sums in another order (~1e-6); a ring write one slot off
+# swaps one key of the window. The layers' outputs are checked beside the
+# logits because one key of a 2,048-key window moves recurrentgemma's
+# single windowed layer at 4 layers by a few percent, but its logits
+# perhaps by less than the limit.
+RING_F32_REL_RMS = 1e-3
+PROMPT_STEP = 128              # prompt lengths are multiples of this: a
+                               # prime length makes pick_chunk's query
+                               # chunks one token long
+
+
+def _prompt_lens(rng, lo, hi, window):
+    """WIN_REQUESTS prompt lengths in [lo, hi], multiples of PROMPT_STEP:
+    the first below `window` when lo < window, the next two above it, the
+    last the longest of the range (the prefill the bound is read at), the
+    rest anywhere."""
+    grid = list(range(lo + (-lo) % PROMPT_STEP, hi + 1, PROMPT_STEP))
+    lens = [int(x) for x in rng.choice(grid, size=WIN_REQUESTS)]
+    below = [g for g in grid if g < window]
+    first = 0
+    if below:
+        lens[0] = int(rng.choice(below))
+        first = 1
+    lens[first:first + 2] = [int(x) for x in rng.choice(
+        [g for g in grid if g > window], size=2)]
+    lens[-1] = grid[-1]
+    return lens
+
+
+def _win_model(dev, cfg, what):
+    import torch
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    kinds = [b.mixer if b.window is None else f"{b.mixer}/{b.window}"
+             for b in cfg.blocks()]
+    log(f"  {what}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.n_heads}x{cfg.head_dim} heads kv {cfg.n_kv} d_ff {cfg.d_ff} "
+        f"vocab {cfg.vocab} {cfg.dtype}, {n} params (random, made in "
+        f"{time.perf_counter() - t0:.1f} s); blocks "
+        + ", ".join(f"{k} x{kinds.count(k)}" for k in dict.fromkeys(kinds)))
+    return model, n
+
+
+def _win_serve(dev, cfg, model, lens, flash_per_prefill):
+    """A warm-up engine on the prompts, then the timed engine: every
+    request WIN_NEW in-range tokens, flash launched flash_per_prefill
+    times a prefill. Returns what was measured."""
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serving_runtime import ServingEngine
+    from repro_torch.models import model as M
+    stream = TokenStream(cfg.vocab, 1, max(lens), seed=SEED)
+    prompts = [stream.batch_at(i)["tokens"][0, :n]
+               for i, n in enumerate(lens)]
+    log(f"  ServingEngine(slots={WIN_SLOTS}, s_max={WIN_S_MAX}): prompts "
+        f"{lens}, {WIN_NEW} new tokens each")
+    t0 = time.perf_counter()
+    warm = ServingEngine(cfg, model, slots=WIN_SLOTS, s_max=WIN_S_MAX,
+                         device=dev)
+    for p in prompts:
+        warm.submit(p, max_new=2)
+    warm.run_until_drained()
+    torch.cuda.synchronize()
+    log(f"  warm-up engine: {len(prompts)} requests x 2 tokens in "
+        f"{time.perf_counter() - t0:.3f} s")
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServingEngine(cfg, model, slots=WIN_SLOTS, s_max=WIN_S_MAX,
+                        device=dev)
+    reqs = [eng.submit(p, max_new=WIN_NEW) for p in prompts]
+    counts = _counts_zero()
+    steps = []
+    t_run = time.perf_counter()
+    while True:
+        queued = len(eng.queue)
+        t0 = time.perf_counter()
+        live = eng.step()
+        torch.cuda.synchronize()
+        if live == 0 and not eng.queue:
+            break
+        steps.append((queued - len(eng.queue), live,
+                      (time.perf_counter() - t0) * 1e3))
+    run_s = time.perf_counter() - t_run
+    launches = counts()
+    log(f"  launches on the serving path: {launches}")
+    if launches["flash_attention"] != flash_per_prefill * len(reqs):
+        fail(f"phase 21: flash_attention launched "
+             f"{launches['flash_attention']} times for {len(reqs)} "
+             f"prefills, not {flash_per_prefill} a prefill")
+    if any(v for k, v in launches.items() if k != "flash_attention"):
+        fail(f"phase 21: the serving path launched another kernel: "
+             f"{launches}")
+    for r, p in zip(reqs, prompts):
+        if not (r.done and len(r.out) == WIN_NEW
+                and all(0 <= t < cfg.vocab for t in r.out)):
+            fail(f"phase 21: request {r.rid} (prompt {len(p)}): done="
+                 f"{r.done} {len(r.out)} tokens {r.out[:8]}...")
+    generated = sum(len(r.out) for r in reqs)
+    decode_ms = [ms for n, _, ms in steps if n == 0]
+    decode_tok = sum(live for n, live, _ in steps if n == 0)
+    log(f"  {len(reqs)} requests done, {generated} tokens in {len(steps)} "
+        f"engine steps, {run_s:.3f} s: {generated / run_s:.1f} generated "
+        f"tokens/s over the run (prefills included); live per step "
+        f"{[live for _, live, _ in steps]}")
+    log(f"  decode ms per engine step (steps without a prefill, "
+        f"{len(decode_ms)}): mean {sum(decode_ms) / len(decode_ms):.3f} "
+        f"min {min(decode_ms):.3f} max {max(decode_ms):.3f}; "
+        f"{1e3 * decode_tok / sum(decode_ms):.1f} tokens/s over those "
+        f"steps")
+    prefill_ms = []
+    for p in prompts:
+        cache = M.init_cache(cfg, 1, WIN_S_MAX, dev)
+        tok = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.prefill(model, {"tokens": tok}, cache)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    log("  prefill ms per request (one slot, host clock): " + ", ".join(
+        f"S={len(p)}: {ms:.3f}" for p, ms in zip(prompts, prefill_ms)))
+    longest = int(np.argmax(lens))
+    tok = torch.from_numpy(prompts[longest][None].astype(np.int64)).to(dev)
+    busy_prefill = _device_busy_ms(lambda: M.prefill(
+        model, {"tokens": tok}, M.init_cache(cfg, 1, WIN_S_MAX, dev)))
+    log(_busy_line(f"prefill S={lens[longest]}", busy_prefill,
+                   prefill_ms[longest]))
+    toks = torch.ones((WIN_SLOTS, 1), dtype=torch.int64, device=dev)
+    pos = max(lens) + WIN_NEW // 2
+    busy_decode = _device_busy_ms(lambda: M.decode_step(model, eng.cache,
+                                                        toks, pos))
+    log(_busy_line(f"decode step ({WIN_SLOTS} slots, pos {pos})",
+                   busy_decode, sum(decode_ms) / len(decode_ms)))
+    del eng
+    return {"launches": launches["flash_attention"], "prefills": len(reqs),
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "decode_tokens_s": 1e3 * decode_tok / sum(decode_ms),
+            "busy_prefill": busy_prefill, "busy_decode": busy_decode,
+            "tok": tok}
+
+
+def _flash_vs_plain(dev, cfg, model, tok, s_max, flash_per_prefill):
+    """One prefill through the flash kernel and the same through the
+    plain chunked_attention: the logits' relative RMS, within
+    LOGITS_REL_RMS; the kernel launched flash_per_prefill times."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    logits = {}
+    for flag in (True, False):
+        counts = _counts_zero()
+        logits[flag], _ = M.prefill(
+            model, {"tokens": tok}, M.init_cache(cfg, 1, s_max, dev),
+            dataclasses.replace(cfg, use_flash_attention=flag))
+        n = counts()["flash_attention"]
+        if n != (flash_per_prefill if flag else 0):
+            fail(f"phase 21: a prefill with use_flash_attention={flag} "
+                 f"launched flash {n} times")
+    rel = _rel_rms(logits[True], logits[False])
+    log(f"  prefill logits (S={tok.shape[1]}) flash ({flash_per_prefill} "
+        f"launches, the global layers) vs chunked_attention: rel RMS "
+        f"{rel:.3e} (limit {LOGITS_REL_RMS}), max |logit| "
+        f"{float(logits[False].abs().max()):.3e}")
+    if not (torch.isfinite(logits[True]).all() and rel <= LOGITS_REL_RMS):
+        fail(f"phase 21: flash prefill logits differ from the plain path: "
+             f"{rel}")
+    return rel
+
+
+def _ring_check(dev, cfg, model, seq, P, s_max):
+    """Prefill seq[:P] into a 1-slot cache of s_max, decode seq[P:] one
+    token a step (teacher-forced), and hold the last decode against a
+    cache-free forward over all of seq: (the logits' relative RMS, the
+    largest relative RMS of a windowed attention layer's output at the
+    last position)."""
+    import torch
+    from repro_torch.models import model as M
+    tok = torch.from_numpy(seq[None].astype("int64")).to(dev)
+    outs = []
+
+    def keep(real, blk, h, c, ctx, cache):
+        o, cache = real(blk, h, c, ctx, cache)
+        if blk.spec.window is not None:
+            outs.append(o[:, -1].float())
+        return o, cache
+
+    cache = M.init_cache(cfg, 1, s_max, dev)
+    M.prefill(model, {"tokens": tok[:, :P]}, cache, cfg)
+    with _wrapped(M.AttnBlock, "mix", keep):
+        for i in range(P, len(seq)):
+            outs.clear()
+            last, _ = M.decode_step(model, cache, tok[:, i:i + 1], i, cfg)
+        stepped = list(outs)
+        outs.clear()
+        full, _ = M.prefill(model, {"tokens": tok}, None, cfg)
+    del cache
+    if not (torch.isfinite(last).all() and torch.isfinite(full).all()):
+        fail("phase 21: a ring check's logits are not finite")
+    return (_rel_rms(last[:, -1], full[:, -1]),
+            max(_rel_rms(a, b) for a, b in zip(stepped, outs)))
+
+
+def _ring_seq(stream, P):
+    return stream.batch_at(99)["tokens"][0, :P + WIN_DECODE]
+
+
+def _ring_bf16(dev, cfg, model, seq, P, s_max):
+    """Phase 21's ring check at full depth in the model's bf16: the logits
+    within LOGITS_REL_RMS."""
+    W = min(b.window for b in cfg.blocks() if b.window)
+    got = _ring_check(dev, cfg, model, seq, P, s_max)
+    log(f"  ring check, {cfg.n_layers} layers {cfg.dtype}: prompt {P} "
+        f"(window {W}: the ring wrapped), {WIN_DECODE} decode steps, the "
+        f"last one's logits vs a cache-free forward over {len(seq)} "
+        f"tokens: rel RMS {got[0]:.3e} (limit {LOGITS_REL_RMS}); windowed "
+        f"layers' outputs, largest rel RMS {got[1]:.3e}")
+    if not got[0] <= LOGITS_REL_RMS:
+        fail(f"phase 21: ring decode differs from the cache-free forward: "
+             f"{got}")
+    return got
+
+
+def _ring_f32(dev, cfg, seq, P, s_max, layers):
+    """Phase 21's ring check at `layers` layers in float32 (full width):
+    the ring write right (within RING_F32_REL_RMS) and planted one slot
+    off, (pos + 1) mod W, which must fail. Call with the card's memory
+    free of the bf16 model."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    c32 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
+    model, _ = _win_model(dev, c32, f"float32 at {layers} layers")
+    right = _ring_check(dev, c32, model, seq, P, s_max)
+    with _wrapped(M, "ring_slot", lambda real, pos, w: real(pos + 1, w)):
+        planted = _ring_check(dev, c32, model, seq, P, s_max)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  ring check, {layers} layers float32: logits rel RMS "
+        f"{right[0]:.3e}, windowed layers' outputs largest {right[1]:.3e} "
+        f"(limit {RING_F32_REL_RMS} each); the ring write planted one slot "
+        f"off, (pos + 1) mod W: logits {planted[0]:.3e}, layers' outputs "
+        f"{planted[1]:.3e}")
+    if not max(right) <= RING_F32_REL_RMS:
+        fail(f"phase 21: float32 ring decode differs from the cache-free "
+             f"forward: {right}")
+    if not max(planted) > RING_F32_REL_RMS:
+        fail(f"phase 21: the ring check does not see a write one slot off: "
+             f"{planted}")
+    return {"f32": right, "planted": planted}
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _windows_gemma3(dev):
+    """[21a] gemma3-27b at full width and depth: the engine, flash on its
+    10 global layers only, the ring checks (bf16 full depth, float32 at 8
+    layers)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    cfg = dataclasses.replace(get_config("gemma3-27b"),
+                              use_flash_attention=True)
+    n_global = sum(1 for b in cfg.blocks() if b.window is None)
+    log("[21a windows] gemma3-27b at full width and depth")
+    model, n = _win_model(dev, cfg, "gemma3-27b")
+    torch.cuda.reset_peak_memory_stats()
+    lens = _prompt_lens(np.random.default_rng(SEED), 512, 3_000, 1_024)
+    out = _win_serve(dev, cfg, model, lens, n_global)
+    out["rel_flash"] = _flash_vs_plain(dev, cfg, model, out.pop("tok"),
+                                       WIN_S_MAX, n_global)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  peak {out['peak_gb']:.2f} GB after the weights were made ({n} "
+        f"params)")
+    seq = _ring_seq(TokenStream(cfg.vocab, 1, 1_500 + WIN_DECODE,
+                                seed=SEED), 1_500)
+    out["ring_bf16"] = _ring_bf16(dev, cfg, model, seq, 1_500, WIN_S_MAX)
+    del model
+    _free()
+    out.update(_ring_f32(dev, cfg, seq, 1_500, WIN_S_MAX, 8))
+    return out
+
+
+def _windows_recurrentgemma(dev):
+    """[21b] recurrentgemma-9b at full width and depth: the engine (flash
+    never launched: every attention block is windowed), the scoring
+    forward at B 1 x S 4,096, the ring checks (bf16 full depth, float32
+    at 4 layers)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              use_flash_attention=True)
+    log("[21b windows] recurrentgemma-9b at full width and depth")
+    model, n = _win_model(dev, cfg, "recurrentgemma-9b")
+    torch.cuda.reset_peak_memory_stats()
+    lens = _prompt_lens(np.random.default_rng(SEED + 1), 1_024, 3_000,
+                        2_048)
+    out = _win_serve(dev, cfg, model, lens, 0)
+    del out["tok"]
+    batch = TokenStream(cfg.vocab, 1, WIN_S_MAX, seed=SEED).tensors_at(0, dev)
+    with torch.no_grad():
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(M.forward_train(model, batch, cfg)[0])
+            secs.append(time.perf_counter() - t0)
+    out["score_s"] = secs
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  scoring forward (forward_train, no grad) B=1 S={WIN_S_MAX}: "
+        f"loss {loss:.4f} (ln vocab {math.log(cfg.vocab):.4f}), cold "
+        f"{secs[0]:.3f} s, warm {secs[1]:.3f} s; peak {out['peak_gb']:.2f} "
+        f"GB ({n} params)")
+    if not math.isfinite(loss):
+        fail(f"phase 21: recurrentgemma's scoring loss is {loss}")
+    seq = _ring_seq(TokenStream(cfg.vocab, 1, 2_500 + WIN_DECODE,
+                                seed=SEED), 2_500)
+    out["ring_bf16"] = _ring_bf16(dev, cfg, model, seq, 2_500, WIN_S_MAX)
+    del model, batch
+    _free()
+    out.update(_ring_f32(dev, cfg, seq, 2_500, WIN_S_MAX, 4))
+    return out
+
+
+GEMMA2_LAYERS = 4              # phase 21c's cut depth: two periods
+GEMMA2_PROMPT = 4_500          # past gemma2's 4,096 window
+
+
+def _windows_gemma2(dev):
+    """[21c] gemma2-27b at full width, 4 layers: a 4,500-token prompt
+    past the 4,096 window (the rolled prefill at the real window), flash
+    on the 2 global layers against the plain path, the ring checks."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    cfg = dataclasses.replace(get_config("gemma2-27b"),
+                              n_layers=GEMMA2_LAYERS,
+                              use_flash_attention=True)
+    s_max = GEMMA2_PROMPT + WIN_DECODE + 92      # 4,608
+    log(f"[21c windows] gemma2-27b at full width, {GEMMA2_LAYERS} layers")
+    model, _ = _win_model(dev, cfg, "gemma2-27b")
+    stream = TokenStream(cfg.vocab, 1, GEMMA2_PROMPT + WIN_DECODE,
+                         seed=SEED)
+    tok = torch.from_numpy(stream.batch_at(0)["tokens"][:, :GEMMA2_PROMPT]
+                           .astype("int64")).to(dev)
+    out = {"rel_flash": _flash_vs_plain(dev, cfg, model, tok, s_max, 2),
+           "launches": 2}
+    seq = _ring_seq(stream, GEMMA2_PROMPT)
+    out["ring_bf16"] = _ring_bf16(dev, cfg, model, seq, GEMMA2_PROMPT, s_max)
+    del model
+    _free()
+    out.update(_ring_f32(dev, cfg, seq, GEMMA2_PROMPT, s_max,
+                         GEMMA2_LAYERS))
+    return out
+
+
+def phase_windows(dev, rows):
+    """Phase 21: gemma3-27b and recurrentgemma-9b served at full width and
+    depth, gemma2-27b at full width and 4 layers, each with its ring
+    checks; the flash row's launches take in the serving paths'."""
+    t_start = time.perf_counter()
+    _free()
+    out = {}
+    for arch, part in (("gemma3-27b", _windows_gemma3),
+                       ("recurrentgemma-9b", _windows_recurrentgemma),
+                       ("gemma2-27b", _windows_gemma2)):
+        out[arch] = part(dev)
+        _free()
+    launches = {k: v["launches"] for k, v in out.items()}
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += sum(launches.values())
+            row["launches_phase21"] = launches
+    took = time.perf_counter() - t_start
+    log(f"  flash launches on phase 21's paths: {launches}; phase 21 took "
+        f"{took:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -3308,6 +3744,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(dev)
+    phase_windows(dev, rows)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

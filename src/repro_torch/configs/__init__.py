@@ -1,9 +1,10 @@
 """Architecture registry (`repro.configs` counterpart): the ported archs'
 exact configs plus the reduced smoke variants for CPU tests.
 
-Usage: get_config("stablelm-1.6b"), smoke_config("falcon-mamba-7b"), ARCHS.
-The reference's other archs need blocks the port does not have yet
-(MoE, windows, RG-LRU, M-RoPE, the encoder-decoder): asking for one raises.
+Usage: get_config("gemma2-27b"), smoke_config("recurrentgemma-9b"), ARCHS.
+The reference's other archs need what the port does not have yet (MoE,
+M-RoPE, embedding inputs, the encoder-decoder; paper-svm is a CoCoA+
+workload, not a model): asking for one raises.
 """
 from __future__ import annotations
 
@@ -14,11 +15,14 @@ from ..models.config import Block, ModelConfig  # noqa: F401  (re-export)
 
 _MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "gemma3-27b": "gemma3_27b",
+    "gemma-7b": "gemma_7b",
+    "gemma2-27b": "gemma2_27b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
-_UNPORTED = ("gemma3-27b", "gemma-7b", "gemma2-27b", "qwen2-vl-7b",
-             "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
-             "whisper-large-v3", "recurrentgemma-9b", "paper-svm")
+_UNPORTED = ("qwen2-vl-7b", "llama4-scout-17b-a16e",
+             "llama4-maverick-400b-a17b", "whisper-large-v3", "paper-svm")
 
 ARCHS = tuple(_MODULES)
 

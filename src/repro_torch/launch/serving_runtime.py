@@ -10,11 +10,13 @@ of the cache. The decode runs the whole pool at the *maximum* live position
 same tokens: a slot at a lower position writes its new K/V at that maximum
 and attends over the gap left in its rows.
 
-Slot caches are dense (S_max per slot) and updated in place: a slot's
-prefill writes through views of its rows. A refilled slot keeps the last
-request's K/V rows past its prompt, as the reference's does; its SSM
-state (h and the conv tail) is zeroed first, since a prefill continues
-from whatever state it is given.
+Slot caches are dense (S_max per slot), rings of `window` slots for
+sliding-window blocks (min(S_max, window) slots; a ring when that is the
+window), and updated in place: a slot's prefill writes through views of
+its rows, a prompt past the window rolled into its ring. A refilled slot
+keeps the last request's K/V rows past its prompt, as the reference's
+does; its SSM or RG-LRU state (h and the conv tail) is zeroed first,
+since a prefill continues from whatever state it is given.
 
 `submit` and `step` run under `torch.inference_mode()`: the weights are
 trainable parameters, and a serving step records no autograd graph.
@@ -67,7 +69,7 @@ class ServingEngine:
         sub = [{k: c[slot:slot + 1] for k, c in layer.items()}
                for layer in self.cache]
         for layer in sub:
-            if "h" in layer:        # a request starts from a zero SSM state
+            if "h" in layer:        # a request starts from a zero state
                 layer["h"].zero_()
                 layer["conv"].zero_()
         logits, _ = M.prefill(self.model, {"tokens": tokens}, sub, self.cfg)

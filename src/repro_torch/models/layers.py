@@ -1,6 +1,7 @@
 """Core NN layers (`repro.models.layers` counterpart): norms, partial RoPE,
-global-causal chunked-online-softmax attention (GQA/MQA, softcap,
-qk-norm), single-token decode attention, gated MLPs, embeddings.
+causal chunked-softmax attention, global or sliding-window (GQA/MQA,
+softcap, qk-norm), single-token decode attention over a dense cache or a
+ring buffer of `window` slots, gated MLPs, embeddings.
 
 Weights keep the reference's layout: a projection is stored (in, out) and
 applied as `x @ W`, so a reference pytree loads without transposes. Each
@@ -8,9 +9,8 @@ weight group is a `Params` module whose attribute names are the reference
 dict's keys, so a module's `state_dict` keys are the reference pytree's
 paths joined with dots.
 
-Not ported (ROADMAP.md Queue 1 item 13): M-RoPE, sliding-window and
-bidirectional attention, ring-buffer decode, MoE and RG-LRU. Asking for
-one raises.
+Not ported (ROADMAP.md Queue 1 item 13): M-RoPE, bidirectional and
+cross attention, MoE. Asking for one raises.
 """
 from __future__ import annotations
 
@@ -151,45 +151,79 @@ def _attn_scores(q, k, softcap):
 
 def chunked_attention(q, k, v, positions, *, causal=True, window=None,
                       softcap=None, q_chunk=512):
-    """Global-causal attention with a softmax over query chunks.
-    q: (B,S,H,hd), k/v: (B,S,KV,hd), positions: (B,S) int, the queries'
-    and the keys'. Returns (B,S,H,hd) in v's dtype."""
+    """Causal attention, global or over a sliding window, with a softmax
+    over query chunks. q: (B,S,H,hd), k/v: (B,S,KV,hd), positions: (B,S)
+    int, the queries' and the keys'. Returns (B,S,H,hd) in v's dtype.
+
+    A window W < S scores each chunk of C queries against a strip of
+    C + Wpad keys (Wpad = ceil(W/C)·C) starting Wpad before the chunk, so
+    the work is O(S·W); the mask 0 <= pq - pk < W is built from the
+    positions. As the reference's `dynamic_slice`, a strip that would run
+    past the end starts earlier instead of being cut short."""
     B, S, H, hd = q.shape
     if not causal:
         raise NotImplementedError(f"bidirectional attention is {_ITEM13}")
-    if window is not None and window < S:
-        raise NotImplementedError(f"sliding-window attention is {_ITEM13}")
     KV = k.shape[2]
     G = H // KV
     C = pick_chunk(S, q_chunk)
     qg = q.reshape(B, S, KV, G, hd)
+    windowed = window is not None and window < S
+    if windowed:
+        Wpad = -(-window // C) * C
+        T = min(C + Wpad, S)
     outs = []
     for qs in range(0, S, C):
         qc = qg[:, qs:qs + C]
         pq = positions[:, qs:qs + C]
-        s = _attn_scores(qc, k, softcap)                    # (B,KV,G,C,Sk)
-        m = pq[:, None, None, :, None] >= positions[:, None, None, None, :]
+        if windowed:
+            ks = min(max(qs - Wpad, 0), S - T)
+            kc, vc, pk = (t[:, ks:ks + T] for t in (k, v, positions))
+        else:
+            kc, vc, pk = k, v, positions
+        s = _attn_scores(qc, kc, softcap)                   # (B,KV,G,C,T)
+        dp = pq[:, None, None, :, None] - pk[:, None, None, None, :]
+        m = (dp >= 0) & (dp < window) if windowed else dp >= 0
         s = torch.where(m, s, NEG)
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bkgct,btkh->bckgh", p.to(v.dtype), v))
+        outs.append(torch.einsum("bkgct,btkh->bckgh", p.to(vc.dtype), vc))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
+
+
+def _decode_scores(q, kcache, vcache, valid, softcap):
+    """Attention of q (B,1,H,hd) over cache slots (B,T,KV,hd) where
+    `valid` (T,) bool says which slots count."""
+    B, T, KV, hd = kcache.shape
+    H = q.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    s = _attn_scores(qg, kcache, softcap)                   # (B,KV,G,1,T)
+    s = torch.where(valid, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgct,btkh->bckgh", p.to(vcache.dtype), vcache)
+    return out.reshape(B, 1, H, hd)
 
 
 def decode_attention(q, kcache, vcache, pos, *, window=None, softcap=None):
     """Single-token attention against a cache. q: (B,1,H,hd);
-    k/vcache: (B,S,KV,hd); pos: int, the last valid position."""
-    B, S, KV, hd = kcache.shape
+    k/vcache: (B,S,KV,hd); pos: int, the last valid position. A window
+    W < S scores only the W slots from clip(pos - (W-1), 0, S - W)."""
+    S = kcache.shape[1]
+    start, T = 0, S
     if window is not None and window < S:
-        raise NotImplementedError(f"windowed decode attention is {_ITEM13}")
-    H = q.shape[2]
-    G = H // KV
-    qg = q.reshape(B, 1, KV, G, hd)
-    s = _attn_scores(qg, kcache, softcap)                   # (B,KV,G,1,S)
-    m = torch.arange(S, device=q.device) <= pos
-    s = torch.where(m, s, NEG)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgct,btkh->bckgh", p.to(vcache.dtype), vcache)
-    return out.reshape(B, 1, H, hd)
+        start, T = min(max(pos - (window - 1), 0), S - window), window
+    idx = start + torch.arange(T, device=q.device)
+    return _decode_scores(q, kcache[:, start:start + T],
+                          vcache[:, start:start + T], idx <= pos, softcap)
+
+
+def decode_attention_ring(q, kcache, vcache, pos, *, window, softcap=None):
+    """Decode attention over a ring-buffer cache of `window` slots: slot j
+    holds position p_j = j + W·floor((pos - j)/W) <= pos, and a slot with
+    p_j < 0 has not been written yet."""
+    W = kcache.shape[1]
+    j = torch.arange(W, device=q.device)
+    p_j = j + W * torch.div(pos - j, W, rounding_mode="floor")
+    return _decode_scores(q, kcache, vcache, (p_j >= 0) & (p_j <= pos),
+                          softcap)
 
 
 def init_attn(gen, cfg, dtype):

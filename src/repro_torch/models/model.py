@@ -5,11 +5,14 @@ single-token decode with caches.
     Decoder                 embed (tok, head), blocks, final_norm
       AttnBlock             norm1, attn, [norm1_post], norm2, mlp, [norm2_post]
       SSMBlock              norm1, ssm, ...
+      RGLRUBlock            norm1, rglru, ...
 
 A plain loop over the layers takes the place of the reference's scan over
 stacked periods; the cache is a list with one dict per layer, {"k", "v"}
-(B, S_max, KV, hd) for attention and {"h", "conv"} for SSM blocks, and
-prefill and decode update it in place.
+(B, S_alloc, KV, hd) for attention and {"h", "conv"} for SSM and RG-LRU
+blocks, and prefill and decode update it in place. A sliding-window
+block's cache holds min(S_max, window) slots; when that is the window it
+is a ring buffer, position p in slot p mod window.
 
 Weight layout: as the reference, every projection is (in, out) and
 applied as `x @ W`; `params_from_reference` loads a reference `init_params`
@@ -21,8 +24,8 @@ block runs inside `torch.utils.checkpoint` when `cfg.remat` is set, the
 counterpart of the reference's `jax.checkpoint` over the scanned periods.
 `prefill` and `decode_step` run under `torch.inference_mode()`.
 
-Not ported (ROADMAP.md Queue 1 item 13): MoE, RG-LRU, sliding windows,
-M-RoPE, embedding inputs and the encoder-decoder; asking for one raises.
+Not ported (ROADMAP.md Queue 1 item 13): MoE, M-RoPE, embedding inputs
+and the encoder-decoder; asking for one raises.
 The reference's sharding-constraint and FSDP hooks have no counterpart:
 one card runs eagerly.
 """
@@ -41,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.flash_attention import flash_attention
 from . import layers as L
+from . import rglru as R
 from . import ssm as S
 from .config import Block, ModelConfig
 
@@ -55,12 +59,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.mrope_sections is not None:
         raise NotImplementedError(f"M-RoPE is {_ITEM13}")
     for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "ssm"):
-            raise NotImplementedError(f"the {spec.mixer} mixer is {_ITEM13}")
         if spec.mlp == "moe":
             raise NotImplementedError(f"MoE is {_ITEM13}")
-        if spec.window is not None:
-            raise NotImplementedError(f"windowed attention is {_ITEM13}")
 
 
 # ----------------------------------------------------------------------------
@@ -115,34 +115,58 @@ class _Block(nn.Module):
         return x, cache
 
 
+def ring_slot(pos: int, window: int) -> int:
+    """The slot of a ring of `window` slots that position `pos` goes to."""
+    return pos % window
+
+
 class AttnBlock(_Block):
     def __init__(self, gen, cfg, spec, dtype):
         super().__init__(gen, cfg, spec, dtype)
         self.attn = L.init_attn(gen, cfg, dtype)
 
     def mix(self, h, cfg, ctx, cache):
+        W = self.spec.window
         q, k, v = L.attn_qkv(self.attn, h, cfg, ctx["positions"],
                              _rope_base_for(cfg, self.spec))
+        # a windowed block's cache of `window` slots is a ring
+        ring = (W is not None and cache is not None
+                and cache["k"].shape[1] == W)
         if ctx["decode"]:
             pos = ctx["pos"]
             # the reference's dynamic_update_slice clamps the write index
-            wpos = min(max(pos, 0), cache["k"].shape[1] - 1)
+            wpos = ring_slot(pos, W) if ring else min(
+                max(pos, 0), cache["k"].shape[1] - 1)
             cache["k"][:, wpos:wpos + 1] = k.to(cache["k"].dtype)
             cache["v"][:, wpos:wpos + 1] = v.to(cache["v"].dtype)
-            o = L.decode_attention(q, cache["k"], cache["v"], pos,
-                                   softcap=cfg.attn_softcap)
+            if ring:
+                o = L.decode_attention_ring(q, cache["k"], cache["v"], pos,
+                                            window=W,
+                                            softcap=cfg.attn_softcap)
+            else:
+                o = L.decode_attention(q, cache["k"], cache["v"], pos,
+                                       window=W, softcap=cfg.attn_softcap)
         else:
-            if cfg.use_flash_attention and ctx["positions"].dim() == 2:
+            if (cfg.use_flash_attention and W is None
+                    and ctx["positions"].dim() == 2):
                 o = flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), softcap=cfg.attn_softcap)
             else:
-                o = L.chunked_attention(q, k, v, ctx["positions"],
+                o = L.chunked_attention(q, k, v, ctx["positions"], window=W,
                                         softcap=cfg.attn_softcap,
                                         q_chunk=cfg.q_chunk)
             if cache is not None:      # prefill: write into the cache
                 S_in = k.shape[1]
-                cache["k"][:, :S_in] = k.to(cache["k"].dtype)
-                cache["v"][:, :S_in] = v.to(cache["v"].dtype)
+                if ring and S_in >= W:
+                    # the last W tokens, rolled so token p lands in slot
+                    # p mod W; copied into the cache's own tensors (a
+                    # slot's view in the serving engine)
+                    shift = (S_in - W) % W
+                    cache["k"].copy_(torch.roll(k[:, S_in - W:], shift, 1))
+                    cache["v"].copy_(torch.roll(v[:, S_in - W:], shift, 1))
+                else:
+                    cache["k"][:, :S_in] = k.to(cache["k"].dtype)
+                    cache["v"][:, :S_in] = v.to(cache["v"].dtype)
         B, Sq = h.shape[:2]
         o = o.reshape(B, Sq, cfg.n_heads * cfg.head_dim) @ self.attn.wo
         return o, cache
@@ -157,7 +181,16 @@ class SSMBlock(_Block):
         return S.ssm_forward(self.ssm, h, cfg, cache)[0], cache
 
 
-_BLOCKS = {"attn": AttnBlock, "ssm": SSMBlock}
+class RGLRUBlock(_Block):
+    def __init__(self, gen, cfg, spec, dtype):
+        super().__init__(gen, cfg, spec, dtype)
+        self.rglru = R.init_rglru(gen, cfg, dtype)
+
+    def mix(self, h, cfg, ctx, cache):
+        return R.rglru_forward(self.rglru, h, cfg, cache)[0], cache
+
+
+_BLOCKS = {"attn": AttnBlock, "ssm": SSMBlock, "rglru": RGLRUBlock}
 
 
 def init_block(gen, cfg: ModelConfig, spec: Block, dtype):
@@ -167,9 +200,14 @@ def init_block(gen, cfg: ModelConfig, spec: Block, dtype):
 def init_block_cache(cfg: ModelConfig, spec: Block, B: int, S_max: int,
                      dtype, device):
     if spec.mixer == "attn":
-        shp = (B, S_max, cfg.n_kv, cfg.head_dim)
+        # a sliding-window block keeps a ring of `window` slots: O(W)
+        # memory whatever the context length
+        S_alloc = min(S_max, spec.window) if spec.window else S_max
+        shp = (B, S_alloc, cfg.n_kv, cfg.head_dim)
         return {"k": torch.zeros(shp, dtype=dtype, device=device),
                 "v": torch.zeros(shp, dtype=dtype, device=device)}
+    if spec.mixer == "rglru":
+        return R.init_rglru_cache(cfg, B, dtype, device)
     return S.init_ssm_cache(cfg, B, dtype, device)
 
 

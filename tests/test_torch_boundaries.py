@@ -52,7 +52,8 @@ def test_port_files_found():
             "prof.py", "cost.py", "dashboard.py", "validate.py",
             "regress.py", "straggler.py", "manager.py", "failures.py",
             "elastic.py", "baselines.py", "adamw.py", "localdp.py",
-            "train.py"} <= names
+            "train.py", "rglru.py", "gemma3_27b.py",
+            "recurrentgemma_9b.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "optim" / "compress.py"
             in PORT_FILES)
 

@@ -22,7 +22,7 @@ from repro_torch.kernels import ssm_scan as ss
 from repro_torch.models import layers as TL, model as TM, ssm as TS
 from repro_torch.models.config import Block
 
-from torch_parity import to_np, tree_to_numpy
+from torch_parity import reference_cache_layers, to_np, tree_to_numpy
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -32,7 +32,8 @@ from repro.data.tokens import TokenStream as RTokenStream  # noqa: E402
 from repro.models import layers as RL, model as RM, ssm as RS  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
-ARCHS = ["stablelm-1.6b", "falcon-mamba-7b"]
+ARCHS = ["stablelm-1.6b", "falcon-mamba-7b", "gemma-7b", "gemma2-27b",
+         "gemma3-27b", "recurrentgemma-9b"]
 
 
 @pytest.fixture(autouse=True)
@@ -161,10 +162,6 @@ def test_unported_attention_kinds_raise():
     pos = torch.arange(8)[None]
     with pytest.raises(NotImplementedError, match="item 13"):
         TL.chunked_attention(x, x, x, pos, causal=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TL.chunked_attention(x, x, x, pos, window=4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TL.decode_attention(x[:, :1], x, x, 3, window=4)
 
 
 @pytest.mark.parametrize("bias,qkn,pct", [(False, False, 0.25),
@@ -364,20 +361,6 @@ def test_forward_train_loss_mask_matches_reference(lm):
     assert abs(float(got) - float(want)) < 1e-4
 
 
-def _cache_leaves_ref(cache, cfg):
-    """The reference cache as one dict per layer (scan unstacked)."""
-    n_full, _ = RM._split_layers(cfg)
-    P = len(cfg.pattern)
-    layers = [None] * cfg.n_layers
-    for j, period in enumerate(cache.get("scan", ())):
-        for i in range(n_full):
-            layers[i * P + j] = {k: np.asarray(v[i]) for k, v in
-                                 period.items()}
-    for i, c in enumerate(cache["rest"]):
-        layers[n_full * P + i] = {k: np.asarray(v) for k, v in c.items()}
-    return layers
-
-
 @pytest.mark.parametrize("flag", [False, True])
 def test_prefill_and_decode_match_reference(lm, flag):
     cfg, params, model = lm
@@ -402,7 +385,7 @@ def test_prefill_and_decode_match_reference(lm, flag):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-4, atol=1e-5)
         nxt = np.asarray(jnp.argmax(want[:, -1], axis=-1))[:, None]
-    for g, w in zip(tcache, _cache_leaves_ref(rcache, cfg)):
+    for g, w in zip(tcache, reference_cache_layers(rcache, cfg)):
         assert g.keys() == w.keys()
         for key in g:
             np.testing.assert_allclose(to_np(g[key]), w[key], rtol=1e-4,
@@ -411,8 +394,6 @@ def test_prefill_and_decode_match_reference(lm, flag):
 
 @pytest.mark.parametrize("change", [
     dict(pattern=(Block(mlp="moe"),), n_experts=4),
-    dict(pattern=(Block(mixer="rglru", mlp="geglu"),)),
-    dict(pattern=(Block(window=16),)),
     dict(mrope_sections=(2, 3, 3)),
     dict(enc_layers=2, dec_layers=2),
     dict(input_mode="embeddings"),

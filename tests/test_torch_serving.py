@@ -8,7 +8,10 @@ cache leaf for one slot on `axis = ndim - 4` (serving_runtime.py:64-72),
 which is the batch axis of the stacked attention caches (n_periods, B, S,
 KV, hd) but the layer axis of the stacked SSM caches (n_periods, B, di, N)
 and (n_periods, B, W-1, di), so the reference engine cannot serve a mamba
-model. The port keeps one cache per layer and slices the batch axis.
+model. The RG-LRU caches of recurrentgemma, (n_periods, B, L) and
+(n_periods, B, W-1, L), meet the same fault. The port keeps one cache per
+layer and slices the batch axis (its recurrentgemma requests are held to
+one-row reference loops in tests/test_torch_windows.py).
 """
 import dataclasses
 
@@ -95,6 +98,30 @@ def test_reference_engine_slices_ssm_caches_on_the_layer_axis():
         assert axis == 0 and leaf.shape[0] == n_full != eng.B
     eng.submit(np.arange(1, 6, dtype=np.int32), max_new=3)
     with pytest.raises(TypeError, match="concatenate"):
+        eng.step()
+
+
+def test_reference_engine_slices_rglru_caches_on_the_layer_axis():
+    """Confirmed: recurrentgemma's stacked RG-LRU leaves are sliced on
+    their layer axis (ndim - 4 <= 0 -> 0), its stacked attention rings on
+    the batch axis; the first engine step raises (the conv tail keeps
+    both slots while the prompt has 1 row: (2, 3, 64) against (1, 40,
+    64))."""
+    cfg, params, _ = _weights("recurrentgemma-9b")
+    eng = REngine(cfg, params, slots=2, s_max=96)
+    n_full, _ = RM._split_layers(cfg)
+    for j, spec in enumerate(cfg.pattern):
+        for leaf in jax.tree.leaves(eng.cache["scan"][j]):
+            axis = leaf.ndim - 4 if leaf.ndim >= 4 else 0
+            if spec.mixer == "rglru":
+                assert axis == 0 and leaf.shape[0] == n_full != eng.B
+            else:
+                assert axis == 1 and leaf.shape[1] == eng.B
+    rng = np.random.default_rng(0)
+    for p in (40, 9, 50):
+        eng.submit(rng.integers(1, 500, (p,)).astype(np.int32), max_new=3)
+    with pytest.raises(TypeError, match=r"concatenate.*\(2, 3, 64\).*"
+                                        r"\(1, 40, 64\)"):
         eng.step()
 
 

@@ -30,7 +30,14 @@ from repro_torch.optim.localdp import (LocalDPConfig, decoder_loss_fn,
 
 import torch_parity as tp
 
-ARCHS = ("stablelm-1.6b", "falcon-mamba-7b")
+ARCHS = ("stablelm-1.6b", "falcon-mamba-7b", "gemma2-27b",
+         "recurrentgemma-9b")
+# the archs whose params after AdamW steps are held to the reference's;
+# gemma2's and recurrentgemma's grads are held leaf by leaf instead
+# (test_grads_match_reference): their smoke configs have grads of ~1e-8,
+# the size of AdamW's eps, where the first step's m / (sqrt(v) + eps)
+# turns a float32 rounding of the grad into ~5% of lr.
+STEP_ARCHS = ARCHS[:2]
 
 
 def _t(x):
@@ -67,7 +74,7 @@ def test_lm_trainer_learns():
     assert l1 < 0.5 * l0
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=STEP_ARCHS)
 def reference_steps(request):
     """The reference's weights and its params, loss and grad_norm after 1
     and 3 `train_step`s (float32 smoke config, lr 3e-4)."""
@@ -113,6 +120,39 @@ def _loss_and_grads(model, batch, cfg):
     loss.backward()
     return loss.detach(), {n: p.grad.clone()
                            for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grads_match_reference(arch):
+    """Every leaf's grad within 1e-4 of that leaf's largest |grad| of
+    `jax.grad` of the reference's loss (float32; the windowed and RG-LRU
+    backward through plain torch autograd), and one `train_step`'s loss
+    and grad_norm the reference's."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    params = RM.init_params(jax.random.PRNGKey(0), cfg)
+    batch = _batch(cfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: RM.forward_train(p, jbatch, cfg)[0]))(params)
+    init = tp.tree_to_numpy(params)
+    model = TM.params_from_reference(init, cfg, device="cpu")
+    got_loss, got = _loss_and_grads(model, _port(batch), cfg)
+    np.testing.assert_allclose(float(got_loss), float(loss), rtol=1e-5)
+    want = _named(TM.params_from_reference(tp.tree_to_numpy(grads), cfg,
+                                           device="cpu"))
+    assert got.keys() == want.keys()
+    for n, g in got.items():
+        scale = float(want[n].abs().max())
+        np.testing.assert_allclose(g.numpy(), want[n].numpy(), rtol=0,
+                                   atol=1e-4 * scale, err_msg=n)
+    _, _, m = jax.jit(lambda p, o, b: ref_train_step(p, o, b, cfg=cfg))(
+        params, ref_adamw_init(params), jbatch)
+    model = TM.params_from_reference(init, cfg, device="cpu")
+    _, _, got_m = train_step(model, init_opt(model), _port(batch), cfg=cfg)
+    np.testing.assert_allclose(float(got_m["loss"]), float(m["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got_m["grad_norm"]),
+                               float(m["grad_norm"]), rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -326,6 +366,24 @@ def test_run_training_on_the_cpu_logs_and_calls_back(capsys):
     model, opt, _ = run_training(cfg, None, stream, steps=6, log_every=10,
                                  params=model, opt=opt, start_step=4)
     assert int(opt.step) == 6
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "gemma3-27b",
+                                  "recurrentgemma-9b"])
+def test_run_training_runs_the_windowed_archs(arch):
+    """`run_training`, unchanged, on the archs with windows and RG-LRU
+    blocks (their steps are held to the reference's above): a falling
+    loss from the same few batches."""
+    cfg = smoke_config(arch)
+    toks = np.tile(np.arange(40) % 13 + 1, (2, 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    losses = []
+    run_training(cfg, None, iter([batch] * 6), steps=6, lr=3e-3,
+                 log_every=10, device="cpu",
+                 on_step=lambda t, model, opt, m: losses.append(
+                     float(m["loss"])))
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
 
 
 def test_run_training_defaults_to_the_card():

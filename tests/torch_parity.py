@@ -148,6 +148,22 @@ def tree_to_numpy(tree):
     return arr
 
 
+def reference_cache_layers(cache, cfg) -> list:
+    """A reference decoder cache ({"scan": per-pattern-position caches
+    stacked over the periods, "rest": the remainder's}) as one dict of
+    numpy arrays per layer, the port's layout."""
+    P = len(cfg.pattern)
+    n_full = cfg.n_layers // P
+    layers = [None] * cfg.n_layers
+    for j, period in enumerate(cache.get("scan", ())):
+        for i in range(n_full):
+            layers[i * P + j] = {k: np.asarray(v[i])
+                                 for k, v in period.items()}
+    for i, c in enumerate(cache["rest"]):
+        layers[n_full * P + i] = {k: np.asarray(v) for k, v in c.items()}
+    return layers
+
+
 def reference_in_child(code: str, *, devices: int = 4,
                        timeout: int = 600) -> dict:
     """Run reference code in a child process with `devices` forced host
