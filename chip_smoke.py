@@ -253,6 +253,52 @@ order, each failing the run with a non-zero exit:
                and decode ms per engine step (host clock after a
                synchronize), decode tokens/s, the idle share of one
                decode step and one prefill, peak GB
+ 22. moe       the thirteenth slice, the card's memory freed first: the
+               MoE (llama4) and M-RoPE with embedding inputs (qwen2-vl),
+               random bf16 weights from the seed, use_flash_attention on.
+               (a) llama4-scout at full width and 12 of 48 layers
+               (d_model 5,120, 40 x 128 heads, kv 8, 16 experts top-1
+               and the shared expert, d_ff 8,192, vocab 202,048, 28.5 B
+               weights): `ServingEngine(slots=4, s_max=4096)`, 6 requests
+               of 512-2,944 prompt tokens (multiples of 128) and 32 new
+               tokens, timed after a warm-up engine; every request 32
+               in-range tokens, flash launched 12 times a prefill and no
+               other kernel; the longest prefill with the kernel and
+               through the plain path, each on its own routes: the share
+               of tokens whose expert differs, per layer, from the routes
+               `layers.moe_route` gave, and the logits' relative RMS,
+               printed (a bf16 rounding that flips a near tie changes a
+               token wholesale, and the flips compound up the layers),
+               and the same for the plain path against itself with its
+               attention in float32, the witness that rounding alone
+               flips routes; then the plain path on the kernel prefill's
+               routes, its logits within LOGITS_REL_RMS of the kernel's;
+               the engine again with each decode step's dropped tokens
+               counted (all 4 slots, dead ones included, are one dispatch
+               group: C = 1);
+               the scoring forward at B 1 x S 4,096, cold and warm, loss
+               = xent + 0.01 aux; then the dispatch check: one MoE layer
+               at scout's width in float32 against float64 on the card at
+               T = 1,024 (capacity 1.25 and 1.0) and T = 4, expert ids and
+               keep masks equal, outputs within 1e-5 relative RMS, and
+               capacity C + 1 planted where tokens drop failing it.
+               (b) llama4-maverick at full width and 3 layers (dense
+               16,384, MoE of 128 experts, dense; 19.0 B weights): the
+               same engine, flash 3 times a prefill, the init's peak
+               apart from the serving peak. (c) qwen2-vl-7b at full width
+               and depth (28 layers, d_model 3,584, 28 x 128 heads, kv 4,
+               d_ff 18,944, qkv bias, M-RoPE (16, 24, 24), 7.62 B
+               weights) through `launch.serve`: a 2,048-embedding prefill
+               whose positions are 256 text positions, a 42 x 42 patch
+               grid (temporal constant, height and width along the grid)
+               and text, 32 greedy tokens through `serve_step`, flash
+               launched 0 times (3-D positions); the cache check: 16
+               teacher-forced decode steps against a cache-free prefill
+               over the 2,064 embeddings (the decoded tokens' table rows,
+               their positions on all three streams), in bf16 within
+               LOGITS_REL_RMS and at 4 layers in float32 within 1e-3; the
+               scoring forward at S 4,096 from embeddings. Printed as in
+               phase 21, with the init peaks and each part's seconds
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -3349,7 +3395,7 @@ def _win_model(dev, cfg, what):
     return model, n
 
 
-def _win_serve(dev, cfg, model, lens, flash_per_prefill):
+def _win_serve(dev, cfg, model, lens, flash_per_prefill, phase=21):
     """A warm-up engine on the prompts, then the timed engine: every
     request WIN_NEW in-range tokens, flash launched flash_per_prefill
     times a prefill. Returns what was measured."""
@@ -3394,16 +3440,16 @@ def _win_serve(dev, cfg, model, lens, flash_per_prefill):
     launches = counts()
     log(f"  launches on the serving path: {launches}")
     if launches["flash_attention"] != flash_per_prefill * len(reqs):
-        fail(f"phase 21: flash_attention launched "
+        fail(f"phase {phase}: flash_attention launched "
              f"{launches['flash_attention']} times for {len(reqs)} "
              f"prefills, not {flash_per_prefill} a prefill")
     if any(v for k, v in launches.items() if k != "flash_attention"):
-        fail(f"phase 21: the serving path launched another kernel: "
+        fail(f"phase {phase}: the serving path launched another kernel: "
              f"{launches}")
     for r, p in zip(reqs, prompts):
         if not (r.done and len(r.out) == WIN_NEW
                 and all(0 <= t < cfg.vocab for t in r.out)):
-            fail(f"phase 21: request {r.rid} (prompt {len(p)}): done="
+            fail(f"phase {phase}: request {r.rid} (prompt {len(p)}): done="
                  f"{r.done} {len(r.out)} tokens {r.out[:8]}...")
     generated = sum(len(r.out) for r in reqs)
     decode_ms = [ms for n, _, ms in steps if n == 0]
@@ -3445,7 +3491,7 @@ def _win_serve(dev, cfg, model, lens, flash_per_prefill):
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "decode_tokens_s": 1e3 * decode_tok / sum(decode_ms),
             "busy_prefill": busy_prefill, "busy_decode": busy_decode,
-            "tok": tok}
+            "tok": tok, "prompts": prompts}
 
 
 def _flash_vs_plain(dev, cfg, model, tok, s_max, flash_per_prefill):
@@ -3697,6 +3743,492 @@ def phase_windows(dev, rows):
     return out
 
 
+# ----------------------------------------------------------------------------
+# the thirteenth slice (phase 22): MoE (llama4) and M-RoPE with embedding
+# inputs (qwen2-vl)
+# ----------------------------------------------------------------------------
+
+SCOUT_LAYERS = 12              # of 48: 28.5 B bf16 weights, 57.0 GB
+MAVERICK_LAYERS = 3            # dense, MoE, dense: one period + the rest
+SCORE_S = 4_096                # the scoring forwards' sequence
+# the dispatch check: one scout MoE layer at full width in float32 (no
+# TF32) against the same layer in float64, both on the card, at
+# (tokens, capacity_factor); 4 tokens is a 4-slot decode step, C = 1
+DISPATCH_CASES = ((1_024, 1.25), (1_024, 1.0), (4, 1.25))
+DISPATCH_REL_RMS = 1e-5
+VL_PROMPT = 2_048              # qwen2-vl's prefill: 256 text positions,
+VL_TEXT, VL_GRID = 256, 42     # a 42 x 42 patch grid, then text
+VL_NEW = 32                    # greedy tokens decoded through serve_step
+VL_F32_LAYERS = 4
+VL_F32_REL_RMS = 1e-3          # float32 cache check, logits' relative RMS
+
+
+def _moe_routes(seen):
+    """An `around` for `layers.moe_route` that keeps each call's routes."""
+    def around(real, p, xt, cfg):
+        out = real(p, xt, cfg)
+        seen.append(out)
+        return out
+    return around
+
+
+def _moe_prefill(dev, cfg, model, tok, s_max, flash, n_flash, around):
+    """One prefill's last logits, use_flash_attention=`flash`, its
+    `layers.moe_route` calls going through `around`; flash launched
+    n_flash times (0 without it)."""
+    import dataclasses
+    from repro_torch.models import layers as L, model as M
+    counts = _counts_zero()
+    with _wrapped(L, "moe_route", around):
+        logits, _ = M.prefill(
+            model, {"tokens": tok}, M.init_cache(cfg, 1, s_max, dev),
+            dataclasses.replace(cfg, use_flash_attention=flash))
+    n = counts()["flash_attention"]
+    if n != (n_flash if flash else 0):
+        fail(f"phase 22: a prefill with use_flash_attention={flash} "
+             f"launched flash {n} times")
+    return logits
+
+
+def _f32_attention(real, q, k, v, positions, **kw):
+    """An `around` for `layers.chunked_attention`: the same attention with
+    q, k, v and the probabilities in float32, its output rounded to bf16
+    once. It differs from the bf16 plain path by rounding alone."""
+    return real(q.float(), k.float(), v.float(), positions,
+                **kw).to(v.dtype)
+
+
+def _route_flips(ra, rb):
+    """Per MoE layer: (share of tokens whose expert differs, whether the
+    last position's does)."""
+    return [(float((a[0] != b[0]).float().mean()), bool(a[0][-1] != b[0][-1]))
+            for a, b in zip(ra, rb)]
+
+
+def _moe_flash_vs_plain(dev, cfg, model, tok, s_max, n_flash):
+    """The longest prefill through the flash kernel and through the plain
+    chunked_attention, each routing by its own router logits: the share
+    of tokens whose expert differs, per MoE layer, and the logits'
+    relative RMS, printed. A top-1 route is a step function of the
+    logits, so a bf16 rounding that flips a near tie changes that token's
+    output wholesale, and the change reaches later tokens through the
+    attention. The witness that rounding alone does this: the plain
+    prefill again with its attention in float32 (`_f32_attention`),
+    printed the same way against the bf16 plain prefill. The check is
+    the plain prefill given the flash prefill's routes (expert, gate,
+    slot, keep) layer by layer: its logits within LOGITS_REL_RMS of the
+    flash prefill's."""
+    import torch
+    from repro_torch.models import layers as L
+    routes_f, routes_p, routes_32 = [], [], []
+    flash = _moe_prefill(dev, cfg, model, tok, s_max, True, n_flash,
+                         _moe_routes(routes_f))
+    plain = _moe_prefill(dev, cfg, model, tok, s_max, False, n_flash,
+                         _moe_routes(routes_p))
+    with _wrapped(L, "chunked_attention", _f32_attention):
+        plain32 = _moe_prefill(dev, cfg, model, tok, s_max, False, n_flash,
+                               _moe_routes(routes_32))
+    pairs = {"flash vs plain": (routes_f, routes_p, flash, plain),
+             "plain vs plain with float32 attention": (
+                 routes_p, routes_32, plain, plain32),
+             "flash vs plain with float32 attention": (
+                 routes_f, routes_32, flash, plain32)}
+    free = {}
+    for what, (ra, rb, la, lb) in pairs.items():
+        flips = _route_flips(ra, rb)
+        free[what] = {"flips": flips, "rel": _rel_rms(la, lb)}
+        log(f"  routes, {what} prefill (S={tok.shape[1]}): share of tokens "
+            f"whose expert differs, per MoE layer (* where the last "
+            f"position's differs): " + ", ".join(
+                f"{f:.4f}{'*' if last else ''}" for f, last in flips)
+            + f"; logits rel RMS {free[what]['rel']:.3e}")
+    given = iter(routes_f)
+    pinned = _moe_prefill(dev, cfg, model, tok, s_max, False, n_flash,
+                          lambda real, p, xt, c: next(given))
+    rel = _rel_rms(flash, pinned)
+    log(f"  prefill logits (S={tok.shape[1]}) flash ({n_flash} launches) "
+        f"vs chunked_attention on the flash prefill's routes: rel RMS "
+        f"{rel:.3e} (limit {LOGITS_REL_RMS}), max |logit| "
+        f"{float(pinned.abs().max()):.3e}")
+    if not (torch.isfinite(flash).all() and rel <= LOGITS_REL_RMS):
+        fail(f"phase 22: flash prefill logits differ from the plain path "
+             f"on the same routes: {rel}")
+    return {"rel": rel, "free": free}
+
+
+def _decode_drops(dev, cfg, model, prompts):
+    """The engine again on the same prompts, each MoE call's dropped
+    tokens counted in the decode steps (all WIN_SLOTS slots, dead ones
+    included, in one dispatch group): drops per decode step over the MoE
+    layers, summed, and the steps' live counts."""
+    import torch
+    from repro_torch.launch.serving_runtime import ServingEngine
+    from repro_torch.models import layers as L
+    eng = ServingEngine(cfg, model, slots=WIN_SLOTS, s_max=WIN_S_MAX,
+                        device=dev)
+    for p in prompts:
+        eng.submit(p, max_new=WIN_NEW)
+    step = []
+
+    def around(real, p, xt, c):
+        out = real(p, xt, c)
+        if xt.shape[0] == WIN_SLOTS:
+            step.append(torch.sum(~out[3]))
+        return out
+    drops, lives = [], []
+    with _wrapped(L, "moe_route", around):
+        while True:
+            step.clear()
+            live = eng.step()
+            if live == 0 and not eng.queue:
+                break
+            drops.append(int(sum(step)) if step else 0)
+            lives.append(live)
+    C = L.moe_capacity(WIN_SLOTS, cfg)
+    log(f"  decode drops per engine step ({WIN_SLOTS} slots, dead ones "
+        f"included, C = {C} a step, summed over the MoE layers): {drops} "
+        f"(live {lives})")
+    del eng
+    return drops
+
+
+def _moe_score(dev, cfg, model, batch, what):
+    """The scoring forward under no_grad, cold and warm: loss, xent and
+    aux finite, loss = xent + 0.01 aux to float32's rounding."""
+    import torch
+    from repro_torch.models import model as M
+    secs = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, m = M.forward_train(model, batch, cfg)
+            loss, xent, aux = float(loss), float(m["xent"]), float(
+                m["moe_aux"])
+            secs.append(time.perf_counter() - t0)
+    log(f"  scoring forward {what} B=1 S={SCORE_S}: loss {loss:.6f} = xent "
+        f"{xent:.6f} + 0.01 aux {aux:.6f} (ln vocab "
+        f"{math.log(cfg.vocab):.4f}); cold {secs[0]:.3f} s, warm "
+        f"{secs[1]:.3f} s")
+    if not all(math.isfinite(v) for v in (loss, xent, aux)):
+        fail(f"phase 22: {what} scoring gives loss {loss} xent {xent} aux "
+             f"{aux}")
+    if not math.isclose(loss, xent + 0.01 * aux, rel_tol=1e-6):
+        fail(f"phase 22: {what} loss {loss} is not xent + 0.01 aux "
+             f"{xent + 0.01 * aux}")
+    return {"loss": loss, "xent": xent, "aux": aux, "score_s": secs}
+
+
+def _params_as(p, dtype):
+    """A copy of a `layers.Params` group with every weight in `dtype`."""
+    from repro_torch.models import layers as L
+    return L.Params(**{**{n: w.detach().to(dtype)
+                          for n, w in p._parameters.items()},
+                       **{n: _params_as(m, dtype)
+                          for n, m in p._modules.items()}})
+
+
+def _dispatch_once(cfg, p32, p64, x, planted):
+    """One MoE layer in float32 and float64 on x: (expert ids equal, keep
+    masks equal, output rel RMS, drops in float64, smallest top-1/top-2
+    logit gap). `planted` gives the float32 run capacity C + 1."""
+    import torch
+    from repro_torch.models import layers as L
+    seen = []
+    with _wrapped(L, "moe_route", _moe_routes(seen)):
+        if planted:
+            with _wrapped(L, "moe_capacity",
+                          lambda real, Tg, c: real(Tg, c) + 1):
+                out32, aux32 = L.moe_forward(p32, x, cfg, cfg.d_ff)
+        else:
+            out32, aux32 = L.moe_forward(p32, x, cfg, cfg.d_ff)
+        out64, aux64 = L.moe_forward(p64, x.double(), cfg, cfg.d_ff)
+    (e32, _, _, k32, _), (e64, _, _, k64, prob) = seen
+    top2 = torch.topk(torch.log(prob), 2, dim=-1).values
+    return (bool(torch.equal(e32, e64)), bool(torch.equal(k32, k64)),
+            _rel_rms(out32.double(), out64),
+            int((~k64).sum()), float((top2[..., 0] - top2[..., 1]).min()),
+            abs(float(aux32) - float(aux64)) / float(aux64))
+
+
+def _dispatch_check(dev):
+    """[22a] The dispatch check: scout's MoE layer at full width (16
+    experts, d 5,120, d_ff 8,192, the shared expert) in float32 against
+    float64 on the card, routes equal and outputs within
+    DISPATCH_REL_RMS at each DISPATCH_CASES; capacity C + 1 planted where
+    tokens drop must fail it."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("llama4-scout-17b-a16e")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        p32 = L.init_moe(gen, cfg, cfg.d_ff, torch.float32)
+        p64 = _params_as(p32, torch.float64)
+        rng = np.random.default_rng(SEED)
+        out = []
+        for T, cf in DISPATCH_CASES:
+            c = dataclasses.replace(cfg, capacity_factor=cf)
+            x = _rand(rng, (1, T, cfg.d_model), dev)
+            right = _dispatch_once(c, p32, p64, x, planted=False)
+            C = L.moe_capacity(T, c)
+            log(f"  dispatch T={T} cf={cf} (C={C}): ids equal {right[0]}, "
+                f"keep equal {right[1]}, out rel RMS {right[2]:.3e} (limit "
+                f"{DISPATCH_REL_RMS}), aux rel {right[5]:.3e}, {right[3]} of "
+                f"{T} dropped, smallest top-1/top-2 log-prob gap "
+                f"{right[4]:.3e}")
+            if not (right[0] and right[1] and right[2] <= DISPATCH_REL_RMS):
+                fail(f"phase 22: float32 dispatch differs from float64 at "
+                     f"T={T} cf={cf}: {right}")
+            planted = None
+            if right[3]:
+                planted = _dispatch_once(c, p32, p64, x, planted=True)
+                log(f"    planted C + 1 = {C + 1}: ids equal {planted[0]}, "
+                    f"keep equal {planted[1]}, out rel RMS "
+                    f"{planted[2]:.3e}")
+                if planted[1] and planted[2] <= DISPATCH_REL_RMS:
+                    fail(f"phase 22: the dispatch check does not see "
+                         f"capacity C + 1 at T={T} cf={cf}: {planted}")
+            out.append({"T": T, "cf": cf, "C": C, "right": right,
+                        "planted": planted})
+    if not any(o["planted"] for o in out):
+        fail("phase 22: no dispatch case dropped a token; the planted "
+             "capacity fault was never tried")
+    del p32, p64
+    _free()
+    log(f"  dispatch check took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _moe_serve(dev, arch, layers, seed_off):
+    """[22a/b] llama4 at full width and `layers` layers: the engine with
+    flash on every layer, the longest prefill flash vs plain with the
+    routes, the decode's drops; the init's peak and the serving peak."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              use_flash_attention=True)
+    torch.cuda.reset_peak_memory_stats()
+    model, n = _win_model(dev, cfg, arch)
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    resident = torch.cuda.memory_allocated() / 1e9
+    log(f"  init peak {init_gb:.2f} GB for {resident:.2f} GB resident "
+        f"({n} params, experts drawn one at a time)")
+    torch.cuda.reset_peak_memory_stats()
+    # multiples of 128 in [512, 2,944], the last the longest (1,024 only
+    # spreads the draws: no block is windowed)
+    lens = _prompt_lens(np.random.default_rng(SEED + seed_off), 512, 2_944,
+                        1_024)
+    out = _win_serve(dev, cfg, model, lens, layers, phase=22)
+    out["flash_vs_plain"] = _moe_flash_vs_plain(
+        dev, cfg, model, out.pop("tok"), WIN_S_MAX, layers)
+    out["drops"] = _decode_drops(dev, cfg, model, out.pop("prompts"))
+    out["init_gb"], out["n"] = init_gb, n
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  serving peak {out['peak_gb']:.2f} GB")
+    return cfg, model, out
+
+
+def _moe_scout(dev):
+    """[22a] llama4-scout at full width, SCOUT_LAYERS layers: the engine,
+    the scoring forward at B 1 x S 4,096, then the dispatch check."""
+    from repro_torch.data import TokenStream
+    log(f"[22a moe] llama4-scout-17b-a16e at full width, {SCOUT_LAYERS} "
+        f"of 48 layers")
+    cfg, model, out = _moe_serve(dev, "llama4-scout-17b-a16e",
+                                 SCOUT_LAYERS, 2)
+    batch = TokenStream(cfg.vocab, 1, SCORE_S, seed=SEED).tensors_at(0, dev)
+    out.update(_moe_score(dev, cfg, model, batch, "scout"))
+    del model, batch
+    _free()
+    out["dispatch"] = _dispatch_check(dev)
+    return out
+
+
+def _moe_maverick(dev):
+    """[22b] llama4-maverick at full width, MAVERICK_LAYERS layers (dense
+    16,384, MoE of 128 experts, dense): the engine."""
+    log(f"[22b moe] llama4-maverick-400b-a17b at full width, "
+        f"{MAVERICK_LAYERS} of 48 layers")
+    _, model, out = _moe_serve(dev, "llama4-maverick-400b-a17b",
+                               MAVERICK_LAYERS, 3)
+    del model
+    return out
+
+
+def _vl_positions(S, dev):
+    """qwen2-vl's (3, 1, S) streams: VL_TEXT text positions (all three
+    equal), a VL_GRID x VL_GRID patch grid (temporal constant, height and
+    width along the grid), then text from the largest position + 1."""
+    import torch
+    t = torch.arange(VL_TEXT)
+    cell = torch.arange(VL_GRID ** 2)
+    row, col = cell // VL_GRID, cell % VL_GRID
+    after = VL_TEXT + VL_GRID + torch.arange(S - VL_TEXT - VL_GRID ** 2)
+    streams = torch.stack([
+        torch.cat([t, torch.full_like(cell, VL_TEXT), after]),
+        torch.cat([t, VL_TEXT + row, after]),
+        torch.cat([t, VL_TEXT + col, after])])
+    return streams[:, None].to(torch.int32).to(dev)
+
+
+def _vl_cache_check(dev, cfg, model, emb, pos, toks):
+    """Prefill the embeddings, decode `toks` one a step (teacher-forced),
+    and hold the last step's logits against a cache-free prefill over the
+    prompt's embeddings and the token table's rows of `toks`, at
+    positions P.. on all three streams: the logits' relative RMS."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    P, n = emb.shape[1], toks.shape[1]
+    cache = M.init_cache(cfg, 1, P + n, dev)
+    serve.prefill_step(model, {"embeds": emb, "positions": pos}, cache,
+                       cfg=cfg)
+    for i in range(n):
+        last, _ = M.decode_step(model, cache, toks[:, i:i + 1], P + i, cfg)
+    del cache
+    with torch.no_grad():
+        tail = model.embed.tok[toks[0]][None].to(emb.dtype)
+    full_pos = torch.cat(
+        [pos, torch.arange(P, P + n, dtype=pos.dtype, device=dev)
+         .expand(3, 1, n)], dim=-1)
+    full, _ = M.prefill(model, {"embeds": torch.cat([emb, tail], dim=1),
+                                "positions": full_pos}, None, cfg)
+    if not (torch.isfinite(last).all() and torch.isfinite(full).all()):
+        fail("phase 22: qwen2-vl's cache check logits are not finite")
+    return _rel_rms(last[:, -1], full[:, -1])
+
+
+def _vl(dev):
+    """[22c] qwen2-vl-7b at full width and depth from random embeddings
+    with M-RoPE streams: prefill and greedy decode through `launch.serve`
+    (flash never launched: 3-D positions), the cache checks (bf16 at full
+    depth, float32 at VL_F32_LAYERS), the scoring forward at S 4,096."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"),
+                              use_flash_attention=True)
+    log("[22c vlm] qwen2-vl-7b at full width and depth, embeddings with "
+        f"M-RoPE {cfg.mrope_sections}")
+    torch.cuda.reset_peak_memory_stats()
+    model, n = _win_model(dev, cfg, "qwen2-vl-7b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    emb32 = torch.randn((1, VL_PROMPT + WIN_DECODE, cfg.d_model),
+                        generator=gen, device=dev)
+    emb = emb32[:, :VL_PROMPT].to(torch.bfloat16)
+    pos = _vl_positions(VL_PROMPT, dev)
+    batch = {"embeds": emb, "positions": pos}
+    s_max = VL_PROMPT + VL_NEW
+    counts = _counts_zero()
+    prefill_ms = []
+    for _ in range(2):                       # cold, then warm
+        cache = M.init_cache(cfg, 1, s_max, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = serve.prefill_step(model, batch, cache)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    out_toks, decode_ms = [int(nxt)], []
+    for i in range(VL_NEW - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, cache = serve.serve_step(model, cache, nxt, VL_PROMPT + i)
+        out_toks.append(int(nxt))
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = counts()
+    log(f"  launches on the path: {launches}")
+    if any(launches.values()):
+        fail(f"phase 22: qwen2-vl's path launched a kernel: {launches}")
+    if not all(0 <= t < cfg.vocab for t in out_toks):
+        fail(f"phase 22: qwen2-vl decoded {out_toks}")
+    warm = decode_ms[1:]
+    log(f"  prefill S={VL_PROMPT} (text {VL_TEXT}, grid {VL_GRID}x{VL_GRID}"
+        f", text {VL_PROMPT - VL_TEXT - VL_GRID ** 2}): cold "
+        f"{prefill_ms[0]:.3f} ms, warm {prefill_ms[1]:.3f} ms; {VL_NEW} "
+        f"greedy tokens {out_toks[:8]}...; decode ms a step (B=1, warm "
+        f"{len(warm)}): mean {sum(warm) / len(warm):.3f} min "
+        f"{min(warm):.3f} max {max(warm):.3f}, "
+        f"{1e3 * len(warm) / sum(warm):.1f} tokens/s")
+    busy_prefill = _device_busy_ms(lambda: serve.prefill_step(
+        model, batch, M.init_cache(cfg, 1, s_max, dev)))
+    log(_busy_line(f"prefill S={VL_PROMPT}", busy_prefill, prefill_ms[1]))
+    busy_decode = _device_busy_ms(lambda: M.decode_step(
+        model, cache, nxt, VL_PROMPT + VL_NEW - 1))
+    log(_busy_line("decode step (B=1)", busy_decode,
+                   sum(warm) / len(warm)))
+    del cache
+    toks = torch.from_numpy(TokenStream(cfg.vocab, 1, WIN_DECODE, seed=SEED)
+                            .batch_at(5)["tokens"].astype("int64")).to(dev)
+    bf16 = _vl_cache_check(dev, cfg, model, emb, pos, toks)
+    log(f"  cache check, {cfg.n_layers} layers bf16: prefill {VL_PROMPT}, "
+        f"{WIN_DECODE} teacher-forced decode steps, the last one's logits "
+        f"vs a cache-free prefill over {VL_PROMPT + WIN_DECODE} embeddings: "
+        f"rel RMS {bf16:.3e} (limit {LOGITS_REL_RMS})")
+    if not bf16 <= LOGITS_REL_RMS:
+        fail(f"phase 22: qwen2-vl decode differs from the cache-free "
+             f"prefill: {bf16}")
+    labels = TokenStream(cfg.vocab, 1, SCORE_S, seed=SEED).tensors_at(
+        0, dev)["labels"]
+    score_batch = {"embeds": torch.randn((1, SCORE_S, cfg.d_model),
+                                         generator=gen, device=dev).to(
+                                             torch.bfloat16),
+                   "positions": _vl_positions(SCORE_S, dev),
+                   "labels": labels}
+    score = _moe_score(dev, cfg, model, score_batch, "qwen2-vl")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  peak {peak:.2f} GB ({n} params)")
+    del model, score_batch
+    _free()
+    c32 = dataclasses.replace(cfg, n_layers=VL_F32_LAYERS, dtype="float32")
+    model32, _ = _win_model(dev, c32, f"float32 at {VL_F32_LAYERS} layers")
+    f32 = _vl_cache_check(dev, c32, model32, emb32[:, :VL_PROMPT], pos, toks)
+    log(f"  cache check, {VL_F32_LAYERS} layers float32: rel RMS {f32:.3e} "
+        f"(limit {VL_F32_REL_RMS})")
+    if not f32 <= VL_F32_REL_RMS:
+        fail(f"phase 22: float32 qwen2-vl decode differs from the "
+             f"cache-free prefill: {f32}")
+    del model32
+    return {"launches": 0, "prefill_ms": prefill_ms, "decode_ms": warm,
+            "busy_prefill": busy_prefill, "busy_decode": busy_decode,
+            "cache_bf16": bf16, "cache_f32": f32, "peak_gb": peak, **score}
+
+
+def phase_moe(dev, rows):
+    """Phase 22: llama4-scout (12 layers) and llama4-maverick (3 layers)
+    served at full width, with the dispatch check; qwen2-vl-7b at full
+    width and depth from embeddings; the flash row's launches take in the
+    llama4 serving paths'."""
+    t_start = time.perf_counter()
+    _free()
+    out = {}
+    for arch, part in (("llama4-scout-17b-a16e", _moe_scout),
+                       ("llama4-maverick-400b-a17b", _moe_maverick),
+                       ("qwen2-vl-7b", _vl)):
+        t0 = time.perf_counter()
+        out[arch] = part(dev)
+        _free()
+        log(f"  {arch} took {time.perf_counter() - t0:.1f} s")
+    launches = {k: v["launches"] for k, v in out.items()}
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += sum(launches.values())
+            row["launches_phase22"] = launches
+    took = time.perf_counter() - t_start
+    log(f"  flash launches on phase 22's paths: {launches}; phase 22 took "
+        f"{took:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -3745,6 +4277,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train(dev)
     phase_windows(dev, rows)
+    phase_moe(dev, rows)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -2,9 +2,9 @@
 exact configs plus the reduced smoke variants for CPU tests.
 
 Usage: get_config("gemma2-27b"), smoke_config("recurrentgemma-9b"), ARCHS.
-The reference's other archs need what the port does not have yet (MoE,
-M-RoPE, embedding inputs, the encoder-decoder; paper-svm is a CoCoA+
-workload, not a model): asking for one raises.
+The reference's other archs need what the port does not have yet (the
+encoder-decoder; paper-svm is a CoCoA+ workload, not a model): asking
+for one raises.
 """
 from __future__ import annotations
 
@@ -20,9 +20,11 @@ _MODULES = {
     "gemma2-27b": "gemma2_27b",
     "stablelm-1.6b": "stablelm_1_6b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "llama4-scout-17b-a16e": "llama4_scout",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
 }
-_UNPORTED = ("qwen2-vl-7b", "llama4-scout-17b-a16e",
-             "llama4-maverick-400b-a17b", "whisper-large-v3", "paper-svm")
+_UNPORTED = ("whisper-large-v3", "paper-svm")
 
 ARCHS = tuple(_MODULES)
 

@@ -18,6 +18,22 @@ keeps the last request's K/V rows past its prompt, as the reference's
 does; its SSM or RG-LRU state (h and the conv tail) is zeroed first,
 since a prefill continues from whatever state it is given.
 
+Under MoE the decode runs all B slots, dead ones included, as one batch
+of T = B tokens, so each expert has C = ceil(B · capacity_factor / E)
+slots in a step (1 for llama4-scout's 16 experts at 4 slots, and for
+maverick's 128): when two slots route to one expert, the later slot
+gets only the shared expert, and a dead slot ahead of a live one can
+take the capacity. That is the reference's engine
+(`repro.launch.serving_runtime`), kept so both give the same tokens. A
+prefill runs one slot, B = 1 and T = the prompt's length, so its
+capacity follows the prompt.
+
+The engine serves token models. An "embeddings" model (qwen2-vl) has no
+prompt tokens to prefill from, as the reference's engine has none (its
+slot prefill passes `{"tokens": ...}`): it is refused here, and served
+through `launch.serve.prefill_step` with `{"embeds", "positions"}` and
+`serve_step`.
+
 `submit` and `step` run under `torch.inference_mode()`: the weights are
 trainable parameters, and a serving step records no autograd graph.
 """
@@ -48,8 +64,10 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, model: M.Decoder, *, slots: int = 4,
                  s_max: int = 256, eos: Optional[int] = None,
                  device=DEFAULT_DEVICE):
-        if cfg.is_encdec():
-            raise NotImplementedError("token LMs only")
+        if cfg.is_encdec() or cfg.input_mode != "tokens":
+            raise NotImplementedError(
+                "token LMs only: serve an embeddings model through "
+                "launch.serve.prefill_step and serve_step")
         self.device = torch.empty(0, device=resolve_device(device)).device
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "

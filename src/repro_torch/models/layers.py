@@ -1,7 +1,8 @@
-"""Core NN layers (`repro.models.layers` counterpart): norms, partial RoPE,
-causal chunked-softmax attention, global or sliding-window (GQA/MQA,
-softcap, qk-norm), single-token decode attention over a dense cache or a
-ring buffer of `window` slots, gated MLPs, embeddings.
+"""Core NN layers (`repro.models.layers` counterpart): norms, partial RoPE
+and M-RoPE, causal chunked-softmax attention, global or sliding-window
+(GQA/MQA, softcap, qk-norm), single-token decode attention over a dense
+cache or a ring buffer of `window` slots, gated MLPs, the top-1 MoE with
+capacity-dropped dispatch, embeddings.
 
 Weights keep the reference's layout: a projection is stored (in, out) and
 applied as `x @ W`, so a reference pytree loads without transposes. Each
@@ -9,8 +10,16 @@ weight group is a `Params` module whose attribute names are the reference
 dict's keys, so a module's `state_dict` keys are the reference pytree's
 paths joined with dots.
 
-Not ported (ROADMAP.md Queue 1 item 13): M-RoPE, bidirectional and
-cross attention, MoE. Asking for one raises.
+The MoE is the reference's portable path (`moe_forward`) in one
+dispatch group: no caller sets the reference's `MOE_CTX["groups"]`, and
+it comes back with a process mesh that would. The reference's expert
+parallelism has no counterpart on one card: `_moe_forward_shardmap` and
+the `mesh`, `spec`, `dp`, `tp`, `fsdp` and `gather_weights` fields of
+`set_moe_ctx` / `MOE_CTX` shard the experts over a device mesh with
+FSDP weight gathers (ROADMAP.md Queue 1 item 13f).
+
+Not ported (ROADMAP.md Queue 1 item 13): bidirectional and cross
+attention (the encoder-decoder). Asking for one raises.
 """
 from __future__ import annotations
 
@@ -54,12 +63,22 @@ def init_device(gen) -> torch.device:
 
 def dense_init(gen: torch.Generator, shape, dtype, scale=None):
     """Normal(0, scale) draws from `gen`, on `gen`'s device; scale defaults
-    to 1/sqrt(fan_in) with fan_in = shape[0]."""
+    to 1/sqrt(fan_in) with fan_in = shape[0]. A stack of 3 or more axes
+    (the experts) is drawn one slice of axis 0 at a time in float32, so
+    the transient is one slice's and not the stack's (maverick's
+    (128, 5120, 8192) is 21.5 GB in float32)."""
+    shape = tuple(shape)
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(tuple(shape), generator=gen, device=init_device(gen),
-                    dtype=torch.float32)
-    return (x * s).to(dtype)
+    if len(shape) < 3:
+        x = torch.randn(shape, generator=gen, device=init_device(gen),
+                        dtype=torch.float32)
+        return (x * s).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=init_device(gen))
+    if gen is not None:
+        for piece in out:
+            piece.copy_(dense_init(gen, shape[1:], dtype, scale=s))
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -107,14 +126,21 @@ def rope_freqs(head_dim, rope_pct, base, device=None):
 
 def apply_rope(x, positions, *, rope_pct=1.0, base=10_000.0,
                mrope_sections=None):
-    """x: (..., S, H, hd); positions: (..., S) int."""
-    if mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE is {_ITEM13}")
+    """x: (..., S, H, hd); positions: (..., S) int, or (3, ..., S) under
+    M-RoPE: the rot/2 frequency slots are split into `mrope_sections`,
+    each driven by its own position stream (temporal, height, width)."""
     hd = x.shape[-1]
     inv, rot = rope_freqs(hd, rope_pct, base, x.device)
     if rot == 0:
         return x
-    theta = positions[..., None].float() * inv
+    if mrope_sections is not None:
+        assert sum(mrope_sections) == rot // 2, (mrope_sections, rot)
+        pos = torch.cat([positions[i][..., None].expand(
+                             *positions[i].shape, n)
+                         for i, n in enumerate(mrope_sections)], dim=-1)
+        theta = pos.float() * inv                          # (..., S, rot/2)
+    else:
+        theta = positions[..., None].float() * inv
     cos = torch.cos(theta)[..., None, :]                   # (..., S, 1, rot/2)
     sin = torch.sin(theta)[..., None, :]
     xr, xp = x[..., :rot], x[..., rot:]
@@ -274,8 +300,6 @@ def attn_qkv(p: Params, x, cfg, positions, rope_base, cross_kv=None):
 # ----------------------------------------------------------------------------
 
 def init_mlp(gen, d, dff, kind, dtype):
-    if kind == "moe":
-        raise NotImplementedError(f"MoE is {_ITEM13}")
     if kind in ("geglu", "swiglu"):
         return Params(wi=dense_init(gen, (d, dff), dtype),
                       wg=dense_init(gen, (d, dff), dtype),
@@ -293,6 +317,80 @@ def mlp_forward(p: Params, x, kind):
     else:  # gelu
         h = F.gelu(x @ p.wi, approximate="tanh")
     return h @ p.wo
+
+
+# ----------------------------------------------------------------------------
+# MoE: top-1 router, capacity-dropped dispatch into (G, E, C, d)
+# ----------------------------------------------------------------------------
+
+def init_moe(gen, cfg, dff, dtype):
+    E, d = cfg.n_experts, cfg.d_model
+    p = {"router": dense_init(gen, (d, E), dtype, scale=0.02),
+         "wi": dense_init(gen, (E, d, dff), dtype),
+         "wg": dense_init(gen, (E, d, dff), dtype),
+         "wo": dense_init(gen, (E, dff, d), dtype)}
+    if cfg.shared_expert:
+        p["shared"] = init_mlp(gen, d, dff, "swiglu", dtype)
+    return Params(**p)
+
+
+def moe_capacity(T: int, cfg) -> int:
+    """Slots an expert has in a dispatch of T tokens."""
+    return max(1, int(math.ceil(T * cfg.capacity_factor / cfg.n_experts)))
+
+
+def moe_route(p: Params, xt, cfg):
+    """Top-1 routing of the tokens xt (T, d). Returns (eid, gate, pos,
+    keep, prob): each token's expert (T,), its gate (the expert's
+    probability, float32), its slot (its rank among the tokens routed to
+    that expert, in token order), whether the slot is under the capacity,
+    and the router's float32 softmax (T, E)."""
+    E = cfg.n_experts
+    prob = torch.softmax((xt @ p.router).float(), dim=-1)
+    eid = torch.argmax(prob, dim=-1)
+    onehot = F.one_hot(eid, E)
+    gate = torch.sum(prob * onehot, dim=-1)
+    pos = torch.sum((torch.cumsum(onehot, dim=0) - 1) * onehot, dim=-1)
+    keep = pos < moe_capacity(xt.shape[0], cfg)
+    return eid, gate, pos, keep, prob
+
+
+def moe_forward(p: Params, x, cfg, dff, aux: bool = True):
+    """Top-1 capacity-dropped MoE over x (B, S, d); returns (out, aux),
+    aux None when not asked for (serving throws it away).
+
+    The T = B·S tokens are one dispatch group with C = ceil(T ·
+    capacity_factor / E) slots an expert. A token at slot >= C is
+    dropped: its expert output is 0 and the shared expert still applies.
+    Kept tokens are scattered into a zeroed (E, C, d) buffer, every
+    expert runs on its C slots (three batched products over E), and the
+    outputs are gathered back, scaled by the gate. The scatter and the
+    gather index a flat buffer with one spare row that dropped tokens
+    write to and read zeros from, so no step waits on the host.
+    aux = E · Σ_e mean(prob)_e · mean(onehot)_e, the load-balance
+    loss."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    T = B * S
+    xt = x.reshape(T, d)
+    eid, gate, pos, keep, prob = moe_route(p, xt, cfg)
+    C = moe_capacity(T, cfg)
+    spare = E * C
+    idx = torch.where(keep, eid * C + pos, spare)
+    buf = x.new_zeros(spare + 1, d).index_put((idx,), xt)
+    buf = buf[:spare].reshape(E, C, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p.wg))
+    h = h * torch.einsum("ecd,edf->ecf", buf, p.wi)
+    out_e = torch.einsum("ecf,efd->ecd", h, p.wo)
+    out_e = torch.cat([out_e.reshape(spare, d), out_e.new_zeros(1, d)])
+    out = out_e[idx] * (gate * keep).to(x.dtype)[:, None]
+    if "shared" in p:
+        out = out + mlp_forward(p.shared, xt, "swiglu")
+    if not aux:
+        return out.reshape(B, S, d), None
+    me = torch.mean(prob, dim=0)
+    ce = torch.mean(F.one_hot(eid, E).float(), dim=0)
+    return out.reshape(B, S, d), E * torch.sum(me * ce)
 
 
 # ----------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 single-token decode with caches.
 
     Decoder                 embed (tok, head), blocks, final_norm
-      AttnBlock             norm1, attn, [norm1_post], norm2, mlp, [norm2_post]
+      AttnBlock             norm1, attn, [norm1_post], norm2, mlp or moe,
+                            [norm2_post]
       SSMBlock              norm1, ssm, ...
       RGLRUBlock            norm1, rglru, ...
 
@@ -24,14 +25,23 @@ block runs inside `torch.utils.checkpoint` when `cfg.remat` is set, the
 counterpart of the reference's `jax.checkpoint` over the scanned periods.
 `prefill` and `decode_step` run under `torch.inference_mode()`.
 
-Not ported (ROADMAP.md Queue 1 item 13): MoE, M-RoPE, embedding inputs
-and the encoder-decoder; asking for one raises.
-The reference's sharding-constraint and FSDP hooks have no counterpart:
-one card runs eagerly.
+A block whose `spec.mlp` is "moe" holds `moe` (`layers.moe_forward`)
+in place of `mlp`; in the scoring forward each block returns its
+load-balance aux, summed over the layers, and the loss is
+xent + 0.01 · aux, as the reference's (prefill and decode skip the
+aux). An "embeddings" model (qwen2-vl) takes `batch["embeds"]`
+in place of tokens; under M-RoPE positions are (3, B, S) streams, the
+causal mask reads the temporal one, and a decode step writes one
+position to all three.
+
+Not ported (ROADMAP.md Queue 1 item 13): the encoder-decoder; asking
+for it raises. The reference's sharding-constraint and FSDP hooks, and
+its expert-parallel MoE, have no counterpart: one card runs eagerly.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,13 +64,6 @@ _ITEM13 = "not ported yet (ROADMAP.md Queue 1 item 13)"
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encdec():
         raise NotImplementedError(f"the encoder-decoder is {_ITEM13}")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"embedding inputs are {_ITEM13}")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE is {_ITEM13}")
-    for spec in cfg.pattern:
-        if spec.mlp == "moe":
-            raise NotImplementedError(f"MoE is {_ITEM13}")
 
 
 # ----------------------------------------------------------------------------
@@ -78,7 +81,8 @@ def _rope_base_for(cfg: ModelConfig, spec: Block):
 
 
 class _Block(nn.Module):
-    """Pre-norm residual block: mixer (a subclass's `mix`) then the MLP."""
+    """Pre-norm residual block: mixer (a subclass's `mix`) then the MLP or
+    the MoE."""
 
     def __init__(self, gen, cfg: ModelConfig, spec: Block, dtype):
         super().__init__()
@@ -89,8 +93,12 @@ class _Block(nn.Module):
             self.norm1_post = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
         if spec.mlp is not None:
             self.norm2 = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
-            self.mlp = L.init_mlp(gen, cfg.d_model, _block_dff(cfg, spec),
-                                  spec.mlp, dtype)
+            if spec.mlp == "moe":
+                self.moe = L.init_moe(gen, cfg, _block_dff(cfg, spec),
+                                      dtype)
+            else:
+                self.mlp = L.init_mlp(gen, cfg.d_model,
+                                      _block_dff(cfg, spec), spec.mlp, dtype)
             if cfg.post_norms:
                 self.norm2_post = L.init_norm(cfg.d_model, cfg.norm, dtype,
                                               dev)
@@ -99,8 +107,10 @@ class _Block(nn.Module):
         raise NotImplementedError
 
     def forward(self, x, cfg: ModelConfig, ctx, cache=None):
-        """Returns (x, cache). ctx keys: positions, pos (decode write
-        index), decode (bool)."""
+        """Returns (x, cache, moe_aux); moe_aux is None without an MoE or
+        without ctx["aux"]. ctx keys: positions, pos (decode write index),
+        decode (bool), aux (bool: compute the MoE aux)."""
+        aux = None
         h = L.apply_norm(self.norm1, x, cfg.norm)
         o, cache = self.mix(h, cfg, ctx, cache)
         if cfg.post_norms:
@@ -108,11 +118,16 @@ class _Block(nn.Module):
         x = x + o
         if self.spec.mlp is not None:
             h2 = L.apply_norm(self.norm2, x, cfg.norm)
-            o2 = L.mlp_forward(self.mlp, h2, self.spec.mlp)
+            if self.spec.mlp == "moe":
+                o2, aux = L.moe_forward(self.moe, h2, cfg,
+                                        _block_dff(cfg, self.spec),
+                                        aux=ctx["aux"])
+            else:
+                o2 = L.mlp_forward(self.mlp, h2, self.spec.mlp)
             if cfg.post_norms:
                 o2 = L.apply_norm(self.norm2_post, o2, cfg.norm)
             x = x + o2
-        return x, cache
+        return x, cache, aux
 
 
 def ring_slot(pos: int, window: int) -> int:
@@ -147,12 +162,16 @@ class AttnBlock(_Block):
                 o = L.decode_attention(q, cache["k"], cache["v"], pos,
                                        window=W, softcap=cfg.attn_softcap)
         else:
+            # M-RoPE's (3, B, S) positions never reach the kernel; the
+            # mask reads their temporal stream
+            positions = ctx["positions"]
             if (cfg.use_flash_attention and W is None
-                    and ctx["positions"].dim() == 2):
+                    and positions.dim() == 2):
                 o = flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), softcap=cfg.attn_softcap)
             else:
-                o = L.chunked_attention(q, k, v, ctx["positions"], window=W,
+                mask_pos = positions[0] if positions.dim() == 3 else positions
+                o = L.chunked_attention(q, k, v, mask_pos, window=W,
                                         softcap=cfg.attn_softcap,
                                         q_chunk=cfg.q_chunk)
             if cache is not None:      # prefill: write into the cache
@@ -256,9 +275,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=DEFAULT_DEVICE):
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Total parameters; without MoE blocks (which raise) every one is
-    active, so `active_only` changes nothing."""
-    return sum(p.numel() for p in Decoder(cfg, device="meta").parameters())
+    """Total parameters; `active_only` counts top_k experts of each MoE
+    block in place of all E (at `cfg.d_ff`, as the reference does)."""
+    total = sum(p.numel() for p in Decoder(cfg, device="meta").parameters())
+    if active_only and cfg.n_experts > 1:
+        n_moe = sum(1 for b in cfg.blocks() if b.mlp == "moe")
+        total -= (n_moe * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model
+                  * cfg.d_ff)
+    return total
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=DEFAULT_DEVICE):
@@ -306,13 +330,23 @@ def params_from_reference(params, cfg: ModelConfig, device=DEFAULT_DEVICE):
 
 
 def _embed_inputs(model: Decoder, batch, cfg: ModelConfig):
+    if cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(getattr(torch, cfg.dtype))
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        return x
     return L.embed_tokens(model.embed, batch["tokens"].long(), cfg)
 
 
 def _positions(cfg, batch, B, Sq, device):
+    """A batch's own positions, else 0..Sq-1 for every row: (B, Sq), or
+    (len(mrope_sections), B, Sq) under M-RoPE."""
     if "positions" in batch:
         return batch["positions"]
-    return torch.arange(Sq, dtype=torch.int32, device=device).expand(B, Sq)
+    pos = torch.arange(Sq, dtype=torch.int32, device=device).expand(B, Sq)
+    if cfg.mrope_sections is not None:
+        pos = pos.expand(len(cfg.mrope_sections), B, Sq)
+    return pos
 
 
 # remat_policy "dots": keep the outputs of the matmuls without batch
@@ -329,15 +363,16 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _remat_block(block, x, cfg, ctx):
-    """`block(x)` under `torch.utils.checkpoint`. The block's weights are
-    taken now and handed to the recompute, so a backward under
-    `torch.func.functional_call` recomputes with the weights the forward
-    used, not the module's own."""
+    """`block(x)` under `torch.utils.checkpoint`: (x, moe_aux). The
+    block's weights are taken now and handed to the recompute, so a
+    backward under `torch.func.functional_call` recomputes with the
+    weights the forward used, not the module's own."""
     weights = dict(block.named_parameters())
 
     def run(x, weights):
-        return torch.func.functional_call(block, weights,
-                                          (x, cfg, ctx, None))[0]
+        x, _, aux = torch.func.functional_call(block, weights,
+                                               (x, cfg, ctx, None))
+        return x, aux
 
     context = (functools.partial(create_selective_checkpoint_contexts,
                                  _dots_saveable)
@@ -347,15 +382,21 @@ def _remat_block(block, x, cfg, ctx):
 
 
 def _run_stack(model: Decoder, x, cfg, ctx, cache: Optional[List] = None):
-    """All layers, then the final norm. Returns (x, cache). Under grad and
-    `cfg.remat` (no cache), each block is rematerialized in the backward."""
+    """All layers, then the final norm. Returns (x, cache, the MoE aux
+    summed over the layers, or None when no block gave one). Under grad
+    and `cfg.remat` (no cache), each block is rematerialized in the
+    backward."""
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    aux_total = None
     for i, block in enumerate(model.blocks):
         if remat:
-            x = _remat_block(block, x, cfg, ctx)
+            x, aux = _remat_block(block, x, cfg, ctx)
         else:
-            x, _ = block(x, cfg, ctx, None if cache is None else cache[i])
-    return L.apply_norm(model.final_norm, x, cfg.norm), cache
+            x, _, aux = block(x, cfg, ctx,
+                              None if cache is None else cache[i])
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return L.apply_norm(model.final_norm, x, cfg.norm), cache, aux_total
 
 
 def chunked_xent(model: Decoder, x, labels, mask, cfg):
@@ -376,8 +417,9 @@ def chunked_xent(model: Decoder, x, labels, mask, cfg):
 
 
 def forward_train(model: Decoder, batch, cfg: Optional[ModelConfig] = None):
-    """The training and scoring forward. batch: tokens + labels (+
-    loss_mask) tensors on the model's device. Returns (loss, metrics);
+    """The training and scoring forward. batch: tokens (or embeds, and
+    positions under M-RoPE) + labels (+ loss_mask) tensors on the model's
+    device. Returns (xent + 0.01 · moe_aux, {"xent", "moe_aux"});
     differentiable in the weights (`loss.backward()`, `launch.train`).
     Score under `torch.no_grad()`: the flash and scan kernels have no
     backward and refuse inputs that require grad."""
@@ -385,16 +427,17 @@ def forward_train(model: Decoder, batch, cfg: Optional[ModelConfig] = None):
     x = _embed_inputs(model, batch, cfg)
     B, Sq = x.shape[:2]
     ctx = {"positions": _positions(cfg, batch, B, Sq, x.device), "pos": None,
-           "decode": False}
-    x, _ = _run_stack(model, x, cfg, ctx)
+           "decode": False, "aux": True}
+    x, _, aux = _run_stack(model, x, cfg, ctx)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     loss = chunked_xent(model, x, labels, mask, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"xent": loss, "moe_aux": aux}      # no MoE: aux is 0
+    return loss + 0.01 * aux, {"xent": loss, "moe_aux": aux}
 
 
 @torch.inference_mode()
@@ -405,8 +448,8 @@ def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
     x = _embed_inputs(model, batch, cfg)
     B, Sq = x.shape[:2]
     ctx = {"positions": _positions(cfg, batch, B, Sq, x.device), "pos": 0,
-           "decode": False}
-    x, cache = _run_stack(model, x, cfg, ctx, cache)
+           "decode": False, "aux": False}
+    x, cache, _ = _run_stack(model, x, cfg, ctx, cache)
     return L.lm_logits(model.embed, x[:, -1:], cfg), cache
 
 
@@ -414,11 +457,14 @@ def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
 def decode_step(model: Decoder, cache, tokens, pos: int,
                 cfg: Optional[ModelConfig] = None):
     """One decode step. tokens: (B,1) int; pos: int (write index, also the
-    attended-up-to position). Returns (logits (B,1,V), cache)."""
+    attended-up-to position; under M-RoPE the position of all three
+    streams). Returns (logits (B,1,V), cache)."""
     cfg = cfg or model.cfg
     x = L.embed_tokens(model.embed, tokens.long(), cfg)
     B = x.shape[0]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    ctx = {"positions": posv, "pos": int(pos), "decode": True}
-    x, cache = _run_stack(model, x, cfg, ctx, cache)
+    if cfg.mrope_sections is not None:
+        posv = posv.expand(len(cfg.mrope_sections), B, 1)
+    ctx = {"positions": posv, "pos": int(pos), "decode": True, "aux": False}
+    x, cache, _ = _run_stack(model, x, cfg, ctx, cache)
     return L.lm_logits(model.embed, x, cfg), cache

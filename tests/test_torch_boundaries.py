@@ -53,7 +53,8 @@ def test_port_files_found():
             "regress.py", "straggler.py", "manager.py", "failures.py",
             "elastic.py", "baselines.py", "adamw.py", "localdp.py",
             "train.py", "rglru.py", "gemma3_27b.py",
-            "recurrentgemma_9b.py"} <= names
+            "recurrentgemma_9b.py", "llama4_scout.py", "llama4_maverick.py",
+            "qwen2_vl_7b.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "optim" / "compress.py"
             in PORT_FILES)
 

@@ -59,7 +59,7 @@ def _params(tree):
 # configs and tokens
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_configs_equal_the_reference(arch):
     assert (dataclasses.asdict(tconfigs.get_config(arch))
             == dataclasses.asdict(rconfigs.get_config(arch)))
@@ -117,6 +117,10 @@ def test_norms_match_reference():
                                 jnp.asarray(b))), rtol=RTOL, atol=ATOL)
 
 
+# M-RoPE sections of each rope_pct at head_dim 16: they sum to rot / 2
+MROPE_SECTIONS = {1.0: (2, 3, 3), 0.25: (1, 1, 0), 0.5: (2, 1, 1)}
+
+
 @pytest.mark.parametrize("pct", [1.0, 0.25, 0.5])
 def test_rope_matches_reference(pct):
     rng = np.random.default_rng(1)
@@ -128,8 +132,16 @@ def test_rope_matches_reference(pct):
         np.asarray(RL.apply_rope(jnp.asarray(x), jnp.asarray(pos),
                                  rope_pct=pct, base=10_000.0)),
         rtol=1e-5, atol=2e-6)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TL.apply_rope(_t(x), _t(pos), mrope_sections=(2, 3, 3))
+    # M-RoPE: three streams that differ, so each section's stream shows
+    streams = np.stack([pos, 2 * pos + 3, pos[:, ::-1]]).astype(np.int32)
+    secs = MROPE_SECTIONS[pct]
+    np.testing.assert_allclose(
+        TL.apply_rope(_t(x), _t(streams), rope_pct=pct, base=10_000.0,
+                      mrope_sections=secs).numpy(),
+        np.asarray(RL.apply_rope(jnp.asarray(x), jnp.asarray(streams),
+                                 rope_pct=pct, base=10_000.0,
+                                 mrope_sections=secs)),
+        rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("H,KV,cap,chunk", [(4, 2, None, 8), (4, 1, 30.0, 16),
@@ -324,10 +336,12 @@ def test_params_from_reference_carries_every_leaf(lm):
     assert TM.count_params(cfg) == RM.count_params(cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_count_params_full_size(arch):
     cfg = tconfigs.get_config(arch)
     assert TM.count_params(cfg) == RM.count_params(cfg)
+    assert (TM.count_params(cfg, active_only=True)
+            == RM.count_params(cfg, active_only=True))
     assert cfg.param_count() == TM.count_params(cfg)
 
 
@@ -392,17 +406,25 @@ def test_prefill_and_decode_match_reference(lm, flag):
                                        atol=1e-5)
 
 
+# the encoder-decoder is the one model structure left unported: it raises
+# whatever else the config asks for (MoE, M-RoPE and embedding inputs
+# build on their own: tests/test_torch_moe.py)
+ENCDEC = dict(enc_layers=2, dec_layers=2)
+
+
 @pytest.mark.parametrize("change", [
-    dict(pattern=(Block(mlp="moe"),), n_experts=4),
-    dict(mrope_sections=(2, 3, 3)),
-    dict(enc_layers=2, dec_layers=2),
-    dict(input_mode="embeddings"),
+    dict(ENCDEC, pattern=(Block(mlp="moe"),), n_experts=4),
+    dict(ENCDEC, mrope_sections=(2, 3, 3)),
+    ENCDEC,
+    dict(ENCDEC, input_mode="embeddings"),
 ])
 def test_unported_model_features_raise(change):
     cfg = dataclasses.replace(tconfigs.smoke_config("stablelm-1.6b"),
                               **change)
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         TM.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        TM.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_model_defaults_to_cuda():
