@@ -299,6 +299,28 @@ order, each failing the run with a non-zero exit:
                LOGITS_REL_RMS and at 4 layers in float32 within 1e-3; the
                scoring forward at S 4,096 from embeddings. Printed as in
                phase 21, with the init peaks and each part's seconds
+ 23. whisper   the fourteenth slice, the card's memory freed first: the
+               encoder-decoder, whisper-large-v3 at full width and depth
+               (32 + 32 layers, d_model 1,280, 20 x 64 heads, d_ff 5,120,
+               vocab 51,866, 1.535 B random bf16 weights from the seed,
+               use_flash_attention on, which whisper ignores as the
+               reference does) through `launch.serve`: 4 streams of 1,500
+               random frame embeddings (a 30-second window) prefilled
+               (zero logits; encoder and cross K/V), 4 forced prompt
+               tokens and greedy `serve_step`s to position 447, a step at
+               448 refused with ValueError, no kernel launched; the cache
+               check: the served decode's logits at 16 positions against
+               `logits_encdec`, the cache-free teacher-forced forward over
+               the 448 tokens fed, in bf16 within LOGITS_REL_RMS, and at
+               4 + 4 layers in float32 within 1e-5, the same check with
+               stream b's cross K/V served to stream b + 1 failing it; 3
+               `train_step`s (AdamW, lr 1e-5) of the served model under
+               remat at B 2 x 1,500 frames x 448 tokens on one batch, the
+               last step's loss and a forward after it below the first
+               step's. Printed: prefill and decode ms beside their bounds
+               (`_whisper_bounds`), tokens/s, one prefill's and one
+               decode step's device kernels and idle share, the warm
+               training step's s and tokens/s, peak GB
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -4229,6 +4251,349 @@ def phase_moe(dev, rows):
     return out
 
 
+# ----------------------------------------------------------------------------
+# phase 23: the encoder-decoder (whisper-large-v3)
+# ----------------------------------------------------------------------------
+
+WH_STREAMS = 4                 # streams served at once
+WH_FRAMES = 1_500              # a 30-second window: 10 ms hops, halved by
+                               # the stride-2 conv (arXiv:2212.04356)
+WH_PROMPT = 4                  # forced prompt tokens, then greedy
+WH_CHECKED = 16                # positions whose logits the cache check reads
+WH_F32_LAYERS = 4              # encoder and decoder layers of the float32
+                               # cache check
+# a cached decode against the cache-free teacher-forced forward, float32
+# at full width: the two differ only in the order of float32 sums
+WH_F32_REL_RMS = 1e-5
+WH_TRAIN_B = 2                 # training: B 2 x 1,500 frames x 448 tokens
+WH_TRAIN_STEPS = 3
+# from random weights with no warm-up (whisper-large's own peak, 1.75e-4,
+# comes after 2,048 warm-up updates: arXiv:2212.04356), AdamW's first
+# updates move every weight by ~lr and the loss rises at step 3 at 3e-4
+# and 1e-4, in float32 as in bf16 and at 4 to 32 layers a side; at 1e-5
+# it falls (tools/whisper_lr_sweep.py). The reference, on the same
+# weights at 4 + 4 layers, rises with the port to 2e-6
+# (tests/whisper_lr_witness.py --weights port)
+WH_TRAIN_LR = 1e-5
+# the ValueError a decode step past the decoder's context raises
+WH_PAST = "outside the decoder's context"
+
+
+def _whisper_bounds(cfg, B, T, pos):
+    """(prefill FLOP, its bound ms, a decode step's bytes at `pos`, its
+    bound ms) for this run's shapes: the prefill's encoder matmuls,
+    attention (QK and PV) and cross K/V at 989 TFLOP/s; the decode
+    step's decoder weights but the cross wk / wv (the cache holds their
+    product), the token table (the logits read all of it), the cross
+    cache and the self cache's pos + 1 slots, at 3.35 TB/s."""
+    hw = _hw(bf16=True)
+    d, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                       cfg.d_ff)
+    attn_w = 2 * d * H * hd + 2 * d * KV * hd
+    enc = 2 * B * T * (attn_w + 2 * d * F) * cfg.enc_layers
+    scores = 2 * 2 * B * H * T * T * hd * cfg.enc_layers
+    cross = 2 * B * T * 2 * d * KV * hd * cfg.dec_layers
+    flop = enc + scores + cross
+    size = 2                                           # bf16 bytes
+    norms = 3 * 2 * d
+    layer = attn_w + 2 * d * H * hd + 2 * d * F + norms
+    weights = (layer * cfg.dec_layers + 2 * d + d + cfg.vocab * d) * size
+    caches = cfg.dec_layers * B * KV * hd * size * 2 * (T + pos + 1)
+    nbytes = weights + caches
+    return (flop, flop / hw.peak_flops * 1e3, nbytes,
+            nbytes / hw.hbm_bw * 1e3, {"encoder": enc, "attention": scores,
+                                       "cross_kv": cross})
+
+
+def _whisper_decode(model, cfg, cache, feed, checked):
+    """Decode positions 0..MAX_WHISPER_DEC-1 through `serve.serve_step`,
+    one step a position, each timed on the host clock after a
+    synchronize: the token at pos is feed[:, pos] while pos < feed's
+    length, else the last step's greedy token. Returns (the tokens fed
+    (B, MAX_WHISPER_DEC), {pos: float32 logits (B, V)} at `checked`,
+    step ms, the last greedy tokens)."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    seen = {}
+
+    def keep(real, *args):
+        logits, c = real(*args)
+        if args[3] in checked:
+            seen[args[3]] = logits[:, 0]
+        return logits, c
+
+    fed, step_ms = [], []
+    tok = feed[:, :1]
+    with _wrapped(M, "decode_step", keep):
+        for pos in range(M.MAX_WHISPER_DEC):
+            fed.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, cache = serve.serve_step(model, cache, tok, pos, cfg=cfg)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tok = feed[:, pos + 1:pos + 2] if pos + 1 < feed.shape[1] else nxt
+    return torch.cat(fed, dim=1), seen, step_ms, tok
+
+
+def _host_speed(dev):
+    """What the host's speed at launching work depends on: the objects
+    the garbage collector tracks, one full collection's ms, and the host
+    µs of one small in-place add (the median of 5 rounds of 1,000, each
+    round ended by a synchronize)."""
+    import torch
+    n = len(gc.get_objects())
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_ms = (time.perf_counter() - t0) * 1e3
+    x = torch.zeros(1, device=dev)
+    rounds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1_000):
+            x.add_(1)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - t0)
+    return n, gc_ms, 1e3 * sorted(rounds)[2]
+
+
+def _whisper_check(model, cfg, frames, fed, seen):
+    """The relative RMS of the cached decode's logits at the checked
+    positions against `logits_encdec`, the cache-free teacher-forced
+    forward over the same frames and tokens."""
+    import torch
+    from repro_torch.models import model as M
+    at = sorted(seen)
+    with torch.no_grad():
+        full = M.logits_encdec(model, {"frames": frames, "tokens": fed}, cfg)
+    got = torch.stack([seen[p] for p in at], dim=1)
+    want = full[:, at]
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail("phase 23: a cache check's logits are not finite")
+    return _rel_rms(got, want)
+
+
+def _whisper_f32(dev, cfg, frames32, fed, checked):
+    """Phase 23's cache check at WH_F32_LAYERS + WH_F32_LAYERS layers in
+    float32, full width: the tokens `fed` teacher-forced, right (within
+    WH_F32_REL_RMS) and with stream b's cross K/V served to stream b + 1
+    (rolled on the batch axis after the prefill), which must fail."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    c32 = dataclasses.replace(cfg, enc_layers=WH_F32_LAYERS,
+                              dec_layers=WH_F32_LAYERS, dtype="float32")
+    model = M.init_params(c32, seed=SEED, device=dev)
+    out = {}
+    for planted in (False, True):
+        cache = M.init_cache(c32, WH_STREAMS, WH_FRAMES, dev)
+        _, cache = serve.prefill_step(model, {"frames": frames32}, cache,
+                                      cfg=c32)
+        if planted:
+            cache["cross"] = {k: torch.roll(v, 1, dims=1)
+                              for k, v in cache["cross"].items()}
+        _, seen, _, _ = _whisper_decode(model, c32, cache, fed, checked)
+        del cache
+        out[planted] = _whisper_check(model, c32, frames32, fed, seen)
+    del model
+    _free()
+    log(f"  cache check, {WH_F32_LAYERS} + {WH_F32_LAYERS} layers float32 "
+        f"at full width: {len(checked)} positions' logits rel RMS "
+        f"{out[False]:.3e} (limit {WH_F32_REL_RMS}); stream b's cross K/V "
+        f"planted in stream b + 1: {out[True]:.3e}")
+    if not out[False] <= WH_F32_REL_RMS:
+        fail(f"phase 23: float32 decode differs from the cache-free "
+             f"forward: {out[False]}")
+    if not out[True] > WH_F32_REL_RMS:
+        fail(f"phase 23: the cache check does not see another stream's "
+             f"cross K/V: {out[True]}")
+    return out
+
+
+def _whisper_train(dev, cfg, model):
+    """[23 train]: WH_TRAIN_STEPS `train_step`s (AdamW, float32 masters)
+    of the served model under remat on one repeated batch, B WH_TRAIN_B
+    x WH_FRAMES frames x MAX_WHISPER_DEC tokens: the loss must fall."""
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = TokenStream(cfg.vocab, WH_TRAIN_B, M.MAX_WHISPER_DEC,
+                       seed=SEED).tensors_at(0, dev)
+    batch = {"frames": torch.randn((WH_TRAIN_B, WH_FRAMES, cfg.d_model),
+                                   generator=gen, device=dev).to(
+                                       torch.bfloat16), **toks}
+    torch.cuda.reset_peak_memory_stats()
+    opt = T.init_opt(model)
+    counts = _counts_zero()
+    losses, secs = [], []
+    for step in range(1, WH_TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = T.train_step(model, opt, batch, cfg=cfg,
+                                     lr=WH_TRAIN_LR)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        log(f"  train step {step} ({'cold' if step == 1 else 'warm'}): "
+            f"loss {losses[-1]:.4f} grad_norm {float(m['grad_norm']):.4f},"
+            f" {secs[-1]:.3f} s, {WH_TRAIN_B * M.MAX_WHISPER_DEC / secs[-1]:.0f}"
+            f" decoder tokens/s ({WH_TRAIN_B * WH_FRAMES / secs[-1]:.0f} "
+            f"frames/s)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()
+    del opt
+    with torch.no_grad():
+        after = float(M.forward_train(model, batch, cfg)[0])
+    del batch
+    log(f"  training: B {WH_TRAIN_B} x {WH_FRAMES} frames x "
+        f"{M.MAX_WHISPER_DEC} tokens, remat {cfg.remat}, lr {WH_TRAIN_LR}: "
+        f"warm step {min(secs[1:]):.3f}-{max(secs[1:]):.3f} s, peak "
+        f"{peak:.2f} GB (AdamW state included); loss after step "
+        f"{WH_TRAIN_STEPS} {after:.4f}; launches {launches}")
+    if not all(math.isfinite(x) for x in losses + [after]):
+        fail(f"phase 23: a training loss is not finite: {losses}, {after}")
+    if not (losses[-1] < losses[0] and after < losses[0]):
+        fail(f"phase 23: the training loss did not fall: {losses}, after "
+             f"{after}")
+    if any(launches.values()):
+        fail(f"phase 23: the training path launched a kernel: {launches}")
+    return {"losses": losses, "after": after, "s": secs, "peak_gb": peak}
+
+
+def phase_whisper(dev, rows):
+    """Phase 23: whisper-large-v3 at full width and depth (random bf16
+    weights from the seed, use_flash_attention on, which whisper
+    ignores as the reference does): WH_STREAMS streams of WH_FRAMES
+    frames through `launch.serve` to the last decoder position, a step
+    past it refused; the cache checks (bf16 at full depth, float32 at
+    WH_F32_LAYERS + WH_F32_LAYERS layers with a planted fault); training
+    steps on the served model. Flash's row records its 0 launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    t_start = time.perf_counter()
+    _free()
+    cfg = dataclasses.replace(get_config("whisper-large-v3"),
+                              use_flash_attention=True)
+    last = M.MAX_WHISPER_DEC - 1
+    flop, pre_bound, nbytes, dec_bound, parts = _whisper_bounds(
+        cfg, WH_STREAMS, WH_FRAMES, last)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[23 whisper] whisper-large-v3: {cfg.enc_layers} + "
+        f"{cfg.dec_layers} layers d_model {cfg.d_model} {cfg.n_heads} x "
+        f"{cfg.head_dim} heads kv {cfg.n_kv} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab} {cfg.dtype}, {n} params (random, made in "
+        f"{time.perf_counter() - t0:.1f} s), remat {cfg.remat}; "
+        f"{WH_STREAMS} streams x {WH_FRAMES} frames, {WH_PROMPT} forced "
+        f"tokens, greedy to position {last}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames32 = torch.randn((WH_STREAMS, WH_FRAMES, cfg.d_model),
+                           generator=gen, device=dev)
+    frames = frames32.to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab, (WH_STREAMS, WH_PROMPT),
+                           generator=gen, device=dev).to(torch.int32)
+    checked = {round(i * last / (WH_CHECKED - 1)) for i in range(WH_CHECKED)}
+    counts = _counts_zero()
+    prefill_ms = []
+    for _ in range(2):                       # cold, then warm
+        cache = M.init_cache(cfg, WH_STREAMS, WH_FRAMES, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = serve.prefill_step(model, {"frames": frames}, cache)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if logits.shape != (WH_STREAMS, 1, cfg.vocab) or logits.any():
+        fail(f"phase 23: the prefill's logits are not zeros (B, 1, V): "
+             f"{tuple(logits.shape)}")
+    objects, gc_ms, add_us = _host_speed(dev)
+    gc_before = [g["collections"] for g in gc.get_stats()]
+    fed, seen, step_ms, tok = _whisper_decode(model, cfg, cache, prompt,
+                                              checked)
+    gc_runs = [g["collections"] - c
+               for g, c in zip(gc.get_stats(), gc_before)]
+    try:
+        serve.serve_step(model, cache, tok, M.MAX_WHISPER_DEC)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail(f"phase 23: a decode step at position {M.MAX_WHISPER_DEC} "
+             f"ran")
+    if WH_PAST not in refused:
+        fail(f"phase 23: the step past the context said {refused!r}")
+    launches = counts()
+    log(f"  launches on the path: {launches}")
+    if any(launches.values()):
+        fail(f"phase 23: whisper's path launched a kernel: {launches}")
+    greedy = fed[:, WH_PROMPT:]
+    if not bool(((greedy >= 0) & (greedy < cfg.vocab)).all()):
+        fail("phase 23: a greedy token is out of range")
+    warm = sorted(step_ms[1:])
+    med = warm[len(warm) // 2]
+    log(f"  prefill {WH_STREAMS} x {WH_FRAMES} frames (encoder + cross K/V "
+        f"of {cfg.dec_layers} layers): cold {prefill_ms[0]:.3f} ms, warm "
+        f"{prefill_ms[1]:.3f} ms; bound {flop:.3e} FLOP (encoder "
+        f"{parts['encoder']:.3e}, attention {parts['attention']:.3e}, "
+        f"cross K/V {parts['cross_kv']:.3e}) at 989 TFLOP/s = "
+        f"{pre_bound:.2f} ms")
+    log(f"  decode: {len(step_ms)} steps (positions 0..{last}, "
+        f"{WH_STREAMS} streams), warm ms a step median {med:.3f} min "
+        f"{warm[0]:.3f} max {warm[-1]:.3f}, "
+        f"{1e3 * WH_STREAMS * len(warm) / sum(warm):.1f} tokens/s; bound at "
+        f"position {last}: {nbytes / 1e9:.3f} GB at 3.35 TB/s = "
+        f"{dec_bound:.3f} ms; greedy tokens {greedy[0, :8].tolist()}...; "
+        f"position {M.MAX_WHISPER_DEC} refused: {refused}")
+    log(f"  host before the decode: {objects} objects tracked by gc, a "
+        f"full collection {gc_ms:.1f} ms, a small add {add_us:.2f} us; "
+        f"collections during the decode by generation {gc_runs}")
+    busy_prefill = _device_busy_ms(lambda: serve.prefill_step(
+        model, {"frames": frames},
+        M.init_cache(cfg, WH_STREAMS, WH_FRAMES, dev)))
+    log(_busy_line(f"prefill {WH_STREAMS} x {WH_FRAMES}", busy_prefill,
+                   prefill_ms[1]))
+    busy_decode = _device_busy_ms(lambda: M.decode_step(model, cache, tok,
+                                                        last))
+    log(_busy_line(f"decode step at {last} ({WH_STREAMS} streams)",
+                   busy_decode, med))
+    bf16 = _whisper_check(model, cfg, frames, fed, seen)
+    log(f"  cache check, {cfg.enc_layers} + {cfg.dec_layers} layers bf16: "
+        f"the served decode's logits at {len(checked)} positions "
+        f"{sorted(checked)[:3]}...{last} vs the cache-free teacher-forced "
+        f"forward over the {M.MAX_WHISPER_DEC} tokens fed: rel RMS "
+        f"{bf16:.3e} (limit {LOGITS_REL_RMS})")
+    if not bf16 <= LOGITS_REL_RMS:
+        fail(f"phase 23: whisper's decode differs from the cache-free "
+             f"forward: {bf16}")
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  serving peak {serve_peak:.2f} GB ({n} params)")
+    del cache, seen, logits
+    _free()
+    train = _whisper_train(dev, cfg, model)
+    del model
+    _free()
+    f32 = _whisper_f32(dev, cfg, frames32, fed, checked)
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches_phase23"] = {"whisper-large-v3":
+                                       launches["flash_attention"]}
+    took = time.perf_counter() - t_start
+    log(f"  phase 23 took {took:.1f} s")
+    return {"prefill_ms": prefill_ms, "decode_ms": warm,
+            "busy_prefill": busy_prefill, "busy_decode": busy_decode,
+            "cache_bf16": bf16, "cache_f32": f32, "serve_peak_gb": serve_peak,
+            "train": train, "s": took}
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -4278,6 +4643,7 @@ def main() -> None:
     phase_train(dev)
     phase_windows(dev, rows)
     phase_moe(dev, rows)
+    phase_whisper(dev, rows)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

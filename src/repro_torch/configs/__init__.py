@@ -1,10 +1,9 @@
-"""Architecture registry (`repro.configs` counterpart): the ported archs'
-exact configs plus the reduced smoke variants for CPU tests.
+"""Architecture registry (`repro.configs` counterpart): every arch's exact
+config plus the reduced smoke variants for CPU tests.
 
 Usage: get_config("gemma2-27b"), smoke_config("recurrentgemma-9b"), ARCHS.
-The reference's other archs need what the port does not have yet (the
-encoder-decoder; paper-svm is a CoCoA+ workload, not a model): asking
-for one raises.
+"paper-svm" is the paper's CoCoA+ workload, a `CoCoAWorkload`, not a
+model: `get_config` returns it, and ARCHS leaves it out.
 """
 from __future__ import annotations
 
@@ -23,17 +22,15 @@ _MODULES = {
     "qwen2-vl-7b": "qwen2_vl_7b",
     "llama4-scout-17b-a16e": "llama4_scout",
     "llama4-maverick-400b-a17b": "llama4_maverick",
+    "whisper-large-v3": "whisper_large_v3",
+    # the paper's own workload (convex ERM / CoCoA+) lives in paper_svm.py
+    "paper-svm": "paper_svm",
 }
-_UNPORTED = ("whisper-large-v3", "paper-svm")
 
-ARCHS = tuple(_MODULES)
+ARCHS = tuple(k for k in _MODULES if k != "paper-svm")
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1 item 13); "
-            f"have {ARCHS}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {ARCHS}")
     mod = importlib.import_module(f"{__name__}.{_MODULES[name]}")

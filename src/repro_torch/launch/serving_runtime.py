@@ -32,7 +32,9 @@ The engine serves token models. An "embeddings" model (qwen2-vl) has no
 prompt tokens to prefill from, as the reference's engine has none (its
 slot prefill passes `{"tokens": ...}`): it is refused here, and served
 through `launch.serve.prefill_step` with `{"embeds", "positions"}` and
-`serve_step`.
+`serve_step`. So is an encoder-decoder (whisper), which the reference's
+engine refuses too ("token LMs only"): `launch.serve.prefill_step`
+with `{"frames"}`, then `serve_step`.
 
 `submit` and `step` run under `torch.inference_mode()`: the weights are
 trainable parameters, and a serving step records no autograd graph.
@@ -66,8 +68,9 @@ class ServingEngine:
                  device=DEFAULT_DEVICE):
         if cfg.is_encdec() or cfg.input_mode != "tokens":
             raise NotImplementedError(
-                "token LMs only: serve an embeddings model through "
-                "launch.serve.prefill_step and serve_step")
+                "token LMs only: serve an embeddings model or an "
+                "encoder-decoder (whisper) through launch.serve."
+                "prefill_step and serve_step")
         self.device = torch.empty(0, device=resolve_device(device)).device
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "

@@ -1,8 +1,10 @@
-"""The LM training step and its loop (`repro.launch.train` counterpart).
+"""The LM training step and its loop (`repro.launch.train` counterpart),
+for either model structure (`models.model.Decoder` or
+`EncoderDecoder`).
 
-The step is the forward (chunked cross-entropy), `loss.backward()` and
-AdamW with float32 masters (`optim.adamw`); the new params are copied
-into the module's own tensors. The backward runs through the plain
+The step is the forward (`models.model.forward_train`),
+`loss.backward()` and AdamW with float32 masters (`optim.adamw`); the
+new params are copied into the module's own tensors. The backward runs through the plain
 attention and scan: the flash and scan kernels have no backward, as the
 reference's Pallas kernels have no VJP, and refuse a graph.
 
@@ -24,12 +26,12 @@ _ITEM13F = ("a mesh needs make_jitted_train_step's sharding rules, not "
             "ported yet (ROADMAP.md Queue 1 item 13f)")
 
 
-def init_opt(model: M.Decoder) -> AdamWState:
+def init_opt(model: M.Model) -> AdamWState:
     """`adamw_init` of the model's weights, by `named_parameters()` name."""
     return adamw_init({n: p.detach() for n, p in model.named_parameters()})
 
 
-def train_step(model: M.Decoder, opt: AdamWState, batch, *,
+def train_step(model: M.Model, opt: AdamWState, batch, *,
                cfg: Optional[ModelConfig] = None, lr: float = 3e-4):
     """One step: (model, opt, metrics), the model's weights and `opt`
     updated in place. metrics: xent, moe_aux, loss, grad_norm (0-d
@@ -59,11 +61,11 @@ def _on_device(batch, device: torch.device):
 
 def run_training(cfg: ModelConfig, mesh, data_iter, *, steps: int,
                  lr: float = 3e-4, log_every: int = 10, on_step=None,
-                 params: Optional[M.Decoder] = None,
+                 params: Optional[M.Model] = None,
                  opt: Optional[AdamWState] = None, start_step: int = 0,
                  device=DEFAULT_DEVICE):
     """A synchronous trainer loop with the hook `on_step(step, model, opt,
-    metrics)`. `params` is a `Decoder` (default: `init_params(cfg)` on
+    metrics)`. `params` is a model (default: `init_params(cfg)` on
     `device`, seed 0) and `opt` its AdamW state; batches from `data_iter`
     (numpy or tensors) go to the model's device. `mesh=None` is one
     device; a mesh raises (item 13f)."""

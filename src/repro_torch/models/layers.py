@@ -1,6 +1,7 @@
 """Core NN layers (`repro.models.layers` counterpart): norms, partial RoPE
-and M-RoPE, causal chunked-softmax attention, global or sliding-window
-(GQA/MQA, softcap, qk-norm), single-token decode attention over a dense
+and M-RoPE, chunked-softmax attention, causal (global or sliding-window)
+or bidirectional (GQA/MQA, softcap, qk-norm), cross attention over
+another sequence's K/V, single-token decode attention over a dense
 cache or a ring buffer of `window` slots, gated MLPs, the top-1 MoE with
 capacity-dropped dispatch, embeddings.
 
@@ -17,9 +18,6 @@ parallelism has no counterpart on one card: `_moe_forward_shardmap` and
 the `mesh`, `spec`, `dp`, `tp`, `fsdp` and `gather_weights` fields of
 `set_moe_ctx` / `MOE_CTX` shard the experts over a device mesh with
 FSDP weight gathers (ROADMAP.md Queue 1 item 13f).
-
-Not ported (ROADMAP.md Queue 1 item 13): bidirectional and cross
-attention (the encoder-decoder). Asking for one raises.
 """
 from __future__ import annotations
 
@@ -30,7 +28,6 @@ import torch.nn.functional as F
 from torch import nn
 
 NEG = -1e30
-_ITEM13 = "not ported yet (ROADMAP.md Queue 1 item 13)"
 
 
 class Params(nn.Module):
@@ -177,39 +174,42 @@ def _attn_scores(q, k, softcap):
 
 def chunked_attention(q, k, v, positions, *, causal=True, window=None,
                       softcap=None, q_chunk=512):
-    """Causal attention, global or over a sliding window, with a softmax
-    over query chunks. q: (B,S,H,hd), k/v: (B,S,KV,hd), positions: (B,S)
-    int, the queries' and the keys'. Returns (B,S,H,hd) in v's dtype.
+    """Causal attention, global or over a sliding window, or bidirectional
+    attention, with a softmax over query chunks. q: (B,Sq,H,hd), k/v:
+    (B,Sk,KV,hd), positions: (B,Sq) int, the queries' and (when causal,
+    Sk = Sq) the keys'. Returns (B,Sq,H,hd) in v's dtype.
 
-    A window W < S scores each chunk of C queries against a strip of
+    `causal=False` scores each chunk of queries against all Sk keys, which
+    may be another sequence (cross attention), with no mask. A causal
+    window W < Sq scores each chunk of C queries against a strip of
     C + Wpad keys (Wpad = ceil(W/C)·C) starting Wpad before the chunk, so
     the work is O(S·W); the mask 0 <= pq - pk < W is built from the
-    positions. As the reference's `dynamic_slice`, a strip that would run
-    past the end starts earlier instead of being cut short."""
+    query positions, as the reference's. As the reference's
+    `dynamic_slice`, a strip that would run past the end starts earlier
+    instead of being cut short."""
     B, S, H, hd = q.shape
-    if not causal:
-        raise NotImplementedError(f"bidirectional attention is {_ITEM13}")
     KV = k.shape[2]
     G = H // KV
     C = pick_chunk(S, q_chunk)
     qg = q.reshape(B, S, KV, G, hd)
-    windowed = window is not None and window < S
+    windowed = causal and window is not None and window < S
     if windowed:
         Wpad = -(-window // C) * C
         T = min(C + Wpad, S)
     outs = []
     for qs in range(0, S, C):
         qc = qg[:, qs:qs + C]
-        pq = positions[:, qs:qs + C]
         if windowed:
             ks = min(max(qs - Wpad, 0), S - T)
             kc, vc, pk = (t[:, ks:ks + T] for t in (k, v, positions))
         else:
             kc, vc, pk = k, v, positions
         s = _attn_scores(qc, kc, softcap)                   # (B,KV,G,C,T)
-        dp = pq[:, None, None, :, None] - pk[:, None, None, None, :]
-        m = (dp >= 0) & (dp < window) if windowed else dp >= 0
-        s = torch.where(m, s, NEG)
+        if causal:
+            pq = positions[:, qs:qs + C]
+            dp = pq[:, None, None, :, None] - pk[:, None, None, None, :]
+            m = (dp >= 0) & (dp < window) if windowed else dp >= 0
+            s = torch.where(m, s, NEG)
         p = torch.softmax(s, dim=-1)
         outs.append(torch.einsum("bkgct,btkh->bckgh", p.to(vc.dtype), vc))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
@@ -270,24 +270,27 @@ def init_attn(gen, cfg, dtype):
 
 
 def attn_qkv(p: Params, x, cfg, positions, rope_base, cross_kv=None):
-    if cross_kv is not None:
-        raise NotImplementedError(f"cross attention is {_ITEM13}")
+    """q (B,S,H,hd), k and v (B,Sk,KV,hd): k and v from `cross_kv`
+    (B,Sk,d) when given (cross attention, Sk its own length, no RoPE),
+    else from x (Sk = S)."""
     B, S, d = x.shape
     H, KVh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = x @ p.wq
     if "bq" in p:
         q = q + p.bq
     q = q.reshape(B, S, H, hd)
-    k = x @ p.wk
-    v = x @ p.wv
+    src = x if cross_kv is None else cross_kv
+    Sk = src.shape[1]
+    k = src @ p.wk
+    v = src @ p.wv
     if "bk" in p:
         k, v = k + p.bk, v + p.bv
-    k = k.reshape(B, S, KVh, hd)
-    v = v.reshape(B, S, KVh, hd)
+    k = k.reshape(B, Sk, KVh, hd)
+    v = v.reshape(B, Sk, KVh, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p.qnorm.g)
         k = rmsnorm(k, p.knorm.g)
-    if rope_base is not None:
+    if rope_base is not None and cross_kv is None:
         q = apply_rope(q, positions, rope_pct=cfg.rope_pct, base=rope_base,
                        mrope_sections=cfg.mrope_sections)
         k = apply_rope(k, positions, rope_pct=cfg.rope_pct, base=rope_base,

@@ -1,12 +1,18 @@
-"""Decoder-only LM (`repro.models.model` counterpart): weights as
-`nn.Module`s, the scoring forward (chunked cross-entropy loss), prefill and
-single-token decode with caches.
+"""The LMs (`repro.models.model` counterpart): weights as `nn.Module`s,
+the scoring forward (chunked cross-entropy loss), prefill and
+single-token decode with caches, for the decoder-only stack and the
+whisper-style encoder-decoder.
 
     Decoder                 embed (tok, head), blocks, final_norm
       AttnBlock             norm1, attn, [norm1_post], norm2, mlp or moe,
                             [norm2_post]
       SSMBlock              norm1, ssm, ...
       RGLRUBlock            norm1, rglru, ...
+    EncoderDecoder          embed (tok, pos_dec), enc, dec, enc_final,
+                            dec_final
+      EncLayer              norm1, attn, norm2, mlp
+      DecLayer              norm1, self_attn, norm_x, cross_attn, norm2,
+                            mlp
 
 A plain loop over the layers takes the place of the reference's scan over
 stacked periods; the cache is a list with one dict per layer, {"k", "v"}
@@ -18,7 +24,8 @@ is a ring buffer, position p in slot p mod window.
 Weight layout: as the reference, every projection is (in, out) and
 applied as `x @ W`; `params_from_reference` loads a reference `init_params`
 pytree (nested dicts of numpy arrays) without transposes, unstacking its
-"scan" leaves (n_periods, ...) into one module per layer.
+"scan" leaves (n_periods, ...), and an encoder-decoder's "enc" and "dec"
+leaves (L, ...), into one module per layer.
 
 The scoring forward is differentiable (`launch.train`); under grad each
 block runs inside `torch.utils.checkpoint` when `cfg.remat` is set, the
@@ -34,9 +41,17 @@ in place of tokens; under M-RoPE positions are (3, B, S) streams, the
 causal mask reads the temporal one, and a decode step writes one
 position to all three.
 
-Not ported (ROADMAP.md Queue 1 item 13): the encoder-decoder; asking
-for it raises. The reference's sharding-constraint and FSDP hooks, and
-its expert-parallel MoE, have no counterpart: one card runs eagerly.
+The encoder-decoder takes precomputed frame embeddings (B, T, d), the
+reference's stub of the conv front end. Its encoder attends both ways,
+its decoder causally over at most MAX_WHISPER_DEC tokens and across to
+per-layer K/V of the encoder output; GELU MLPs and no RoPE, whatever
+`cfg.pattern`, `mrope_sections`, `input_mode` or `use_flash_attention`
+say, as the reference's. Its cache is the reference's dict (see
+`init_cache_encdec`). A decoder position past the context raises where
+the reference's `dynamic_slice` clamps it (ROADMAP.md Queue 3).
+
+The reference's sharding-constraint and FSDP hooks, and its
+expert-parallel MoE, have no counterpart: one card runs eagerly.
 """
 from __future__ import annotations
 
@@ -58,12 +73,7 @@ from . import rglru as R
 from . import ssm as S
 from .config import Block, ModelConfig
 
-_ITEM13 = "not ported yet (ROADMAP.md Queue 1 item 13)"
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec():
-        raise NotImplementedError(f"the encoder-decoder is {_ITEM13}")
+MAX_WHISPER_DEC = 448
 
 
 # ----------------------------------------------------------------------------
@@ -239,23 +249,17 @@ def _split_layers(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.n_layers // P, cfg.n_layers % P
 
 
-class Decoder(nn.Module):
-    """The decoder-only stack. Weights are drawn from a `torch.Generator`
-    seeded with `seed` on `device`; `device="meta"` gives shapes only."""
+def _generator(seed: int, device):
+    """(device, a torch.Generator seeded with `seed` on it); no generator
+    on "meta", where an init gives shapes only."""
+    dev = resolve_device(device)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    return dev, gen
 
-    def __init__(self, cfg: ModelConfig, *, seed: int = 0,
-                 device=DEFAULT_DEVICE):
-        super().__init__()
-        _check_supported(cfg)
-        dev = resolve_device(device)
-        gen = (None if dev.type == "meta"
-               else torch.Generator(device=dev).manual_seed(seed))
-        dtype = getattr(torch, cfg.dtype)
-        self.cfg = cfg
-        self.embed = L.init_embed(gen, cfg, dtype)
-        self.blocks = nn.ModuleList(init_block(gen, cfg, spec, dtype)
-                                    for spec in cfg.blocks())
-        self.final_norm = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+
+class Model(nn.Module):
+    """Either LM structure: `Decoder` or `EncoderDecoder`."""
 
     @property
     def device(self) -> torch.device:
@@ -268,16 +272,35 @@ class Decoder(nn.Module):
         return forward_train(self, batch)
 
 
+class Decoder(Model):
+    """The decoder-only stack. Weights are drawn from a `torch.Generator`
+    seeded with `seed` on `device`; `device="meta"` gives shapes only."""
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0,
+                 device=DEFAULT_DEVICE):
+        super().__init__()
+        dev, gen = _generator(seed, device)
+        dtype = getattr(torch, cfg.dtype)
+        self.cfg = cfg
+        self.embed = L.init_embed(gen, cfg, dtype)
+        self.blocks = nn.ModuleList(init_block(gen, cfg, spec, dtype)
+                                    for spec in cfg.blocks())
+        self.final_norm = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=DEFAULT_DEVICE):
-    """A `Decoder` with random weights drawn from `seed` (the port's own
-    draws; `params_from_reference` carries the reference's)."""
-    return Decoder(cfg, seed=seed, device=device)
+    """A `Decoder`, or an `EncoderDecoder` when `cfg.is_encdec()`, with
+    random weights drawn from `seed` (the port's own draws;
+    `params_from_reference` carries the reference's)."""
+    kind = EncoderDecoder if cfg.is_encdec() else Decoder
+    return kind(cfg, seed=seed, device=device)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Total parameters; `active_only` counts top_k experts of each MoE
     block in place of all E (at `cfg.d_ff`, as the reference does)."""
-    total = sum(p.numel() for p in Decoder(cfg, device="meta").parameters())
+    total = sum(p.numel()
+                for p in init_params(cfg, device="meta").parameters())
     if active_only and cfg.n_experts > 1:
         n_moe = sum(1 for b in cfg.blocks() if b.mlp == "moe")
         total -= (n_moe * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model
@@ -286,7 +309,10 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device=DEFAULT_DEVICE):
-    _check_supported(cfg)
+    """The decoder's cache, one dict a layer; for an encoder-decoder
+    `init_cache_encdec(cfg, B, S_max)`, S_max the frame count."""
+    if cfg.is_encdec():
+        return init_cache_encdec(cfg, B, S_max, device)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     return [init_block_cache(cfg, spec, B, S_max, dtype, dev)
@@ -304,27 +330,48 @@ def _flatten(tree, prefix: str) -> Dict[str, Any]:
     return out
 
 
-def params_from_reference(params, cfg: ModelConfig, device=DEFAULT_DEVICE):
-    """A `Decoder` holding the reference's `init_params(rng, cfg)` weights.
+def reference_state(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """The leaves of a reference `init_params(rng, cfg)` pytree (or any
+    tree of its structure: grads, AdamW moments) under the port's
+    `state_dict` names. Stacked leaves are unstacked: leaf k of period i
+    in "scan" (shape (n_periods, ...)) is layer i * len(pattern) + k, and
+    "rest" follows the periods; an encoder-decoder's "enc" and "dec"
+    leaves (L, ...) are one layer each."""
+    flat: Dict[str, Any] = {}
 
-    `params` is that pytree as nested dicts (lists or tuples for "scan" and
-    "rest") of numpy arrays; bfloat16 leaves may come as float32 and are
-    cast back. Leaf k of period i in "scan" (shape (n_periods, ...)) goes
-    to layer i * len(pattern) + k; "rest" follows the periods."""
-    model = Decoder(cfg, device=device)
+    def unstack(tree, n, name_of):
+        for name, arr in _flatten(tree, "").items():
+            for i in range(n):
+                flat[f"{name_of(i)}{name}"] = arr[i]
+
+    if cfg.is_encdec():
+        for key in ("embed", "enc_final", "dec_final"):
+            flat.update(_flatten(params[key], key))
+        unstack(params["enc"], cfg.enc_layers, lambda i: f"enc.{i}")
+        unstack(params["dec"], cfg.dec_layers, lambda i: f"dec.{i}")
+        return flat
     n_full, _ = _split_layers(cfg)
     P = len(cfg.pattern)
-    flat = _flatten(params["embed"], "embed")
+    flat.update(_flatten(params["embed"], "embed"))
     flat.update(_flatten(params["final_norm"], "final_norm"))
     if n_full > 0:
         for j, period in enumerate(params["scan"]):
-            for name, arr in _flatten(period, "").items():
-                for i in range(n_full):
-                    flat[f"blocks.{i * P + j}{name}"] = arr[i]
+            unstack(period, n_full, lambda i: f"blocks.{i * P + j}")
     for i, blk in enumerate(params["rest"]):
         flat.update(_flatten(blk, f"blocks.{n_full * P + i}"))
+    return flat
+
+
+def params_from_reference(params, cfg: ModelConfig, device=DEFAULT_DEVICE):
+    """A model (`init_params`' kind) holding the reference's
+    `init_params(rng, cfg)` weights.
+
+    `params` is that pytree as nested dicts (lists or tuples for "scan" and
+    "rest") of numpy arrays; bfloat16 leaves may come as float32 and are
+    cast back. `reference_state` names the leaves."""
+    model = init_params(cfg, device=device)
     state = {k: torch.from_numpy(np.array(v))
-             for k, v in flat.items()}
+             for k, v in reference_state(params, cfg).items()}
     model.load_state_dict(state, strict=True)
     return model
 
@@ -362,22 +409,20 @@ def _dots_saveable(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_block(block, x, cfg, ctx):
-    """`block(x)` under `torch.utils.checkpoint`: (x, moe_aux). The
-    block's weights are taken now and handed to the recompute, so a
-    backward under `torch.func.functional_call` recomputes with the
-    weights the forward used, not the module's own."""
-    weights = dict(block.named_parameters())
+def _remat(module, *args, policy: str = "nothing"):
+    """`module(*args)` under `torch.utils.checkpoint`. The module's
+    weights are taken now and handed to the recompute, so a backward
+    under `torch.func.functional_call` recomputes with the weights the
+    forward used, not the module's own."""
+    weights = dict(module.named_parameters())
 
-    def run(x, weights):
-        x, _, aux = torch.func.functional_call(block, weights,
-                                               (x, cfg, ctx, None))
-        return x, aux
+    def run(weights, *args):
+        return torch.func.functional_call(module, weights, args)
 
     context = (functools.partial(create_selective_checkpoint_contexts,
                                  _dots_saveable)
-               if cfg.remat_policy == "dots" else noop_context_fn)
-    return checkpoint(run, x, weights, use_reentrant=False,
+               if policy == "dots" else noop_context_fn)
+    return checkpoint(run, weights, *args, use_reentrant=False,
                       context_fn=context)
 
 
@@ -390,7 +435,8 @@ def _run_stack(model: Decoder, x, cfg, ctx, cache: Optional[List] = None):
     aux_total = None
     for i, block in enumerate(model.blocks):
         if remat:
-            x, aux = _remat_block(block, x, cfg, ctx)
+            x, _, aux = _remat(block, x, cfg, ctx, None,
+                               policy=cfg.remat_policy)
         else:
             x, _, aux = block(x, cfg, ctx,
                               None if cache is None else cache[i])
@@ -416,14 +462,17 @@ def chunked_xent(model: Decoder, x, labels, mask, cfg):
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def forward_train(model: Decoder, batch, cfg: Optional[ModelConfig] = None):
+def forward_train(model: Model, batch, cfg: Optional[ModelConfig] = None):
     """The training and scoring forward. batch: tokens (or embeds, and
     positions under M-RoPE) + labels (+ loss_mask) tensors on the model's
-    device. Returns (xent + 0.01 · moe_aux, {"xent", "moe_aux"});
-    differentiable in the weights (`loss.backward()`, `launch.train`).
-    Score under `torch.no_grad()`: the flash and scan kernels have no
-    backward and refuse inputs that require grad."""
+    device; an encoder-decoder's (`forward_train_encdec`): frames, tokens,
+    labels (+ loss_mask). Returns (xent + 0.01 · moe_aux, {"xent",
+    "moe_aux"}); differentiable in the weights (`loss.backward()`,
+    `launch.train`). Score under `torch.no_grad()`: the flash and scan
+    kernels have no backward and refuse inputs that require grad."""
     cfg = cfg or model.cfg
+    if cfg.is_encdec():
+        return forward_train_encdec(model, batch, cfg)
     x = _embed_inputs(model, batch, cfg)
     B, Sq = x.shape[:2]
     ctx = {"positions": _positions(cfg, batch, B, Sq, x.device), "pos": None,
@@ -454,12 +503,15 @@ def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
 
 
 @torch.inference_mode()
-def decode_step(model: Decoder, cache, tokens, pos: int,
+def decode_step(model: Model, cache, tokens, pos: int,
                 cfg: Optional[ModelConfig] = None):
     """One decode step. tokens: (B,1) int; pos: int (write index, also the
     attended-up-to position; under M-RoPE the position of all three
-    streams). Returns (logits (B,1,V), cache)."""
+    streams). Returns (logits (B,1,V), cache). An encoder-decoder's is
+    `decode_step_encdec`."""
     cfg = cfg or model.cfg
+    if cfg.is_encdec():
+        return decode_step_encdec(model, cache, tokens, pos, cfg)
     x = L.embed_tokens(model.embed, tokens.long(), cfg)
     B = x.shape[0]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
@@ -468,3 +520,243 @@ def decode_step(model: Decoder, cache, tokens, pos: int,
     ctx = {"positions": posv, "pos": int(pos), "decode": True, "aux": False}
     x, cache, _ = _run_stack(model, x, cfg, ctx, cache)
     return L.lm_logits(model.embed, x, cfg), cache
+
+
+# ----------------------------------------------------------------------------
+# whisper-style encoder-decoder
+# ----------------------------------------------------------------------------
+
+def _enc_attention(p, x, cfg, positions):
+    q, k, v = L.attn_qkv(p.attn, L.apply_norm(p.norm1, x, cfg.norm), cfg,
+                         positions, None)
+    B, Sq = x.shape[:2]
+    o = L.chunked_attention(q, k, v, positions, causal=False,
+                            q_chunk=cfg.q_chunk)
+    return x + o.reshape(B, Sq, -1) @ p.attn.wo
+
+
+class EncLayer(nn.Module):
+    """An encoder layer: bidirectional self-attention, then the GELU
+    MLP."""
+
+    def __init__(self, gen, cfg: ModelConfig, dtype):
+        super().__init__()
+        dev = L.init_device(gen)
+        self.norm1 = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        self.attn = L.init_attn(gen, cfg, dtype)
+        self.norm2 = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, "gelu", dtype)
+
+    def forward(self, x, cfg: ModelConfig, positions):
+        x = _enc_attention(self, x, cfg, positions)
+        h = L.apply_norm(self.norm2, x, cfg.norm)
+        return x + L.mlp_forward(self.mlp, h, "gelu")
+
+
+def _dec_block(cfg, p, x, enc_kv, ctx, cache=None):
+    """A decoder layer on x (B, Sq, d): causal self-attention (a decode
+    step writes its K/V into `cache`, this layer's {"k", "v"}, in place),
+    cross attention over `enc_kv` (its (B, T, KV, hd) K and V), the GELU
+    MLP. Returns (x, cache)."""
+    B, Sq = x.shape[:2]
+    h = L.apply_norm(p.norm1, x, cfg.norm)
+    q, k, v = L.attn_qkv(p.self_attn, h, cfg, ctx["positions"], None)
+    if ctx["decode"]:
+        pos = ctx["pos"]
+        cache["k"][:, pos:pos + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, pos:pos + 1] = v.to(cache["v"].dtype)
+        o = L.decode_attention(q, cache["k"], cache["v"], pos)
+    else:
+        o = L.chunked_attention(q, k, v, ctx["positions"],
+                                q_chunk=min(cfg.q_chunk, Sq))
+    x = x + o.reshape(B, Sq, -1) @ p.self_attn.wo
+    # cross attention over the precomputed encoder K/V
+    hx = L.apply_norm(p.norm_x, x, cfg.norm)
+    qx = (hx @ p.cross_attn.wq).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    ek, ev = enc_kv
+    if Sq == 1:
+        o = L.decode_attention(qx, ek, ev, ek.shape[1] - 1)
+    else:
+        o = L.chunked_attention(qx, ek, ev, ctx["positions"], causal=False,
+                                q_chunk=min(cfg.q_chunk, Sq))
+    x = x + o.reshape(B, Sq, -1) @ p.cross_attn.wo
+    h2 = L.apply_norm(p.norm2, x, cfg.norm)
+    return x + L.mlp_forward(p.mlp, h2, "gelu"), cache
+
+
+class DecLayer(nn.Module):
+    """A decoder layer (`_dec_block`)."""
+
+    def __init__(self, gen, cfg: ModelConfig, dtype):
+        super().__init__()
+        dev = L.init_device(gen)
+        self.norm1 = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        self.self_attn = L.init_attn(gen, cfg, dtype)
+        self.norm_x = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        self.cross_attn = L.init_attn(gen, cfg, dtype)
+        self.norm2 = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, "gelu", dtype)
+
+    def forward(self, x, cfg: ModelConfig, ek, ev, ctx, cache=None):
+        return _dec_block(cfg, self, x, (ek, ev), ctx, cache)
+
+
+class EncoderDecoder(Model):
+    """The whisper-style encoder-decoder: cfg.enc_layers encoder and
+    cfg.dec_layers decoder layers. Weights are drawn from a
+    `torch.Generator` seeded with `seed` on `device`; `device="meta"`
+    gives shapes only."""
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0,
+                 device=DEFAULT_DEVICE):
+        super().__init__()
+        dev, gen = _generator(seed, device)
+        dtype = getattr(torch, cfg.dtype)
+        self.cfg = cfg
+        self.embed = L.Params(
+            tok=L.dense_init(gen, (cfg.vocab, cfg.d_model), dtype,
+                             scale=0.02),
+            pos_dec=L.dense_init(gen, (MAX_WHISPER_DEC, cfg.d_model), dtype,
+                                 scale=0.02))
+        self.enc = nn.ModuleList(EncLayer(gen, cfg, dtype)
+                                 for _ in range(cfg.enc_layers))
+        self.dec = nn.ModuleList(DecLayer(gen, cfg, dtype)
+                                 for _ in range(cfg.dec_layers))
+        self.enc_final = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+        self.dec_final = L.init_norm(cfg.d_model, cfg.norm, dtype, dev)
+
+
+def _sinusoid(S, d, dtype, device):
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None]
+    ang = pos / (10000.0 ** (dim / d))
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :d]
+    return pe.to(dtype)
+
+
+def encode(model: EncoderDecoder, frames, cfg: Optional[ModelConfig] = None):
+    """The encoder over frames (B, T, d), the conv front end's output
+    (a stub: precomputed embeddings). Under grad and `cfg.remat` each
+    layer is rematerialized in the backward."""
+    cfg = cfg or model.cfg
+    B, T, d = frames.shape
+    dtype = getattr(torch, cfg.dtype)
+    x = frames.to(dtype) + _sinusoid(T, d, dtype, frames.device)
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=frames.device).expand(B, T)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in model.enc:
+        x = (_remat(layer, x, cfg, positions) if remat
+             else layer(x, cfg, positions))
+    return L.apply_norm(model.enc_final, x, cfg.norm)
+
+
+def _enc_kv_all(model: EncoderDecoder, enc_out, cfg):
+    """Every decoder layer's cross K/V of the encoder output: two
+    (L, B, T, KV, hd) tensors."""
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.n_kv, cfg.head_dim)
+    ks = [(enc_out @ layer.cross_attn.wk).reshape(shape)
+          for layer in model.dec]
+    vs = [(enc_out @ layer.cross_attn.wv).reshape(shape)
+          for layer in model.dec]
+    return torch.stack(ks), torch.stack(vs)
+
+
+def logits_encdec(model: EncoderDecoder, batch,
+                  cfg: Optional[ModelConfig] = None):
+    """The decoder's float32 logits (B, Sd, V) over all of batch["tokens"]
+    (B, Sd), teacher-forced, with the encoder over batch["frames"]: the
+    cache-free counterpart of `prefill_encdec` then Sd decode steps.
+    Raises ValueError past MAX_WHISPER_DEC tokens."""
+    cfg = cfg or model.cfg
+    toks = batch["tokens"].long()
+    B, Sd = toks.shape
+    if Sd > MAX_WHISPER_DEC:
+        raise ValueError(f"{Sd} decoder tokens: the decoder's context is "
+                         f"{MAX_WHISPER_DEC}")
+    ek, ev = _enc_kv_all(model, encode(model, batch["frames"], cfg), cfg)
+    x = model.embed.tok[toks] + model.embed.pos_dec[:Sd]
+    ctx = {"positions": torch.arange(Sd, dtype=torch.int32,
+                                     device=x.device).expand(B, Sd),
+           "pos": None, "decode": False}
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, layer in enumerate(model.dec):
+        x, _ = (_remat(layer, x, cfg, ek[i], ev[i], ctx) if remat
+                else layer(x, cfg, ek[i], ev[i], ctx))
+    x = L.apply_norm(model.dec_final, x, cfg.norm)
+    return (x @ model.embed.tok.T.to(x.dtype)).float()
+
+
+def forward_train_encdec(model: EncoderDecoder, batch,
+                         cfg: Optional[ModelConfig] = None):
+    """The encoder-decoder's training and scoring forward. batch: frames
+    (B, T, d), tokens and labels (B, Sd), Sd <= MAX_WHISPER_DEC (+
+    loss_mask). The cross-entropy over the whole (B, Sd, V), unchunked,
+    as the reference's; returns (loss, {"xent": loss, "moe_aux": 0})."""
+    cfg = cfg or model.cfg
+    logits = logits_encdec(model, batch, cfg)
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    loss = torch.sum((logz - gold) * mask) / torch.clamp_min(
+        torch.sum(mask), 1.0)
+    return loss, {"xent": loss,
+                  "moe_aux": torch.zeros((), dtype=torch.float32,
+                                         device=loss.device)}
+
+
+def init_cache_encdec(cfg: ModelConfig, B: int, T_enc: int,
+                      device=DEFAULT_DEVICE):
+    """The reference's cache: {"self": {"k", "v"} (L, B, MAX_WHISPER_DEC,
+    KV, hd), "cross": {"k", "v"} (L, B, T_enc, KV, hd)}, zeros."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    shp = (cfg.dec_layers, B, MAX_WHISPER_DEC, cfg.n_kv, cfg.head_dim)
+    xshp = (cfg.dec_layers, B, T_enc, cfg.n_kv, cfg.head_dim)
+
+    def zeros(shape):
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return {"self": zeros(shp), "cross": zeros(xshp)}
+
+
+@torch.inference_mode()
+def prefill_encdec(model: EncoderDecoder, batch, cache,
+                   cfg: Optional[ModelConfig] = None):
+    """The encoder over batch["frames"] (B, T, d); `cache["cross"]` is
+    replaced by their cross K/V (whatever T the cache was made for), the
+    self cache kept. Returns the cache."""
+    cfg = cfg or model.cfg
+    ek, ev = _enc_kv_all(model, encode(model, batch["frames"], cfg), cfg)
+    cache["cross"] = {"k": ek, "v": ev}
+    return cache
+
+
+@torch.inference_mode()
+def decode_step_encdec(model: EncoderDecoder, cache, tokens, pos: int,
+                       cfg: Optional[ModelConfig] = None):
+    """One decoder step. tokens: (B, 1) int; pos: int, the write index and
+    the last attended position, 0 <= pos < MAX_WHISPER_DEC (ValueError
+    otherwise: the reference clamps it). The self cache is written in
+    place. Returns (float32 logits (B, 1, V), cache)."""
+    cfg = cfg or model.cfg
+    pos = int(pos)
+    if not 0 <= pos < MAX_WHISPER_DEC:
+        raise ValueError(f"decoder position {pos} is outside the decoder's "
+                         f"context, 0..{MAX_WHISPER_DEC - 1}")
+    x = model.embed.tok[tokens.long()] + model.embed.pos_dec[pos:pos + 1]
+    B = x.shape[0]
+    ctx = {"positions": torch.full((B, 1), pos, dtype=torch.int32,
+                                   device=x.device),
+           "pos": pos, "decode": True}
+    sk, sv = cache["self"]["k"], cache["self"]["v"]
+    ck, cv = cache["cross"]["k"], cache["cross"]["v"]
+    for i, layer in enumerate(model.dec):
+        x, _ = layer(x, cfg, ck[i], cv[i], ctx, {"k": sk[i], "v": sv[i]})
+    x = L.apply_norm(model.dec_final, x, cfg.norm)
+    return (x @ model.embed.tok.T.to(x.dtype)).float(), cache

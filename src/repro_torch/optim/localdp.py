@@ -74,9 +74,10 @@ def init_state(params: Tree, cfg: LocalDPConfig) -> LocalDPState:
 
 
 def decoder_loss_fn(model) -> Callable:
-    """`loss_fn(params, batch)` of a `models.model.Decoder`: its
-    `forward_train` loss under the weights `params` (every
-    `named_parameters()` name), through `torch.func.functional_call`."""
+    """`loss_fn(params, batch)` of a `models.model.Decoder` or
+    `EncoderDecoder`: its `forward_train` loss under the weights `params`
+    (every `named_parameters()` name), through
+    `torch.func.functional_call`."""
     def loss_fn(params: Tree, batch):
         return torch.func.functional_call(model, params, (batch,))[0]
     return loss_fn

@@ -54,7 +54,8 @@ def test_port_files_found():
             "elastic.py", "baselines.py", "adamw.py", "localdp.py",
             "train.py", "rglru.py", "gemma3_27b.py",
             "recurrentgemma_9b.py", "llama4_scout.py", "llama4_maverick.py",
-            "qwen2_vl_7b.py"} <= names
+            "qwen2_vl_7b.py", "whisper_large_v3.py", "paper_svm.py",
+            "specs.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "optim" / "compress.py"
             in PORT_FILES)
 
