@@ -321,6 +321,28 @@ order, each failing the run with a non-zero exit:
                (`_whisper_bounds`), tokens/s, one prefill's and one
                decode step's device kernels and idle share, the warm
                training step's s and tokens/s, peak GB
+ 24. sharded   the sixteenth slice, the card's memory freed first: the
+               sharded LM steps on a (data 2, model 2) process mesh of 4
+               ranks spawned on cuda:0 over gloo (`launch.sharding`'s
+               specs, DTensors, the model's hooks): stablelm-1.6b at
+               full width and depth, one prefill of B 4 x S 1,024
+               (`make_jitted_serve_fns`, flash on each rank's 16 heads
+               and 2 rows), 8 decode steps teacher-forced with the
+               one-process tokens, 2 train steps at B 4 x S 1,024
+               (`make_jitted_train_step`, AdamW on the shards);
+               falcon-mamba-7b at full width and 4 of 64 layers, a
+               scoring forward (the fused scan on each rank's 4,096 of
+               8,192 d_inner channels) and a prefill. Each result held
+               to the one-process run of the same seed on the card (run
+               and freed before the spawn): logits and falcon-mamba's
+               layer-0 scan output rel RMS within LOGITS_REL_RMS,
+               losses within 5e-4, grad norms within 2e-2, the update of every master over the steps
+               (master minus init, each rank's slices) within 0.2 rel
+               RMS in its worst leaf; every rank must launch flash and
+               the scan. Printed beside the card's name
+               and power limit: each rank's launches, every step's s
+               sharded and in one process, the gloo bytes a step (what
+               each rank hands to DTensor's collectives), peak GB
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -334,6 +356,7 @@ before that the kernels' JSON summary, the last line the run's JSON result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -341,6 +364,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -4594,6 +4618,389 @@ def phase_whisper(dev, rows):
             "train": train, "s": took}
 
 
+# ----------------------------------------------------------------------------
+# the sixteenth slice (phase 24): the sharded LM steps on a (data 2, model 2)
+# process mesh of 4 ranks on cuda:0
+# ----------------------------------------------------------------------------
+
+SHARD_MESH = (2, 2)            # (data, model): 4 ranks, all on cuda:0
+SHARD_B, SHARD_S = 4, 1_024    # the prefill's, the scoring's and the train
+                               # steps' batch
+SHARD_DECODE = 8               # teacher-forced decode steps
+SHARD_TRAIN_STEPS = 2
+SHARD_MAMBA_LAYERS = 4         # falcon-mamba-7b at full width, 4 of 64
+SHARD_TIMEOUT = 480            # s for the spawn: start, init, every part
+SHARD_LOGITS_REL_RMS = LOGITS_REL_RMS   # bf16: sharded vs one process
+SHARD_LOSS_RTOL = 5e-4         # bf16 losses: read 3.8e-5 at most
+SHARD_GNORM_RTOL = 2e-2        # bf16 grads summed in another order
+SHARD_UPDATE_REL_RMS = 0.2     # every master's update over the steps:
+                               # read 8.4e-2; planted faults 0.31-1.4
+
+
+@contextlib.contextmanager
+def _gloo_bytes():
+    """Count the bytes this rank hands to DTensor's collectives inside the
+    block (`comm.collectives.dtensor_bytes_sent`: every routed
+    all-gather, all-reduce and reduce-scatter, a Shard -> Shard
+    redistribution's included); yields a one-item list that holds the
+    count on the way out."""
+    from repro_torch.comm.collectives import dtensor_bytes_sent
+    sent, start = [0], dtensor_bytes_sent()
+    try:
+        yield sent
+    finally:
+        sent[0] = dtensor_bytes_sent() - start
+
+
+def _local(t):
+    """A DTensor's local shard; a plain tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _timed_s(fn):
+    """(fn(), its seconds on the host clock, the card synchronized)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _shard_cfgs():
+    import dataclasses
+    from repro_torch.configs import get_config
+    lm = get_config("stablelm-1.6b")
+    mamba = dataclasses.replace(get_config("falcon-mamba-7b"),
+                                n_layers=SHARD_MAMBA_LAYERS,
+                                use_fused_ssm=True)
+    return (dataclasses.replace(lm, use_flash_attention=True), lm, mamba)
+
+
+def _shard_parts(dev, mesh, fed, ref_dir=None):
+    """Phase 24's work in one process (`mesh` None) or on this rank of the
+    process mesh: stablelm-1.6b prefill (flash) and SHARD_DECODE decode
+    steps teacher-forced with `fed` (None: greedy, the tokens returned),
+    SHARD_TRAIN_STEPS train steps, falcon-mamba-7b's scoring forward (the
+    fused scan; layer 0's scan output kept) and prefill. Each part's
+    results, seconds, launches and (on a mesh) gloo bytes; whole tensors
+    on the host. Every master's update over the train steps: whole in one
+    process; on a mesh, held here to this rank's slices of the
+    one-process update in `ref_dir` (`<leaf>.npy`), as the sums of
+    squares (difference, one-process) a leaf."""
+    import numpy as np
+    import torch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as ssm_mod
+    serve_cfg, train_cfg, mamba_cfg = _shard_cfgs()
+    batch = TokenStream(serve_cfg.vocab, SHARD_B, SHARD_S,
+                        seed=SEED).tensors_at(0, dev)
+    out = {}
+    nothing = contextlib.nullcontext([0])
+
+    def meter():
+        return _gloo_bytes() if mesh is not None else nothing
+
+    # stablelm-1.6b: prefill + decode
+    model = M.init_params(serve_cfg, seed=SEED, device=dev)
+    cache = M.init_cache(serve_cfg, SHARD_B, SHARD_S + SHARD_DECODE, dev)
+    prompt = {"tokens": batch["tokens"]}
+    if mesh is None:
+        prefill = functools.partial(SV.prefill_step, cfg=serve_cfg)
+        decode = functools.partial(SV.serve_step, cfg=serve_cfg)
+    else:
+        pre, dec = SV.make_jitted_serve_fns(serve_cfg, mesh, "serve")
+        prefill, decode = pre(cache, prompt), dec(cache)
+    counts = _counts_zero()
+    with meter() as sent:
+        (logits, cache), s = _timed_s(lambda: prefill(model, prompt, cache))
+    out["prefill"] = dict(logits=logits[:, -1].float().cpu(), s=s,
+                          flash=counts()["flash_attention"], bytes=sent[0])
+    tok = (torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+           if fed is None else fed[:, :1].to(dev))
+    seen, steps, fed_now = [], [], [tok.cpu()]
+
+    def capture(real, *a, **kw):
+        lg, c = real(*a, **kw)
+        seen.append(Sh.full(lg)[:, -1].float().cpu())
+        return lg, c
+
+    with meter() as sent, _wrapped(M, "decode_step", capture):
+        for i in range(SHARD_DECODE):
+            (nxt, cache), s = _timed_s(
+                lambda: decode(model, cache, tok, SHARD_S + i))
+            steps.append(s)
+            tok = nxt if fed is None else fed[:, i + 1:i + 2].to(dev)
+            fed_now.append(tok.cpu())
+    out["decode"] = dict(logits=torch.stack(seen), s=steps, bytes=sent[0],
+                         fed=torch.cat(fed_now[:SHARD_DECODE], 1))
+    del model, cache, logits
+    _free()
+    # stablelm-1.6b: train steps
+    model = M.init_params(train_cfg, seed=SEED, device=dev)
+    if mesh is None:
+        step = functools.partial(T.train_step, cfg=train_cfg, lr=TRAIN_LR)
+    else:
+        pspecs = Sh.param_specs(model, train_cfg, mesh)
+        Sh.place_model(model, pspecs, mesh,
+                       layout=Sh.layout_for(mesh, "train"))
+        step = T.make_jitted_train_step(train_cfg, mesh, lr=TRAIN_LR)
+    init = {k: _local(p).detach().clone()
+            for k, p in model.named_parameters()}
+    opt = T.init_opt(model)
+    losses, gnorms, steps, sent_steps = [], [], [], []
+    for t in range(SHARD_TRAIN_STEPS):
+        with meter() as sent:
+            (model, opt, m), s = _timed_s(lambda: step(model, opt, batch))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        steps.append(s)
+        sent_steps.append(sent[0])
+    updates = {}
+    for k, w in opt.master.items():     # the masters start as the params
+        upd = _local(w) - init.pop(k).float()
+        if mesh is None:
+            updates[k] = upd.cpu()
+            continue
+        sl = Sh.local_slices(w.shape, pspecs[k], mesh, mesh.coords())
+        ref = np.load(os.path.join(ref_dir, f"{k}.npy"), mmap_mode="r")
+        ref = torch.from_numpy(np.ascontiguousarray(ref[sl])).to(dev)
+        if ref.shape != upd.shape:
+            raise ValueError(f"the update of {k} is {tuple(upd.shape)} on "
+                             f"this rank, its slice {tuple(ref.shape)}")
+        ref, upd = ref.double(), upd.double()
+        updates[k] = (float((upd - ref).pow(2).sum()),
+                      float(ref.pow(2).sum()))
+        del ref, upd
+    out["train"] = dict(loss=losses, grad_norm=gnorms, s=steps,
+                        bytes=sent_steps, updates=updates)
+    del model, opt, m, updates
+    _free()
+    # falcon-mamba-7b at 4 layers: scoring forward (fused scan) + prefill
+    model = M.init_params(mamba_cfg, seed=SEED, device=dev)
+    score_batch = TokenStream(mamba_cfg.vocab, SHARD_B, SHARD_S,
+                              seed=SEED).tensors_at(0, dev)
+    prompt = {"tokens": score_batch["tokens"]}
+    if mesh is not None:
+        Sh.place_model(model, Sh.param_specs(model, mamba_cfg, mesh), mesh,
+                       layout=Sh.layout_for(mesh, "train"))
+        score_batch = Sh.place_tree(score_batch, Sh.batch_specs(
+            score_batch, mamba_cfg, mesh), mesh, Sh.layout_for(mesh, "train"))
+    hooks = (Sh.installed(mamba_cfg, mesh, "train", gather=True)
+             if mesh is not None else contextlib.nullcontext())
+    scans = []
+
+    def first_scan(real, *a, **kw):     # layer 0's scan output, kept
+        y = real(*a, **kw)
+        scans.append(y if not scans else None)
+        return y
+
+    counts = _counts_zero()
+    with meter() as sent, hooks, torch.no_grad(), \
+            _wrapped(ssm_mod, "local_kernel", first_scan):
+        (loss, _), s = _timed_s(lambda: M.forward_train(model, score_batch,
+                                                        mamba_cfg))
+    out["score"] = dict(loss=float(Sh.full(loss)), s=s,
+                        scan=counts()["ssm_scan"], bytes=sent[0],
+                        scan_y=Sh.full(scans[0]).float().cpu())
+    del scans
+    cache = M.init_cache(mamba_cfg, SHARD_B, SHARD_S, dev)
+    if mesh is None:
+        prefill = functools.partial(SV.prefill_step, cfg=mamba_cfg)
+    else:
+        prefill = SV.make_jitted_serve_fns(mamba_cfg, mesh, "serve")[0](
+            cache, prompt)
+    with meter() as sent:
+        (logits, cache), s = _timed_s(lambda: prefill(model, prompt, cache))
+    out["mamba_prefill"] = dict(logits=logits[:, -1].float().cpu(), s=s,
+                                bytes=sent[0])
+    del model, cache, logits
+    _free()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _shard_rank(rank, world, fed, ref_dir):
+    """Phase 24's rank: `_shard_parts` on its position of the (data 2,
+    model 2) process mesh on cuda:0, the one-process updates in
+    `ref_dir`; rank 0 returns the logits, every rank its updates' sums
+    of squares, counts, seconds, bytes and peak."""
+    import faulthandler
+    import torch
+    from repro_torch.launch.mesh import device_mesh, make_process_mesh
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    mesh = make_process_mesh(SHARD_MESH, ("data", "model"), device=dev)
+    device_mesh(mesh)     # built (a collective) before any part is timed
+    t0 = time.perf_counter()
+    out = _shard_parts(dev, mesh, torch.from_numpy(fed), ref_dir)
+    out["parts_s"] = time.perf_counter() - t0
+    out["coords"] = mesh.coords()
+    if rank:
+        for part in ("prefill", "decode", "mamba_prefill"):
+            out[part].pop("logits")
+        out["score"].pop("scan_y")
+    # numpy across the queue: a tensor would need the rank alive
+    return _as_numpy(out)
+
+
+def _as_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    return tree.numpy() if hasattr(tree, "numpy") else tree
+
+
+def _rel_rms(a, b) -> float:
+    import torch
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float(((a - b).pow(2).mean() / b.pow(2).mean()).sqrt())
+
+
+def _worst_update(ranks):
+    """(leaf, rel RMS) of the leaf whose master's update over the train
+    steps is furthest from the one-process run's: the ranks' sums of
+    squares added (a replicated slice counts once a rank, in both sums
+    alike)."""
+    worst = ("", 0.0)
+    for k in ranks[0]["train"]["updates"]:
+        d2 = sum(rk["train"]["updates"][k][0] for rk in ranks)
+        r2 = sum(rk["train"]["updates"][k][1] for rk in ranks)
+        err = math.sqrt(d2 / r2) if r2 else math.sqrt(d2)
+        if not err <= worst[1]:
+            worst = (k, err)
+    return worst
+
+
+def phase_sharded(dev, rows, card):
+    """Phase 24: the sharded LM steps (`launch.serve.make_jitted_serve_fns`,
+    `launch.train.make_jitted_train_step`) on a (data 2, model 2) process
+    mesh of 4 ranks spawned on cuda:0 over gloo, each result held to the
+    one-process run of the same seed on the card (run and freed first);
+    rows 5 and 6 launched on every rank's local shard."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t_start = time.perf_counter()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    serve_cfg, train_cfg, mamba_cfg = _shard_cfgs()
+    log(f"[24 sharded] {card}: stablelm-1.6b at full width and depth "
+        f"({train_cfg.n_layers} layers, d {train_cfg.d_model}, "
+        f"{train_cfg.n_heads} heads, vocab {train_cfg.vocab}, "
+        f"{train_cfg.dtype}) and falcon-mamba-7b at full width, "
+        f"{SHARD_MAMBA_LAYERS} of 64 layers; B {SHARD_B} x S {SHARD_S}; "
+        f"mesh (data, model) = {SHARD_MESH}, 4 ranks on {dev} over gloo")
+    one = _shard_parts(dev, None, None)
+    if one["prefill"]["flash"] <= 0 or one["score"]["scan"] <= 0:
+        fail(f"phase 24: the one-process run launched flash "
+             f"{one['prefill']['flash']} and scan {one['score']['scan']} "
+             f"times")
+    one = _as_numpy(one)
+    fed = one["decode"]["fed"]
+    updates = one["train"].pop("updates")
+    log(f"  one process: prefill {one['prefill']['s']:.3f} s, decode s "
+        + ", ".join(f"{t:.3f}" for t in one["decode"]["s"])
+        + ", train step s " + ", ".join(f"{t:.3f}" for t in
+                                        one["train"]["s"])
+        + f", mamba score {one['score']['s']:.3f} s and prefill "
+        f"{one['mamba_prefill']['s']:.3f} s; peak {one['peak_gb']:.2f} GB "
+        f"[{card}]")
+    _free()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ref_dir:
+        for k, upd in updates.items():
+            np.save(os.path.join(ref_dir, f"{k}.npy"), upd)
+        del updates
+        log(f"  the one-process updates written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            ranks = spawn_ranks(_shard_rank, 4, (fed, ref_dir),
+                                timeout=SHARD_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 24: {e}")
+    log(f"  the spawn took {time.perf_counter() - t0:.1f} s (start, init, "
+        f"every part; limit {SHARD_TIMEOUT} s)")
+    got = ranks[0]
+    checks = [
+        ("stablelm prefill last logits, rel RMS",
+         _rel_rms(got["prefill"]["logits"], one["prefill"]["logits"]),
+         SHARD_LOGITS_REL_RMS),
+        ("stablelm decode logits (worst step), rel RMS",
+         max(_rel_rms(a, b) for a, b in zip(got["decode"]["logits"],
+                                            one["decode"]["logits"])),
+         SHARD_LOGITS_REL_RMS),
+        ("falcon-mamba prefill last logits, rel RMS",
+         _rel_rms(got["mamba_prefill"]["logits"],
+                  one["mamba_prefill"]["logits"]), SHARD_LOGITS_REL_RMS),
+        ("falcon-mamba scoring, layer 0's fused scan output, rel RMS",
+         _rel_rms(got["score"]["scan_y"], one["score"]["scan_y"]),
+         SHARD_LOGITS_REL_RMS),
+        ("falcon-mamba scoring loss (fused scan), rel",
+         abs(got["score"]["loss"] / one["score"]["loss"] - 1),
+         SHARD_LOSS_RTOL),
+    ]
+    for t in range(SHARD_TRAIN_STEPS):
+        checks.append((f"stablelm train step {t + 1} loss, rel",
+                       abs(got["train"]["loss"][t]
+                           / one["train"]["loss"][t] - 1), SHARD_LOSS_RTOL))
+        checks.append((f"stablelm train step {t + 1} grad norm, rel",
+                       abs(got["train"]["grad_norm"][t]
+                           / one["train"]["grad_norm"][t] - 1),
+                       SHARD_GNORM_RTOL))
+    leaf, err = _worst_update(ranks)
+    checks.append((f"every master's update over the {SHARD_TRAIN_STEPS} "
+                   f"steps, rel RMS, worst leaf ({leaf} of "
+                   f"{len(got['train']['updates'])})", err,
+                   SHARD_UPDATE_REL_RMS))
+    over = []
+    for what, err, limit in checks:
+        log(f"  {what}: {err:.3e} (limit {limit})")
+        if not err <= limit:
+            over.append(f"{what} {err} over {limit}")
+    if over:
+        fail("phase 24: " + "; ".join(over))
+    log("  train losses sharded " + ", ".join(
+        f"{v:.6f}" for v in got["train"]["loss"]) + " vs one process "
+        + ", ".join(f"{v:.6f}" for v in one["train"]["loss"])
+        + "; grad norms " + ", ".join(
+            f"{v:.4f}" for v in got["train"]["grad_norm"]) + " vs "
+        + ", ".join(f"{v:.4f}" for v in one["train"]["grad_norm"]))
+    for rk in ranks:
+        log(f"  rank {rk['coords']}: flash launches {rk['prefill']['flash']}"
+            f", scan launches {rk['score']['scan']}; prefill "
+            f"{rk['prefill']['s']:.3f} s ({rk['prefill']['bytes']} gloo B), "
+            f"decode s " + ", ".join(f"{t:.3f}" for t in rk["decode"]["s"])
+            + f" ({rk['decode']['bytes'] // SHARD_DECODE} gloo B a step), "
+            f"train step s " + ", ".join(f"{t:.3f}" for t in
+                                         rk["train"]["s"])
+            + " (gloo B " + ", ".join(str(b) for b in rk["train"]["bytes"])
+            + f"), mamba score {rk['score']['s']:.3f} s "
+            f"({rk['score']['bytes']} gloo B) and prefill "
+            f"{rk['mamba_prefill']['s']:.3f} s "
+            f"({rk['mamba_prefill']['bytes']} gloo B); all its parts "
+            f"{rk['parts_s']:.1f} s; peak {rk['peak_gb']:.2f} GB [{card}]")
+        if rk["prefill"]["flash"] <= 0 or rk["score"]["scan"] <= 0:
+            fail(f"phase 24: rank {rk['coords']} launched flash "
+                 f"{rk['prefill']['flash']} and scan {rk['score']['scan']} "
+                 f"times; each must run on the rank's shard")
+    launches = {"flash_attention": [rk["prefill"]["flash"] for rk in ranks],
+                "ssm_scan": [rk["score"]["scan"] for rk in ranks]}
+    for row in rows:
+        if row["name"] in launches:
+            row["launches"] += sum(launches[row["name"]])
+            row["launches_phase24"] = launches[row["name"]]
+    took = time.perf_counter() - t_start
+    log(f"  launches on phase 24's paths, rank by rank: {launches}; phase "
+        f"24 took {took:.1f} s")
+    return {"one": one, "ranks": ranks, "s": took}
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -4644,6 +5051,7 @@ def main() -> None:
     phase_windows(dev, rows)
     phase_moe(dev, rows)
     phase_whisper(dev, rows)
+    phase_sharded(dev, rows, smi_line)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -174,6 +174,19 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise when a DTensor reaches a kernel's wrapper: the kernel takes
+    this rank's local tensors (`models.shards.local_kernel` hands them
+    over), and a DTensor must not run the plain version either."""
+    import torch
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, not DTensors: call it "
+                        f"through models.shards.local_kernel")
+
+
 def refuse_grad(name: str, flag: str, *tensors) -> None:
     """Raise when a forward-only kernel is asked for a graph: grad mode on
     and an input that requires grad. The reference's Pallas kernels have

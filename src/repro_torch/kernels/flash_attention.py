@@ -108,6 +108,7 @@ def flash_attention(q, k, v, *, softcap=None):
     `flash_attention_plain` on CPU tensors. Forward only: raises
     NotImplementedError under grad when an input requires grad."""
     B, S, H, KV, hd = _check_shapes(q, k, v)
+    build.refuse_dtensor("flash_attention", q, k, v)
     build.refuse_grad("flash_attention", "use_flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, softcap=softcap)

@@ -97,6 +97,7 @@ def ssm_scan(xin, dt, Bm, Cm, A, D, *, group: int = DEFAULT_GROUP):
     tensors. Forward only: raises NotImplementedError under grad when an
     input requires grad."""
     B, S, di, N = _check_shapes(xin, dt, Bm, Cm, A, D)
+    build.refuse_dtensor("ssm_scan", xin, dt, Bm, Cm, A, D)
     build.refuse_grad("ssm_scan", "use_fused_ssm", xin, dt, Bm, Cm, A, D)
     if xin.device.type == "cpu":
         return ssm_scan_plain(xin, dt, Bm, Cm, A, D)

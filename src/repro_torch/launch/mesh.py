@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import os
 import queue
 import tempfile
@@ -105,6 +106,16 @@ class Mesh:
         return self.partition_group(("axes", axes), parts)
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh's shape: 16 x 16 (data, model), or 2 x 16 x 16
+    (pod, data, model). Shape only (no rank, on "meta"): the sharding
+    rules read its axes and sizes (`launch.sharding`), as the
+    reference's spec tests read their device-free stand-in."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(axes, shape, torch.device("meta"))
+
+
 def make_test_mesh(shape=(2, 2), axes=("data", "model"),
                    device=DEFAULT_DEVICE) -> Mesh:
     """A (data, model) mesh on one card: `shape[i]` blocks along
@@ -132,6 +143,39 @@ def make_process_mesh(shape=(2, 2), axes=("data", "model"),
     for a in axes:
         mesh.subgroup((a,))
     return mesh
+
+
+def device_mesh(mesh: Mesh, layout=None):
+    """The `torch.distributed` DeviceMesh of a process mesh, on the mesh's
+    device type (on one card every rank's is `cuda:0`): one dim a mesh
+    axis, or a dim a group of adjacent axes in `layout` (named by the
+    axes joined with "+"), laid out row-major as `Mesh.coords`. Built
+    once per layout (a collective: every rank asks for the same layouts
+    in one order). Over gloo, DTensor's collectives go through the port's
+    calls (`comm.collectives.route_dtensor_collectives`, which rebinds
+    torch's for the whole process)."""
+    if not mesh.is_process:
+        raise ValueError("a DeviceMesh needs a process mesh "
+                         "(make_process_mesh), one rank a position")
+    layout = (tuple(tuple(g) for g in layout) if layout is not None
+              else tuple((a,) for a in mesh.axis_names))
+    if sum(layout, ()) != mesh.axis_names:
+        raise ValueError(f"layout {layout} must group the axes "
+                         f"{mesh.axis_names} in order")
+    key = ("device_mesh", layout)
+    if key not in mesh._groups:
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from ..comm.collectives import route_dtensor_collectives
+        if dist.get_backend() == "gloo":
+            route_dtensor_collectives()
+        shape = mesh.shape
+        sizes = [math.prod(shape[a] for a in g) for g in layout]
+        ranks = torch.arange(mesh.size).reshape(sizes)
+        mesh._groups[key] = DeviceMesh(
+            mesh.device.type, ranks,
+            mesh_dim_names=tuple("+".join(g) for g in layout))
+    return mesh._groups[key]
 
 
 def _check_shape(shape, axes):

@@ -8,8 +8,11 @@ new params are copied into the module's own tensors. The backward runs through t
 attention and scan: the flash and scan kernels have no backward, as the
 reference's Pallas kernels have no VJP, and refuse a graph.
 
-`make_jitted_train_step` and its sharding rules are not ported (ROADMAP.md
-Queue 1 item 13f): `run_training` runs on one device, and a mesh raises.
+`make_jitted_train_step` is the same step on a process mesh: the
+weights, the AdamW state and the batch are DTensors placed by
+`launch.sharding`'s rules, and the model's hooks are installed for the
+step (`sharding.installed`). `run_training` runs on one device or on a
+process mesh.
 """
 from __future__ import annotations
 
@@ -21,10 +24,6 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWState, adamw_init, adamw_update
-
-_ITEM13F = ("a mesh needs make_jitted_train_step's sharding rules, not "
-            "ported yet (ROADMAP.md Queue 1 item 13f)")
-
 
 def init_opt(model: M.Model) -> AdamWState:
     """`adamw_init` of the model's weights, by `named_parameters()` name."""
@@ -55,6 +54,43 @@ def train_step(model: M.Model, opt: AdamWState, batch, *,
     return model, opt, metrics
 
 
+def make_jitted_train_step(cfg: ModelConfig, mesh, lr: float = 3e-4):
+    """`train_step` on a process mesh (`launch.mesh.make_process_mesh`):
+    step(model, opt, batch) -> (model, opt, metrics).
+
+    There is no jit: the step runs eagerly, each op a DTensor op. The
+    reference's in_shardings become placements made on entry: the
+    model's weights by `param_specs`, the AdamW state by `opt_specs`,
+    the batch by `batch_specs` (whole tensors, the same on every rank, are
+    cut to this rank's slices; DTensors are redistributed), and they
+    stay so on the way out (out_shardings). Inside, the "act" and
+    "logits" constraints and the FSDP gather are installed. metrics are
+    whole tensors on every rank. The mode is the reference's default,
+    "train". The update in place stands in for the reference's donation
+    of the model and the state: the step returns the model and the
+    AdamW tensors it was given, updated, and the caller keeps no old
+    copy."""
+    from . import sharding as Sh
+    from .specs import abstract_params
+
+    mode = "train"
+    pspecs = Sh.param_specs(abstract_params(cfg), cfg, mesh, mode)
+    ospecs = Sh.opt_specs(pspecs)
+    layout = Sh.layout_for(mesh, mode)
+
+    def step(model: M.Model, opt: AdamWState, batch):
+        Sh.place_model(model, pspecs, mesh, layout=layout)
+        opt = Sh.place_opt(opt, ospecs, mesh, layout)
+        batch = Sh.place_tree(batch, Sh.batch_specs(batch, cfg, mesh, mode),
+                              mesh, layout)
+        with Sh.installed(cfg, mesh, mode, gather=True):
+            model, opt, metrics = train_step(model, opt, batch, cfg=cfg,
+                                             lr=lr)
+        return model, opt, {k: Sh.full(v) for k, v in metrics.items()}
+
+    return step
+
+
 def _on_device(batch, device: torch.device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
@@ -68,19 +104,36 @@ def run_training(cfg: ModelConfig, mesh, data_iter, *, steps: int,
     metrics)`. `params` is a model (default: `init_params(cfg)` on
     `device`, seed 0) and `opt` its AdamW state; batches from `data_iter`
     (numpy or tensors) go to the model's device. `mesh=None` is one
-    device; a mesh raises (item 13f)."""
+    device. A process mesh (`launch.mesh.make_process_mesh`) steps
+    through `make_jitted_train_step` on the mesh's device: every rank
+    draws the same batches and keeps its slices, and rank 0 logs. A
+    one-card mesh of more than one position raises: a sharded step needs
+    a process mesh with one rank a position."""
+    if mesh is not None and not mesh.is_process:
+        if mesh.size > 1:
+            raise ValueError(
+                f"a sharded step needs a process mesh with one rank a "
+                f"position (launch.mesh.make_process_mesh); the one-card "
+                f"mesh {mesh.shape} has no ranks")
+        mesh = None
     if mesh is not None:
-        raise NotImplementedError(_ITEM13F)
+        device = mesh.device
     if params is None:
         params = M.init_params(cfg, device=resolve_device(device))
+    if mesh is not None:        # the AdamW state is made on the shards
+        from . import sharding as Sh
+        Sh.place_model(params, Sh.param_specs(params, cfg, mesh), mesh,
+                       layout=Sh.layout_for(mesh, "train"))
     if opt is None:
         opt = init_opt(params)
+    step = (make_jitted_train_step(cfg, mesh, lr=lr) if mesh is not None
+            else lambda m, o, b: train_step(m, o, b, cfg=cfg, lr=lr))
+    loud = mesh is None or mesh.rank == 0
     metrics = {}
     for t in range(start_step, steps):
         batch = _on_device(next(data_iter), params.device)
-        params, opt, metrics = train_step(params, opt, batch, cfg=cfg,
-                                          lr=lr)
-        if (t + 1) % log_every == 0:
+        params, opt, metrics = step(params, opt, batch)
+        if loud and (t + 1) % log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             print(f"step {t + 1}: " + " ".join(f"{k}={v:.4f}"
                                                for k, v in m.items()))

@@ -12,12 +12,15 @@ dict's keys, so a module's `state_dict` keys are the reference pytree's
 paths joined with dots.
 
 The MoE is the reference's portable path (`moe_forward`) in one
-dispatch group: no caller sets the reference's `MOE_CTX["groups"]`, and
-it comes back with a process mesh that would. The reference's expert
-parallelism has no counterpart on one card: `_moe_forward_shardmap` and
-the `mesh`, `spec`, `dp`, `tp`, `fsdp` and `gather_weights` fields of
-`set_moe_ctx` / `MOE_CTX` shard the experts over a device mesh with
-FSDP weight gathers (ROADMAP.md Queue 1 item 13f).
+dispatch group: no caller sets the reference's `MOE_CTX["groups"]`. On a
+process mesh (`launch.train.make_jitted_train_step`,
+`launch.serve.make_jitted_serve_fns`) it runs as the reference's
+`make_jitted_*` run it without the dry run's MoE context: the same
+dispatch under DTensor's rules, the expert weights stored by the expert
+rule. The reference's expert parallelism is not ported:
+`_moe_forward_shardmap` and the `mesh`, `spec`, `dp`, `tp`, `fsdp` and
+`gather_weights` fields of `set_moe_ctx` / `MOE_CTX` (ROADMAP.md Queue 1
+item 13f), with the dry run that sets them.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .shards import is_dtensor, lookup_rows
 
 NEG = -1e30
 
@@ -408,8 +413,16 @@ def init_embed(gen, cfg, dtype):
     return Params(**p)
 
 
+def embed_rows(table, tokens):
+    """table[tokens]; a DTensor table is looked up on its shards
+    (`shards.lookup_rows`)."""
+    if is_dtensor(table):
+        return lookup_rows(table, tokens)
+    return F.embedding(tokens, table)
+
+
 def embed_tokens(p: Params, tokens, cfg):
-    x = p.tok[tokens]
+    x = embed_rows(p.tok, tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x

@@ -30,7 +30,8 @@ leaves (L, ...), into one module per layer.
 The scoring forward is differentiable (`launch.train`); under grad each
 block runs inside `torch.utils.checkpoint` when `cfg.remat` is set, the
 counterpart of the reference's `jax.checkpoint` over the scanned periods.
-`prefill` and `decode_step` run under `torch.inference_mode()`.
+`prefill` and `decode_step` run under `torch.inference_mode()` (under
+`torch.no_grad()` with the sharding hooks installed: `serving`).
 
 A block whose `spec.mlp` is "moe" holds `moe` (`layers.moe_forward`)
 in place of `mlp`; in the scoring forward each block returns its
@@ -50,8 +51,19 @@ say, as the reference's. Its cache is the reference's dict (see
 `init_cache_encdec`). A decoder position past the context raises where
 the reference's `dynamic_slice` clamps it (ROADMAP.md Queue 3).
 
-The reference's sharding-constraint and FSDP hooks, and its
-expert-parallel MoE, have no counterpart: one card runs eagerly.
+The reference's sharding hooks are here: `set_shardings` and `constrain`
+(the "act" and "logits" constraints), `set_param_gather` and `_gather`
+(a block's FSDP just-in-time weight gather), called where the reference
+calls them. Unset, each is a no-op. Set (`launch.train.
+make_jitted_train_step`, `launch.serve.make_jitted_serve_fns`), the
+weights, batch and caches are DTensors on a process mesh, `constrain`
+redistributes to its sharding and `_gather` a block's weights to their
+use-site specs; DTensor's op rules insert the collectives, and the
+kernels and the attention cores run on each rank's local shards
+(`shards.local_kernel`). Cache writes go through `shards.write_rows` /
+`copy_into`, which keep a DTensor cache's placements. The
+reference's expert-parallel MoE is not ported (ROADMAP.md Queue 1 item
+13f): the portable dispatch runs under DTensor's rules.
 """
 from __future__ import annotations
 
@@ -69,11 +81,71 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.flash_attention import flash_attention
 from . import layers as L
+from .shards import (copy_into, is_dtensor, local_kernel, placed,
+                     whole_dim, write_rows)
 from . import rglru as R
 from . import ssm as S
 from .config import Block, ModelConfig
 
 MAX_WHISPER_DEC = 448
+
+# Optional sharding constraints installed by the launcher (launch/train.py,
+# launch/serve.py). The model itself stays mesh-agnostic; when unset these
+# are no-ops (one process).
+_SHARDINGS = {"act": None, "logits": None}
+_PARAM_GATHER = None
+
+
+def set_shardings(**kw):
+    """Install DTensor placements (`launch.sharding.placements`) by key
+    ("act", "logits"); None removes one."""
+    _SHARDINGS.update(kw)
+
+
+def set_param_gather(fn):
+    """Install a use-site weight resharding fn (FSDP just-in-time gather):
+    {relative name: tensor} -> the same, redistributed; None disables. See
+    launch/sharding.py::use_specs_fn."""
+    global _PARAM_GATHER
+    _PARAM_GATHER = fn
+
+
+def serving(fn):
+    """Run `fn` under `torch.inference_mode()`, or under `torch.no_grad()`
+    while a sharding is installed: a view of a DTensor cannot be made in
+    inference mode. Either way no graph is recorded."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        sharded = any(v is not None for v in _SHARDINGS.values())
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return fn(*args, **kw)
+    return run
+
+
+def _gather(weights: Dict[str, torch.Tensor]):
+    return _PARAM_GATHER(weights) if _PARAM_GATHER is not None else weights
+
+
+class _Weights(dict):
+    """A weight group's gathered tensors by attribute, as `L.Params`."""
+    __getattr__ = dict.__getitem__
+
+
+def _gathered(module: nn.Module):
+    """`module` itself, or its weights after the installed gather."""
+    if _PARAM_GATHER is None:
+        return module
+    return _Weights(_gather(dict(module.named_parameters())))
+
+
+def constrain(x, key):
+    """Redistribute a DTensor to the installed sharding `key` (a command,
+    not the reference's hint); a plain tensor is the same on every rank and
+    stays as it is."""
+    placements = _SHARDINGS.get(key)
+    if placements is None or not is_dtensor(x):
+        return x
+    return placed(x, placements)
 
 
 # ----------------------------------------------------------------------------
@@ -88,6 +160,16 @@ def _rope_base_for(cfg: ModelConfig, spec: Block):
     if spec.window is None and cfg.rope_base_global is not None:
         return cfg.rope_base_global
     return cfg.rope_base
+
+
+def _attend(fn, q, k, v, *rest, **kw):
+    """An attention core (`layers.chunked_attention`, `decode_attention`,
+    `decode_attention_ring`) on this rank's batch rows and heads: local
+    under the specs (KV heads over "model"), so DTensors are handed over
+    as local shards (`local_kernel`); `rest` holds the mask positions
+    (B, S) when there are any."""
+    return local_kernel(fn, (q, k, v) + rest, (True,) * (3 + len(rest)),
+                        (2, 2, 2) + (None,) * len(rest), **kw)
 
 
 class _Block(nn.Module):
@@ -162,28 +244,29 @@ class AttnBlock(_Block):
             # the reference's dynamic_update_slice clamps the write index
             wpos = ring_slot(pos, W) if ring else min(
                 max(pos, 0), cache["k"].shape[1] - 1)
-            cache["k"][:, wpos:wpos + 1] = k.to(cache["k"].dtype)
-            cache["v"][:, wpos:wpos + 1] = v.to(cache["v"].dtype)
+            write_rows(cache["k"], k, wpos)
+            write_rows(cache["v"], v, wpos)
             if ring:
-                o = L.decode_attention_ring(q, cache["k"], cache["v"], pos,
-                                            window=W,
-                                            softcap=cfg.attn_softcap)
+                o = _attend(L.decode_attention_ring, q, cache["k"],
+                            cache["v"], pos=pos, window=W,
+                            softcap=cfg.attn_softcap)
             else:
-                o = L.decode_attention(q, cache["k"], cache["v"], pos,
-                                       window=W, softcap=cfg.attn_softcap)
+                o = _attend(L.decode_attention, q, cache["k"], cache["v"],
+                            pos=pos, window=W, softcap=cfg.attn_softcap)
         else:
             # M-RoPE's (3, B, S) positions never reach the kernel; the
             # mask reads their temporal stream
             positions = ctx["positions"]
             if (cfg.use_flash_attention and W is None
                     and positions.dim() == 2):
-                o = flash_attention(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), softcap=cfg.attn_softcap)
+                o = local_kernel(flash_attention, (q, k, v),
+                                 (True,) * 3, (2, 2, 2),
+                                 softcap=cfg.attn_softcap)
             else:
                 mask_pos = positions[0] if positions.dim() == 3 else positions
-                o = L.chunked_attention(q, k, v, mask_pos, window=W,
-                                        softcap=cfg.attn_softcap,
-                                        q_chunk=cfg.q_chunk)
+                o = _attend(L.chunked_attention, q, k, v, mask_pos,
+                            window=W, softcap=cfg.attn_softcap,
+                            q_chunk=cfg.q_chunk)
             if cache is not None:      # prefill: write into the cache
                 S_in = k.shape[1]
                 if ring and S_in >= W:
@@ -191,11 +274,13 @@ class AttnBlock(_Block):
                     # p mod W; copied into the cache's own tensors (a
                     # slot's view in the serving engine)
                     shift = (S_in - W) % W
-                    cache["k"].copy_(torch.roll(k[:, S_in - W:], shift, 1))
-                    cache["v"].copy_(torch.roll(v[:, S_in - W:], shift, 1))
+                    copy_into(cache["k"],
+                              torch.roll(k[:, S_in - W:], shift, 1))
+                    copy_into(cache["v"],
+                              torch.roll(v[:, S_in - W:], shift, 1))
                 else:
-                    cache["k"][:, :S_in] = k.to(cache["k"].dtype)
-                    cache["v"][:, :S_in] = v.to(cache["v"].dtype)
+                    write_rows(cache["k"], k, 0)
+                    write_rows(cache["v"], v, 0)
         B, Sq = h.shape[:2]
         o = o.reshape(B, Sq, cfg.n_heads * cfg.head_dim) @ self.attn.wo
         return o, cache
@@ -382,7 +467,8 @@ def _embed_inputs(model: Decoder, batch, cfg: ModelConfig):
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         return x
-    return L.embed_tokens(model.embed, batch["tokens"].long(), cfg)
+    return L.embed_tokens(_gathered(model.embed), batch["tokens"].long(),
+                          cfg)
 
 
 def _positions(cfg, batch, B, Sq, device):
@@ -413,11 +499,12 @@ def _remat(module, *args, policy: str = "nothing"):
     """`module(*args)` under `torch.utils.checkpoint`. The module's
     weights are taken now and handed to the recompute, so a backward
     under `torch.func.functional_call` recomputes with the weights the
-    forward used, not the module's own."""
+    forward used, not the module's own. The installed FSDP gather runs
+    inside, so the backward gathers again and keeps no gathered copy."""
     weights = dict(module.named_parameters())
 
     def run(weights, *args):
-        return torch.func.functional_call(module, weights, args)
+        return torch.func.functional_call(module, _gather(weights), args)
 
     context = (functools.partial(create_selective_checkpoint_contexts,
                                  _dots_saveable)
@@ -437,6 +524,10 @@ def _run_stack(model: Decoder, x, cfg, ctx, cache: Optional[List] = None):
         if remat:
             x, _, aux = _remat(block, x, cfg, ctx, None,
                                policy=cfg.remat_policy)
+        elif _PARAM_GATHER is not None:     # FSDP just-in-time gather
+            x, _, aux = torch.func.functional_call(
+                block, _gather(dict(block.named_parameters())),
+                (x, cfg, ctx, None if cache is None else cache[i]))
         else:
             x, _, aux = block(x, cfg, ctx,
                               None if cache is None else cache[i])
@@ -452,10 +543,11 @@ def chunked_xent(model: Decoder, x, labels, mask, cfg):
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, Sq, C):
-        logits = L.lm_logits(model.embed, x[:, c0:c0 + C], cfg)
+        logits = constrain(L.lm_logits(_gathered(model.embed),
+                                       x[:, c0:c0 + C], cfg), "logits")
         logz = torch.logsumexp(logits, dim=-1)
         ys = labels[:, c0:c0 + C].long()
-        gold = torch.gather(logits, -1, ys[..., None])[..., 0]
+        gold = torch.gather(whole_dim(logits, -1), -1, ys[..., None])[..., 0]
         ms = mask[:, c0:c0 + C]
         tot = tot + torch.sum((logz - gold) * ms)
         cnt = cnt + torch.sum(ms)
@@ -473,11 +565,12 @@ def forward_train(model: Model, batch, cfg: Optional[ModelConfig] = None):
     cfg = cfg or model.cfg
     if cfg.is_encdec():
         return forward_train_encdec(model, batch, cfg)
-    x = _embed_inputs(model, batch, cfg)
+    x = constrain(_embed_inputs(model, batch, cfg), "act")
     B, Sq = x.shape[:2]
     ctx = {"positions": _positions(cfg, batch, B, Sq, x.device), "pos": None,
            "decode": False, "aux": True}
     x, _, aux = _run_stack(model, x, cfg, ctx)
+    x = constrain(x, "act")
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     labels = batch["labels"]
@@ -489,7 +582,7 @@ def forward_train(model: Model, batch, cfg: Optional[ModelConfig] = None):
     return loss + 0.01 * aux, {"xent": loss, "moe_aux": aux}
 
 
-@torch.inference_mode()
+@serving
 def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
     """Fill the cache (in place) with a prompt; returns (last_logits,
     cache)."""
@@ -502,7 +595,7 @@ def prefill(model: Decoder, batch, cache, cfg: Optional[ModelConfig] = None):
     return L.lm_logits(model.embed, x[:, -1:], cfg), cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(model: Model, cache, tokens, pos: int,
                 cfg: Optional[ModelConfig] = None):
     """One decode step. tokens: (B,1) int; pos: int (write index, also the
@@ -530,8 +623,8 @@ def _enc_attention(p, x, cfg, positions):
     q, k, v = L.attn_qkv(p.attn, L.apply_norm(p.norm1, x, cfg.norm), cfg,
                          positions, None)
     B, Sq = x.shape[:2]
-    o = L.chunked_attention(q, k, v, positions, causal=False,
-                            q_chunk=cfg.q_chunk)
+    o = _attend(L.chunked_attention, q, k, v, positions, causal=False,
+                q_chunk=cfg.q_chunk)
     return x + o.reshape(B, Sq, -1) @ p.attn.wo
 
 
@@ -563,22 +656,22 @@ def _dec_block(cfg, p, x, enc_kv, ctx, cache=None):
     q, k, v = L.attn_qkv(p.self_attn, h, cfg, ctx["positions"], None)
     if ctx["decode"]:
         pos = ctx["pos"]
-        cache["k"][:, pos:pos + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, pos:pos + 1] = v.to(cache["v"].dtype)
-        o = L.decode_attention(q, cache["k"], cache["v"], pos)
+        write_rows(cache["k"], k, pos)
+        write_rows(cache["v"], v, pos)
+        o = _attend(L.decode_attention, q, cache["k"], cache["v"], pos=pos)
     else:
-        o = L.chunked_attention(q, k, v, ctx["positions"],
-                                q_chunk=min(cfg.q_chunk, Sq))
+        o = _attend(L.chunked_attention, q, k, v, ctx["positions"],
+                    q_chunk=min(cfg.q_chunk, Sq))
     x = x + o.reshape(B, Sq, -1) @ p.self_attn.wo
     # cross attention over the precomputed encoder K/V
     hx = L.apply_norm(p.norm_x, x, cfg.norm)
     qx = (hx @ p.cross_attn.wq).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
     ek, ev = enc_kv
     if Sq == 1:
-        o = L.decode_attention(qx, ek, ev, ek.shape[1] - 1)
+        o = _attend(L.decode_attention, qx, ek, ev, pos=ek.shape[1] - 1)
     else:
-        o = L.chunked_attention(qx, ek, ev, ctx["positions"], causal=False,
-                                q_chunk=min(cfg.q_chunk, Sq))
+        o = _attend(L.chunked_attention, qx, ek, ev, ctx["positions"],
+                    causal=False, q_chunk=min(cfg.q_chunk, Sq))
     x = x + o.reshape(B, Sq, -1) @ p.cross_attn.wo
     h2 = L.apply_norm(p.norm2, x, cfg.norm)
     return x + L.mlp_forward(p.mlp, h2, "gelu"), cache
@@ -676,7 +769,7 @@ def logits_encdec(model: EncoderDecoder, batch,
         raise ValueError(f"{Sd} decoder tokens: the decoder's context is "
                          f"{MAX_WHISPER_DEC}")
     ek, ev = _enc_kv_all(model, encode(model, batch["frames"], cfg), cfg)
-    x = model.embed.tok[toks] + model.embed.pos_dec[:Sd]
+    x = L.embed_rows(model.embed.tok, toks) + model.embed.pos_dec[:Sd]
     ctx = {"positions": torch.arange(Sd, dtype=torch.int32,
                                      device=x.device).expand(B, Sd),
            "pos": None, "decode": False}
@@ -685,7 +778,7 @@ def logits_encdec(model: EncoderDecoder, batch,
         x, _ = (_remat(layer, x, cfg, ek[i], ev[i], ctx) if remat
                 else layer(x, cfg, ek[i], ev[i], ctx))
     x = L.apply_norm(model.dec_final, x, cfg.norm)
-    return (x @ model.embed.tok.T.to(x.dtype)).float()
+    return constrain((x @ model.embed.tok.T.to(x.dtype)).float(), "logits")
 
 
 def forward_train_encdec(model: EncoderDecoder, batch,
@@ -702,7 +795,7 @@ def forward_train_encdec(model: EncoderDecoder, batch,
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    gold = torch.gather(whole_dim(logits, -1), -1, labels[..., None])[..., 0]
     loss = torch.sum((logz - gold) * mask) / torch.clamp_min(
         torch.sum(mask), 1.0)
     return loss, {"xent": loss,
@@ -725,7 +818,7 @@ def init_cache_encdec(cfg: ModelConfig, B: int, T_enc: int,
     return {"self": zeros(shp), "cross": zeros(xshp)}
 
 
-@torch.inference_mode()
+@serving
 def prefill_encdec(model: EncoderDecoder, batch, cache,
                    cfg: Optional[ModelConfig] = None):
     """The encoder over batch["frames"] (B, T, d); `cache["cross"]` is
@@ -737,7 +830,7 @@ def prefill_encdec(model: EncoderDecoder, batch, cache,
     return cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step_encdec(model: EncoderDecoder, cache, tokens, pos: int,
                        cfg: Optional[ModelConfig] = None):
     """One decoder step. tokens: (B, 1) int; pos: int, the write index and
@@ -749,7 +842,8 @@ def decode_step_encdec(model: EncoderDecoder, cache, tokens, pos: int,
     if not 0 <= pos < MAX_WHISPER_DEC:
         raise ValueError(f"decoder position {pos} is outside the decoder's "
                          f"context, 0..{MAX_WHISPER_DEC - 1}")
-    x = model.embed.tok[tokens.long()] + model.embed.pos_dec[pos:pos + 1]
+    x = (L.embed_rows(model.embed.tok, tokens.long())
+         + model.embed.pos_dec[pos:pos + 1])
     B = x.shape[0]
     ctx = {"positions": torch.full((B, 1), pos, dtype=torch.int32,
                                    device=x.device),

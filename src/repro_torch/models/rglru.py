@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Params, dense_init, init_device, pick_chunk
+from .shards import copy_into
 from .ssm import _causal_conv, _scan_chunk
 
 _C_RGLRU = 8.0
@@ -83,8 +84,8 @@ def rglru_forward(p, x, cfg, state=None):
     out = (torch.cat(hs, dim=1).to(x.dtype) * y_branch) @ p.w_o
     if state is None:
         return out, {"h": h, "conv": new_conv}
-    state["h"].copy_(h)
-    state["conv"].copy_(new_conv)
+    copy_into(state["h"], h)
+    copy_into(state["conv"], new_conv)
     return out, state
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssm_scan import ssm_scan
 from .layers import Params, dense_init, init_device, pick_chunk
+from .shards import copy_into, local_kernel
 
 
 def init_ssm(gen, cfg, dtype):
@@ -100,9 +101,9 @@ def ssm_forward(p, x, cfg, state=None):
     if cfg.use_fused_ssm and state is None:
         if di % 128:
             raise ValueError("use_fused_ssm requires d_inner % 128 == 0")
-        y = ssm_scan(xin.float().contiguous(), dt.contiguous(),
-                     Bm.contiguous(), Cm.contiguous(), A.contiguous(),
-                     p.D.contiguous())
+        # each rank scans its batch rows and, over "model", its d_inner
+        y = local_kernel(ssm_scan, (xin.float(), dt, Bm, Cm, A, p.D),
+                         (True,) * 4 + (False,) * 2, (2, 2, None, None, 0, 0))
         y = y.to(x.dtype) * F.silu(z)
         return y @ p.out_proj, {"h": h0, "conv": new_conv}
 
@@ -121,8 +122,8 @@ def ssm_forward(p, x, cfg, state=None):
     out = y @ p.out_proj
     if state is None:
         return out, {"h": h, "conv": new_conv}
-    state["h"].copy_(h)
-    state["conv"].copy_(new_conv)
+    copy_into(state["h"], h)
+    copy_into(state["conv"], new_conv)
     return out, state
 
 

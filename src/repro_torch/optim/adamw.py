@@ -8,6 +8,12 @@ reference's: the global norm over float32 squares, one clip scale
 the float32 step, weight decay on every leaf (norm gains and embeddings
 included), new params cast from the masters.
 
+On a process mesh the leaves are DTensors (`launch.train.
+make_jitted_train_step`): masters and moments take the params'
+placements (`launch.sharding.opt_specs`), the update runs on each rank's
+shards, and the global norm is the norm of the whole gradient (DTensor
+sums the shards' squares across the ranks before the square root).
+
 The update writes master, m and v in place, leaf by leaf: the returned
 state holds the same tensors as the one passed in, which the caller drops
 (the reference's jit donates them). On one card that keeps the state at
@@ -36,9 +42,9 @@ def adamw_init(params: Tree) -> AdamWState:
     return AdamWState(
         master={k: p.detach().to(torch.float32, copy=True)
                 for k, p in params.items()},
-        m={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        m={k: torch.zeros_like(p, dtype=torch.float32)
            for k, p in params.items()},
-        v={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        v={k: torch.zeros_like(p, dtype=torch.float32)
            for k, p in params.items()},
         step=torch.zeros((), dtype=torch.int32, device=some.device),
     )

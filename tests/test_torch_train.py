@@ -343,9 +343,12 @@ def test_serving_records_no_graph(arch):
         assert all(not c.requires_grad for c in layer.values())
 
 
-def test_run_training_with_a_mesh_names_item_13f():
+def test_run_training_on_a_one_card_mesh_names_the_process_mesh():
+    """A sharded step needs one rank a mesh position: a one-card mesh of
+    more than one position raises, naming the process mesh (the sharded
+    run itself: test_torch_sharded_steps.py)."""
     cfg = smoke_config("stablelm-1.6b")
-    with pytest.raises(NotImplementedError, match="item 13f"):
+    with pytest.raises(ValueError, match="process mesh"):
         run_training(cfg, make_test_mesh((2, 1), device="cpu"), iter(()),
                      steps=1, device="cpu")
 

@@ -316,3 +316,199 @@ def localdp_on_ranks(rank: int, world: int, params: dict, Xs, ys,
     for _ in range(rounds):
         p = rf(p, batches)
     return {k: to_np(v) for k, v in p.items()}
+
+
+# ----------------------------------------------------------------------------
+# the sharded LM steps (`launch.train.make_jitted_train_step`,
+# `launch.serve.make_jitted_serve_fns`): one job runs on a process mesh or,
+# with mesh=None, in one process, on the same weights and inputs
+# ----------------------------------------------------------------------------
+
+def lm_batch(cfg, B: int, S: int, seed: int, *, train: bool = True) -> dict:
+    """A batch from `seed`: tokens and labels (B, S); an embeddings
+    model's embeds (B, S, d) and, under M-RoPE, (3, B, S) positions
+    (temporal, height, width streams); an encoder-decoder's frames
+    (B, S, d) and S decoder tokens. Without `train`, the prefill inputs."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    out = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.is_encdec():
+        out["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+        if not train:
+            out = {"frames": out["frames"]}
+    elif cfg.input_mode == "embeddings":
+        out["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+        out.pop("tokens")
+    if cfg.mrope_sections is not None:
+        t = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+        out["positions"] = np.stack([t, t // 2, t % 4])
+    if not train:
+        out.pop("labels", None)
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
+
+
+def _lm_cache_arrays(cache, full) -> dict:
+    if isinstance(cache, dict):
+        return {f"{part}.{k}": to_np(full(v)) for part, leaves in cache.items()
+                for k, v in leaves.items()}
+    return {f"{i}.{k}": to_np(full(v)) for i, layer in enumerate(cache)
+            for k, v in layer.items()}
+
+
+def lm_job(job: dict, mesh=None) -> dict:
+    """Train, score, prefill and decode one smoke config as `job` says,
+    sharded on `mesh` (a process mesh) or in one process (None); the
+    results as numpy (whole tensors). job keys: arch; cfg (overrides of
+    `smoke_config`); B, S; steps (train steps); ref_state (weights by
+    `reference_state` name, else `init_params` seed 0); serve_cfg and mode
+    (the serving config's overrides and the serve mode), S_max (cache
+    length, the frame count of an encoder-decoder), decode (steps,
+    teacher-forced); score_cfg (a scoring forward under no_grad);
+    run_training (steps of `launch.train.run_training`); checks (on a
+    mesh: `shard_state` / `gather_state` round trip, the kernels refuse a
+    DTensor, a further step updates the model and the AdamW state it was
+    given in place)."""
+    import dataclasses
+    import functools
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+
+    full = Sh.full
+    base = smoke_config(job["arch"])
+    cfg = dataclasses.replace(base, **job.get("cfg", {}))
+    B, S = job["B"], job["S"]
+    out = {}
+
+    def fresh(c, state=None):
+        model = M.init_params(c, seed=0, device="cpu")
+        if state is not None:
+            model.load_state_dict({k: torch.as_tensor(v)
+                                   for k, v in state.items()})
+        if mesh is not None:
+            specs = Sh.param_specs(model, c, mesh, "train")
+            local = Sh.shard_state(state if state is not None
+                                   else model.state_dict(), specs, mesh)
+            Sh.place_model(model, specs, mesh, local_state=local,
+                           layout=Sh.layout_for(mesh, "train"))
+        return model
+
+    def params_of(model):
+        # copies: a replicated leaf's whole value is the param itself
+        return {k: to_np(v).copy() for k, v in Sh.gather_state(
+            dict(model.named_parameters())).items()}
+
+    if job.get("steps"):
+        model = fresh(cfg, job.get("ref_state"))
+        opt = T.init_opt(model)
+        step = (T.make_jitted_train_step(cfg, mesh) if mesh is not None
+                else functools.partial(T.train_step, cfg=cfg))
+        for s in range(job["steps"]):
+            model, opt, m = step(model, opt, lm_batch(cfg, B, S, s))
+            out[f"loss{s}"] = to_np(m["loss"])
+            out[f"grad_norm{s}"] = to_np(m["grad_norm"])
+            if s == 0:          # the grads stay on the params until the next
+                out["grads"] = {k: to_np(v) for k, v in Sh.gather_state(
+                    {n: p.grad for n, p in model.named_parameters()
+                     if p.grad is not None}).items()}
+        out["params"] = params_of(model)
+        if mesh is not None and job.get("checks"):
+            init = M.init_params(cfg, seed=0, device="cpu").state_dict()
+            specs = Sh.param_specs(init, cfg, mesh, "train")
+            back = Sh.gather_state(Sh.shard_state(init, specs, mesh), specs,
+                                   mesh)
+            out["state_round_trip"] = all(
+                torch.equal(back[k], init[k]) for k in init)
+            out["kernels_refuse_dtensors"] = _kernels_refuse_dtensors(mesh)
+            kept, masters = params_of(model), dict(opt.master)
+            got_model, got_opt, _ = step(model, opt, lm_batch(cfg, B, S, 99))
+            now = params_of(model)
+            out["updated_in_place"] = (
+                got_model is model
+                and all(got_opt.master[k] is t for k, t in masters.items())
+                and any(not np.array_equal(kept[k], now[k]) for k in kept))
+
+    if job.get("run_training"):
+        from repro_torch.data.tokens import TokenStream
+        model, _, m = T.run_training(
+            cfg, mesh, iter(TokenStream(cfg.vocab, B, S, seed=3)),
+            steps=job["run_training"], log_every=10 ** 9, device="cpu")
+        out["run_training_loss"] = to_np(m["loss"])
+        out["run_training_params"] = params_of(model)
+
+    if job.get("score_cfg") is not None:
+        c = dataclasses.replace(cfg, **job["score_cfg"])
+        model = fresh(c)
+        batch = lm_batch(c, B, S, 50)
+        with torch.no_grad():
+            if mesh is None:
+                loss, _ = M.forward_train(model, batch, c)
+            else:
+                batch = Sh.place_tree(batch, Sh.batch_specs(
+                    batch, c, mesh, "train"), mesh,
+                    Sh.layout_for(mesh, "train"))
+                with Sh.installed(c, mesh, "train", gather=True):
+                    loss, _ = M.forward_train(model, batch, c)
+        out["score"] = to_np(full(loss))
+
+    if job.get("decode") is not None:
+        c = dataclasses.replace(cfg, **job.get("serve_cfg", {}))
+        model = fresh(c)
+        cache = M.init_cache(c, B, job["S_max"], device="cpu")
+        batch = lm_batch(c, B, S, 100, train=False)
+        if mesh is None:
+            prefill = functools.partial(SV.prefill_step, cfg=c)
+            decode = functools.partial(SV.serve_step, cfg=c)
+        else:
+            pre, dec = SV.make_jitted_serve_fns(c, mesh, job["mode"])
+            prefill, decode = pre(cache, batch), dec(cache)
+        logits, cache = prefill(model, batch, cache)
+        out["prefill_logits"] = to_np(logits)
+        toks = torch.from_numpy(np.random.default_rng(101).integers(
+            0, c.vocab, (B, job["decode"])).astype(np.int32))
+        pos0 = 0 if c.is_encdec() else S
+        nxt = []
+        for i in range(job["decode"]):
+            n, cache = decode(model, cache, toks[:, i:i + 1], pos0 + i)
+            nxt.append(to_np(n))
+        out["next_tokens"] = np.concatenate(nxt, axis=1)
+        out["cache"] = _lm_cache_arrays(cache, full)
+    return out
+
+
+def _kernels_refuse_dtensors(mesh) -> bool:
+    """Both LM kernels' wrappers raise TypeError on DTensors (which must
+    reach them as local shards) rather than run their plain versions."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.launch import sharding as Sh
+
+    def dt(*shape):
+        return Sh.from_local(torch.zeros(shape), mesh, Sh.P())
+    calls = [lambda: flash_attention(*(dt(1, 4, 2, 32) for _ in range(3))),
+             lambda: ssm_scan(dt(1, 4, 8), dt(1, 4, 8), dt(1, 4, 2),
+                              dt(1, 4, 2), dt(8, 2), dt(8))]
+    for call in calls:
+        try:
+            call()
+        except TypeError as e:
+            if "DTensor" not in str(e):
+                return False
+        else:
+            return False
+    return True
+
+
+def lm_jobs_on_ranks(rank: int, world: int, jobs: list, shape, axes):
+    """Every job of `jobs` (`lm_job`) on a `shape` process mesh of CPU
+    ranks; rank 0 returns {job name: results}, the others None."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_process_mesh
+    mesh = make_process_mesh(tuple(shape), tuple(axes), device="cpu")
+    out = {job["name"]: lm_job(job, mesh) for job in jobs}
+    return out if rank == 0 else None
