@@ -2214,6 +2214,8 @@ DIST_TIMEOUT = 240             # s for phase 16's spawn: start, data, runs
 # of w that leaves is carried through the next round's walk
 DIST_RTOL = {"rcv1 K=4": 1e-6, "epsilon K=4": 5e-6, "epsilon-cut 2x2": 1e-6}
 MESH_CUT_NK, MESH_CUT_H = 4_096, 512  # phase 16's 2 x 2 dense mesh
+DIST_PLAIN_ROWS = 2 * CUT_NK   # phase 16: the rows of a rank's block held
+                               # to plain (the whole block took 137 s)
 ACCEL_PIN = dict(loss="squared", lam=5e-4, H=128, solver="sdca",
                  aggregator="add")   # tests/test_accel.py's pinned problem
 
@@ -2334,14 +2336,26 @@ def _save_blocks(path, K, **arrays):
             np.save(f"{path}-{k}-{name}.npy", a[k:k + 1].cpu().numpy())
 
 
+def _prefix(args, rows):
+    """A walk's args (*block, y, alpha, mask, w, scale, perm) cut to the
+    block's first `rows` rows: every (K, nk, ...) tensor's rows [0, rows)
+    and the visit order restricted to them, in its own order."""
+    *block, y, alpha, mask, w, scale, perm = args
+    order = perm[0][perm[0] < rows][None].contiguous()
+    cut = [t[:, :rows].contiguous() for t in (*block, y, alpha, mask)]
+    return (*cut, w, scale, order)
+
+
 def _blocks_vs_plain(runs, one, data, depth):
     """Rows 3 and 1 at the shapes a rank of phase 16 launches them: worker
-    0's block (K = 1, the rank's nk) on the next round's inputs of the
-    one-process K = 4 run (its alpha row, w, sigma'/(tau n) of the global
-    n, and row 0 of the round's visit order, as every rank draws it), each
-    held to its plain version with `_against_plain`'s tolerance. The ranks'
-    gaps are held to those one-process runs, so the ranks' longer walks are
-    held to plain on one side and to the K = 4 launches on the other."""
+    0's block (K = 1) on the next round's inputs of the one-process K = 4
+    run (its alpha row, w, sigma'/(tau n) of the global n, and row 0 of
+    the round's visit order, as every rank draws it), cut to the block's
+    first DIST_PLAIN_ROWS rows (the visit order restricted to them), each
+    held to its plain version with `_against_plain`'s tolerance. A wrong
+    block, row or order moves the walk from its first step. The ranks'
+    gaps are held to those one-process runs, so the ranks' whole walks
+    are held to the K = 4 launches."""
     from repro_torch.core import CoCoAConfig
     from repro_torch.core.losses import get_loss
     from repro_torch.kernels import local_sdca as dk, sparse_sdca as sk
@@ -2355,14 +2369,16 @@ def _blocks_vs_plain(runs, one, data, depth):
         w, scale, perm = _round_inputs(cfg, X, y, mask, state)
         block = (X.cols[:1], X.vals[:1]) if name.startswith("rcv1") else (
             X[:1],)
-        args = (*block, y[:1], state.alpha[:1], mask[:1], w, scale, perm[:1])
+        args = _prefix((*block, y[:1], state.alpha[:1], mask[:1], w, scale,
+                        perm[:1]), DIST_PLAIN_ROWS)
         t0 = time.perf_counter()
         abs_err, rel_err, plain_ms, _ = _against_plain(
-            f"{runs[name]['expect']} at a rank's block (K=1, "
-            f"nk={y.shape[1]})", kernel, plain, args, hinge)
-        log(f"  {name}: worker 0's block held to plain, max_abs "
-            f"{abs_err:.3e}; the plain walk {plain_ms:.1f} ms (the check "
-            f"{time.perf_counter() - t0:.1f} s)")
+            f"{runs[name]['expect']} at a rank's block (K=1, its first "
+            f"{DIST_PLAIN_ROWS} of nk={y.shape[1]} rows)", kernel, plain,
+            args, hinge)
+        log(f"  {name}: worker 0's block, first {DIST_PLAIN_ROWS} rows, "
+            f"held to plain, max_abs {abs_err:.3e}; the plain walk "
+            f"{plain_ms:.1f} ms (the check {time.perf_counter() - t0:.1f} s)")
 
 
 def phase_dist(dev, sparse, dense):
@@ -4639,17 +4655,26 @@ SHARD_UPDATE_REL_RMS = 0.2     # every master's update over the steps:
 
 @contextlib.contextmanager
 def _gloo_bytes():
-    """Count the bytes this rank hands to DTensor's collectives inside the
-    block (`comm.collectives.dtensor_bytes_sent`: every routed
+    """Meter this rank's collectives inside the block: yields a dict that
+    holds on the way out "bytes", what it handed to DTensor's routed
+    collectives (`comm.collectives.dtensor_bytes_sent`: every routed
     all-gather, all-reduce and reduce-scatter, a Shard -> Shard
-    redistribution's included); yields a one-item list that holds the
-    count on the way out."""
-    from repro_torch.comm.collectives import dtensor_bytes_sent
-    sent, start = [0], dtensor_bytes_sent()
+    redistribution's included), "sent", what it handed to any collective
+    (the expert-parallel MoE's direct calls too), and "tally", the
+    collectives kind by kind in the dry run's form
+    (`launch.dryrun.lower_step`: {"kind/group/routed": [count, result
+    bytes, bytes handed]})."""
+    from repro_torch.comm import collectives as col
+    got = {"bytes": 0, "sent": 0, "tally": {}}
+    start, snap = col.dtensor_bytes_sent(), col.tally()
     try:
-        yield sent
+        yield got
     finally:
-        sent[0] = dtensor_bytes_sent() - start
+        rec = col.tally_since(snap)
+        got["bytes"] = col.dtensor_bytes_sent() - start
+        got["sent"] = col.tally_bytes(rec)
+        got["tally"] = {f"{k}/{g}/{int(r)}": list(v)
+                        for (k, g, r), v in sorted(rec.items())}
 
 
 def _local(t):
@@ -4700,10 +4725,10 @@ def _shard_parts(dev, mesh, fed, ref_dir=None):
     batch = TokenStream(serve_cfg.vocab, SHARD_B, SHARD_S,
                         seed=SEED).tensors_at(0, dev)
     out = {}
-    nothing = contextlib.nullcontext([0])
 
     def meter():
-        return _gloo_bytes() if mesh is not None else nothing
+        return _gloo_bytes() if mesh is not None else \
+            contextlib.nullcontext({"bytes": 0, "sent": 0, "tally": {}})
 
     # stablelm-1.6b: prefill + decode
     model = M.init_params(serve_cfg, seed=SEED, device=dev)
@@ -4719,24 +4744,30 @@ def _shard_parts(dev, mesh, fed, ref_dir=None):
     with meter() as sent:
         (logits, cache), s = _timed_s(lambda: prefill(model, prompt, cache))
     out["prefill"] = dict(logits=logits[:, -1].float().cpu(), s=s,
-                          flash=counts()["flash_attention"], bytes=sent[0])
+                          flash=counts()["flash_attention"],
+                          bytes=sent["bytes"], tally=sent["tally"])
     tok = (torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
            if fed is None else fed[:, :1].to(dev))
-    seen, steps, fed_now = [], [], [tok.cpu()]
+    seen, steps, fed_now, tallies, sent_b = [], [], [tok.cpu()], [], 0
 
-    def capture(real, *a, **kw):
+    def capture(real, *a, **kw):    # the logits, gathered after the step
         lg, c = real(*a, **kw)
-        seen.append(Sh.full(lg)[:, -1].float().cpu())
+        seen.append(lg)
         return lg, c
 
-    with meter() as sent, _wrapped(M, "decode_step", capture):
+    with _wrapped(M, "decode_step", capture):
         for i in range(SHARD_DECODE):
-            (nxt, cache), s = _timed_s(
-                lambda: decode(model, cache, tok, SHARD_S + i))
+            with meter() as sent:
+                (nxt, cache), s = _timed_s(
+                    lambda: decode(model, cache, tok, SHARD_S + i))
+            seen[-1] = Sh.full(seen[-1])[:, -1].float().cpu()
             steps.append(s)
+            tallies.append(sent["tally"])
+            sent_b += sent["bytes"]
             tok = nxt if fed is None else fed[:, i + 1:i + 2].to(dev)
             fed_now.append(tok.cpu())
-    out["decode"] = dict(logits=torch.stack(seen), s=steps, bytes=sent[0],
+    out["decode"] = dict(logits=torch.stack(seen), s=steps, bytes=sent_b,
+                         tally=tallies,
                          fed=torch.cat(fed_now[:SHARD_DECODE], 1))
     del model, cache, logits
     _free()
@@ -4752,14 +4783,15 @@ def _shard_parts(dev, mesh, fed, ref_dir=None):
     init = {k: _local(p).detach().clone()
             for k, p in model.named_parameters()}
     opt = T.init_opt(model)
-    losses, gnorms, steps, sent_steps = [], [], [], []
+    losses, gnorms, steps, sent_steps, tallies = [], [], [], [], []
     for t in range(SHARD_TRAIN_STEPS):
         with meter() as sent:
             (model, opt, m), s = _timed_s(lambda: step(model, opt, batch))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
         steps.append(s)
-        sent_steps.append(sent[0])
+        sent_steps.append(sent["bytes"])
+        tallies.append(sent["tally"])
     updates = {}
     for k, w in opt.master.items():     # the masters start as the params
         upd = _local(w) - init.pop(k).float()
@@ -4777,7 +4809,7 @@ def _shard_parts(dev, mesh, fed, ref_dir=None):
                       float(ref.pow(2).sum()))
         del ref, upd
     out["train"] = dict(loss=losses, grad_norm=gnorms, s=steps,
-                        bytes=sent_steps, updates=updates)
+                        bytes=sent_steps, tally=tallies, updates=updates)
     del model, opt, m, updates
     _free()
     # falcon-mamba-7b at 4 layers: scoring forward (fused scan) + prefill
@@ -4805,7 +4837,7 @@ def _shard_parts(dev, mesh, fed, ref_dir=None):
         (loss, _), s = _timed_s(lambda: M.forward_train(model, score_batch,
                                                         mamba_cfg))
     out["score"] = dict(loss=float(Sh.full(loss)), s=s,
-                        scan=counts()["ssm_scan"], bytes=sent[0],
+                        scan=counts()["ssm_scan"], bytes=sent["bytes"],
                         scan_y=Sh.full(scans[0]).float().cpu())
     del scans
     cache = M.init_cache(mamba_cfg, SHARD_B, SHARD_S, dev)
@@ -4817,7 +4849,7 @@ def _shard_parts(dev, mesh, fed, ref_dir=None):
     with meter() as sent:
         (logits, cache), s = _timed_s(lambda: prefill(model, prompt, cache))
     out["mamba_prefill"] = dict(logits=logits[:, -1].float().cpu(), s=s,
-                                bytes=sent[0])
+                                bytes=sent["bytes"])
     del model, cache, logits
     _free()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -5001,6 +5033,454 @@ def phase_sharded(dev, rows, card):
     return {"one": one, "ranks": ranks, "s": took}
 
 
+# ----------------------------------------------------------------------------
+# phase 25: expert parallelism, the dry run against the card, the paper
+# cell's rank block
+# ----------------------------------------------------------------------------
+
+EP_LAYERS = 4                  # llama4-scout at full width, 4 of 48 layers
+EP_B, EP_S = 4, 1_024          # the prefill; EP_DECODE steps after it
+EP_DECODE = 8
+EP_TIMEOUT = 600               # s for the spawn: start, init, every part
+EP_LOGITS_REL_RMS = 5e-2       # bf16: expert-parallel vs the grouped twin,
+                               # on the twin's routes (phase 24's limit)
+PAPER_K = 512                  # the paper cell's 512-rank mesh: one rank's
+PAPER_PLAIN_ROWS = 2 * CUT_NK  # block; its first rows held to plain
+PAPER_REPS = 3
+
+
+def _ep_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                               n_layers=EP_LAYERS, use_flash_attention=True)
+
+
+def _forced_routes(want, flips, calls):
+    """An `around` for `layers._route` on a rank: the router runs, and the
+    routes the twin took for these tokens (`want`, one tensor a call, in
+    call order) replace its own; the share of its own that differ is kept
+    in `flips`. Slots and drops are recomputed from the forced routes, as
+    the twin's."""
+    def around(real, router, xt, cfg):
+        import torch
+        import torch.nn.functional as F
+        from repro_torch.models import layers as L
+        eid, gate, pos, keep, prob = real(router, xt, cfg)
+        forced = want[len(calls)].to(eid.device)
+        calls.append(1)
+        flips.append(float((eid != forced).float().mean()))
+        onehot = F.one_hot(forced, cfg.n_experts)
+        gate = torch.sum(prob * onehot, dim=-1)
+        pos = torch.sum((torch.cumsum(onehot, dim=0) - 1) * onehot, dim=-1)
+        keep = pos < L.moe_capacity(xt.shape[0], cfg)
+        return forced, gate, pos, keep, prob
+    return around
+
+
+def _ep_parts(dev, mesh, forced=None, fed=None):
+    """Phase 25(a)'s work: llama4-scout at EP_LAYERS layers, a prefill of
+    EP_B x EP_S with flash, then EP_DECODE decode steps teacher-forced
+    with `fed` (None: greedy, the tokens returned). `mesh` None: the
+    grouped twin in one process (G = 2 for the prefill, each data shard's
+    tokens a group; G = 1 for the resident decode, which routes the whole
+    batch), its routes returned. On this rank of the process mesh: the
+    expert-parallel MoE as the dry run sets it, on the twin's routes
+    (`forced`: {"prefill": [(G, T) a layer], "decode": [(T,) a layer a
+    step]}). Logits, seconds, flash launches, tallies and peak."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = _ep_cfg()
+    batch = TokenStream(cfg.vocab, EP_B, EP_S, seed=SEED).tensors_at(0, dev)
+    prompt = {"tokens": batch["tokens"]}
+    cache = M.init_cache(cfg, EP_B, EP_S + EP_DECODE, dev)
+    out, flips, calls, routes, portable = {}, [], [], [], [0]
+    t0 = time.perf_counter()
+    if mesh is None:
+        model = M.init_params(cfg, seed=SEED, device=dev)
+    else:
+        specs = Sh.param_specs(M.init_params(cfg, device="meta"), cfg,
+                               mesh, "serve")
+        for r in range(mesh.size):   # in turns: one whole model at a time
+            if r == mesh.rank:
+                model = M.init_params(cfg, seed=SEED, device=dev)
+                Sh.place_model(model, specs, mesh,
+                               layout=Sh.layout_for(mesh, "serve"))
+                _free()
+            dist.barrier()
+    out["init_s"] = time.perf_counter() - t0
+
+    def record(real, p, xt, c):       # the twin's routes, kept
+        res = real(p, xt, c)
+        routes.append(res[0].detach().cpu())
+        return res
+
+    def count_portable(real, *a, **kw):
+        portable[0] += 1
+        return real(*a, **kw)
+
+    moe0 = []
+
+    def first_moe(real, p, x, c, dff, aux=True):    # layer 0's, in prefill
+        o, a = real(p, x, c, dff, aux=aux)
+        if not moe0:
+            moe0.append((p.shared, x, o))
+        return o, a
+
+    def routed0():
+        """Layer 0's routed-expert output in the prefill, whole: the MoE's
+        output less its shared expert (computed again here, outside the
+        metered step, as the MoE computed it)."""
+        shared, x, o = moe0.pop()
+        with torch.no_grad():
+            sh = L.mlp_forward(shared, x.reshape(-1, x.shape[-1]),
+                               "swiglu").reshape(x.shape)
+            return Sh.full(o - sh).float().cpu()
+
+    def meter():
+        return _gloo_bytes() if mesh is not None else \
+            contextlib.nullcontext({"bytes": 0, "sent": 0, "tally": {}})
+
+    if mesh is None:
+        around = (L, "moe_route", record)
+        pre = functools.partial(SV.prefill_step, cfg=cfg)
+        dec = functools.partial(SV.serve_step, cfg=cfg)
+    else:
+        row = mesh.coords()["data"]
+        want = [r[row] for r in forced["prefill"]] + list(forced["decode"])
+        around = (L, "_route", _forced_routes(want, flips, calls))
+        jp, jd = SV.make_jitted_serve_fns(cfg, mesh, "serve")
+        pre, dec = jp(cache, prompt), jd(cache)
+    ctx = (lambda gather: DR.moe_ctx_for(cfg, mesh, "serve", gather)) \
+        if mesh is not None else (lambda gather: {"groups": 2 if gather
+                                                  else 1})
+    counts = _counts_zero()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _wrapped(*around), _wrapped(L, "moe_route", count_portable) \
+                if mesh is not None else contextlib.nullcontext():
+            L.set_moe_ctx(**ctx(True))
+            with meter() as sent, _wrapped(L, "moe_forward", first_moe):
+                (logits, cache), s = _timed_s(lambda: pre(model, prompt,
+                                                          cache))
+            out["prefill"] = dict(logits=logits[:, -1].float().cpu(), s=s,
+                                  flash=counts()["flash_attention"],
+                                  sent=sent["sent"], tally=sent["tally"],
+                                  routed0=routed0())
+            tok = (torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+                   if fed is None else fed[:, :1].to(dev))
+            L.set_moe_ctx(**ctx(False))
+            seen, steps, tallies, sents, fed_now = [], [], [], [], [tok.cpu()]
+
+            def capture(real, *a, **kw):
+                lg, c = real(*a, **kw)
+                seen.append(lg)
+                return lg, c
+
+            with _wrapped(M, "decode_step", capture):
+                for i in range(EP_DECODE):
+                    with meter() as sent:
+                        (nxt, cache), s = _timed_s(
+                            lambda: dec(model, cache, tok, EP_S + i))
+                    seen[-1] = Sh.full(seen[-1])[:, -1].float().cpu()
+                    steps.append(s)
+                    tallies.append(sent["tally"])
+                    sents.append(sent["sent"])
+                    tok = nxt if fed is None else fed[:, i + 1:i + 2].to(dev)
+                    fed_now.append(tok.cpu())
+    finally:
+        L.set_moe_ctx()
+    out["decode"] = dict(logits=torch.stack(seen), s=steps, tally=tallies,
+                         sent=sents, fed=torch.cat(fed_now[:EP_DECODE], 1))
+    out["flash"] = counts()["flash_attention"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if mesh is None:
+        n = EP_LAYERS
+        out["routes"] = {"prefill": [r.numpy() for r in routes[:n]],
+                         "decode": [r.numpy() for r in routes[n:]]}
+    else:
+        out["flips"] = np.array(flips)
+        out["ep_calls"] = len(calls)
+        out["portable_calls"] = portable[0]
+        out["coords"] = mesh.coords()
+    del model, cache
+    _free()
+    return out
+
+
+def _ep_rank(rank, world, forced, fed):
+    """Phase 25(a)'s rank: `_ep_parts` on its position of the (data 2,
+    model 2) process mesh on cuda:0; rank 0 returns the logits, every
+    rank its counts, seconds, tallies, flips and peak."""
+    import faulthandler
+    import torch
+    from repro_torch.launch.mesh import device_mesh, make_process_mesh
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    mesh = make_process_mesh(SHARD_MESH, ("data", "model"), device=dev)
+    device_mesh(mesh)
+    forced = {k: [torch.from_numpy(a) for a in v] for k, v in forced.items()}
+    out = _ep_parts(dev, mesh, forced, torch.from_numpy(fed))
+    if rank:
+        for key in ("logits", "routed0"):
+            out["prefill"].pop(key)
+        out["decode"].pop("logits")
+    return _as_numpy(out)
+
+
+def _phase_ep(dev, rows, card):
+    """Phase 25(a): llama4-scout's MoE expert-parallel on a (data 2, model
+    2) process mesh of 4 ranks on cuda:0 over gloo, held to the grouped
+    twin in one process on the card (run and freed first) on the twin's
+    routes; flash on every rank's heads."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    cfg = _ep_cfg()
+    log(f"[25a expert-parallel] {card}: llama4-scout at full width (d "
+        f"{cfg.d_model}, {cfg.n_heads} x {cfg.head_dim} heads, {cfg.n_kv} "
+        f"KV, {cfg.n_experts} experts of d_ff {cfg.d_ff} + a shared one, "
+        f"vocab {cfg.vocab}, {cfg.dtype}), {EP_LAYERS} of 48 layers; "
+        f"prefill B {EP_B} x S {EP_S} with flash, {EP_DECODE} decode "
+        f"steps; mesh (data, model) = {SHARD_MESH}, 4 ranks on {dev}")
+    _free()
+    one = _ep_parts(dev, None)
+    if one["prefill"]["flash"] != EP_LAYERS:
+        fail(f"phase 25: the twin's prefill launched flash "
+             f"{one['prefill']['flash']} times, not {EP_LAYERS}")
+    one = _as_numpy(one)
+    log(f"  grouped twin: init {one['init_s']:.1f} s, prefill "
+        f"{one['prefill']['s']:.3f} s, decode s " + ", ".join(
+            f"{t:.3f}" for t in one["decode"]["s"])
+        + f"; peak {one['peak_gb']:.2f} GB [{card}]")
+    _free()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_ep_rank, 4, (one["routes"], one["decode"]["fed"]),
+                            timeout=EP_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 25: {e}")
+    log(f"  the spawn took {time.perf_counter() - t0:.1f} s (start, init "
+        f"in turns, every part; limit {EP_TIMEOUT} s)")
+    got = ranks[0]
+    checks = [
+        ("scout prefill, layer 0's routed-expert output, rel RMS",
+         _rel_rms(got["prefill"]["routed0"], one["prefill"]["routed0"])),
+        ("scout prefill last logits, rel RMS",
+         _rel_rms(got["prefill"]["logits"], one["prefill"]["logits"])),
+        ("scout decode logits (worst step), rel RMS",
+         max(_rel_rms(a, b) for a, b in zip(got["decode"]["logits"],
+                                            one["decode"]["logits"])))]
+    over = []
+    for what, err in checks:
+        log(f"  {what} on the twin's routes: {err:.3e} (limit "
+            f"{EP_LOGITS_REL_RMS})")
+        if not err <= EP_LOGITS_REL_RMS:
+            over.append(f"{what} {err} over {EP_LOGITS_REL_RMS}")
+    n_calls = EP_LAYERS * (1 + EP_DECODE)
+    for rk in ranks:
+        fl = np.asarray(rk["flips"])
+        pre_flips = ", ".join(f"{f:.4f}" for f in fl[:EP_LAYERS])
+        dec_flips = float(fl[EP_LAYERS:].mean()) if len(fl) > EP_LAYERS \
+            else 0.0
+        log(f"  rank {rk['coords']}: flash launches {rk['flash']}; "
+            f"expert-parallel calls {rk['ep_calls']}, portable "
+            f"{rk['portable_calls']}; own routes that differ from the "
+            f"twin's: prefill by layer {pre_flips}, decode mean "
+            f"{dec_flips:.4f}; init {rk['init_s']:.1f} s; prefill "
+            f"{rk['prefill']['s']:.3f} s ({rk['prefill']['sent']} B handed "
+            f"to gloo), decode s " + ", ".join(
+                f"{t:.3f}" for t in rk["decode"]["s"])
+            + f" ({int(np.mean(rk['decode']['sent']))} B a step); peak "
+            f"{rk['peak_gb']:.2f} GB [{card}]")
+        if rk["flash"] != EP_LAYERS:
+            over.append(f"rank {rk['coords']} launched flash {rk['flash']} "
+                        f"times, not {EP_LAYERS}")
+        if rk["ep_calls"] != n_calls or rk["portable_calls"]:
+            over.append(f"rank {rk['coords']} ran the expert-parallel MoE "
+                        f"{rk['ep_calls']} times (not {n_calls}) and the "
+                        f"portable one {rk['portable_calls']} times")
+    if over:
+        fail("phase 25: " + "; ".join(over))
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += sum(rk["flash"] for rk in ranks)
+            row["launches_phase25"] = [rk["flash"] for rk in ranks]
+    return {"one": one, "ranks": ranks}
+
+
+def _dryrun_steps(tmp):
+    """Phase 25(b)'s dry run in a child process: phase 24's three
+    stablelm-1.6b steps and phase 25(a)'s scout steps on a fake (data 2,
+    model 2) world, then the paper cell on the 512-rank world; the
+    records by step name, the paper cell's record, the child's seconds."""
+    steps = [
+        dict(name="p24_train", arch="stablelm-1.6b", kind="train",
+             B=SHARD_B, S=SHARD_S),
+        dict(name="p24_prefill", arch="stablelm-1.6b", kind="prefill",
+             B=SHARD_B, S=SHARD_S, S_cache=SHARD_S + SHARD_DECODE,
+             flash=True),
+        dict(name="p24_decode", arch="stablelm-1.6b", kind="decode",
+             B=SHARD_B, S=SHARD_S, S_cache=SHARD_S + SHARD_DECODE,
+             flash=True),
+        dict(name="p25_prefill", arch="llama4-scout-17b-a16e",
+             kind="prefill", B=EP_B, S=EP_S, S_cache=EP_S + EP_DECODE,
+             n_layers=EP_LAYERS, flash=True),
+        dict(name="p25_decode", arch="llama4-scout-17b-a16e", kind="decode",
+             B=EP_B, S=EP_S, S_cache=EP_S + EP_DECODE, n_layers=EP_LAYERS,
+             flash=True)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+         "--mesh-shape", "2x2", "--steps", json.dumps(steps), "--paper",
+         "--mesh", "multi", "--out", tmp], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        if line.startswith(("[ok]", "[FAIL]", "done")):
+            log(f"  dry run: {line}")
+    if run.returncode != 0:
+        fail(f"phase 25: the dry run exited {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    recs = {s["name"]: json.loads(pathlib.Path(
+        tmp, f"step__{s['name']}.json").read_text()) for s in steps}
+    paper = json.loads(pathlib.Path(
+        tmp, "paper-svm__round__multi.json").read_text())
+    return recs, paper, took
+
+
+def _paper_block(dev, rows, card):
+    """Phase 25(c): one rank's share of the paper-svm cell on the 512-rank
+    mesh, (1, nk, d) = (1, n / 512, 16,384) float32 rows from SEED, one
+    CoCoA+ round through row 1's kernel (PAPER_REPS launches timed with
+    CUDA events, after a warm one), its first PAPER_PLAIN_ROWS rows held
+    to the plain walk. ms a launch against the bytes bound."""
+    import math
+    import torch
+    from repro_torch.configs.paper_svm import CONFIG as W
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import local_sdca as dk
+    from repro_torch.obs import cost, prof
+    nk, d = W.n // PAPER_K, W.d
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    X = torch.randn((1, nk, d), generator=g, device=dev) / math.sqrt(d)
+    y = torch.where(torch.rand((1, nk), generator=g, device=dev) < 0.5,
+                    -1.0, 1.0)
+    alpha = torch.zeros((1, nk), device=dev)
+    mask = torch.ones((1, nk), device=dev)
+    w = torch.zeros((d,), device=dev)
+    scale = float(PAPER_K) / (W.lam * W.n)     # sigma' = K, tau = lam
+    perm = torch.randperm(nk, generator=g, device=dev).to(
+        torch.int32)[None].contiguous()
+    kw = {"loss": get_loss(W.loss)}
+    args = (X, y, alpha, mask, w, scale, perm)
+    counts = _counts_zero()
+    dk.local_sdca(*args, **kw)                 # warm (the build loaded)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(PAPER_REPS):
+        dalpha, du = dk.local_sdca(*args, **kw)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / PAPER_REPS
+    launches = counts()["local_sdca"]
+    if launches != PAPER_REPS + 1:
+        fail(f"phase 25: the paper block launched row 1 {launches} times, "
+             f"not {PAPER_REPS + 1}")
+    if not (torch.isfinite(dalpha).all() and torch.isfinite(du).all()):
+        fail("phase 25: the paper block's round is not finite")
+    abs_err, rel_err, plain_ms, _ = _against_plain(
+        f"local_sdca at the paper cell's rank block, its first "
+        f"{PAPER_PLAIN_ROWS} of {nk} rows", dk.local_sdca,
+        dk.local_sdca_plain, _prefix(args, PAPER_PLAIN_ROWS), kw)
+    stats = cost.dense_walk(1, nk, d)
+    roof = prof.H100_SXM.roofline(stats["flops"], stats["hbm_bytes"], 0.0)
+    bound_ms = 1e3 * max(roof["t_memory_s"], roof["t_compute_s"])
+    log(f"[25c paper block] {card}: one rank's block of the 512-rank "
+        f"paper-svm cell, nk {nk} x d {d} float32 "
+        f"({X.numel() * 4 / 1e9:.2f} GB), one round through row 1: "
+        f"{ms:.3f} ms a launch ({ms / nk * 1e3:.3f} us a step) against a "
+        f"{bound_ms:.4f} ms bound (bytes: {stats['hbm_bytes']:.0f} B at "
+        f"{prof.H100_SXM.hbm_bw / 1e12:g} TB/s) -> {ms / bound_ms:.0f}x; "
+        f"its first {PAPER_PLAIN_ROWS} rows held to plain, max_abs "
+        f"{abs_err:.3e}, the plain walk {plain_ms:.1f} ms")
+    for row in rows:
+        if row["name"] == "local_sdca":
+            row["launches"] += launches
+            row["ms_paper_block"] = ms
+            row["bound_ms_paper_block"] = bound_ms
+    del X
+    _free()
+    return {"ms": ms, "bound_ms": bound_ms, "nk": nk, "d": d,
+            "max_abs_err": abs_err}
+
+
+def _same_tally(what, dry, real, over):
+    if dry != real:
+        over.append(f"{what}: the dry run's tally {dry} is not the real "
+                    f"rank 0's {real}")
+    handed = sum(v[2] for v in dry.values())
+    log(f"  {what}: dry run {handed} B handed to the collectives "
+        f"({sum(v[0] for v in dry.values())} calls), real rank 0 "
+        f"{sum(v[2] for v in real.values())} B: "
+        f"{'equal' if dry == real else 'DIFFERENT'}")
+
+
+def phase_expert(dev, rows, card, sharded):
+    """Phase 25: (a) `_phase_ep`; (b) the dry run of phase 24's and (a)'s
+    steps on a fake 4-rank world, every tally equal to the real rank 0's,
+    byte for byte, its flops_per_device beside the measured step time;
+    (c) `_paper_block` beside the dry run's record of that cell."""
+    t_start = time.perf_counter()
+    ep = _phase_ep(dev, rows, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        recs, paper, took = _dryrun_steps(tmp)
+    log(f"[25b dry run] the child took {took:.1f} s")
+    r24, r25 = sharded["ranks"][0], ep["ranks"][0]
+    pairs = [("p24_train", [r24["train"]["tally"][t] for t in
+                            range(SHARD_TRAIN_STEPS)], r24["train"]["s"]),
+             ("p24_prefill", [r24["prefill"]["tally"]],
+              [r24["prefill"]["s"]]),
+             ("p24_decode", r24["decode"]["tally"], r24["decode"]["s"]),
+             ("p25_prefill", [r25["prefill"]["tally"]],
+              [r25["prefill"]["s"]]),
+             ("p25_decode", r25["decode"]["tally"], r25["decode"]["s"])]
+    over = []
+    for name, reals, secs in pairs:
+        rec = recs[name]
+        for i, real in enumerate(reals):
+            _same_tally(f"{name} step {i + 1}", rec["tally"], real, over)
+        log(f"  {name}: dry-run flops_per_device "
+            f"{rec['flops_per_device']:.4e}, hbm_bytes_per_device "
+            f"{rec['hbm_bytes_per_device']:.4e}; measured rank 0 s "
+            + ", ".join(f"{t:.3f}" for t in secs) + f" [{card}]")
+    if over:
+        fail("phase 25: " + "; ".join(over))
+    block = _paper_block(dev, rows, card)
+    log(f"  the dry run's paper-svm cell (multi, {paper['n_devices']} "
+        f"ranks, nk {paper['nk']} x d {paper['d']}): flops_per_device "
+        f"{paper['flops_per_device']:.4e}, ew_flops_per_device "
+        f"{paper['ew_flops_per_device']:.4e}, hbm_bytes_per_device "
+        f"{paper['hbm_bytes_per_device']:.4e}, collective wire bytes "
+        f"{paper['collective_wire_bytes_per_device']:.4e}; the card's "
+        f"round {block['ms']:.3f} ms against its {block['bound_ms']:.4f} ms "
+        f"bound [{card}]")
+    log(f"  phase 25 took {time.perf_counter() - t_start:.1f} s")
+    return {"ep": ep, "dry": recs, "paper": paper, "block": block}
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -5051,7 +5531,9 @@ def main() -> None:
     phase_windows(dev, rows)
     phase_moe(dev, rows)
     phase_whisper(dev, rows)
-    phase_sharded(dev, rows, smi_line)
+    sharded = phase_sharded(dev, rows, smi_line)
+    phase_expert(dev, rows, smi_line, sharded)
+    del sharded
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

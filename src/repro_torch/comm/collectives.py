@@ -12,6 +12,19 @@ collectives used here (torch 2.11.0+cu128 on an H100:
 message is handed to it on the rank's device as it is. The rank computes
 on the card; only the message crosses the host, and that copy is part of
 the exchange's time.
+
+The tally: every collective of this module -- the mesh rounds' calls,
+the expert-parallel MoE's (`psum`, `pmean`, `all_gather_dim`, autograd
+aware), and DTensor's routed ones (`route_dtensor_collectives`) --
+records its kind (the reference's HLO names: all-gather, all-reduce,
+reduce-scatter, all-to-all, collective-permute), its group size and its
+bytes: the result's, as the reference's `collective_stats` counts them,
+and the input's, the bytes handed to the transport. `tally()` is a
+snapshot, `tally_since(snapshot)` what came after it, and
+`launch.hlo_analysis.collective_stats` prices it in wire bytes a device
+with the reference's ring model. A dry run on a fake world
+(`launch.dryrun`) and a real run of the same step make the same calls,
+so their tallies are equal.
 """
 from __future__ import annotations
 
@@ -33,12 +46,60 @@ def _size(group) -> int:
     return dist.get_world_size(group)
 
 
+# ----------------------------------------------------------------------------
+# the tally
+# ----------------------------------------------------------------------------
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+# (kind, group size, routed through DTensor) -> [count, result bytes,
+# bytes handed over]; aggregated, so a long run keeps it small
+_TALLY: dict = {}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _record(kind: str, g: int, result: torch.Tensor, handed: torch.Tensor,
+            routed: bool = False) -> None:
+    row = _TALLY.setdefault((kind, int(g), routed), [0, 0, 0])
+    row[0] += 1
+    row[1] += _nbytes(result)
+    row[2] += _nbytes(handed)
+
+
+def tally() -> dict:
+    """A snapshot of the tally: {(kind, group size, routed): (count,
+    result bytes, bytes handed over)} since the process started."""
+    return {k: tuple(v) for k, v in _TALLY.items()}
+
+
+def tally_since(snapshot: dict) -> dict:
+    """The collectives recorded after `snapshot` (a `tally()`), in its
+    form; keys with no new call are left out."""
+    out = {}
+    for k, v in _TALLY.items():
+        old = snapshot.get(k, (0, 0, 0))
+        new = tuple(a - b for a, b in zip(v, old))
+        if new[0]:
+            out[k] = new
+    return out
+
+
+def tally_bytes(records: dict) -> int:
+    """The bytes handed to the transport in `records` (a `tally_since`)."""
+    return sum(v[2] for v in records.values())
+
+
 def all_reduce(t: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     """The sum of `t` over the ranks of `group` (None: the tensor as it
     is, for a group of one)."""
     if group is None or _size(group) == 1:
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
+    _record("all-reduce", _size(group), out, out)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
@@ -51,6 +112,7 @@ def all_gather(t: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     n = _size(group)
     flat = t.detach().contiguous().reshape(-1)
     out = flat.new_empty((n * flat.shape[0],))
+    _record("all-gather", n, out, flat)
     _gather_into(out, flat, group=group)
     return out.reshape((n,) + tuple(t.shape))
 
@@ -63,9 +125,72 @@ def reduce_scatter(flat: torch.Tensor, group: Optional[object]
         return flat
     n = _size(group)
     out = flat.new_empty((flat.shape[0] // n,))
+    _record("reduce-scatter", n, out, flat)
     _scatter_from(out, flat.detach().contiguous(), op=dist.ReduceOp.SUM,
                   group=group)
     return out
+
+
+# ----------------------------------------------------------------------------
+# autograd-aware forms, for a body written on local shards (the
+# expert-parallel MoE): the reference's psum / pmean / tiled all_gather
+# inside shard_map
+# ----------------------------------------------------------------------------
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        g = all_gather(t, group)                      # (n, ...)
+        return torch.cat(g.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, dim = _size(ctx.group), ctx.dim
+        chunks = grad.movedim(dim, 0).contiguous()
+        out = reduce_scatter(chunks.reshape(-1), ctx.group)
+        return (out.reshape((chunks.shape[0] // n,)
+                            + tuple(chunks.shape[1:])).movedim(0, dim),
+                None, None)
+
+
+def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' `t` concatenated along `dim` in their order in `group`
+    (the reference's `all_gather(..., axis=dim, tiled=True)`). Its
+    backward is the reduce-scatter of the grad: every rank used the whole
+    tensor on its own data."""
+    if group is None or _size(group) == 1:
+        return t
+    return _AllGatherDim.apply(t, group, dim % t.dim())
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, scale):
+        ctx.scale = scale
+        out = all_reduce(t, group)
+        return out * scale if scale != 1.0 else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad * ctx.scale if ctx.scale != 1.0 else grad), None, None
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `t` over `group`, the same on every rank. The result is
+    taken as replicated: every rank's grad of it is the whole grad, so
+    the backward hands it on as it is (no collective)."""
+    if group is None or _size(group) == 1:
+        return t
+    return _Psum.apply(t, group, 1.0)
+
+
+def pmean(t: torch.Tensor, group) -> torch.Tensor:
+    """The mean of `t` over `group`, replicated as `psum`'s; the backward
+    scales the grad by 1/n."""
+    if group is None or _size(group) == 1:
+        return t
+    return _Psum.apply(t, group, 1.0 / _size(group))
 
 
 # ----------------------------------------------------------------------------
@@ -76,19 +201,11 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
 
 
-_sent = 0      # bytes handed to the routed collectives, by this process
-
-
 def dtensor_bytes_sent() -> int:
     """The bytes this process has handed to DTensor's routed collectives
     so far (each call's input tensor; a Shard -> Shard redistribution's
     all-gather included): read it before and after the work to meter."""
-    return _sent
-
-
-def _count(t: torch.Tensor) -> None:
-    global _sent
-    _sent += t.numel() * t.element_size()
+    return sum(v[2] for k, v in _TALLY.items() if k[2])
 
 
 def _group(group):
@@ -109,8 +226,8 @@ def _dtensor_all_gather(self, gather_dim, group, tag=""):
     pg = _group(group)
     n = _size(pg)
     t = self.detach().contiguous()
-    _count(t)
     out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    _record("all-gather", n, out, t, routed=True)
     _gather_into(out, t, group=pg)
     if gather_dim % max(t.dim(), 1):
         out = torch.cat(out.chunk(n), dim=gather_dim)
@@ -120,7 +237,7 @@ def _dtensor_all_gather(self, gather_dim, group, tag=""):
 def _dtensor_all_reduce(self, reduceOp, group, tag=""):
     pg = _group(group)
     out = self.detach().clone(memory_format=torch.contiguous_format)
-    _count(out)
+    _record("all-reduce", _size(pg), out, out, routed=True)
     op = reduceOp.lower()
     dist.all_reduce(out, op=_OPS["sum" if op == "avg" else op], group=pg)
     return out / _size(pg) if op == "avg" else out
@@ -132,8 +249,8 @@ def _dtensor_reduce_scatter(self, reduceOp, scatter_dim, group, tag=""):
     op = reduceOp.lower()
     chunks = [c.contiguous() for c in self.detach().chunk(n, scatter_dim)]
     flat = torch.cat([c.reshape(-1) for c in chunks])
-    _count(flat)
     out = flat.new_empty((flat.shape[0] // n,))
+    _record("reduce-scatter", n, out, flat, routed=True)
     _scatter_from(out, flat, op=_OPS["sum" if op == "avg" else op],
                   group=pg)
     out = out.reshape(chunks[0].shape)

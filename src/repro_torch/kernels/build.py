@@ -32,6 +32,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+def counting() -> bool:
+    """Whether a step counter runs (`launch.hlo_analysis.StepCounter`, the
+    dry run): only there does a wrapper take "meta" tensors."""
+    from ..obs import cost
+    return bool(cost.COUNTERS)
+
+
+def declared(stats: dict, *outputs):
+    """A wrapper's answer on "meta" tensors inside a step counter, where
+    nothing launches: its outputs' shapes, and its cost from `obs.cost`'s
+    formulas added to the counter."""
+    from ..obs import cost
+    cost.declare(stats)
+    return outputs[0] if len(outputs) == 1 else outputs
+
+
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
     name: str

@@ -105,13 +105,19 @@ def flash_attention_plain(q, k, v, *, softcap=None):
 
 def flash_attention(q, k, v, *, softcap=None):
     """Causal GQA flash attention: the CUDA kernel on CUDA tensors,
-    `flash_attention_plain` on CPU tensors. Forward only: raises
-    NotImplementedError under grad when an input requires grad."""
+    `flash_attention_plain` on CPU tensors; on "meta" tensors in the dry
+    run's step counter nothing runs and `obs.cost.flash_attention` is
+    declared. Forward only: raises NotImplementedError under grad when an
+    input requires grad."""
     B, S, H, KV, hd = _check_shapes(q, k, v)
     build.refuse_dtensor("flash_attention", q, k, v)
     build.refuse_grad("flash_attention", "use_flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, softcap=softcap)
+    if q.device.type == "meta" and build.counting():   # the dry run
+        from ..obs import cost
+        return build.declared(cost.flash_attention(
+            B, S, H, KV, hd, q.element_size()), torch.empty_like(q))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got "
                          f"{q.device}")

@@ -137,7 +137,8 @@ def local_sdca(X, y, alpha, mask, w, scale, perm, *, loss: Loss,
                n_passes: int = 1, block_rows: int = DEFAULT_BLOCK_ROWS):
     """One round of LocalSDCA for all K workers: the CUDA kernel, in
     windows of `block_rows` rows, on CUDA tensors; `local_sdca_plain` on
-    CPU tensors, whatever the window.
+    CPU tensors, whatever the window; on "meta" tensors in the dry run's
+    step counter nothing runs and `obs.cost.dense_walk` is declared.
 
     X (K, nk, d) f32; y, alpha, mask (K, nk) f32; w (d,) f32; perm (K, nk)
     int32, each row a permutation of range(nk); scale = sigma'/(tau n).
@@ -152,6 +153,12 @@ def local_sdca(X, y, alpha, mask, w, scale, perm, *, loss: Loss,
     if X.device.type == "cpu":
         return local_sdca_plain(X, y, alpha, mask, w, scale, perm,
                                 loss=loss, n_passes=n_passes)
+    if X.device.type == "meta" and build.counting():   # the dry run
+        from ..obs import cost
+        return build.declared(
+            cost.dense_walk(K, nk, d, steps=n_passes * nk),
+            torch.empty((K, nk), dtype=torch.float32, device="meta"),
+            torch.empty((K, d), dtype=torch.float32, device="meta"))
     if X.device.type != "cuda":
         raise ValueError(f"local_sdca runs on cuda or cpu, got {X.device}")
     for name, t in (("X", X), ("y", y), ("alpha", alpha), ("mask", mask),

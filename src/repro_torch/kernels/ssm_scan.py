@@ -94,13 +94,18 @@ def ssm_scan_plain(xin, dt, Bm, Cm, A, D):
 def ssm_scan(xin, dt, Bm, Cm, A, D, *, group: int = DEFAULT_GROUP):
     """Fused selective scan: the CUDA kernel on CUDA tensors (its
     instance of `group` states a thread), `ssm_scan_plain` on CPU
-    tensors. Forward only: raises NotImplementedError under grad when an
-    input requires grad."""
+    tensors; on "meta" tensors in the dry run's step counter nothing
+    runs and `obs.cost.ssm_scan` is declared. Forward only: raises
+    NotImplementedError under grad when an input requires grad."""
     B, S, di, N = _check_shapes(xin, dt, Bm, Cm, A, D)
     build.refuse_dtensor("ssm_scan", xin, dt, Bm, Cm, A, D)
     build.refuse_grad("ssm_scan", "use_fused_ssm", xin, dt, Bm, Cm, A, D)
     if xin.device.type == "cpu":
         return ssm_scan_plain(xin, dt, Bm, Cm, A, D)
+    if xin.device.type == "meta" and build.counting():   # the dry run
+        from ..obs import cost
+        return build.declared(cost.ssm_scan(B, S, di, N), torch.empty(
+            (B, S, di), dtype=torch.float32, device="meta"))
     if xin.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, got {xin.device}")
     for name, t in (("xin", xin), ("dt", dt), ("Bm", Bm), ("Cm", Cm),

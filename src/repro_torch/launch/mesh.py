@@ -16,6 +16,14 @@ Two forms of one `Mesh`:
     Ranks are laid out row-major over the axes, so the ranks of a data
     row are in worker order.
 
+  * a fake world (`make_fake_mesh`, `make_production_mesh(fake=True)`):
+    the process form as rank 0 of a `torch.distributed` world on the
+    "fake" backend, every tensor on "meta". Its collectives move nothing
+    and return at once; the dry run (`launch.dryrun`) runs a step there
+    to count what one rank computes and sends. A fake default group must
+    not share a process with a gloo or real run: the dry run runs in a
+    process of its own.
+
 The transport is gloo (`comm.collectives`): NCCL will not put two ranks
 on one device. `initialize_distributed` joins the process group from
 torchrun's environment or an explicit address, and `spawn_ranks` starts
@@ -86,7 +94,7 @@ class Mesh:
         if key not in self._groups:
             import torch.distributed as dist
             mine, _ = dist.new_subgroups_by_enumeration(
-                [sorted(p) for p in parts], backend="gloo")
+                [sorted(p) for p in parts], backend=dist.get_backend())
             self._groups[key] = mine
         return self._groups[key]
 
@@ -106,14 +114,42 @@ class Mesh:
         return self.partition_group(("axes", axes), parts)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The production mesh's shape: 16 x 16 (data, model), or 2 x 16 x 16
-    (pod, data, model). Shape only (no rank, on "meta"): the sharding
-    rules read its axes and sizes (`launch.sharding`), as the
-    reference's spec tests read their device-free stand-in."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         fake: bool = False) -> Mesh:
+    """The production mesh: 16 x 16 (data, model), or 2 x 16 x 16 (pod,
+    data, model). Without `fake`, its shape only (no rank, on "meta"):
+    the sharding rules read its axes and sizes (`launch.sharding`), as
+    the reference's spec tests read their device-free stand-in. With
+    `fake`, rank 0 of a fake world of 256 or 512 ranks
+    (`make_fake_mesh`), where the dry run runs a step."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if fake:
+        return make_fake_mesh(shape, axes)
     return Mesh(axes, shape, torch.device("meta"))
+
+
+def make_fake_mesh(shape=(2, 2), axes=("data", "model")) -> Mesh:
+    """A process mesh over a fake world: joins a `torch.distributed`
+    default group of `prod(shape)` ranks on the "fake" backend as rank 0
+    (every collective returns at once and moves nothing) and returns
+    `make_process_mesh(shape, axes, "meta")`. The process keeps that
+    default group: a second call must ask for the same world, and a
+    default group of another backend raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = _check_shape(shape, axes)
+    world = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != world:
+            raise ValueError(
+                f"a fake world of {world} ranks cannot join this process's "
+                f"{dist.get_backend()} group of {dist.get_world_size()}: "
+                f"run the dry run in a process of its own")
+    else:
+        dist.init_process_group("fake", rank=0, world_size=world,
+                                store=FakeStore())
+    return make_process_mesh(shape, axes, device="meta")
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"),
@@ -167,13 +203,15 @@ def device_mesh(mesh: Mesh, layout=None):
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
         from ..comm.collectives import route_dtensor_collectives
-        if dist.get_backend() == "gloo":
+        if dist.get_backend() in ("gloo", "fake"):
             route_dtensor_collectives()
         shape = mesh.shape
         sizes = [math.prod(shape[a] for a in g) for g in layout]
         ranks = torch.arange(mesh.size).reshape(sizes)
+        # a fake world's tensors are on "meta", its DeviceMesh on the cpu
+        kind = "cpu" if mesh.device.type == "meta" else mesh.device.type
         mesh._groups[key] = DeviceMesh(
-            mesh.device.type, ranks,
+            kind, ranks,
             mesh_dim_names=tuple("+".join(g) for g in layout))
     return mesh._groups[key]
 

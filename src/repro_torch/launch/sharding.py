@@ -198,11 +198,26 @@ def use_specs_fn(cfg: ModelConfig, mesh, mode: str = "train"):
     """Returns gather(named) -> {name: tensor}: a block's weights
     ({relative state_dict name: DTensor}) redistributed to their use-site
     spec (`use_specs`). The FSDP just-in-time gather that
-    `models.model.set_param_gather` installs."""
+    `models.model.set_param_gather` installs. Under the expert-parallel
+    MoE (`models.layers.MOE_CTX["mesh"]` set) the experts' weights and
+    the router stay as stored: the MoE gathers them itself, over fsdp
+    only."""
+    from ..models import layers as L
+
     def gather(named):
         specs = use_specs(named, cfg, mesh, mode)
-        return {n: redistribute(t, mesh, specs[n]) for n, t in named.items()}
+        ep = L.MOE_CTX["mesh"] is not None
+        return {n: t if ep and _expert_leaf(n, t) else
+                redistribute(t, mesh, specs[n]) for n, t in named.items()}
     return gather
+
+
+def _expert_leaf(name: str, t) -> bool:
+    """An MoE leaf the expert-parallel body takes as stored: the (E, ., .)
+    expert stacks and the router."""
+    leaf = name.split(".")[-1]
+    return "moe" in name.split(".") and (
+        leaf == "router" or (leaf in ("wi", "wg", "wo") and t.dim() == 3))
 
 
 def opt_specs(pspecs):

@@ -14,9 +14,9 @@ whisper decode cells = self-KV over its 448-token decoder context + cross-KV
 over seq_len frames.
 
 No analogue here: nothing. The sharding specs the reference lowers these
-cells with are ported (`launch/sharding.py`); lowering the cells on the
-256- and 512-rank production meshes (the reference's `launch/dryrun.py`)
-is not (ROADMAP.md Queue 1 item 13f).
+cells with are in `launch/sharding.py`; `launch/dryrun.py` runs every
+cell once on the 256- and 512-rank production meshes (fake worlds) and
+counts what one device computes and sends.
 """
 from __future__ import annotations
 

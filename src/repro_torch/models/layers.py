@@ -11,16 +11,17 @@ weight group is a `Params` module whose attribute names are the reference
 dict's keys, so a module's `state_dict` keys are the reference pytree's
 paths joined with dots.
 
-The MoE is the reference's portable path (`moe_forward`) in one
-dispatch group: no caller sets the reference's `MOE_CTX["groups"]`. On a
-process mesh (`launch.train.make_jitted_train_step`,
-`launch.serve.make_jitted_serve_fns`) it runs as the reference's
-`make_jitted_*` run it without the dry run's MoE context: the same
-dispatch under DTensor's rules, the expert weights stored by the expert
-rule. The reference's expert parallelism is not ported:
-`_moe_forward_shardmap` and the `mesh`, `spec`, `dp`, `tp`, `fsdp` and
-`gather_weights` fields of `set_moe_ctx` / `MOE_CTX` (ROADMAP.md Queue 1
-item 13f), with the dry run that sets them.
+The MoE has the reference's two dispatch modes, chosen by `MOE_CTX`
+(`set_moe_ctx`, all seven fields): the portable grouped dispatch
+(`moe_forward`, G = `groups` independently capacitated groups; under
+DTensor's rules on a process mesh when no mesh is set, as the
+reference's `make_jitted_*` run it), and the expert parallelism of
+`_moe_forward_shardmap` when `mesh` is set (a process mesh,
+`launch.mesh.make_process_mesh`): its body runs on each rank's local
+shards and calls the port's collectives (`comm.collectives`) on the
+mesh's subgroups, as the reference's shard_map body calls psum and
+all_gather. There is no shard_map: the local shards are taken from the
+DTensors and the output made a DTensor again.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .shards import is_dtensor, lookup_rows
+from .shards import is_dtensor, lookup_rows, split_heads
 
 NEG = -1e30
 
@@ -278,20 +279,18 @@ def attn_qkv(p: Params, x, cfg, positions, rope_base, cross_kv=None):
     """q (B,S,H,hd), k and v (B,Sk,KV,hd): k and v from `cross_kv`
     (B,Sk,d) when given (cross attention, Sk its own length, no RoPE),
     else from x (Sk = S)."""
-    B, S, d = x.shape
     H, KVh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = x @ p.wq
     if "bq" in p:
         q = q + p.bq
-    q = q.reshape(B, S, H, hd)
+    q = split_heads(q, H, hd)
     src = x if cross_kv is None else cross_kv
-    Sk = src.shape[1]
     k = src @ p.wk
     v = src @ p.wv
     if "bk" in p:
         k, v = k + p.bk, v + p.bv
-    k = k.reshape(B, Sk, KVh, hd)
-    v = v.reshape(B, Sk, KVh, hd)
+    k = split_heads(k, KVh, hd)
+    v = split_heads(v, KVh, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p.qnorm.g)
         k = rmsnorm(k, p.knorm.g)
@@ -342,63 +341,238 @@ def init_moe(gen, cfg, dff, dtype):
     return Params(**p)
 
 
+# Launcher-installed MoE dispatch context (the reference's). Portable
+# (mesh None): the grouped dispatch in G = `groups` groups, `spec` the
+# DTensor placements its (E, G C, d) buffer is redistributed to (None:
+# left to DTensor's rules). Expert-parallel (mesh a process mesh):
+# tokens stay on their `dp` shard, each `tp` rank owns E/|tp| experts,
+# the weights (E_loc, d/|fsdp|, ff) are all-gathered over `fsdp` when
+# `gather_weights` (train, prefill) or stay resident and the partial
+# activations are summed over `fsdp` (decode).
+MOE_CTX = {"groups": 1, "spec": None, "mesh": None, "dp": None,
+           "tp": "model", "fsdp": None, "gather_weights": True}
+
+
+def set_moe_ctx(groups=1, spec=None, mesh=None, dp=None, tp="model",
+                fsdp=None, gather_weights=True):
+    """Install the MoE dispatch context; no arguments restore the
+    portable one-group default. gather_weights=True: the FSDP
+    just-in-time all-gather of the expert weights (training and prefill,
+    amortized over many tokens). False: the weights stay resident 2-D
+    sharded, the token batch is gathered over the fsdp axes and the
+    expert products' partial sums are summed there (decode)."""
+    MOE_CTX.update(groups=groups, spec=spec, mesh=mesh, dp=dp, tp=tp,
+                   fsdp=fsdp, gather_weights=gather_weights)
+
+
 def moe_capacity(T: int, cfg) -> int:
-    """Slots an expert has in a dispatch of T tokens."""
+    """Slots an expert has in a dispatch group of T tokens."""
     return max(1, int(math.ceil(T * cfg.capacity_factor / cfg.n_experts)))
 
 
 def moe_route(p: Params, xt, cfg):
-    """Top-1 routing of the tokens xt (T, d). Returns (eid, gate, pos,
-    keep, prob): each token's expert (T,), its gate (the expert's
-    probability, float32), its slot (its rank among the tokens routed to
-    that expert, in token order), whether the slot is under the capacity,
-    and the router's float32 softmax (T, E)."""
+    """Top-1 routing of the tokens xt (T, d), or of G groups of them
+    (G, T, d), each group capacitated on its own. Returns (eid, gate,
+    pos, keep, prob): each token's expert, its gate (the expert's
+    probability, float32), its slot (its rank among its group's tokens
+    routed to that expert, in token order), whether the slot is under
+    the capacity, and the router's float32 softmax (..., T, E)."""
+    return _route(p.router, xt, cfg)
+
+
+def _route(router, xt, cfg):
     E = cfg.n_experts
-    prob = torch.softmax((xt @ p.router).float(), dim=-1)
+    prob = torch.softmax((xt @ router).float(), dim=-1)
     eid = torch.argmax(prob, dim=-1)
     onehot = F.one_hot(eid, E)
     gate = torch.sum(prob * onehot, dim=-1)
-    pos = torch.sum((torch.cumsum(onehot, dim=0) - 1) * onehot, dim=-1)
-    keep = pos < moe_capacity(xt.shape[0], cfg)
+    # the token dim by its index: DTensor's cumsum rule mis-reads dim=-2
+    pos = torch.sum((torch.cumsum(onehot, dim=onehot.dim() - 2) - 1)
+                    * onehot, dim=-1)
+    keep = pos < moe_capacity(xt.shape[-2], cfg)
     return eid, gate, pos, keep, prob
+
+
+def _experts(buf, wi, wg, wo):
+    """The experts' swiglu FFN on their slots: buf (E, C, d) -> (E, C, d),
+    three batched products over E."""
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg))
+    h = h * torch.einsum("ecd,edf->ecf", buf, wi)
+    return torch.einsum("ecf,efd->ecd", h, wo)
+
+
+def _aux(prob, eid, E):
+    """E · Σ_e mean(prob)_e · mean(onehot)_e over every token."""
+    prob = prob.reshape(-1, E)
+    me = torch.mean(prob, dim=0)
+    ce = torch.mean(F.one_hot(eid.reshape(-1), E).float(), dim=0)
+    return E * torch.sum(me * ce)
 
 
 def moe_forward(p: Params, x, cfg, dff, aux: bool = True):
     """Top-1 capacity-dropped MoE over x (B, S, d); returns (out, aux),
-    aux None when not asked for (serving throws it away).
+    aux None when not asked for (serving throws it away). With
+    `MOE_CTX["mesh"]` set it is the expert-parallel `_moe_forward_shardmap`
+    (or raises), never the portable path.
 
-    The T = B·S tokens are one dispatch group with C = ceil(T ·
-    capacity_factor / E) slots an expert. A token at slot >= C is
-    dropped: its expert output is 0 and the shared expert still applies.
-    Kept tokens are scattered into a zeroed (E, C, d) buffer, every
-    expert runs on its C slots (three batched products over E), and the
+    Portable: the T = B·S tokens are split into G = MOE_CTX["groups"]
+    dispatch groups of consecutive tokens (G = 1 when G does not divide
+    T), each with C = ceil(T/G · capacity_factor / E) slots an expert. A
+    token at slot >= C is dropped: its expert output is 0 and the shared
+    expert still applies. Kept tokens are scattered into a zeroed (E, G
+    C, d) buffer (expert e, group g, slot c at row g C + c), every expert
+    runs on its G C slots (three batched products over E), and the
     outputs are gathered back, scaled by the gate. The scatter and the
     gather index a flat buffer with one spare row that dropped tokens
     write to and read zeros from, so no step waits on the host.
-    aux = E · Σ_e mean(prob)_e · mean(onehot)_e, the load-balance
-    loss."""
+    aux = E · Σ_e mean(prob)_e · mean(onehot)_e over all T tokens, the
+    load-balance loss."""
+    if MOE_CTX["mesh"] is not None:
+        return _moe_forward_shardmap(p, x, cfg, dff, aux)
     B, S, d = x.shape
     E = cfg.n_experts
     T = B * S
+    G = MOE_CTX["groups"] if T % max(MOE_CTX["groups"], 1) == 0 else 1
+    Tg = T // G
     xt = x.reshape(T, d)
-    eid, gate, pos, keep, prob = moe_route(p, xt, cfg)
-    C = moe_capacity(T, cfg)
-    spare = E * C
-    idx = torch.where(keep, eid * C + pos, spare)
+    eid, gate, pos, keep, prob = moe_route(
+        p, xt if G == 1 else xt.reshape(G, Tg, d), cfg)
+    eid, gate, pos, keep = (t.reshape(T) for t in (eid, gate, pos, keep))
+    C = moe_capacity(Tg, cfg)
+    spare = E * G * C
+    slot = pos if G == 1 else (torch.arange(T, device=x.device) // Tg) * C \
+        + pos
+    idx = torch.where(keep, eid * (G * C) + slot, spare)
     buf = x.new_zeros(spare + 1, d).index_put((idx,), xt)
-    buf = buf[:spare].reshape(E, C, d)
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p.wg))
-    h = h * torch.einsum("ecd,edf->ecf", buf, p.wi)
-    out_e = torch.einsum("ecf,efd->ecd", h, p.wo)
+    buf = buf[:spare].reshape(E, G * C, d)
+    if MOE_CTX["spec"] is not None and is_dtensor(buf):
+        from .shards import placed
+        buf = placed(buf, MOE_CTX["spec"])
+    out_e = _experts(buf, p.wi, p.wg, p.wo)
     out_e = torch.cat([out_e.reshape(spare, d), out_e.new_zeros(1, d)])
     out = out_e[idx] * (gate * keep).to(x.dtype)[:, None]
     if "shared" in p:
         out = out + mlp_forward(p.shared, xt, "swiglu")
     if not aux:
         return out.reshape(B, S, d), None
-    me = torch.mean(prob, dim=0)
-    ce = torch.mean(F.one_hot(eid, E).float(), dim=0)
-    return out.reshape(B, S, d), E * torch.sum(me * ce)
+    return out.reshape(B, S, d), _aux(prob, eid, E)
+
+
+def _ep_local(t, mesh, spec):
+    """(this rank's shard of the DTensor `t` under `spec` (a
+    `launch.sharding.P` on the mesh's axes), its placements). The grad of
+    a dim the shard replicates is partial: the ranks there work on other
+    tokens, or on other experts' share of the same ones."""
+    from torch.distributed.tensor import Partial, Replicate
+    from ..launch.sharding import placements
+    from .shards import placed
+    layout = tuple(tuple(n.split("+")) for n in t.device_mesh.mesh_dim_names)
+    pls = placements(mesh, spec, layout)
+    local = placed(t, pls).to_local(grad_placements=[
+        Partial() if isinstance(pl, Replicate) else pl for pl in pls])
+    return local, pls
+
+
+def _moe_forward_shardmap(p, x, cfg, dff, aux: bool = True):
+    """Expert-parallel MoE on the process mesh `MOE_CTX["mesh"]` (the
+    reference's shard_map body, on local shards). x (B, S, d) and the
+    weights are DTensors on the mesh. Each rank takes its dp shard of
+    the tokens (B_loc, S, d), whole over the other axes, and its experts'
+    weights (E_loc, d/|fsdp|, ff) as stored (P(tp, fsdp, None)).
+
+    gather_weights (or no fsdp axes): the weights are all-gathered over
+    fsdp, the router too, and the rank routes its own tokens as one
+    group, C = ceil(T_loc · cf / E). Resident: the token batch is
+    gathered over fsdp instead (every fsdp rank must see the same tokens
+    before summing partial products), the experts contract the rank's
+    d slice and its ff slice, and the partial sums are summed over fsdp.
+    Every rank of a tp column routes the same tokens; it computes only
+    the tokens routed to its experts [base, base + E_loc), base = tp
+    index · E_loc, and the outputs are summed over tp (and fsdp when
+    resident), then the rank's dp rows are taken back. aux is the mean
+    over dp and tp of each rank's aux. The shared expert runs outside,
+    under DTensor's rules (plain TP)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from ..comm import collectives as col
+    from ..launch.sharding import P, _axes
+    mesh = MOE_CTX["mesh"]
+    if not getattr(mesh, "is_process", False):
+        raise ValueError("the expert-parallel MoE needs a process mesh "
+                         "(launch.mesh.make_process_mesh) in MOE_CTX")
+    if not (is_dtensor(x) and is_dtensor(p.wi)):
+        raise ValueError("the expert-parallel MoE takes DTensors on the "
+                         "mesh (launch.sharding.place_model)")
+    tp, dp_axes = MOE_CTX["tp"], _axes(MOE_CTX["dp"])
+    fsdp = MOE_CTX["fsdp"]
+    fsdp_axes = _axes(fsdp)
+    B, S, d = x.shape
+    E = cfg.n_experts
+    ntp = mesh.shape[tp]
+    if E % ntp:
+        raise ValueError(f"{E} experts do not split over {ntp} {tp} ranks")
+    E_loc = E // ntp
+    gather_w = MOE_CTX["gather_weights"] or not fsdp_axes
+    nfs = math.prod(mesh.shape[a] for a in fsdp_axes)
+    g_fs = mesh.subgroup(fsdp_axes) if fsdp_axes else None
+    g_tp = mesh.subgroup((tp,))
+    dp_spec = (dp_axes if len(dp_axes) > 1 else dp_axes[0]) if dp_axes \
+        else None
+    xl, x_pls = _ep_local(x, mesh, P(dp_spec, None, None))
+    w_spec = P(tp, fsdp, None)
+    wi, wg, wo = (_ep_local(t, mesh, w_spec)[0] for t in (p.wi, p.wg, p.wo))
+    router = _ep_local(p.router, mesh, P(fsdp, None))[0]
+    if fsdp_axes and gather_w:
+        wi, wg, wo = (col.all_gather_dim(w, g_fs, 1) for w in (wi, wg, wo))
+    if fsdp_axes:
+        router = col.all_gather_dim(router, g_fs, 0)
+    Bl, Sl, _ = xl.shape
+    if not gather_w:
+        xl = col.all_gather_dim(xl, g_fs, 0)
+        Bl = xl.shape[0]
+    T = Bl * Sl
+    xt = xl.reshape(T, d)
+    eid, gate, pos, keep, prob = _route(router, xt, cfg)
+    C = moe_capacity(T, cfg)
+    base = mesh.coords()[tp] * E_loc
+    mine = (eid >= base) & (eid < base + E_loc) & keep
+    spare = E_loc * C
+    idx = torch.where(mine, (eid - base) * C + pos, spare)
+    buf = xt.new_zeros(spare + 1, d).index_put((idx,), xt)
+    buf = buf[:spare].reshape(E_loc, C, d)
+    if gather_w:
+        out_e = _experts(buf, wi, wg, wo)
+    else:
+        # resident 2-D weights: contract the local d slice, sum the
+        # (decode-sized) partial activations over fsdp, then the ff slice
+        fr = 0
+        for a in fsdp_axes:
+            fr = fr * mesh.shape[a] + mesh.coords()[a]
+        d_loc, ff_loc = wi.shape[1], wo.shape[1]
+        buf_d = buf[:, :, fr * d_loc:(fr + 1) * d_loc]
+        h = F.silu(col.psum(torch.einsum("ecd,edf->ecf", buf_d, wg), g_fs))
+        h = h * col.psum(torch.einsum("ecd,edf->ecf", buf_d, wi), g_fs)
+        out_e = torch.einsum("ecf,efd->ecd",
+                             h[:, :, fr * ff_loc:(fr + 1) * ff_loc], wo)
+    out_e = torch.cat([out_e.reshape(spare, d), out_e.new_zeros(1, d)])
+    out = out_e[idx] * (gate * mine).to(xl.dtype)[:, None]
+    out = col.psum(out, g_tp if gather_w
+                   else mesh.subgroup((tp,) + fsdp_axes))
+    if not gather_w:
+        Bo = Bl // nfs
+        out = out.reshape(Bl, Sl, d)[fr * Bo:(fr + 1) * Bo]
+    out = DTensor.from_local(out.reshape(-1, Sl, d), x.device_mesh, x_pls,
+                             run_check=False)
+    if "shared" in p:   # the shared expert: plain TP, under DTensor's rules
+        out = out + mlp_forward(p.shared, x.reshape(B * S, d),
+                                "swiglu").reshape(B, S, d)
+    if not aux:
+        return out, None
+    a = _aux(prob, eid, E)
+    if dp_axes:
+        a = col.pmean(a, mesh.subgroup(dp_axes + (tp,)))
+    return out, DTensor.from_local(a, x.device_mesh,
+                                   [Replicate()] * x.device_mesh.ndim,
+                                   run_check=False)
 
 
 # ----------------------------------------------------------------------------

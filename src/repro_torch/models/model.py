@@ -61,9 +61,14 @@ redistributes to its sharding and `_gather` a block's weights to their
 use-site specs; DTensor's op rules insert the collectives, and the
 kernels and the attention cores run on each rank's local shards
 (`shards.local_kernel`). Cache writes go through `shards.write_rows` /
-`copy_into`, which keep a DTensor cache's placements. The
-reference's expert-parallel MoE is not ported (ROADMAP.md Queue 1 item
-13f): the portable dispatch runs under DTensor's rules.
+`copy_into`, which keep a DTensor cache's placements. In a serving
+step each block's mixer and MLP outputs are constrained to "act"
+(their partial sums over "model" reduced there, the residual stream
+whole in d): DTensor otherwise carries the partial sums into the next
+block's products and runs them whole over "model". The MoE runs the
+reference's expert parallelism when `layers.MOE_CTX["mesh"]` is set
+(`launch.dryrun.moe_ctx_for` sets it as the reference's dry run does),
+else the portable grouped dispatch under DTensor's rules.
 """
 from __future__ import annotations
 
@@ -81,8 +86,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.flash_attention import flash_attention
 from . import layers as L
-from .shards import (copy_into, is_dtensor, local_kernel, placed,
-                     whole_dim, write_rows)
+from .shards import (copy_into, is_dtensor, local_kernel, merge_heads,
+                     placed, split_heads, whole_dim, write_rows)
 from . import rglru as R
 from . import ssm as S
 from .config import Block, ModelConfig
@@ -205,6 +210,8 @@ class _Block(nn.Module):
         aux = None
         h = L.apply_norm(self.norm1, x, cfg.norm)
         o, cache = self.mix(h, cfg, ctx, cache)
+        if cache is not None:   # a serving step's partial sums reduced
+            o = constrain(o, "act")
         if cfg.post_norms:
             o = L.apply_norm(self.norm1_post, o, cfg.norm)
         x = x + o
@@ -216,6 +223,8 @@ class _Block(nn.Module):
                                         aux=ctx["aux"])
             else:
                 o2 = L.mlp_forward(self.mlp, h2, self.spec.mlp)
+            if cache is not None:
+                o2 = constrain(o2, "act")
             if cfg.post_norms:
                 o2 = L.apply_norm(self.norm2_post, o2, cfg.norm)
             x = x + o2
@@ -281,8 +290,7 @@ class AttnBlock(_Block):
                 else:
                     write_rows(cache["k"], k, 0)
                     write_rows(cache["v"], v, 0)
-        B, Sq = h.shape[:2]
-        o = o.reshape(B, Sq, cfg.n_heads * cfg.head_dim) @ self.attn.wo
+        o = merge_heads(o, cfg.n_heads) @ self.attn.wo
         return o, cache
 
 
@@ -622,10 +630,9 @@ def decode_step(model: Model, cache, tokens, pos: int,
 def _enc_attention(p, x, cfg, positions):
     q, k, v = L.attn_qkv(p.attn, L.apply_norm(p.norm1, x, cfg.norm), cfg,
                          positions, None)
-    B, Sq = x.shape[:2]
     o = _attend(L.chunked_attention, q, k, v, positions, causal=False,
                 q_chunk=cfg.q_chunk)
-    return x + o.reshape(B, Sq, -1) @ p.attn.wo
+    return x + merge_heads(o, cfg.n_heads) @ p.attn.wo
 
 
 class EncLayer(nn.Module):
@@ -651,7 +658,7 @@ def _dec_block(cfg, p, x, enc_kv, ctx, cache=None):
     step writes its K/V into `cache`, this layer's {"k", "v"}, in place),
     cross attention over `enc_kv` (its (B, T, KV, hd) K and V), the GELU
     MLP. Returns (x, cache)."""
-    B, Sq = x.shape[:2]
+    Sq = x.shape[1]
     h = L.apply_norm(p.norm1, x, cfg.norm)
     q, k, v = L.attn_qkv(p.self_attn, h, cfg, ctx["positions"], None)
     if ctx["decode"]:
@@ -662,17 +669,17 @@ def _dec_block(cfg, p, x, enc_kv, ctx, cache=None):
     else:
         o = _attend(L.chunked_attention, q, k, v, ctx["positions"],
                     q_chunk=min(cfg.q_chunk, Sq))
-    x = x + o.reshape(B, Sq, -1) @ p.self_attn.wo
+    x = x + merge_heads(o, cfg.n_heads) @ p.self_attn.wo
     # cross attention over the precomputed encoder K/V
     hx = L.apply_norm(p.norm_x, x, cfg.norm)
-    qx = (hx @ p.cross_attn.wq).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    qx = split_heads(hx @ p.cross_attn.wq, cfg.n_heads, cfg.head_dim)
     ek, ev = enc_kv
     if Sq == 1:
         o = _attend(L.decode_attention, qx, ek, ev, pos=ek.shape[1] - 1)
     else:
         o = _attend(L.chunked_attention, qx, ek, ev, ctx["positions"],
                     causal=False, q_chunk=min(cfg.q_chunk, Sq))
-    x = x + o.reshape(B, Sq, -1) @ p.cross_attn.wo
+    x = x + merge_heads(o, cfg.n_heads) @ p.cross_attn.wo
     h2 = L.apply_norm(p.norm2, x, cfg.norm)
     return x + L.mlp_forward(p.mlp, h2, "gelu"), cache
 
@@ -747,11 +754,9 @@ def encode(model: EncoderDecoder, frames, cfg: Optional[ModelConfig] = None):
 def _enc_kv_all(model: EncoderDecoder, enc_out, cfg):
     """Every decoder layer's cross K/V of the encoder output: two
     (L, B, T, KV, hd) tensors."""
-    B, T, _ = enc_out.shape
-    shape = (B, T, cfg.n_kv, cfg.head_dim)
-    ks = [(enc_out @ layer.cross_attn.wk).reshape(shape)
+    ks = [split_heads(enc_out @ layer.cross_attn.wk, cfg.n_kv, cfg.head_dim)
           for layer in model.dec]
-    vs = [(enc_out @ layer.cross_attn.wv).reshape(shape)
+    vs = [split_heads(enc_out @ layer.cross_attn.wv, cfg.n_kv, cfg.head_dim)
           for layer in model.dec]
     return torch.stack(ks), torch.stack(vs)
 

@@ -13,6 +13,11 @@ few places where it must know which.
     DTensor's rule for a vocab-sharded table fails.
   * `whole_dim`: a dim replicated before an op that DTensor cannot run
     on a shard of it (the gather of the gold logits).
+  * `split_heads` / `merge_heads`: the projection's last dim cut into
+    heads and back, made whole first (in the backward too) where the
+    heads do not split over the mesh.
+  * `reduced`: partial sums reduced where DTensor would carry them into
+    the next product and run it whole (the SSM's x_proj output).
 """
 from __future__ import annotations
 
@@ -44,6 +49,61 @@ def whole_dim(x, dim: int):
     dim = dim % x.dim()
     return placed(x, [Replicate() if isinstance(pl, Shard) and pl.dim == dim
                        else pl for pl in x.placements])
+
+
+def split_heads(x, n_heads: int, head_dim: int):
+    """x (..., n_heads * head_dim) as (..., n_heads, head_dim). A DTensor
+    whose last dim is split over a mesh dim that does not divide the heads
+    (40 heads over 16 "model" ranks) has that dim made whole first:
+    DTensor cannot split a shard across the heads, where the reference's
+    partitioner pads."""
+    if is_dtensor(x) and _uneven_heads(x, n_heads, x.dim() - 1):
+        x = whole_dim(x, x.dim() - 1)
+    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def _uneven_heads(x, n_heads: int, dim: int) -> bool:
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    return any(isinstance(pl, Shard) and pl.dim == dim
+               and n_heads % mesh.size(i)
+               for i, pl in enumerate(x.placements))
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose backward makes the grad's last dim whole."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return whole_dim(grad, -1)
+
+
+def merge_heads(x, n_heads: int):
+    """x (..., n_heads, head_dim) as (..., n_heads * head_dim). A DTensor
+    whose merged dim may come back in the backward split over a mesh dim
+    that does not divide the heads has its grad's last dim made whole
+    first, so the backward's split into heads is `split_heads`'."""
+    out = x.reshape(*x.shape[:-2], -1)
+    if is_dtensor(out) and torch.is_grad_enabled() and out.requires_grad:
+        mesh = out.device_mesh
+        if any(n_heads % mesh.size(i) for i in range(mesh.ndim)):
+            out = _WholeGrad.apply(out)
+    return out
+
+
+def reduced(x):
+    """A DTensor with its partial sums reduced (every Partial placement
+    made Replicate, an all-reduce), before an op that is not linear in
+    them; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+    return placed(x, [Replicate() if isinstance(pl, Partial) else pl
+                      for pl in x.placements])
 
 
 def local_kernel(kernel, args, batched, split, **kw):

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssm_scan import ssm_scan
 from .layers import Params, dense_init, init_device, pick_chunk
-from .shards import copy_into, local_kernel
+from .shards import copy_into, local_kernel, reduced
 
 
 def init_ssm(gen, cfg, dtype):
@@ -60,7 +60,7 @@ def _causal_conv(x, w, b, state=None):
 def _ssm_params(p, xin, cfg):
     """Input-dependent dt, B, C from x. xin: (B,S,di)."""
     N, R = cfg.ssm_state, cfg.dt_rank
-    proj = xin @ p.x_proj                                   # (B,S,R+2N)
+    proj = reduced(xin @ p.x_proj)                          # (B,S,R+2N)
     dt = F.softplus((proj[..., :R] @ p.dt_proj).float() + p.dt_bias)
     Bm = proj[..., R:R + N].float()                         # (B,S,N)
     Cm = proj[..., R + N:].float()                          # (B,S,N)

@@ -12,6 +12,11 @@ number of passes. The dicts carry the keys `prof.build_profile` reads:
                            once; the zx round also every step's z vectors
     collective_wire_bytes  4 x the tracer's per-round floats a device
 
+The LM kernels' costs (`flash_attention`, `ssm_scan`) are declared the
+same way, and every kernel wrapper declares its cost on "meta" tensors,
+where nothing launches (`declare`): the dry run (`launch.dryrun`) counts
+that in the kernel's place.
+
 The walks' counts are `chip_smoke.py`'s kernel bounds: at rcv1's shape
 (K = 8) the 1-D sparse walk prices 0.1275 ms on `prof.H100_SXM`, the zx
 round at rcv1's 4 x 2 0.1329 ms, the dense walk at epsilon's (K = 8)
@@ -33,6 +38,42 @@ def _stats(flops: float, hbm_bytes: float, wire_bytes: float) -> dict:
     return {"flops": float(flops), "dot_flops": 0.0,
             "hbm_bytes": float(hbm_bytes),
             "collective_wire_bytes": float(wire_bytes)}
+
+
+# the step counters running, innermost last (`launch.hlo_analysis.
+# StepCounter` enters and leaves it)
+COUNTERS: list = []
+
+
+def declare(stats: dict) -> None:
+    """Add a kernel's declared cost (a dict of this module's keys) to the
+    innermost running step counter; nothing when none runs."""
+    if COUNTERS:
+        COUNTERS[-1].add(stats)
+
+
+def flash_attention(B: int, S: int, H: int, KV: int, hd: int,
+                    itemsize: int) -> dict:
+    """Causal GQA attention over B x H heads of S positions: q·k and p·v
+    over the S (S + 1) / 2 causal pairs a head, 4 hd flops a pair (the
+    products, `dot_flops`) and 5 a pair for the online softmax; q and
+    the output (B, S, H, hd), k and v (B, S, KV, hd) read or written
+    once."""
+    pairs = B * H * S * (S + 1) // 2
+    dots = 4 * hd * pairs
+    return {"flops": float(dots + 5 * pairs), "dot_flops": float(dots),
+            "hbm_bytes": float(itemsize * 2 * B * S * hd * (H + KV)),
+            "collective_wire_bytes": 0.0}
+
+
+def ssm_scan(B: int, S: int, di: int, N: int) -> dict:
+    """The mamba-1 selective scan, float32: 7 flops a state a step (the
+    exp, the decay, the input, the output dot) and 2 a channel a step
+    (D x); x, dt and y (B, S, di), B and C (B, S, N), A (di, N) and D
+    read or written once."""
+    return _stats(B * S * di * (7 * N + 2),
+                  F32 * (3 * B * S * di + 2 * B * S * N + di * N + di),
+                  0.0)
 
 
 def _vectors(K: int, nk: int, d: int) -> int:

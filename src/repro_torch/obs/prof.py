@@ -18,8 +18,12 @@ communication half, this module the computation half:
   * `profile_fn` -- the harness: fenced steady-state timing with CUDA
     events (`metrics.fenced_time`) of a function whose analytic cost the
     caller gives (`obs.cost` computes it for a CoCoA+ round from its
-    shapes; the reference reads it off the lowered HLO, which eager
-    PyTorch has not). `build_profile` is the pure assembly step.
+    shapes) or, without one, `analyze_jit` counts on a first call.
+    `build_profile` is the pure assembly step.
+  * `analyze_jit` -- the reference's reads the lowered HLO; eager
+    PyTorch compiles nothing, so the port counts one call of the
+    function on the tensors it runs on (`launch.hlo_analysis.
+    count_step`) and times that call.
   * `RoundProfileSink` -- an `EventBus` sink pairing the two streams: for
     every `RoundRecord` it emits one `KernelProfile` (kind="round") whose
     wall-clock is the record's fenced per-round execute time and whose
@@ -33,12 +37,13 @@ run.prof.jsonl` (the CLI sniffs the schema by the `kind` field).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE, resolve_device, synchronize
 from .metrics import aot_compile, cuda_devices, fenced_time
 
 PROF_SCHEMA_VERSION = 1
@@ -258,18 +263,39 @@ def build_profile(name: str, stats: dict, wall_s: float, *,
         **roof)
 
 
-def profile_fn(fn, *args, stats: dict, name: str, shape: dict = None,
-               hw: Optional[HardwareSpec] = None, iters: int = 3,
-               warmup: int = 1, kind: str = "kernel", kernels=(),
-               **kwargs) -> KernelProfile:
+def analyze_jit(fn, *args, **kwargs) -> tuple:
+    """(fn, stats, compile_s): `fn` itself (eager PyTorch has no compiled
+    executable), the `launch.hlo_analysis.full_stats` of one call of
+    `fn(*args, **kwargs)` counted on the tensors it runs on, and that
+    call's seconds (the card synchronized), where the reference's is the
+    lower + compile time. The counted call runs `fn` once, with its side
+    effects."""
+    from ..launch.hlo_analysis import count_step
+    devs = cuda_devices((args, kwargs))
+    device = devs[0] if devs else torch.device("cpu")
+    synchronize(device)
+    t0 = time.perf_counter()
+    _, stats, _ = count_step(fn, *args, **kwargs)
+    synchronize(device)
+    return fn, stats, time.perf_counter() - t0
+
+
+def profile_fn(fn, *args, stats: Optional[dict] = None, name: str,
+               shape: dict = None, hw: Optional[HardwareSpec] = None,
+               iters: int = 3, warmup: int = 1, kind: str = "kernel",
+               kernels=(), **kwargs) -> KernelProfile:
     """The harness: `fn(*args, **kwargs)`'s steady-state time (CUDA events
     on the card its tensors live on, the host clock on the CPU) next to
-    its analytic cost `stats`, in one record. `kernels` names the kernel
-    libraries `fn` launches; their build and load is `compile_s`
-    (`metrics.aot_compile`)."""
+    its analytic cost `stats`, in one record; without `stats`,
+    `analyze_jit` counts them on a first call, whose seconds join
+    `compile_s`. `kernels` names the kernel libraries `fn` launches;
+    their build and load is `compile_s` (`metrics.aot_compile`)."""
     devs = cuda_devices((args, kwargs))
     device = devs[0] if devs else torch.device("cpu")
     compile_s = aot_compile(kernels, device)
+    if stats is None:
+        _, stats, first_s = analyze_jit(fn, *args, **kwargs)
+        compile_s += first_s
     wall = fenced_time(fn, *args, iters=iters, warmup=warmup, **kwargs)
     return build_profile(name, stats, wall, kind=kind, backend=device.type,
                          hw=hw or default_hardware(device), shape=shape,

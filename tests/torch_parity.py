@@ -512,3 +512,173 @@ def lm_jobs_on_ranks(rank: int, world: int, jobs: list, shape, axes):
     mesh = make_process_mesh(tuple(shape), tuple(axes), device="cpu")
     out = {job["name"]: lm_job(job, mesh) for job in jobs}
     return out if rank == 0 else None
+
+
+# ----------------------------------------------------------------------------
+# the expert-parallel MoE (`models.layers._moe_forward_shardmap`) and the
+# dry run's tally (`launch.dryrun`): spawned targets
+# ----------------------------------------------------------------------------
+
+def moe_params(arrays: dict, cfg):
+    """A port MoE weight group from the reference's `init_moe` arrays
+    ({"router", "wi", "wg", "wo", "shared": {"wi", "wg", "wo"}})."""
+    from repro_torch.models import layers as L
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    p = {k: t(arrays[k]) for k in ("router", "wi", "wg", "wo")}
+    if "shared" in arrays:
+        p["shared"] = L.Params(**{k: t(v)
+                                  for k, v in arrays["shared"].items()})
+    return L.Params(**p)
+
+
+def moe_ep_job(job: dict, mesh=None) -> dict:
+    """`layers.moe_forward` of smoke llama4-scout at `job["cf"]` on the
+    reference's weights `job["params"]` and tokens `job["x"]`: on `mesh`
+    expert-parallel (dp "data", tp "model", fsdp "data",
+    `job["gather"]`), else portable in `job["groups"]` groups. The whole
+    (out, aux) as numpy."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(smoke_config("llama4-scout-17b-a16e"),
+                              capacity_factor=job["cf"])
+    p = moe_params(job["params"], cfg)
+    x = torch.from_numpy(job["x"])
+    try:
+        if mesh is None:
+            L.set_moe_ctx(groups=job.get("groups", 1))
+            with torch.no_grad():
+                out, aux = L.moe_forward(p, x, cfg, cfg.d_ff)
+            return {"out": to_np(out), "aux": to_np(aux)}
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        layout = Sh.layout_for(mesh, "serve")
+        Sh.place_model(p, Sh.param_specs(p, cfg, mesh, "serve"), mesh,
+                       layout=layout)
+        x = Sh.place(x, mesh, Sh.P("data", None, None), layout)
+        L.set_moe_ctx(mesh=mesh, dp="data", tp="model", fsdp="data",
+                      gather_weights=job["gather"])
+        with torch.no_grad(), implicit_replication():
+            out, aux = L.moe_forward(p, x, cfg, cfg.d_ff)
+        return {"out": to_np(Sh.full(out)), "aux": to_np(Sh.full(aux))}
+    finally:
+        L.set_moe_ctx()
+
+
+def _group_mean_aux(prob, eid, E):
+    """The load-balance aux as the expert-parallel step takes it: each
+    dispatch group's E · Σ_e mean(prob)_e · mean(onehot)_e, averaged over
+    the groups (the reference's pmean over the data shards), where the
+    portable dispatch takes the means over all groups' tokens."""
+    import torch.nn.functional as F
+    G = prob.shape[0] if prob.dim() == 3 else 1
+    prob = prob.reshape(G, -1, E)
+    onehot = F.one_hot(eid.reshape(G, -1), E).float()
+    return E * torch.mean(torch.sum(prob.mean(1) * onehot.mean(1), -1))
+
+
+def moe_train_job(job: dict, mesh=None) -> dict:
+    """One `train_step` of smoke llama4-scout (seed-0 weights, the batch
+    of `lm_batch(cfg, B, S, 0)`): on `mesh` through
+    `make_jitted_train_step` with the expert-parallel MoE as the dry run
+    sets it, else in one process with the portable dispatch in
+    `job["groups"]` groups and the aux averaged over the groups
+    (`_group_mean_aux`), the twin of the sharded step. Loss, xent, aux,
+    grad norm and the whole grads."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import train as T
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(smoke_config("llama4-scout-17b-a16e"),
+                              **job.get("cfg", {}))
+    model = M.init_params(cfg, seed=0, device="cpu")
+    batch = lm_batch(cfg, job["B"], job["S"], 0)
+    pooled = L._aux
+    try:
+        if mesh is None:
+            L.set_moe_ctx(groups=job["groups"])
+            L._aux = _group_mean_aux
+            _, _, m = T.train_step(model, T.init_opt(model), batch,
+                                     cfg=cfg)
+        else:
+            specs = Sh.param_specs(model, cfg, mesh, "train")
+            Sh.place_model(model, specs, mesh,
+                           layout=Sh.layout_for(mesh, "train"))
+            L.set_moe_ctx(**DR.moe_ctx_for(cfg, mesh, "train", True))
+            step = T.make_jitted_train_step(cfg, mesh)
+            _, _, m = step(model, T.init_opt(model), batch)
+    finally:
+        L.set_moe_ctx()
+        L._aux = pooled
+    grads = Sh.gather_state({n: p.grad for n, p in model.named_parameters()
+                             if p.grad is not None})
+    out = {k: to_np(v) for k, v in m.items()}
+    out["grads"] = {k: to_np(v) for k, v in grads.items()}
+    return out
+
+
+def moe_ep_on_ranks(rank: int, world: int, jobs: list, shape, axes,
+                    train_jobs=()):
+    """Every job of `jobs` (`moe_ep_job`) and `train_jobs`
+    (`moe_train_job`) on a `shape` process mesh of CPU ranks; rank 0
+    returns the lists of results, the others None."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_process_mesh
+    mesh = make_process_mesh(tuple(shape), tuple(axes), device="cpu")
+    out = ([moe_ep_job(j, mesh) for j in jobs],
+           [moe_train_job(j, mesh) for j in train_jobs])
+    return out if rank == 0 else None
+
+
+def step_tally_job(job: dict, mesh) -> dict:
+    """The collectives (`comm.collectives.tally_since`) of one step of a
+    smoke config on `mesh`, a real process mesh or a fake world, through
+    `launch.dryrun.prepare_step` as the dry run runs it: job keys arch,
+    kind (train / prefill / decode), B, S. On a real mesh the inputs are
+    the seed-0 weights and `lm_batch`'s; on a fake world their "meta"
+    stand-ins. Returns {"tally": {"kind/g/routed": [count, result bytes,
+    bytes handed]}}."""
+    from repro_torch.comm import collectives as col
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as T
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = smoke_config(job["arch"])
+    kind, B, S = job["kind"], job["B"], job["S"]
+    mode = "train" if kind == "train" else "serve"
+    if mesh.device.type == "meta":
+        args = DR.step_inputs(cfg, kind, B, S)
+    else:
+        model = M.init_params(cfg, seed=0, device="cpu")
+        if kind == "train":
+            args = (model, T.init_opt(model), lm_batch(cfg, B, S, 0))
+        elif kind == "prefill":
+            args = (model, lm_batch(cfg, B, S, 0, train=False),
+                    M.init_cache(cfg, B, S, device="cpu"))
+        else:
+            args = (model, M.init_cache(cfg, B, S, device="cpu"),
+                    torch.zeros((B, 1), dtype=torch.int32), None)
+    L.set_moe_ctx(**DR.moe_ctx_for(cfg, mesh, mode, kind != "decode"))
+    try:
+        step, step_args, _ = DR.prepare_step(kind, cfg, mesh, mode, args)
+        snap = col.tally()
+        step(*step_args)
+        rec = col.tally_since(snap)
+    finally:
+        L.set_moe_ctx()
+    return {"tally": {f"{k}/{g}/{int(r)}": list(v)
+                      for (k, g, r), v in sorted(rec.items())}}
+
+
+def step_tally_on_ranks(rank: int, world: int, jobs: list, shape, axes):
+    """`step_tally_job` for every job on a `shape` process mesh of CPU
+    ranks; every rank returns its tallies."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_process_mesh
+    mesh = make_process_mesh(tuple(shape), tuple(axes), device="cpu")
+    return [step_tally_job(j, mesh) for j in jobs]

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""`chip_smoke.py` phase 24 alone, on the checkout and with planted faults.
+"""`chip_smoke.py` phases 24 and 25(a) alone, on the checkout and with
+planted faults.
 
-    python3 tools/sharded_faults.py [FAULT ...]     # default: 1 2 3
+    python3 tools/sharded_faults.py [FAULT ...]     # default: 1 2 3 4 5
 
 Needs one NVIDIA card and nvcc; run from the root of a checkout. Runs
-phase 24 (the sharded LM steps on a (data 2, model 2) mesh of 4 ranks on
-`cuda:0`, each result held to the one-process run) once on the checkout,
-then once for each FAULT, planted in a copy of the checkout in a
-temporary directory (the checkout is not touched). Each fault is a bug a
-sharded step could have, and phase 24 must fail on it:
+the phase of each FAULT -- phase 24 (the sharded LM steps on a (data 2,
+model 2) mesh of 4 ranks on `cuda:0`, each result held to the
+one-process run) or phase 25(a) (llama4-scout's expert-parallel MoE on
+that mesh, held to the grouped twin) -- once on the checkout, then once
+for each FAULT, planted in a copy of the checkout in a temporary
+directory (the checkout is not touched). Each fault is a bug a sharded
+step could have, and its phase must fail on it:
 
   1. every rank's q heads (and the scan's input channels) shifted by one
      in `models/shards.py::local_kernel`: a rank attends with the wrong
@@ -17,7 +20,13 @@ sharded step could have, and phase 24 must fail on it:
      `models/shards.py::lookup_rows`: each data rank keeps only its own
      batch rows' grad;
   3. AdamW's global grad norm over this rank's shards only
-     (`optim/adamw.py`), not the whole gradient.
+     (`optim/adamw.py`), not the whole gradient;
+  4. the expert-parallel MoE's local expert offset, base = tp index x
+     E_loc, shifted by one (`models/layers.py::_moe_forward_shardmap`):
+     a rank runs its tokens through its neighbour's experts (phase 25);
+  5. the expert-parallel MoE's output not summed over "model" (the
+     psum over tp skipped; resident, summed over fsdp only): a rank keeps
+     its own experts' share (phase 25).
 
 Prints each run's check lines (every reading beside its limit) and one
 summary line a run; exits 1 when the checkout fails the phase or a fault
@@ -46,7 +55,15 @@ FAULTS = {
           "params)",
           "    gsq = sum(torch.sum(torch.square(getattr(grads[k], "
           "'_local_tensor', grads[k]).float())) for k in params)"),
+    "4": ("src/repro_torch/models/layers.py",
+          "    base = mesh.coords()[tp] * E_loc\n",
+          "    base = mesh.coords()[tp] * E_loc + 1\n"),
+    "5": ("src/repro_torch/models/layers.py",
+          "    out = col.psum(out, g_tp if gather_w\n"
+          "                   else mesh.subgroup((tp,) + fsdp_axes))\n",
+          "    out = out if gather_w else col.psum(out, g_fs)\n"),
 }
+PHASE_OF = {"1": "24", "2": "24", "3": "24", "4": "25", "5": "25"}
 PHASE = """
 import sys, torch
 sys.path.insert(0, ".")
@@ -55,23 +72,29 @@ name, count, smi = C.phase_device()
 sys.path.insert(0, "src")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-C.phase_sharded(torch.device("cuda:0"), [
-    {"name": "flash_attention", "launches": 0},
-    {"name": "ssm_scan", "launches": 0}], smi)
-print("phase 24 passed")
+rows = [{"name": "flash_attention", "launches": 0},
+        {"name": "ssm_scan", "launches": 0}]
+if "{phase}" == "24":
+    C.phase_sharded(torch.device("cuda:0"), rows, smi)
+else:
+    C._phase_ep(torch.device("cuda:0"), rows, smi)
+print("phase {phase} passed")
 """
 SHOWN = ("limit", "FAIL", "phase 24 took", "spawn took", "written in",
-         "one process:", "rank {", "Error")
+         "one process:", "grouped twin:", "rank {", "Error")
 
 
-def _phase(where: pathlib.Path) -> bool:
-    """Phase 24 in a fresh process from `where`; True when it passed."""
-    run = subprocess.run([sys.executable, "-c", PHASE], cwd=where,
-                         capture_output=True, text=True, timeout=900)
+def _phase(where: pathlib.Path, phase: str) -> bool:
+    """Phase 24 or 25(a) in a fresh process from `where`; True when it
+    passed."""
+    run = subprocess.run([sys.executable, "-c",
+                          PHASE.replace("{phase}", phase)],
+                         cwd=where, capture_output=True, text=True,
+                         timeout=900)
     for line in (run.stdout + run.stderr).splitlines():
         if any(s in line for s in SHOWN) and "Warning" not in line:
             print("  " + line.strip(), flush=True)
-    return run.returncode == 0 and "phase 24 passed" in run.stdout
+    return run.returncode == 0 and f"phase {phase} passed" in run.stdout
 
 
 def _plant(where: pathlib.Path, fault: str) -> None:
@@ -89,19 +112,24 @@ def main() -> None:
     if unknown:
         raise SystemExit(f"no fault {sorted(unknown)}; faults: "
                          f"{sorted(FAULTS)}")
-    print("== the checkout", flush=True)
-    ok = _phase(ROOT)
-    print(f"the checkout: phase 24 {'passed' if ok else 'FAILED'}",
-          flush=True)
+    ok = True
+    for phase in sorted({PHASE_OF[f] for f in faults}):
+        print(f"== the checkout, phase {phase}", flush=True)
+        passed = _phase(ROOT, phase)
+        print(f"the checkout: phase {phase} "
+              f"{'passed' if passed else 'FAILED'}", flush=True)
+        ok = ok and passed
     for fault in faults:
         with tempfile.TemporaryDirectory() as tmp:
             copy = pathlib.Path(tmp) / "repo"
             shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
                 ".git", "__pycache__"))
             _plant(copy, fault)
-            print(f"== fault {fault}: {FAULTS[fault][0]}", flush=True)
-            caught = not _phase(copy)
-        print(f"fault {fault}: phase 24 "
+            phase = PHASE_OF[fault]
+            print(f"== fault {fault}: {FAULTS[fault][0]}, phase {phase}",
+                  flush=True)
+            caught = not _phase(copy, phase)
+        print(f"fault {fault}: phase {phase} "
               f"{'failed, as it must' if caught else 'PASSED'}", flush=True)
         ok = ok and caught
     sys.exit(0 if ok else 1)
