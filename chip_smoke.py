@@ -343,6 +343,37 @@ order, each failing the run with a non-zero exit:
                and power limit: each rank's launches, every step's s
                sharded and in one process, the gloo bytes a step (what
                each rank hands to DTensor's collectives), peak GB
+ 25. expert    (a) llama4-scout at full width and 4 of 48 layers
+               expert-parallel on the same mesh against its grouped
+               twin; (b) the dry run (`launch.dryrun --steps`, a child on
+               a fake 4-rank world) of phase 24's and (a)'s steps and of
+               phase 26's, every tally equal to the real rank 0's; (c)
+               one rank's block of the 512-rank paper-svm cell through
+               row 1
+ 26. long      serve_long's decode over a sequence-sharded KV cache on
+               the same mesh, the card's memory freed first:
+               gemma3-27b at full width and 12 of 62 layers (2 global),
+               B 1, caches of 524,288 positions (the long_500k cell's)
+               filled from the seed block by block, each rank making
+               only its shards (the sequence over data, KV heads over
+               model), 8 decode steps at the last positions teacher-
+               forced with the one-process twin's tokens: the logits of
+               every step within LOGITS_REL_RMS of the twin's, each
+               step's collectives equal to phase 25(b)'s dry run of the
+               step, whose bytes at S 524,288 equal its bytes at
+               131,072. Printed: each step's s and peak GB a rank, the
+               bytes a step beside those of the code that gathered
+               every cache whole (LONG_BEFORE)
+ 27. examples  the five examples (`examples/torch_*.py`) at their default
+               sizes, each a process of its own on the card: the exit
+               code and result lines of each (quickstart's gaps in
+               CoCoA+ < CoCoA < naive order, lasso_sparse's falling
+               gaps, certificate and sparse w, linear_probe's gap,
+               serve_batched's tokens/s, lm_pretrain's falling loss),
+               lm_pretrain twice on one directory (the second resumes
+               at step 200); quickstart and linear_probe must launch row
+               1, lasso_sparse rows 2-3; each one's launches added to
+               the kernel table
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -5337,7 +5368,11 @@ def _dryrun_steps(tmp):
              n_layers=EP_LAYERS, flash=True),
         dict(name="p25_decode", arch="llama4-scout-17b-a16e", kind="decode",
              B=EP_B, S=EP_S, S_cache=EP_S + EP_DECODE, n_layers=EP_LAYERS,
-             flash=True)]
+             flash=True)] + [
+        dict(name=name, arch="gemma3-27b", kind="decode", B=1, S=S,
+             n_layers=LONG_LAYERS, mode="serve_long")
+        for name, S in (("p26_decode", LONG_S),
+                        ("p26_decode_quarter", LONG_QUARTER))]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -5481,6 +5516,400 @@ def phase_expert(dev, rows, card, sharded):
     return {"ep": ep, "dry": recs, "paper": paper, "block": block}
 
 
+# ----------------------------------------------------------------------------
+# phase 26: serve_long's decode over a sequence-sharded KV cache
+# ----------------------------------------------------------------------------
+
+LONG_LAYERS = 12               # gemma3-27b at full width, 12 of 62 layers
+                               # (2 global): the twin's 12.7 GB of bf16
+                               # weights and 8.6 GB of global k + v, then
+                               # the 4 ranks', on one card
+LONG_S = 524_288               # the long_500k cell's cache length
+LONG_QUARTER = LONG_S // 4     # the dry run's second length
+LONG_DECODE = 8                # decode steps at the cache's last positions
+LONG_BLOCK = 4_096             # cache rows a seeded draw
+LONG_TIMEOUT = 480             # s for the spawn: start, init, every step
+LONG_LOGITS_REL_RMS = LOGITS_REL_RMS   # bf16: sharded vs one process
+LONG_BEFORE = 4_339_182_700    # B one such step handed to the collectives
+                               # before the sequence-sharded decode, when
+                               # every cache was gathered whole:
+                               # `tools/long_decode_bytes.py --src
+                               # <checkout of that code>/src` (its dry
+                               # run, S 524,288)
+
+
+def _long_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gemma3-27b"),
+                               n_layers=LONG_LAYERS)
+
+
+def _long_fill(t, seed: int, first: int, where, shape):
+    """Fill `t` (1, T, ., .) with rows [first, first + T) of a whole cache
+    of `shape` (1, length, kv, hd), its KV heads and head dims `where` (two
+    slices): the whole cache's rows are drawn in blocks of
+    min(LONG_BLOCK, length), block b from seed + b, so a rank's shard
+    holds the one-process cache's values."""
+    import torch
+    T = t.shape[1]
+    blk = min(LONG_BLOCK, shape[1])
+    for b0 in range(first - first % blk, first + T, blk):
+        g = torch.Generator(device=t.device).manual_seed(seed + b0 // blk)
+        draw = torch.randn((1, blk) + tuple(shape[2:]), generator=g,
+                           device=t.device)[:, :, where[0], where[1]]
+        lo, hi = max(b0, first), min(b0 + blk, first + T)
+        t[:, lo - first:hi - first] = draw[:, lo - b0:hi - b0].to(t.dtype)
+        del draw
+
+
+def _long_cache(cfg, dev, mesh):
+    """The decode cache of B 1 x LONG_S filled from the seed: whole
+    tensors in one process; on a mesh this rank's shards of serve_long's
+    layout (`launch.sharding.cache_specs`), made as DTensors from its
+    slices alone."""
+    import torch
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import specs as Sp
+    from repro_torch.models import model as M
+    shapes = Sp.abstract_cache(cfg, 1, LONG_S)
+    if mesh is not None:
+        specs = Sh.cache_specs(shapes, cfg, mesh, "serve_long")
+        layout = Sh.layout_for(mesh, "serve_long")
+    else:
+        whole = M.init_cache(cfg, 1, LONG_S, dev)
+    cache = []
+    for i, layer in enumerate(shapes):
+        cache.append({})
+        for which, n in enumerate(("k", "v")):
+            shape = tuple(layer[n].shape)
+            seed = ((SEED * 131 + i) * 2 + which) * 1_000_003
+            if mesh is None:
+                _long_fill(whole[i][n], seed, 0, (slice(None),) * 2, shape)
+                cache[-1][n] = whole[i][n]
+                continue
+            sl = Sh.local_slices(shape, specs[i][n], mesh, mesh.coords())
+            local = torch.empty([len(range(*s.indices(d)))
+                                 for s, d in zip(sl, shape)],
+                                dtype=layer[n].dtype, device=dev)
+            _long_fill(local, seed, sl[1].start or 0, sl[2:], shape)
+            cache[-1][n] = Sh.from_local(local, mesh, specs[i][n], layout)
+    return cache
+
+
+def _long_parts(dev, mesh, fed):
+    """Phase 26's decode steps in one process (`mesh` None) or on this
+    rank: gemma3-27b at LONG_LAYERS layers, the cache of `_long_cache`,
+    LONG_DECODE steps at positions LONG_S - LONG_DECODE ... LONG_S - 1,
+    teacher-forced with `fed` (None: greedy from a token of the seed).
+    The logits of each step (whole, on the host), its seconds, its tally
+    and gloo bytes on a mesh, the tokens fed, the peak."""
+    import torch
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import specs as Sp
+    from repro_torch.models import model as M
+    cfg = _long_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, seed=SEED, device=dev)
+    if mesh is None:
+        decode = functools.partial(SV.serve_step, cfg=cfg)
+    else:
+        Sh.place_model(model, Sh.param_specs(model, cfg, mesh, "serve_long"),
+                       mesh, layout=Sh.layout_for(mesh, "serve_long"))
+        _free()
+        decode = SV.make_jitted_serve_fns(cfg, mesh, "serve_long")[1](
+            Sp.abstract_cache(cfg, 1, LONG_S))
+    cache = _long_cache(cfg, dev, mesh)
+    g = torch.Generator().manual_seed(SEED)
+    tok = (torch.randint(1, cfg.vocab, (1, 1), generator=g).to(torch.int32)
+           if fed is None else fed[:, :1]).to(dev)
+    seen, steps, tallies, sent_b, fed_now = [], [], [], [], [tok.cpu()]
+
+    def capture(real, *a, **kw):
+        lg, c = real(*a, **kw)
+        seen.append(lg)
+        return lg, c
+
+    def meter():
+        return _gloo_bytes() if mesh is not None else \
+            contextlib.nullcontext({"bytes": 0, "sent": 0, "tally": {}})
+
+    with _wrapped(M, "decode_step", capture):
+        for i in range(LONG_DECODE):
+            pos = LONG_S - LONG_DECODE + i
+            with meter() as sent:
+                (nxt, cache), s = _timed_s(
+                    lambda: decode(model, cache, tok, pos))
+            seen[-1] = Sh.full(seen[-1])[:, -1].float().cpu()
+            steps.append(s)
+            tallies.append(sent["tally"])
+            sent_b.append(sent["sent"])
+            tok = nxt if fed is None else fed[:, i + 1:i + 2].to(dev)
+            fed_now.append(tok.cpu())
+    out = dict(logits=torch.stack(seen), s=steps, tally=tallies,
+               sent=sent_b, fed=torch.cat(fed_now[:LONG_DECODE], 1),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, cache
+    _free()
+    return out
+
+
+def _long_rank(rank, world, fed):
+    """Phase 26's rank: `_long_parts` on its position of the (data 2,
+    model 2) process mesh on cuda:0; rank 0 returns the logits."""
+    import faulthandler
+    import torch
+    from repro_torch.launch.mesh import device_mesh, make_process_mesh
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    mesh = make_process_mesh(SHARD_MESH, ("data", "model"), device=dev)
+    device_mesh(mesh)     # built (a collective) before any step is timed
+    t0 = time.perf_counter()
+    out = _long_parts(dev, mesh, torch.from_numpy(fed))
+    out["parts_s"] = time.perf_counter() - t0
+    out["coords"] = mesh.coords()
+    if rank:
+        out.pop("logits")
+    return _as_numpy(out)
+
+
+def phase_long(dev, rows, card, dry):
+    """Phase 26: serve_long's decode over a sequence-sharded KV cache on a
+    (data 2, model 2) process mesh of 4 ranks spawned on cuda:0 over gloo,
+    held to the one-process twin of the same seed on the card (run and
+    freed first): the logits of every step, and each step's collectives
+    equal to the dry run's (`dry`, phase 25's child: the same step at
+    LONG_S and at LONG_QUARTER, whose bytes must be equal). No kernel: the
+    attention cores are plain PyTorch, as the reference's are jnp."""
+    from repro_torch.launch.mesh import spawn_ranks
+    t_start = time.perf_counter()
+    _free()
+    cfg = _long_cfg()
+    n_global = sum(1 for b in cfg.blocks() if b.window is None)
+    log(f"[26 long decode] {card}: gemma3-27b at full width, "
+        f"{LONG_LAYERS} of 62 layers ({n_global} global, "
+        f"{LONG_LAYERS - n_global} windowed at 1,024), B 1, caches of "
+        f"{LONG_S} positions, {LONG_DECODE} decode steps at the last "
+        f"positions; serve_long on (data, model) = {SHARD_MESH}, 4 ranks "
+        f"on {dev} over gloo: the sequence over data, KV heads over model")
+    one = _as_numpy(_long_parts(dev, None, None))
+    log(f"  one process: decode s " + ", ".join(
+        f"{t:.3f}" for t in one["s"]) + f"; peak {one['peak_gb']:.2f} GB "
+        f"[{card}]")
+    _free()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_long_rank, 4, (one["fed"],),
+                            timeout=LONG_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 26: {e}")
+    log(f"  the spawn took {time.perf_counter() - t0:.1f} s (start, init, "
+        f"every step; limit {LONG_TIMEOUT} s)")
+    got = ranks[0]
+    errs = [_rel_rms(a, b) for a, b in zip(got["logits"], one["logits"])]
+    over = []
+    log(f"  logits rel RMS a step: " + ", ".join(f"{e:.3e}" for e in errs)
+        + f" (limit {LONG_LOGITS_REL_RMS})")
+    if not max(errs) <= LONG_LOGITS_REL_RMS:
+        over.append(f"logits rel RMS {max(errs)} over "
+                    f"{LONG_LOGITS_REL_RMS}")
+    full, quarter = dry["p26_decode"], dry["p26_decode_quarter"]
+    handed = [sum(v[2] for v in r["tally"].values()) for r in (full,
+                                                               quarter)]
+    log(f"  dry run: {handed[0]} B handed a step at S {LONG_S}, "
+        f"{handed[1]} B at S {LONG_QUARTER}; wire B a device "
+        f"{full['collective_wire_bytes_per_device']:.0f} and "
+        f"{quarter['collective_wire_bytes_per_device']:.0f}; dot FLOPs a "
+        f"device {full['flops_per_device']:.4e} and "
+        f"{quarter['flops_per_device']:.4e}")
+    if handed[0] != handed[1]:
+        over.append(f"the dry run's bytes grow with the cache: "
+                    f"{handed[1]} B at S {LONG_QUARTER}, {handed[0]} B at "
+                    f"S {LONG_S}")
+    for i, real in enumerate(got["tally"]):
+        _same_tally(f"p26_decode step {i + 1}", full["tally"], real, over)
+    log(f"  before (the code that gathered every cache whole): "
+        f"{LONG_BEFORE} B handed a step at S {LONG_S}; now {handed[0]} B, "
+        f"{LONG_BEFORE / max(handed[0], 1):.0f}x less")
+    for rk in ranks:
+        log(f"  rank {rk['coords']}: decode s " + ", ".join(
+            f"{t:.3f}" for t in rk["s"]) + f"; gloo B a step "
+            + ", ".join(str(b) for b in rk["sent"])
+            + f"; all its parts {rk['parts_s']:.1f} s; peak "
+            f"{rk['peak_gb']:.2f} GB [{card}]")
+    if over:
+        fail("phase 26: " + "; ".join(over))
+    took = time.perf_counter() - t_start
+    log(f"  phase 26 took {took:.1f} s")
+    return {"one": one, "ranks": ranks, "s": took}
+
+
+# ----------------------------------------------------------------------------
+# phase 27: the five examples on the card
+# ----------------------------------------------------------------------------
+
+EX_TIMEOUT = 300               # s for one example's process
+# each example's process: the example as __main__ (runpy), then the
+# kernels' launch counts on a line of their own; the example's exit code
+_EX_RUNNER = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+path = sys.argv[2]
+sys.argv = [path] + sys.argv[3:]
+code = 0
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else int(e.code is not None)
+from repro_torch.kernels import (flash_attention as fa, local_sdca as dk,
+                                 sparse_sdca as sk, ssm_scan as ss)
+print("LAUNCHES " + json.dumps({
+    "local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
+    "sparse_sdca_pipelined": sk.PIPELINED_LAUNCHES,
+    "sparse_sdca_zx": sk.ZX_LAUNCHES, "ssm_scan": ss.LAUNCHES,
+    "flash_attention": fa.LAUNCHES}), flush=True)
+sys.exit(code)
+"""
+
+
+def _example(name, argv):
+    """Run examples/torch_<name>.py with `argv` on the card in a process of
+    its own: (its output, its launches by kernel, its seconds). A
+    non-zero exit fails the run."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", _EX_RUNNER,
+                          str(ROOT / "src"), str(path)] + list(argv),
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=EX_TIMEOUT)
+    took = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"phase 27: {path.name} {' '.join(argv)} exited "
+             f"{run.returncode}: {run.stdout[-1500:]} {run.stderr[-2500:]}")
+    lines = run.stdout.splitlines()
+    launches = json.loads([ln for ln in lines if ln.startswith(
+        "LAUNCHES ")][-1][len("LAUNCHES "):])
+    out = "\n".join(ln for ln in lines if not ln.startswith("LAUNCHES "))
+    return out, launches, took
+
+
+def _numbers(pattern, text):
+    """Every match of `pattern` in `text`, its groups as floats."""
+    import re
+    return [tuple(float(g) for g in m.groups())
+            for m in re.finditer(pattern, text)]
+
+
+def _check_quickstart(out):
+    runs = _numbers(r"rounds=\s*(\d+) gap=\s*([-+.\deE]+) "
+                    r"train_acc=([.\d]+)", out)
+    if len(runs) != 3:
+        return f"3 result lines expected, read {len(runs)}"
+    gaps = [g for _, g, _ in runs]
+    if not (all(math.isfinite(g) for g in gaps)
+            and 0 < gaps[0] < gaps[1] < gaps[2]):
+        return (f"the gaps of CoCoA+, CoCoA and naive adding must rise in "
+                f"that order, read {gaps}")
+    return None
+
+
+def _check_lasso(out):
+    gaps = [g for _, g in _numbers(r"round (\d+): gap=([-+.\deE]+)", out)]
+    final = _numbers(r"final: P=([-+.\deE]+) D=([-+.\deE]+) "
+                     r"gap=([-+.\deE]+)", out)
+    nnz = _numbers(r"lasso w: (\d+)/(\d+) nonzeros", out)
+    if len(gaps) < 2 or not gaps[-1] < gaps[0]:
+        return f"the certified gaps must fall, read {gaps}"
+    if len(final) != 1 or not all(math.isfinite(v) for v in final[0]) \
+            or not final[0][2] >= -1e-6 * abs(final[0][0]):
+        return f"the final certificate is not a gap: {final}"
+    if len(nnz) != 1 or not 0 < nnz[0][0] < nnz[0][1]:
+        return f"the Lasso w must be sparse and not empty, read {nnz}"
+    return None
+
+
+def _check_probe(out):
+    got = _numbers(r"probe: rounds=(\d+) gap=([-+.\deE]+) "
+                   r"train_acc=([.\d]+)", out)
+    if len(got) != 1 or not (math.isfinite(got[0][1]) and got[0][1] > 0
+                             and 0 < got[0][2] <= 1):
+        return f"the probe's result line reads {got}"
+    return None
+
+
+def _check_serve(out):
+    tok_s = _numbers(r"decode (\d+) steps: ([.\d]+)s \(([.\d]+) tok/s", out)
+    reqs = _numbers(r"req(\d+): prompt=", out)
+    if len(tok_s) != 1 or not tok_s[0][2] > 0 or len(reqs) != 4:
+        return f"decode {tok_s}, {len(reqs)} requests"
+    return None
+
+
+def _check_pretrain(out):
+    losses = _numbers(r"step +(\d+) loss=([.\d]+) gnorm=([.\d]+) "
+                      r"tok/s=(\d+)", out)
+    if len(losses) < 2 or not losses[-1][1] < losses[0][1] \
+            or not all(tok > 0 for *_, tok in losses):
+        return f"the loss must fall and tok/s be read, read {losses}"
+    if "done; checkpoint at" not in out:
+        return "no checkpoint line"
+    return None
+
+
+def phase_examples(dev, rows, card):
+    """Phase 27: the five examples (`examples/torch_*.py`) on the card at
+    their own default sizes, each in a process of its own: its exit code,
+    its result lines, the kernels it launched (added to the table);
+    lm_pretrain twice on one checkpoint directory, the second run
+    resuming."""
+    t_start = time.perf_counter()
+    _free()
+    log(f"[27 examples] {card}: examples/torch_*.py at their default "
+        f"sizes, each a process on {dev}")
+    total = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        runs = [("quickstart", [], _check_quickstart),
+                ("lasso_sparse", [], _check_lasso),
+                ("linear_probe", [], _check_probe),
+                ("serve_batched", [], _check_serve),
+                ("lm_pretrain", ["--ckpt", ckpt], _check_pretrain),
+                ("lm_pretrain", ["--ckpt", ckpt], None)]
+        for name, argv, check in runs:
+            out, launches, took = _example(name, argv)
+            kernels = {k: v for k, v in launches.items() if v}
+            tail = [ln for ln in out.splitlines() if ln.strip()][-4:]
+            again = " again, on the same checkpoints" if check is None \
+                else ""
+            log(f"  {name}{again}: exit 0 in {took:.1f} s, kernels "
+                f"launched {kernels or 'none'} [{card}]")
+            for ln in tail:
+                log(f"    {ln}")
+            why = (check(out) if check is not None else None
+                   if "resumed from checkpoint step 200" in out
+                   else "the second run did not resume from step 200")
+            if why:
+                fail(f"phase 27: {name}: {why}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            if name == "lasso_sparse" and not (
+                    launches["sparse_sdca"]
+                    + launches["sparse_sdca_pipelined"]):
+                fail("phase 27: lasso_sparse launched neither row 2 nor "
+                     "row 3")
+            if name in ("quickstart", "linear_probe") and \
+                    not launches["local_sdca"]:
+                fail(f"phase 27: {name} did not launch row 1")
+    for row in rows:
+        row["launches"] += total.get(row["name"], 0)
+        row["launches_phase27"] = total.get(row["name"], 0)
+    log(f"  launches in phase 27: {total}; phase 27 took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return total
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -5532,8 +5961,11 @@ def main() -> None:
     phase_moe(dev, rows)
     phase_whisper(dev, rows)
     sharded = phase_sharded(dev, rows, smi_line)
-    phase_expert(dev, rows, smi_line, sharded)
+    expert = phase_expert(dev, rows, smi_line, sharded)
     del sharded
+    phase_long(dev, rows, smi_line, expert["dry"])
+    del expert
+    phase_examples(dev, rows, smi_line)
     rows.sort(key=lambda row: TABLE_ORDER.index(row["name"]))
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

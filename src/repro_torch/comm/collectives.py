@@ -15,7 +15,7 @@ the exchange's time.
 
 The tally: every collective of this module -- the mesh rounds' calls,
 the expert-parallel MoE's (`psum`, `pmean`, `all_gather_dim`, autograd
-aware), and DTensor's routed ones (`route_dtensor_collectives`) --
+aware; `pmax`), and DTensor's routed ones (`route_dtensor_collectives`) --
 records its kind (the reference's HLO names: all-gather, all-reduce,
 reduce-scatter, all-to-all, collective-permute), its group size and its
 bytes: the result's, as the reference's `collective_stats` counts them,
@@ -40,6 +40,10 @@ _gather_into = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 _scatter_from = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
 
 
 def _size(group) -> int:
@@ -93,14 +97,15 @@ def tally_bytes(records: dict) -> int:
     return sum(v[2] for v in records.values())
 
 
-def all_reduce(t: torch.Tensor, group: Optional[object]) -> torch.Tensor:
-    """The sum of `t` over the ranks of `group` (None: the tensor as it
-    is, for a group of one)."""
+def all_reduce(t: torch.Tensor, group: Optional[object],
+               op: str = "sum") -> torch.Tensor:
+    """The sum (`op` "max": the largest) of `t` over the ranks of `group`
+    (None: the tensor as it is, for a group of one)."""
     if group is None or _size(group) == 1:
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
     _record("all-reduce", _size(group), out, out)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(out, op=_OPS[op], group=group)
     return out
 
 
@@ -185,6 +190,15 @@ def psum(t: torch.Tensor, group) -> torch.Tensor:
     return _Psum.apply(t, group, 1.0)
 
 
+def pmax(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise largest `t` over `group`, the same on every rank
+    (the reference's `pmax`): an all-reduce, tallied and priced as
+    `psum`'s. No grad: only the serving step's decode attention over a
+    sequence-sharded cache takes it (`models.shards.decode_over_shards`),
+    and serving records no graph."""
+    return all_reduce(t, group, "max")
+
+
 def pmean(t: torch.Tensor, group) -> torch.Tensor:
     """The mean of `t` over `group`, replicated as `psum`'s; the backward
     scales the grad by 1/n."""
@@ -196,10 +210,6 @@ def pmean(t: torch.Tensor, group) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 # DTensor's collectives over the same transport
 # ----------------------------------------------------------------------------
-
-_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
-        "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
-
 
 def dtensor_bytes_sent() -> int:
     """The bytes this process has handed to DTensor's routed collectives

@@ -239,7 +239,8 @@ def lower_cell(cell: Sp.Cell, mesh, mesh_name: str) -> dict:
 def run_steps(steps: list, shape, outdir: pathlib.Path) -> int:
     """`--steps`: each step {"name", "arch", "kind", "B", "S"} (optional
     "S_cache": the cache's length, default S; "n_layers"; "flash":
-    use_flash_attention) of a full-width config in serve or train mode on
+    use_flash_attention; "mode": serve_long for a decode over
+    sequence-sharded caches) of a full-width config in serve or train mode on
     a fake world of `shape` ((data, model) or (pod, data, model)); one
     record a step, `step__<name>.json`, with its tally. Returns the
     failures."""
@@ -258,7 +259,7 @@ def run_steps(steps: list, shape, outdir: pathlib.Path) -> int:
         cfg = dataclasses.replace(cfg, **over)
         kind, B, S = st["kind"], int(st["B"]), int(st["S"])
         args = step_inputs(cfg, kind, B, S, st.get("S_cache"))
-        mode = "train" if kind == "train" else "serve"
+        mode = st.get("mode", "train" if kind == "train" else "serve")
         try:
             rec = {"name": st["name"], "arch": st["arch"], "B": B, "S": S}
             rec.update(lower_step(cfg, kind, mode, args, mesh))

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .shards import is_dtensor, lookup_rows, split_heads
+from .shards import is_dtensor, lookup_rows, reduced, split_heads
 
 NEG = -1e30
 
@@ -253,9 +253,51 @@ def decode_attention_ring(q, kcache, vcache, pos, *, window, softcap=None):
     p_j < 0 has not been written yet."""
     W = kcache.shape[1]
     j = torch.arange(W, device=q.device)
-    p_j = j + W * torch.div(pos - j, W, rounding_mode="floor")
-    return _decode_scores(q, kcache, vcache, (p_j >= 0) & (p_j <= pos),
-                          softcap)
+    return _decode_scores(q, kcache, vcache,
+                          decode_valid(pos, j, length=W, ring=True), softcap)
+
+
+def decode_valid(pos, idx, *, length, window=None, ring=False):
+    """Which cache slots, by their indices `idx` (T,) in the whole cache of
+    `length` slots, a decode at position `pos` attends to: on a ring
+    (`decode_attention_ring`) slot j holds p_j = j + W·floor((pos - j)/W)
+    and counts when 0 <= p_j <= pos; on a dense cache slot i counts when
+    i <= pos and, under a window W < length, when it lies in the W slots
+    from clip(pos - (W-1), 0, length - W) (`decode_attention`'s)."""
+    if ring:
+        p = idx + length * torch.div(pos - idx, length, rounding_mode="floor")
+        return (p >= 0) & (p <= pos)
+    valid = idx <= pos
+    if window is not None and window < length:
+        start = min(max(pos - (window - 1), 0), length - window)
+        valid = valid & (idx >= start) & (idx < start + window)
+    return valid
+
+
+def decode_partial(q, kcache, vcache, valid, softcap, *, head_dim=None,
+                   score_sum=None):
+    """One shard's part of decode attention (flash-decoding's split KV):
+    q (B,1,H,hd) over this shard's slots (B,T,KV,hd), of which `valid`
+    (T,) count. Returns float32 (m, l, o): the largest score (B,KV,G,1),
+    l = Σ exp(s - m) (B,KV,G,1) and o = Σ exp(s - m)·v (B,1,KV,G,hd); the
+    attention is o / l once the shards' parts are combined
+    (`shards.decode_over_shards`). A shard whose slots all fail `valid`
+    has m = NEG, and weighs nothing beside one that has a slot. Where q
+    and the cache hold a slice of the head dim, `head_dim` is the whole
+    one and `score_sum` sums the slices' partial scores before the scale,
+    the softcap and the mask."""
+    B, T, KV, hd = kcache.shape
+    H = q.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bckgh,btkh->bkgct", qg.float(), kcache.float())
+    if score_sum is not None:
+        s = score_sum(s)
+    s = _softcap(s * (1.0 / math.sqrt(head_dim or hd)), softcap)
+    s = torch.where(valid, s, NEG)                          # (B,KV,G,1,T)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgct,btkh->bckgh", p.to(vcache.dtype), vcache)
+    return m, p.sum(dim=-1), o.float()
 
 
 def init_attn(gen, cfg, dtype):
@@ -323,7 +365,10 @@ def mlp_forward(p: Params, x, kind):
         h = F.silu(x @ p.wg) * (x @ p.wi)
     else:  # gelu
         h = F.gelu(x @ p.wi, approximate="tanh")
-    return h @ p.wo
+    # a DTensor h with partial sums (the gate's product over a sharded
+    # d_model times the other's) is reduced before the down projection,
+    # where DTensor would gather wo to carry them
+    return reduced(h) @ p.wo
 
 
 # ----------------------------------------------------------------------------

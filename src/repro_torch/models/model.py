@@ -86,8 +86,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.flash_attention import flash_attention
 from . import layers as L
-from .shards import (copy_into, is_dtensor, local_kernel, merge_heads,
-                     placed, split_heads, whole_dim, write_rows)
+from .shards import (copy_into, decode_over_shards, is_dtensor,
+                     local_kernel, merge_heads, placed, split_heads,
+                     splits_slots, whole_dim, write_rows)
 from . import rglru as R
 from . import ssm as S
 from .config import Block, ModelConfig
@@ -146,11 +147,18 @@ def _gathered(module: nn.Module):
 def constrain(x, key):
     """Redistribute a DTensor to the installed sharding `key` (a command,
     not the reference's hint); a plain tensor is the same on every rank and
-    stays as it is."""
+    stays as it is. A mesh dim that would split a dim it does not divide
+    (serve_long's sequence over "data" at a decode step's one token)
+    replicates it instead, as the specs' rules do (`launch.sharding.
+    _maybe`): uneven shards make DTensor reshuffle every product."""
     placements = _SHARDINGS.get(key)
     if placements is None or not is_dtensor(x):
         return x
-    return placed(x, placements)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    return placed(x, [Replicate() if isinstance(pl, Shard)
+                      and x.shape[pl.dim] % mesh.size(i) else pl
+                      for i, pl in enumerate(placements)])
 
 
 # ----------------------------------------------------------------------------
@@ -255,7 +263,14 @@ class AttnBlock(_Block):
                 max(pos, 0), cache["k"].shape[1] - 1)
             write_rows(cache["k"], k, wpos)
             write_rows(cache["v"], v, wpos)
-            if ring:
+            if splits_slots(cache["k"]):
+                S_c = cache["k"].shape[1]
+                o = decode_over_shards(
+                    q, cache["k"], cache["v"],
+                    functools.partial(L.decode_valid, pos, length=S_c,
+                                      window=W, ring=ring),
+                    softcap=cfg.attn_softcap)
+            elif ring:
                 o = _attend(L.decode_attention_ring, q, cache["k"],
                             cache["v"], pos=pos, window=W,
                             softcap=cfg.attn_softcap)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Params, dense_init, init_device, pick_chunk
-from .shards import copy_into
+from .shards import copy_into, reduced
 from .ssm import _causal_conv, _scan_chunk
 
 _C_RGLRU = 8.0
@@ -62,7 +62,9 @@ def rglru_forward(p, x, cfg, state=None):
     B, S, d = x.shape
     # jax.nn.gelu defaults to the tanh approximation
     y_branch = F.gelu(x @ p.w_y, approximate="tanh")
-    u = x @ p.w_x
+    # partial sums over a sharded d_model reduced here, where DTensor
+    # would carry them into the conv and gather w_a, w_i and w_o
+    u = reduced(x @ p.w_x)
     conv_state = state["conv"] if state is not None else None
     u, new_conv = _causal_conv(u, p.conv_w, p.conv_b, conv_state)
 

@@ -8,7 +8,11 @@ few places where it must know which.
     (the wrappers refuse one).
   * `write_rows` / `copy_into`: in-place cache writes that keep a DTensor
     cache's placements (a write into a view that DTensor had to gather
-    would be lost).
+    would be lost); a cache split along its sequence is written on the
+    shard that owns the rows.
+  * `decode_over_shards`: decode attention over a cache split along its
+    sequence or its head dim, each rank on its own slots, the ranks'
+    softmax statistics combined (serve_long's caches, never gathered).
   * `lookup_rows`: an embedding lookup on the table's own shards, where
     DTensor's rule for a vocab-sharded table fails.
   * `whole_dim`: a dim replicated before an op that DTensor cannot run
@@ -17,7 +21,10 @@ few places where it must know which.
     heads and back, made whole first (in the backward too) where the
     heads do not split over the mesh.
   * `reduced`: partial sums reduced where DTensor would carry them into
-    the next product and run it whole (the SSM's x_proj output).
+    the next product and run it whole, or gather that product's weight
+    (the SSM's x_proj output; the input products of the SSM and the
+    RG-LRU and the MLP's hidden layer, whose sums over a sharded d_model
+    a serving step carries).
 """
 from __future__ import annotations
 
@@ -190,15 +197,121 @@ def lookup_rows(table, ids):
 
 def write_rows(dst, src, start: int):
     """dst[:, start:start + src.shape[1]] = src, in place; a DTensor
-    `dst` keeps its placements."""
+    `dst` keeps its placements. A DTensor whose dim 1 is split writes on
+    the ranks that hold the rows only, each into its own shard (`src` made
+    whole along dim 1, dst never gathered)."""
     end = start + src.shape[1]
     if not is_dtensor(dst):
         dst[:, start:end] = src.to(dst.dtype)
         return
     src = as_dtensor(src.to(dst.dtype), dst)
-    new = whole_dim(dst, 1).slice_scatter(whole_dim(src, 1), dim=1,
-                                           start=start, end=end)
-    dst.copy_(placed(new, dst.placements))
+    if not _split_dims(dst, 1):
+        new = whole_dim(dst, 1).slice_scatter(whole_dim(src, 1), dim=1,
+                                               start=start, end=end)
+        dst.copy_(placed(new, dst.placements))
+        return
+    rows = placed(src, _whole_on(dst.placements, 1)).to_local()
+    local = dst.to_local()
+    first = _first_row(dst, 1)
+    lo = max(start, first)
+    hi = min(end, first + local.shape[1])
+    if lo < hi:
+        local[:, lo - first:hi - first] = rows[:, lo - start:hi - start]
+
+
+def _split_dims(t, dim: int) -> list:
+    """The mesh dims that split tensor dim `dim` of the DTensor `t`."""
+    from torch.distributed.tensor import Shard
+    return [i for i, pl in enumerate(t.placements)
+            if isinstance(pl, Shard) and pl.dim == dim]
+
+
+def _whole_on(placements, dim: int) -> list:
+    """`placements` with the mesh dims that split tensor dim `dim`
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Replicate() if isinstance(pl, Shard) and pl.dim == dim else pl
+            for pl in placements]
+
+
+def _first_row(t, dim: int) -> int:
+    """The index in the whole DTensor `t` of this rank's first row along
+    `dim` (even shards, the outer mesh dim first)."""
+    mesh, block, n = t.device_mesh, 0, 1
+    for i in _split_dims(t, dim):
+        block = block * mesh.size(i) + mesh.get_local_rank(i)
+        n *= mesh.size(i)
+    return block * (t.shape[dim] // n)
+
+
+def splits_slots(cache) -> bool:
+    """Whether a DTensor k/v cache (B, S, KV, hd) is split along its
+    sequence (dim 1) or its head dim (dim 3): decode attention then runs
+    on the shards (`decode_over_shards`)."""
+    return is_dtensor(cache) and bool(_split_dims(cache, 1)
+                                      or _split_dims(cache, 3))
+
+
+def decode_over_shards(q, kcache, vcache, valid_at, softcap=None):
+    """Decode attention of q (B,1,H,hd) over a DTensor cache (B,S,KV,hd)
+    split along its sequence over some mesh dims (serve_long's "data")
+    and along KV heads or head_dim over "model", without gathering the
+    cache: each rank scores its own slots, whose indices in the whole
+    cache are its first row's plus arange, and `valid_at(idx)` ((T,)
+    bool: `layers.decode_valid`) says which count. Each rank keeps its
+    largest score m, l = Σ exp(s - m) and o = Σ exp(s - m)·v
+    (`layers.decode_partial`), and the ranks of the sequence's mesh dims
+    combine them (flash-decoding's split-KV combine): m* = pmax(m), then
+    one psum of (exp(m - m*)·o, exp(m - m*)·l) and their quotient: over
+    the sequence's mesh dims only (m, l, o) cross the wire, whose size
+    does not depend on S. Where head_dim is split, the partial scores of
+    the rank's slots are summed over its mesh dims first. q goes to the
+    cache's split of batch, heads and head_dim (a
+    reshuffle of the one token's q); the output is a DTensor placed so,
+    whole over the sequence's mesh dims, its heads split where head_dim
+    was."""
+    from torch.distributed.tensor import DTensor, Shard
+    from ..comm.collectives import pmax, psum
+    from .layers import decode_partial
+    mesh = kcache.device_mesh
+    q_pl = _whole_on(kcache.placements, 1)
+    k = kcache.to_local()
+    v = placed(as_dtensor(vcache, kcache), kcache.placements).to_local()
+    ql = placed(as_dtensor(q, kcache), q_pl).to_local()
+    first = _first_row(kcache, 1)
+    idx = first + torch.arange(k.shape[1], device=k.device)
+    hd_groups = [mesh.get_group(i) for i in _split_dims(kcache, 3)]
+    seq_groups = [mesh.get_group(i) for i in _split_dims(kcache, 1)]
+
+    def score_sum(s):
+        for g in hd_groups:
+            s = psum(s, g)
+        return s
+
+    m, l, o = decode_partial(ql, k, v, valid_at(idx), softcap,
+                             head_dim=kcache.shape[3],
+                             score_sum=score_sum if hd_groups else None)
+    B, _, KV, G, hd = o.shape
+    if seq_groups:
+        m_all = m
+        for g in seq_groups:
+            m_all = pmax(m_all, g)
+        w = torch.exp(m - m_all)                          # (B,KV,G,1)
+        parts = torch.cat([(o * w.permute(0, 3, 1, 2)[..., None])
+                           .reshape(B, -1), (w * l).reshape(B, -1)], dim=1)
+        for g in seq_groups:
+            parts = psum(parts, g)
+        o = parts[:, :KV * G * hd].reshape(o.shape)
+        l = parts[:, KV * G * hd:].reshape(l.shape)
+    out = (o / l.permute(0, 3, 1, 2)[..., None]).reshape(B, 1, KV * G, hd)
+    out = DTensor.from_local(out.to(v.dtype), mesh, q_pl, run_check=False)
+    # a head_dim split goes back to a split of the heads (one token's
+    # output reshuffled), so the heads merge into the output projection
+    # as the head-sharded layout's do
+    H = q.shape[2]
+    return placed(out, [Shard(2) if isinstance(pl, Shard) and pl.dim == 3
+                        and H % mesh.size(i) == 0 else pl
+                        for i, pl in enumerate(q_pl)])
 
 
 def as_dtensor(x, like):

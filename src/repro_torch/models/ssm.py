@@ -88,7 +88,9 @@ def ssm_forward(p, x, cfg, state=None):
     (y, new_state)."""
     B, S, d = x.shape
     di, N = cfg.d_inner, cfg.ssm_state
-    xz = x @ p.in_proj
+    # partial sums over a sharded d_model reduced here, where DTensor
+    # would carry them into the conv and gather the next products' weights
+    xz = reduced(x @ p.in_proj)
     xin, z = torch.chunk(xz, 2, dim=-1)                     # (B,S,di) each
     conv_state = state["conv"] if state is not None else None
     xin, new_conv = _causal_conv(xin, p.conv_w, p.conv_b, conv_state)

@@ -16,8 +16,24 @@ their backward), net of its other choices op by op against XLA's
 partitioner (the other train-step products take other splits of equal
 FLOPs).
 
+(i') The smoke decode_long cells (serve_long: the KV caches' sequence
+over "data") of gemma3-27b, gemma2-27b, recurrentgemma-9b and
+falcon-mamba-7b at batch 1 and cache lengths 2,048 and 8,192, the same
+way: `flops_per_device` within FLOPS_RTOL of the reference's at both
+lengths, `collective_wire_bytes_per_device` within WIRE_RATIO = 3x of the
+reference's and equal at both lengths (each rank scores its own cache
+slots and only softmax statistics cross the wire,
+`models.shards.decode_over_shards`). Read on 2 x 2 and 2 x 2 x 2: FLOPs
+equal but recurrentgemma's on 2 x 2 x 2 (103,424 against 102,912) and
+falcon-mamba's (47,104 against 46,080, 2.2% over); wire bytes 13,948
+against 9,452 (gemma3), 5,564 against 4,716 (gemma2), 9,836 against
+7,676 and 7,932 (recurrentgemma), 4,748 against 6,772 (falcon-mamba), at
+both lengths. Before the sharded decode the port gathered every cache
+whole: gemma3 read 363,972 wire bytes at S 2,048 and 1,150,404 at 8,192.
+
 (ii) A fake 4-rank dry run of smoke steps -- stablelm train, prefill and
-decode, scout's expert-parallel prefill and decode -- makes the same
+decode, scout's expert-parallel prefill and decode, gemma3-27b's
+serve_long decode over a sequence-sharded cache -- makes the same
 collectives as a real run of the same steps on 4 gloo CPU ranks: the
 tallies equal, kind by kind, group by group, byte for byte.
 
@@ -45,11 +61,16 @@ FLOPS_RTOL = 0.05
 CELLS = [("stablelm-1.6b", "t_train", "train"),
          ("falcon-mamba-7b", "t_prefill", "prefill"),
          ("llama4-scout-17b-a16e", "t_decode", "decode")]
+LONG_ARCHS = ("gemma3-27b", "gemma2-27b", "recurrentgemma-9b",
+              "falcon-mamba-7b")
+LONG_SHAPES = ("t_long2k", "t_long8k")
+WIRE_RATIO = 3.0
 MESHES = ("single", "multi")
 TALLY_JOBS = [dict(arch="stablelm-1.6b", kind=k, B=4, S=16)
               for k in ("train", "prefill", "decode")] + \
     [dict(arch="llama4-scout-17b-a16e", kind=k, B=4, S=16)
-     for k in ("prefill", "decode")]
+     for k in ("prefill", "decode")] + \
+    [dict(arch="gemma3-27b", kind="decode", B=1, S=64, mode="serve_long")]
 RECORD_KEYS = {"arch", "shape", "mesh", "mesh_shape", "kind", "lower_s",
                "compile_s", "flops_per_device", "hbm_bytes_per_device",
                "collectives", "collective_wire_bytes_per_device",
@@ -60,6 +81,8 @@ _SHAPES = """
 {sp}.SHAPES["t_train"] = dict(seq=64, batch=8, kind="train")
 {sp}.SHAPES["t_prefill"] = dict(seq=64, batch=8, kind="prefill")
 {sp}.SHAPES["t_decode"] = dict(seq=64, batch=8, kind="decode")
+{sp}.SHAPES["t_long2k"] = dict(seq=2048, batch=1, kind="decode_long")
+{sp}.SHAPES["t_long8k"] = dict(seq=8192, batch=1, kind="decode_long")
 """
 
 _REF = """
@@ -78,6 +101,14 @@ for arch, shape, kind in {cells!r}:
         rec = D.lower_cell(cell, D._mesh(m), m)
         out[f"{{arch}}/{{m}}"] = np.array(
             [rec["flops_per_device"], rec["global_param_bytes"]])
+for arch in {long_archs!r}:
+    for shape in {long_shapes!r}:
+        for m in ("single", "multi"):
+            cell = Sp.Cell(arch, shape, smoke_config(arch), "decode_long")
+            rec = D.lower_cell(cell, D._mesh(m), m)
+            out[f"{{arch}}/{{shape}}/{{m}}"] = np.array(
+                [rec["flops_per_device"],
+                 rec["collective_wire_bytes_per_device"]])
 """
 
 _PORT = """
@@ -92,6 +123,11 @@ for m in ("single", "multi"):
     for arch, shape, kind in {cells!r}:
         cell = Sp.Cell(arch, shape, smoke_config(arch), kind)
         out[f"{{arch}}/{{m}}"] = D.lower_cell(cell, D._mesh(m), m)
+    for arch in {long_archs!r}:
+        for shape in {long_shapes!r}:
+            cell = Sp.Cell(arch, shape, smoke_config(arch), "decode_long")
+            out[f"{{arch}}/{{shape}}/{{m}}"] = D.lower_cell(
+                cell, D._mesh(m), m)
 print("RESULT " + json.dumps(out))
 """
 
@@ -120,12 +156,15 @@ def _child(code: str, timeout: int = 600, env_extra=None) -> object:
 
 @pytest.fixture(scope="module")
 def reference():
-    return tp.reference_in_child(_REF.format(cells=CELLS), devices=8)
+    return tp.reference_in_child(_REF.format(
+        cells=CELLS, long_archs=LONG_ARCHS, long_shapes=LONG_SHAPES),
+        devices=8)
 
 
 @pytest.fixture(scope="module")
 def port():
-    return _child(_PORT.format(cells=CELLS))[0]
+    return _child(_PORT.format(cells=CELLS, long_archs=LONG_ARCHS,
+                               long_shapes=LONG_SHAPES))[0]
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -140,6 +179,23 @@ def test_smoke_cells_against_the_reference(reference, port, cell, mesh):
     assert rec["global_param_bytes"] == int(pbytes)
     assert rec["flops_per_device"] == pytest.approx(flops, rel=FLOPS_RTOL)
     assert rec["xla_cost_flops"] == -1.0
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", LONG_ARCHS)
+def test_decode_long_cells_against_the_reference(reference, port, arch,
+                                                 mesh):
+    wire = []
+    for shape in LONG_SHAPES:
+        flops, ref_wire = reference[f"{arch}/{shape}/{mesh}"]
+        rec = port[f"{arch}/{shape}/{mesh}"]
+        assert rec["kind"] == "decode"
+        assert rec["flops_per_device"] == pytest.approx(flops,
+                                                        rel=FLOPS_RTOL)
+        assert rec["collective_wire_bytes_per_device"] <= \
+            WIRE_RATIO * ref_wire
+        wire.append(rec["collective_wire_bytes_per_device"])
+    assert wire[0] == wire[1], "the bytes on the wire grow with the cache"
 
 
 @pytest.fixture(scope="module")

@@ -640,7 +640,8 @@ def step_tally_job(job: dict, mesh) -> dict:
     `launch.dryrun.prepare_step` as the dry run runs it: job keys arch,
     kind (train / prefill / decode), B, S. On a real mesh the inputs are
     the seed-0 weights and `lm_batch`'s; on a fake world their "meta"
-    stand-ins. Returns {"tally": {"kind/g/routed": [count, result bytes,
+    stand-ins; job["mode"] (default: train or serve by the kind) picks
+    serve_long. Returns {"tally": {"kind/g/routed": [count, result bytes,
     bytes handed]}}."""
     from repro_torch.comm import collectives as col
     from repro_torch.configs import smoke_config
@@ -650,7 +651,7 @@ def step_tally_job(job: dict, mesh) -> dict:
     from repro_torch.models import model as M
     cfg = smoke_config(job["arch"])
     kind, B, S = job["kind"], job["B"], job["S"]
-    mode = "train" if kind == "train" else "serve"
+    mode = job.get("mode", "train" if kind == "train" else "serve")
     if mesh.device.type == "meta":
         args = DR.step_inputs(cfg, kind, B, S)
     else:
@@ -682,3 +683,119 @@ def step_tally_on_ranks(rank: int, world: int, jobs: list, shape, axes):
     from repro_torch.launch.mesh import make_process_mesh
     mesh = make_process_mesh(tuple(shape), tuple(axes), device="cpu")
     return [step_tally_job(j, mesh) for j in jobs]
+
+
+# ----------------------------------------------------------------------------
+# decode over a sequence-sharded cache (`models.shards.decode_over_shards`,
+# serve_long): spawned targets and their one-process twins
+# ----------------------------------------------------------------------------
+
+def _long_case_arrays(case: dict):
+    """q (B,1,H,hd), k and v (B,S,KV,hd) and one cache row (B,1,KV,hd)
+    from the case's seed."""
+    rng = np.random.default_rng(case["seed"])
+    B, S, KV, H, hd = (case[k] for k in ("B", "S", "KV", "H", "hd"))
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    row = rng.standard_normal((B, 1, KV, hd)).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (q, k, v, row))
+
+
+def long_case_plain(case: dict) -> dict:
+    """One process: `decode_attention` (`decode_attention_ring` on a ring)
+    over the whole cache, and the cache with the row written at
+    case["write"]."""
+    from repro_torch.models import layers as L
+    q, k, v, row = _long_case_arrays(case)
+    if case["ring"]:
+        out = L.decode_attention_ring(q, k, v, case["pos"],
+                                      window=case["S"],
+                                      softcap=case.get("softcap"))
+    else:
+        out = L.decode_attention(q, k, v, case["pos"],
+                                 window=case.get("window"),
+                                 softcap=case.get("softcap"))
+    k[:, case["write"]:case["write"] + 1] = row
+    return {"out": to_np(out), "written": to_np(k)}
+
+
+def long_case_sharded(case: dict, mesh) -> dict:
+    """The same on `mesh`: the cache placed by case["spec"] (a
+    `launch.sharding.P` as a tuple), q with its heads over "model" as
+    `attn_qkv` makes it, `decode_over_shards` and `write_rows`; the whole
+    results."""
+    import functools
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.models import layers as L
+    from repro_torch.models import shards
+    q, k, v, row = _long_case_arrays(case)
+    spec = Sh.P(*case["spec"])
+    kd, vd = Sh.place(k, mesh, spec), Sh.place(v, mesh, spec)
+    qd = Sh.place(q, mesh, Sh.P(None, None, "model", None))
+    valid = functools.partial(L.decode_valid, case["pos"], length=case["S"],
+                              window=case.get("window"), ring=case["ring"])
+    with torch.no_grad():
+        out = shards.decode_over_shards(qd, kd, vd, valid,
+                                        softcap=case.get("softcap"))
+        shards.write_rows(kd, Sh.place(row, mesh, Sh.P()), case["write"])
+    return {"out": to_np(Sh.full(out)), "written": to_np(Sh.full(kd))}
+
+
+def long_decode_job(job: dict, mesh=None) -> dict:
+    """Decode steps of a smoke config in serve_long's layout (`mesh`, a
+    process mesh) or in one process (None), over a cache filled from the
+    seed: job keys arch, B, S_max, positions (one step each). Returns the
+    logits of every step (n, B, 1, V) and the whole cache after."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.models import model as M
+    cfg = smoke_config(job["arch"])
+    B, positions = job["B"], job["positions"]
+    model = M.init_params(cfg, seed=0, device="cpu")
+    cache = M.init_cache(cfg, B, job["S_max"], device="cpu")
+    rng = np.random.default_rng(7)
+    for layer in cache:
+        for t in layer.values():
+            t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape))
+                                     .astype(np.float32)))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, len(positions)))
+                            .astype(np.int32))
+    if mesh is not None:
+        mode = "serve_long"
+        layout = Sh.layout_for(mesh, mode)
+        Sh.place_model(model, Sh.param_specs(model, cfg, mesh, mode), mesh,
+                       layout=layout)
+        cache = Sh.place_tree(cache, Sh.cache_specs(cache, cfg, mesh, mode),
+                              mesh, layout)
+    logits = []
+    for i, pos in enumerate(positions):
+        tok = toks[:, i:i + 1]
+        if mesh is None:
+            with torch.inference_mode():
+                lg, cache = M.decode_step(model, cache, tok, pos, cfg)
+        else:
+            tok = Sh.place_tree({"tokens": tok}, Sh.batch_specs(
+                {"tokens": tok}, cfg, mesh, mode), mesh, layout)["tokens"]
+            with Sh.installed(cfg, mesh, mode, gather=False), \
+                    torch.no_grad():
+                lg, cache = M.decode_step(model, cache, tok, pos, cfg)
+        logits.append(to_np(Sh.full(lg)))
+    return {"logits": np.stack(logits),
+            "cache": _lm_cache_arrays(cache, Sh.full)}
+
+
+def long_decode_on_ranks(rank: int, world: int, cases: list, jobs: list,
+                         shape, axes):
+    """`long_case_sharded` for every case and `long_decode_job` for every
+    job on a `shape` process mesh of CPU ranks; rank 0 returns them."""
+    torch.set_num_threads(1)
+    from repro_torch.comm import collectives as col
+    from repro_torch.launch.mesh import make_process_mesh
+    mesh = make_process_mesh(tuple(shape), tuple(axes), device="cpu")
+    out = {"cases": [long_case_sharded(c, mesh) for c in cases], "jobs": {}}
+    for job in jobs:
+        snap = col.tally()
+        out["jobs"][job["arch"]] = long_decode_job(job, mesh)
+        out["jobs"][job["arch"]]["handed"] = col.tally_bytes(
+            col.tally_since(snap))
+    return out if rank == 0 else None
