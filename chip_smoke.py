@@ -34,7 +34,8 @@ order, each failing the run with a non-zero exit:
                B = 1, 16, 128 with ragged last blocks, 1-3 passes, one and
                two blocks a pass, u in shared memory and (d_loc = 65,536)
                in device memory, and at B = 1, M = 1 against the sparse
-               kernel at depth 1
+               kernel at depth 1 (the new instance and kernel of phase
+               28 are held at their cut shapes there)
   4. sparse    the main path (`solve`, sdca_sparse_kernel) at rcv1's
                published shape, 677,399 x 47,236 at density 0.0016, K = 8,
                hinge, lambda = 1e-6, after a small-input cross-check of the
@@ -325,7 +326,8 @@ order, each failing the run with a non-zero exit:
                sharded LM steps on a (data 2, model 2) process mesh of 4
                ranks spawned on cuda:0 over gloo (`launch.sharding`'s
                specs, DTensors, the model's hooks): stablelm-1.6b at
-               full width and depth, one prefill of B 4 x S 1,024
+               full width and 8 of 24 layers (cut for the script's
+               time limit), one prefill of B 4 x S 1,024
                (`make_jitted_serve_fns`, flash on each rank's 16 heads
                and 2 rows), 8 decode steps teacher-forced with the
                one-process tokens, 2 train steps at B 4 x S 1,024
@@ -374,6 +376,33 @@ order, each failing the run with a non-zero exit:
                at step 200); quickstart and linear_probe must launch row
                1, lasso_sparse rows 2-3; each one's launches added to
                the kernel table
+ 28. reach     the nineteenth slice, run after phase 19 while phases 4
+               and 12's tensors are on the card: the SDCA kernels at
+               shapes and meshes that took no kernel before. Cut shapes
+               first: the 1-D walk with u in device memory (d =
+               200,000, duplicate ids, depths 1 and 4, prox on and off)
+               and the per-block zx kernel (M = 17, a ragged block, two
+               passes) against their plain versions. news_sparse (8,192
+               x 65,536, density 5e-4) and a synthetic of news20.binary's
+               shape (19,996 x 1,355,191, density 3.36e-4), K = 4, hinge,
+               lambda 1e-4, H = nk, through `solve` (3 rounds at depths 4
+               and 1; 2 rounds at depth 4): u in device memory, every
+               round one launch of the ring kernel counted as such, the
+               gaps falling; the wrapper against its plain version on
+               the first round's inputs; ms a call and us a step. rcv1's
+               shape as a 4 x 32 mesh (FeatureShards by the streaming
+               slicer) through `solve`, 2 rounds: the per-block kernel,
+               10,585 launches a round and no cluster launch; held to the
+               plain round on the first round's inputs; ms a round and us
+               an invocation; phase 12's 4 x 2 shards through the
+               per-block kernel (the cluster fit read as 0) against the
+               cluster kernel, in turns. The rcv1_sparse stand-in on a 2
+               x 2 process mesh of 4 gloo ranks on cuda:0 with
+               `sdca_kernel`, 3 rounds: every rank the per-block kernel
+               and zx_exchanges(nk, B) all_reduces a round over its model
+               column, the gaps equal across ranks and within 1e-5 of
+               the one-process 2 x 2 run's (the cluster kernel); each
+               rank's s a round, exchanges and gloo ms an exchange
 
 The sparse path runs at lambda = 1e-6, not 1e-4: the synthetic rcv1-shaped
 rows are nearly orthogonal, and at lambda = 1e-4 (lambda n = 68) one pass
@@ -404,7 +433,8 @@ RTOL, ATOL = 1e-4, 1e-5        # kernel vs plain (reduction order differs)
 CUT_NK = 1024                  # phase 3's rows per worker
 CACHE_DEPTH = 1                # phase 11's cached buffer_depth
 TABLE_ORDER = ("local_sdca", "sparse_sdca", "sparse_sdca_pipelined",
-               "sparse_sdca_zx", "ssm_scan", "flash_attention")
+               "sparse_sdca_device_u", "sparse_sdca_zx",
+               "sparse_sdca_zx_block", "ssm_scan", "flash_attention")
 DEPTHS = (1, 2, 4, 8)          # phase 11's timed ring depths
 SWEEP_B = (4, 8, 16, 32)       # phase 6's timed dense windows
 DENSE_WIDTHS = (54, 2_000, 2_001)   # phase 3's dense widths
@@ -1360,11 +1390,15 @@ def _counts_zero():
     for mod in (dk, sk, fa, ss):
         mod.LAUNCHES = 0
     sk.PIPELINED_LAUNCHES = 0
+    sk.DEVICE_U_LAUNCHES = 0
     sk.ZX_LAUNCHES = 0
+    sk.ZX_BLOCK_LAUNCHES = 0
     sk.ZX_STEPS = 0
     return lambda: {"local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
                     "sparse_sdca_pipelined": sk.PIPELINED_LAUNCHES,
+                    "sparse_sdca_device_u": sk.DEVICE_U_LAUNCHES,
                     "sparse_sdca_zx": sk.ZX_LAUNCHES,
+                    "sparse_sdca_zx_block": sk.ZX_BLOCK_LAUNCHES,
                     "sparse_sdca_zx_steps": sk.ZX_STEPS,
                     "flash_attention": fa.LAUNCHES,
                     "ssm_scan": ss.LAUNCHES}
@@ -1804,12 +1838,31 @@ def _max_sm_mhz():
 # z-exchange path (phase 12), and both kernels' times (phase 13)
 # ----------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _cached_depth(sh, depth):
+    """Inside the block the autotune cache is a one-entry file (named by
+    REPRO_TORCH_AUTOTUNE_CACHE) giving the 1-D walk ring depth `depth` on
+    the shards `sh`; yields the file's path."""
+    from repro_torch.kernels import autotune
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "autotune_cache.json"
+        autotune.AutotuneCache(path).record(
+            "sparse_sdca", sh.device.type, d=sh.d, r_max=sh.r_max,
+            density=sh.density,
+            config={"block_rows": 128, "buffer_depth": depth}, wall_s=0.0)
+        os.environ[autotune.ENV_VAR] = str(path)
+        autotune.reset_cache()
+        try:
+            yield path
+        finally:
+            del os.environ[autotune.ENV_VAR]
+            autotune.reset_cache()
+
+
 def phase_depth_one(sparse):
     """Phase 4's main path with buffer_depth 1 from a one-entry autotune
     cache: the sparse kernel must walk without prefetching and give phase
     4's state."""
-    import os
-    import tempfile
     import torch
     from repro_torch.core import solve
     from repro_torch.core.losses import get_loss
@@ -1818,24 +1871,12 @@ def phase_depth_one(sparse):
     from repro_torch.obs import cost
     sh, yp, mk, r4, cfg, _, nnz, _, _ = sparse
     K, nk, r_max = sh.cols.shape
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "autotune_cache.json"
-        autotune.AutotuneCache(path).record(
-            "sparse_sdca", sh.device.type, d=sh.d, r_max=r_max,
-            density=sh.density,
-            config={"block_rows": 128, "buffer_depth": CACHE_DEPTH},
-            wall_s=0.0)
-        os.environ[autotune.ENV_VAR] = str(path)
-        autotune.reset_cache()
-        try:
-            counts = _counts_zero()
-            r = solve(cfg, sh, yp, mk, rounds=len(r4.history["round"]),
-                      gap_every=1, seed=SEED)
-            launches = counts()
-            used = dict(ops.LAST_SPARSE_CONFIG)
-        finally:
-            del os.environ[autotune.ENV_VAR]
-            autotune.reset_cache()
+    with _cached_depth(sh, CACHE_DEPTH) as path:
+        counts = _counts_zero()
+        r = solve(cfg, sh, yp, mk, rounds=len(r4.history["round"]),
+                  gap_every=1, seed=SEED)
+        launches = counts()
+        used = dict(ops.LAST_SPARSE_CONFIG)
     log(f"[11 depth-1] rcv1 shape, K={K}, buffer_depth from the cache "
         f"file {path.name} ({autotune.ENV_VAR}): LAST_SPARSE_CONFIG {used}")
     log(f"  launches on the main path: {launches}")
@@ -4675,6 +4716,8 @@ SHARD_B, SHARD_S = 4, 1_024    # the prefill's, the scoring's and the train
                                # steps' batch
 SHARD_DECODE = 8               # teacher-forced decode steps
 SHARD_TRAIN_STEPS = 2
+SHARD_LM_LAYERS = 8            # stablelm-1.6b at full width, 8 of 24
+                               # layers (cut for the script's time)
 SHARD_MAMBA_LAYERS = 4         # falcon-mamba-7b at full width, 4 of 64
 SHARD_TIMEOUT = 480            # s for the spawn: start, init, every part
 SHARD_LOGITS_REL_RMS = LOGITS_REL_RMS   # bf16: sharded vs one process
@@ -4726,7 +4769,8 @@ def _timed_s(fn):
 def _shard_cfgs():
     import dataclasses
     from repro_torch.configs import get_config
-    lm = get_config("stablelm-1.6b")
+    lm = dataclasses.replace(get_config("stablelm-1.6b"),
+                             n_layers=SHARD_LM_LAYERS)
     mamba = dataclasses.replace(get_config("falcon-mamba-7b"),
                                 n_layers=SHARD_MAMBA_LAYERS,
                                 use_fused_ssm=True)
@@ -4953,8 +4997,8 @@ def phase_sharded(dev, rows, card):
     _free()
     torch.cuda.reset_peak_memory_stats()
     serve_cfg, train_cfg, mamba_cfg = _shard_cfgs()
-    log(f"[24 sharded] {card}: stablelm-1.6b at full width and depth "
-        f"({train_cfg.n_layers} layers, d {train_cfg.d_model}, "
+    log(f"[24 sharded] {card}: stablelm-1.6b at full width "
+        f"({train_cfg.n_layers} of 24 layers, d {train_cfg.d_model}, "
         f"{train_cfg.n_heads} heads, vocab {train_cfg.vocab}, "
         f"{train_cfg.dtype}) and falcon-mamba-7b at full width, "
         f"{SHARD_MAMBA_LAYERS} of 64 layers; B {SHARD_B} x S {SHARD_S}; "
@@ -5356,13 +5400,13 @@ def _dryrun_steps(tmp):
     records by step name, the paper cell's record, the child's seconds."""
     steps = [
         dict(name="p24_train", arch="stablelm-1.6b", kind="train",
-             B=SHARD_B, S=SHARD_S),
+             B=SHARD_B, S=SHARD_S, n_layers=SHARD_LM_LAYERS),
         dict(name="p24_prefill", arch="stablelm-1.6b", kind="prefill",
              B=SHARD_B, S=SHARD_S, S_cache=SHARD_S + SHARD_DECODE,
-             flash=True),
+             n_layers=SHARD_LM_LAYERS, flash=True),
         dict(name="p24_decode", arch="stablelm-1.6b", kind="decode",
              B=SHARD_B, S=SHARD_S, S_cache=SHARD_S + SHARD_DECODE,
-             flash=True),
+             n_layers=SHARD_LM_LAYERS, flash=True),
         dict(name="p25_prefill", arch="llama4-scout-17b-a16e",
              kind="prefill", B=EP_B, S=EP_S, S_cache=EP_S + EP_DECODE,
              n_layers=EP_LAYERS, flash=True),
@@ -5769,7 +5813,9 @@ from repro_torch.kernels import (flash_attention as fa, local_sdca as dk,
 print("LAUNCHES " + json.dumps({
     "local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
     "sparse_sdca_pipelined": sk.PIPELINED_LAUNCHES,
-    "sparse_sdca_zx": sk.ZX_LAUNCHES, "ssm_scan": ss.LAUNCHES,
+    "sparse_sdca_device_u": sk.DEVICE_U_LAUNCHES,
+    "sparse_sdca_zx": sk.ZX_LAUNCHES,
+    "sparse_sdca_zx_block": sk.ZX_BLOCK_LAUNCHES, "ssm_scan": ss.LAUNCHES,
     "flash_attention": fa.LAUNCHES}), flush=True)
 sys.exit(code)
 """
@@ -5910,6 +5956,486 @@ def phase_examples(dev, rows, card):
     return total
 
 
+# ----------------------------------------------------------------------------
+# the nineteenth slice (phase 28): the SDCA kernels' reach -- the 1-D walk
+# with u in device memory at any width, the per-block z-exchange kernel
+# beyond one cluster and across processes
+# ----------------------------------------------------------------------------
+
+NEWS20 = (19_996, 1_355_191, 3.36e-4)   # LIBSVM news20.binary: n, d, density
+REACH_LAM = 1e-4               # phase 28's lambda on the news shapes
+REACH_K = 4                    # workers of every phase 28 run
+REACH_M = 32                   # rcv1 as 4 x 32: past the 16-block cluster
+REACH_CUT = dict(K=3, nk=300, d=200_000, r=40)   # the 1-D cut shape
+REACH_ZX_CUT = dict(K=3, M=17, nk=203, d_loc=600, r=24, B=16)
+REACH_RANK_RTOL = 1e-5         # ranks' gaps vs the one-process cluster round
+REACH_TIMEOUT = 180            # s for the spawn: start, data, 3 rounds
+
+
+def _state0(K, nk, d, dev):
+    """The first round's state as `_round_inputs` reads it: w = 0,
+    alpha = 0, round 0."""
+    import types
+    import torch
+    return types.SimpleNamespace(
+        w=torch.zeros(d, device=dev), rounds=0,
+        alpha=torch.zeros((K, nk), device=dev))
+
+
+def _reach_cuts(dev):
+    """The new instance and kernel against their plain versions at cut
+    shapes: the 1-D walk with u in device memory at d = 200,000 (rows with
+    duplicate ids and column 0 next to padding, depths 1 and 4, prox on
+    and off) and the per-block zx kernel at M = 17 (ragged last block,
+    two passes). Returns the worst (max abs, max rel) errors of each."""
+    import numpy as np
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import sparse_sdca as sk
+    rng = np.random.default_rng(SEED)
+    c = REACH_CUT
+    cols, vals, y, alpha, mask, w, perm = sparse_case(
+        rng, c["K"], c["nk"], c["d"], c["r"], dev)
+    worst = {"sparse_sdca_device_u": [0.0, 0.0],
+             "sparse_sdca_zx_block": [0.0, 0.0]}
+
+    def hold(name, got, want):
+        for g, p in zip(got, want):
+            a, r, ok = _errors(g, p)
+            worst[name] = [max(worst[name][0], a), max(worst[name][1], r)]
+            if not ok:
+                fail(f"phase 28 cut shape: {name} disagrees with its plain "
+                     f"version (max_abs {a:.3e})")
+
+    for depth in (1, 4):
+        for kappa in (None, 0.1):
+            kw = dict(loss=get_loss("hinge"), n_passes=2, prox_kappa=kappa)
+            hold("sparse_sdca_device_u",
+                 sk.sparse_local_sdca(cols, vals, y, alpha, mask, w, 0.3,
+                                      perm, buffer_depth=depth, **kw),
+                 sk.sparse_local_sdca_plain(cols, vals, y, alpha, mask, w,
+                                            0.3, perm, **kw))
+    z = REACH_ZX_CUT
+    K, M, nk, B = z["K"], z["M"], z["nk"], z["B"]
+    zc, zv, _ = _ell(rng, K * M, nk, z["d_loc"], z["r"])
+    zc = torch.from_numpy(zc.reshape(K, M, nk, z["r"])).to(dev)
+    zv = torch.from_numpy((zv.reshape(K, M, nk, z["r"]) / np.sqrt(M))
+                          .astype(np.float32)).to(dev)
+    zy, za, zm = y[:, :nk].contiguous(), alpha[:, :nk].contiguous(), \
+        mask[:, :nk].contiguous()
+    zw = torch.from_numpy(0.3 * rng.standard_normal(M * z["d_loc"]).astype(
+        np.float32)).to(dev)
+    zsq = torch.sum(zv * zv, dim=(1, 3)).contiguous()
+    zp = torch.from_numpy(_perm(rng, K, nk)).to(dev)
+    for kappa in (None, 0.2):
+        kw = dict(loss=get_loss("smooth_hinge"), n_passes=2, block_rows=B,
+                  prox_kappa=kappa)
+        args = (zc, zv, zy, za, zm, zw, 0.5, zsq, zp)
+        hold("sparse_sdca_zx_block", sk.sparse_local_sdca_zx(*args, **kw),
+             sk.sparse_local_sdca_zx_plain(*args, **kw))
+    torch.cuda.synchronize()
+    log(f"  cut shapes vs plain (tolerance |k - p| <= {ATOL} + {RTOL} |p|):"
+        f" the 1-D walk with u in device memory at K={c['K']} nk={c['nk']} "
+        f"d={c['d']} r_max={c['r']}, depths 1 and 4: max_abs "
+        f"{worst['sparse_sdca_device_u'][0]:.3e}; the per-block zx kernel "
+        f"at K={K} M={M} nk={nk} B={B}: max_abs "
+        f"{worst['sparse_sdca_zx_block'][0]:.3e}")
+    return {k: tuple(v) for k, v in worst.items()}
+
+
+def _reach_wide(dev, name, shape, depths, rounds):
+    """The 1-D walk at a width whose u does not fit shared memory: the
+    main path (`solve`, sdca_sparse_kernel, hinge, lambda 1e-4, H = nk)
+    at each ring depth (the first the card's cache-miss default, the
+    others from a one-entry cache), the counts at 0 just before each run;
+    then, at the first depth, the wrapper against its plain version on the
+    first round's inputs and each depth's ms a call in turns."""
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.core.losses import get_loss
+    from repro_torch.data import make_sparse_classification, partition_sparse
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import sparse_sdca as sk
+    from repro_torch.obs import cost
+    t0 = time.perf_counter()
+    n, d, density = shape
+    csr, y = make_sparse_classification(n, d, density=density, seed=SEED)
+    sh, yp, mk = partition_sparse(csr, y, REACH_K, device=dev)
+    del csr
+    K, nk, r_max = sh.cols.shape
+    nnz = int(sh.nnz.sum())
+    budget = sk.smem_budget(d=d, r_max=r_max, nk=nk, buffer_depth=depths[0])
+    log(f"  {name}: n={n} d={d} density={density} nnz={nnz} K={K} nk={nk} "
+        f"r_max={r_max} (data made in {time.perf_counter() - t0:.1f} s); "
+        f"u would take {4 * d} B of shared memory a block: in device "
+        f"memory, {K * 4 * d / 1e6:.1f} MB; the ring "
+        f"{budget['ring_bytes']} B at depth {depths[0]}")
+    if budget["u_in_smem"] or not budget["fits"]:
+        fail(f"phase 28 {name}: the budget does not put u in device "
+             f"memory: {budget}")
+    cfg = CoCoAConfig.adding(K, loss="hinge", lam=REACH_LAM, H=nk,
+                             solver="sdca_sparse_kernel")
+    runs = {}
+    for depth in depths:
+        ctx = (contextlib.nullcontext() if depth == depths[0]
+               else _cached_depth(sh, depth))
+        with ctx:
+            counts = _counts_zero()
+            r = solve(cfg, sh, yp, mk, rounds=rounds, gap_every=1, seed=SEED)
+            launches = counts()
+            used = dict(ops.LAST_SPARSE_CONFIG)
+        runs[depth] = (r, launches)
+        log(f"  {name} depth {depth}: LAST_SPARSE_CONFIG {used}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        _check_gaps(f"{name} depth {depth}", r.history, rounds)
+        row = "sparse_sdca" if depth == 1 else "sparse_sdca_pipelined"
+        if used["buffer_depth"] != depth or launches[row] != rounds or \
+                launches["sparse_sdca_device_u"] != rounds:
+            fail(f"phase 28 {name} depth {depth}: ran {used}, launched "
+                 f"{launches}; expected {rounds} launches of {row} with u "
+                 f"in device memory")
+    if depths[0] != autotune.CUDA_DEFAULT_BUFFER_DEPTH:
+        fail(f"phase 28 {name}: the first depth must be the default")
+    s0 = _state0(K, nk, d, dev)
+    w, scale, perm = _round_inputs(cfg, sh, yp, mk, s0)
+    args = (sh.cols, sh.vals, yp, s0.alpha, mk, w, scale, perm)
+    hinge = {"loss": get_loss("hinge")}
+    errs = _against_plain(f"{name} (u in device memory, depth {depths[0]}, "
+                          f"the first round's inputs)", _at_depth(depths[0]),
+                          sk.sparse_local_sdca_plain, args, hinge)[:3]
+    ms, _ = _in_turns(depths, lambda depth: sk.sparse_local_sdca(
+        *args, buffer_depth=depth, **hinge), reps=2)
+    stats = cost.round_stats(cfg, sh, mk)
+    log(f"  {name}: ms a call (CUDA events, in turns) " + ", ".join(
+        f"depth {k}: {v:.3f}" for k, v in ms.items()) + "; us a step "
+        + ", ".join(f"depth {k}: {1e3 * v / nk:.4f}" for k, v in ms.items())
+        + f"; gaps of the first and last round at depth {depths[0]}: "
+        f"{runs[depths[0]][0].history['gap'][0]:.6e}, "
+        f"{runs[depths[0]][0].history['gap'][-1]:.6e}; the plain walk "
+        f"{errs[2]:.1f} ms")
+    return {"launches": runs[depths[0]][1]["sparse_sdca_device_u"],
+            "rounds": rounds, "errs": errs, "ms": ms, "stats": stats,
+            "nnz": nnz, "shape": f"K={K} nk={nk} r_max={r_max} d={d} "
+                                 f"nnz={nnz}",
+            "gaps": runs[depths[0]][0].history["gap"], "nk": nk}
+
+
+def _zx_args(cfg, X, y, mask, dev):
+    """The zx wrapper's (args, kw) on the first round's inputs of `cfg`'s
+    run on the FeatureShards X."""
+    from repro_torch.core.losses import get_loss
+    from repro_torch.data.sparse import row_sqnorms
+    from repro_torch.kernels import ops
+    K, M, nk, r_loc = X.cols.shape
+    s0 = _state0(K, nk, M * X.d_local, dev)
+    w, scale, perm = _round_inputs(cfg, X, y, mask, s0)
+    sq = (row_sqnorms(X) * mask).contiguous()
+    plan = ops.sparse_zx_plan(nk, X.d_local, cfg.H, r_max=r_loc,
+                              model_shards=M, backend=dev.type)
+    args = (X.cols, X.vals, y, s0.alpha, mask, w, scale, sq, perm)
+    return args, dict(loss=get_loss(cfg.loss), n_passes=plan["n_passes"],
+                      block_rows=plan["block_rows"]), plan
+
+
+def _reach_zx(dev, csr_y, mesh):
+    """The per-block zx kernel on one card: rcv1's shape as a 4 x 32 mesh
+    through `solve` (the counts at 0 just before), held to the plain
+    version on the first round's inputs and timed; then phase 12's 4 x 2
+    shards through the per-block kernel (the cluster fit read as 0) and
+    through the cluster kernel, in turns."""
+    from repro_torch import comm
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data.sparse import shard_features_streaming
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_sdca as sk
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.obs import cost
+    t0 = time.perf_counter()
+    csr, y = csr_y
+    K, M = REACH_K, REACH_M
+    fs, yp, mk = shard_features_streaming([(csr, y)], K, M,
+                                          n_features=csr.shape[1],
+                                          device=dev)
+    K, M, nk, r_loc = fs.cols.shape
+    log(f"  rcv1 shape as FeatureShards (rows dealt round robin by "
+        f"data.sparse.shard_features_streaming): K={K} M={M} nk={nk} "
+        f"d_local={fs.d_local} r_loc={r_loc} nnz={int(fs.nnz.sum())} "
+        f"(sliced in {time.perf_counter() - t0:.1f} s)")
+    cfg = CoCoAConfig.adding(K, lam=SPARSE_LAM, H=nk, backend="shard_map",
+                             model_axis="model",
+                             solver="sdca_sparse_kernel", loss="hinge")
+    m32 = make_test_mesh((K, M), device=dev)
+    rounds = 2
+    counts = _counts_zero()
+    r = solve(cfg, fs, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
+              mesh=m32)
+    launches = counts()
+    used = dict(ops.LAST_SPARSE_CONFIG)
+    args, kw, plan = _zx_args(cfg, fs, yp, mk, dev)
+    steps = plan["n_passes"] * plan["blocks"]
+    log(f"  rcv1 {K}x{M}: LAST_SPARSE_CONFIG {used}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    _check_gaps(f"rcv1 {K}x{M} sdca_sparse_kernel zx (per-block)",
+                r.history, rounds)
+    if not used["zx"] or used["model_shards"] != M or \
+            launches["sparse_sdca_zx_block"] != rounds * steps or \
+            launches["sparse_sdca_zx"] or \
+            launches["sparse_sdca_zx_steps"] != rounds * steps:
+        fail(f"phase 28 rcv1 {K}x{M}: ran {used}, launched {launches}; "
+             f"expected {rounds} x {steps} per-block launches")
+    errs = _against_plain(f"sparse_sdca_zx_block {K}x{M} (the first round's "
+                          f"inputs)", sk.sparse_local_sdca_zx,
+                          sk.sparse_local_sdca_zx_plain, args, kw)[:3]
+    ms, _ = _time_ms(lambda: sk.sparse_local_sdca_zx(*args, **kw), reps=2)
+    topo = comm.Topology.from_mesh(m32, "data", "model")
+    stats = cost.round_stats(cfg, fs, mk, topo)
+    ex = r.history["execute_s"]
+    log(f"  rcv1 {K}x{M}: {ms:.3f} ms a round (CUDA events), {steps} "
+        f"launches a round, {1e3 * ms / steps:.3f} us an invocation; "
+        f"execute_s a round " + ", ".join(f"{e:.4f}" for e in ex)
+        + f"; gaps {r.history['gap'][0]:.6e}, {r.history['gap'][-1]:.6e}; "
+        f"the plain round {errs[2]:.1f} ms")
+    del fs, r, args
+    gc.collect()
+    # phase 12's 4 x 2 shards: per-block against the cluster kernel
+    fs2, yp2, mk2, cfg2 = (mesh[k] for k in ("fs", "yp", "mk", "cfg"))
+    args2, kw2, plan2 = _zx_args(cfg2, fs2, yp2, mk2, dev)
+    real_fit = sk._zx_clusters_fit
+
+    def call(form):
+        if form == "cluster":
+            return sk.sparse_local_sdca_zx(*args2, **kw2)
+        sk._zx_clusters_fit = lambda *a: 0
+        try:
+            return sk.sparse_local_sdca_zx(*args2, **kw2)
+        finally:
+            sk._zx_clusters_fit = real_fit
+
+    before = (sk.ZX_LAUNCHES, sk.ZX_BLOCK_LAUNCHES)
+    ms2, outs = _in_turns(("cluster", "block"), call)
+    if sk.ZX_BLOCK_LAUNCHES == before[1] or sk.ZX_LAUNCHES == before[0]:
+        fail("phase 28: the 4 x 2 comparison did not run both forms")
+    nk2 = yp2.shape[1]
+    atol = ATOL * max(1.0, nk2 / CUT_NK)
+    for part, g, p in zip(("dalpha", "du"), outs["block"], outs["cluster"]):
+        a, rel, ok = _errors(g, p, atol)
+        log(f"  4x2 {part:6s} per-block vs cluster kernel: max_abs={a:.3e} "
+            f"max_rel={rel:.3e} (tolerance |b - c| <= {atol:.3e} + {RTOL} "
+            f"|c|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"phase 28: the per-block kernel disagrees with the "
+                 f"cluster kernel at 4 x 2 ({part})")
+    steps2 = plan2["n_passes"] * plan2["blocks"]
+    log(f"  4x2 (phase 12's shards, B={plan2['block_rows']}): ms a round "
+        f"in turns, cluster kernel {ms2['cluster']:.3f} (1 launch), "
+        f"per-block kernel {ms2['block']:.3f} ({steps2} launches, "
+        f"{1e3 * ms2['block'] / steps2:.3f} us an invocation)")
+    return {"launches": launches["sparse_sdca_zx_block"], "rounds": rounds,
+            "steps": steps, "errs": errs, "ms": ms, "stats": stats,
+            "shape": f"K={K} M={M} nk={nk} r_loc={r_loc} "
+                     f"d_local={-(-csr.shape[1] // M)} "
+                     f"B={plan['block_rows']} (one call: {steps} launches)",
+            "ms_4x2": ms2, "steps_4x2": steps2}
+
+
+def _reach_rank(rank, world, job):
+    """Phase 28's rank on cuda:0: `solve` of the rcv1_sparse stand-in on
+    the 2 x 2 process mesh from the global FeatureShards (the rank keeps
+    its block), its launch counts, and the host ms of each sum over its
+    model column made inside the solver (the per-block kernel's
+    exchanges, gloo staging through the host included). Then the first
+    round's zx call again, on the card and on CPU copies (the plain
+    per-block loop, the same sum over the model column on CPU tensors):
+    the max errors over (dalpha, du) and whether they are within
+    `_against_plain`'s tolerance."""
+    import torch
+    from repro_torch import comm
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data import load, partition_sparse
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_sdca as sk
+    from repro_torch.launch.mesh import make_process_mesh
+    csr, y = load(job["data"])
+    fs, yp, mk = partition_sparse(csr, y, job["K"], M=job["M"], device="cpu")
+    dev = torch.device(job["device"])
+    mesh = make_process_mesh(job["shape"], job["axes"], device=dev)
+    sums_ms, inside = [], [False]
+
+    def solver(real, *a, **kw):
+        inside[0] = True
+        try:
+            return real(*a, **kw)
+        finally:
+            inside[0] = False
+
+    def model_sum(real, *a, **kw):
+        if not inside[0]:
+            return real(*a, **kw)
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        sums_ms.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    def first_zx(real, *a, **kw):
+        if not seen:
+            seen.append(tuple(t.clone() if torch.is_tensor(t) else t
+                              for t in a))
+            seen.append(kw)
+        return real(*a, **kw)
+
+    seen = []
+    counts = _counts_zero()
+    ops.LAST_SPARSE_CONFIG = None
+    with _wrapped(ops, "sparse_local_sdca_block", solver), \
+            _wrapped(comm.Topology, "model_sum", model_sum), \
+            _wrapped(ops, "sparse_local_sdca_zx", first_zx):
+        r = solve(CoCoAConfig(**job["cfg"]), fs, yp, mk,
+                  rounds=job["rounds"], seed=SEED, mesh=mesh)
+    launches = counts()
+    args, kw = seen
+    got = sk.sparse_local_sdca_zx(*args, **kw)
+    want = sk.sparse_local_sdca_zx(*(t.cpu() if torch.is_tensor(t) else t
+                                     for t in args), **kw)
+    atol = ATOL * max(1.0, args[-1].shape[1] / CUT_NK)
+    errs = [_errors(g.cpu(), p, atol) for g, p in zip(got, want)]
+    return {"gap": r.history["gap"], "execute_s": r.history["execute_s"],
+            "launches": launches, "sums_ms": sums_ms,
+            "config": dict(ops.LAST_SPARSE_CONFIG), "coords": mesh.coords(),
+            "errs": errs, "atol": atol}
+
+
+def _reach_ranks(dev):
+    """The rcv1_sparse stand-in on a 2 x 2 process mesh of 4 gloo ranks on
+    cuda:0 with `--solver sdca_kernel`'s solver: the per-block kernel on
+    every rank, an all_reduce of B floats over the model column between
+    its launches; against the one-process 2 x 2 mesh on the card (the
+    cluster kernel) on the same shards and orders."""
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data import load, partition_sparse
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_sdca as sk
+    from repro_torch.launch.mesh import make_test_mesh, spawn_ranks
+    rounds = 3
+    job = dict(data="rcv1_sparse", K=2, M=2, shape=(2, 2),
+               axes=("data", "model"), device=str(dev), rounds=rounds,
+               cfg=dict(backend="shard_map", model_axis="model",
+                        solver="sdca_kernel", loss="hinge", lam=1e-4,
+                        H=10_240))
+    csr, y = load(job["data"])
+    fs, yp, mk = partition_sparse(csr, y, 2, M=2, device=dev)
+    nk = yp.shape[1]
+    counts = _counts_zero()
+    one = solve(CoCoAConfig(**job["cfg"]), fs, yp, mk, rounds=rounds,
+                seed=SEED, mesh=make_test_mesh((2, 2), device=dev))
+    one_launches = counts()
+    if one_launches["sparse_sdca_zx"] != rounds:
+        fail(f"phase 28: the one-process 2 x 2 run launched {one_launches}")
+    B = ops.LAST_SPARSE_CONFIG["block_rows"]
+    # invocations a round; each but the last ends in an exchange and the
+    # prologue makes one: as many as invocations (the plan's
+    # zx_exchanges counts one more, the last invocation's unused dots,
+    # as the reference's scan exchanges them)
+    per_round = sk.zx_exchanges(nk, B,
+                                ops.n_passes_of(job["cfg"]["H"], nk)) - 1
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_reach_rank, 4, (job,), timeout=REACH_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 28: {e}")
+    log(f"  rcv1_sparse (20,480 x 16,384, density 0.0016) on a 2 x 2 "
+        f"process mesh, 4 ranks on {dev} over gloo, B={B}: the spawn took "
+        f"{time.perf_counter() - t0:.1f} s (limit {REACH_TIMEOUT} s); the "
+        f"one-process 2 x 2 run (cluster kernel) s a round "
+        + ", ".join(f"{e:.3f}" for e in one.history["execute_s"]))
+    rel = _rel(ranks[0]["gap"], one.history["gap"])
+    for rk in ranks:
+        launches = {k: v for k, v in rk["launches"].items() if v}
+        sums = rk["sums_ms"]
+        log(f"    rank {rk['coords']}: gaps " + " ".join(
+            f"{g:.6e}" for g in rk["gap"]) + "; s a round " + ", ".join(
+            f"{e:.3f}" for e in rk["execute_s"]) + f"; launches {launches};"
+            f" exchanges {len(sums)} ({len(sums) / rounds:g} a round), gloo "
+            f"ms an exchange {sum(sums) / max(len(sums), 1):.4f} (median "
+            f"{sorted(sums)[len(sums) // 2] if sums else 0:.4f})")
+        want_steps = rounds * per_round
+        if rk["gap"] != ranks[0]["gap"] or \
+                rk["launches"]["sparse_sdca_zx_block"] != want_steps or \
+                rk["launches"]["sparse_sdca_zx"] or \
+                len(sums) != rounds * per_round or \
+                not rk["config"]["zx"] or rk["config"]["model_shards"] != 2:
+            fail(f"phase 28: rank {rk['coords']} ran {rk['config']}, "
+                 f"launched {rk['launches']}, exchanged {len(sums)} times "
+                 f"(expected {want_steps} per-block launches and "
+                 f"{rounds * per_round} exchanges)")
+    for rk in ranks:
+        for part, (a, r_, ok) in zip(("dalpha", "du"), rk["errs"]):
+            log(f"    rank {rk['coords']} {part:6s} per-block kernel vs "
+                f"plain (CPU copies, gloo sums) on the first round's "
+                f"inputs: max_abs={a:.3e} max_rel={r_:.3e} (tolerance "
+                f"|k - p| <= {rk['atol']:.3e} + {RTOL} |p|) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"phase 28: rank {rk['coords']}'s per-block kernel "
+                     f"disagrees with its plain version ({part})")
+    log(f"  ranks' gaps vs the one-process run: max rel diff {rel:.3e} "
+        f"(limit {REACH_RANK_RTOL}: the two kernels land their atomics in "
+        f"other orders, gloo sums in its own)")
+    if rel > REACH_RANK_RTOL:
+        fail(f"phase 28: the ranks' gaps {ranks[0]['gap']} differ from the "
+             f"one-process run's {one.history['gap']}")
+    return {"s_round": ranks[0]["execute_s"],
+            "exchanges_per_round": per_round,
+            "gloo_ms": sum(ranks[0]["sums_ms"]) / len(ranks[0]["sums_ms"]),
+            "rel": rel,
+            "max_abs_err": max(e[0] for rk in ranks for e in rk["errs"])}
+
+
+def phase_reach(dev, csr_y, mesh, smi_line):
+    """Phase 28: the 1-D walk at news_sparse's and news20's widths (u in
+    device memory), the per-block zx kernel at rcv1's 4 x 32 and 4 x 2,
+    and across a 2 x 2 process mesh; the two new rows of the table."""
+    t_start = time.perf_counter()
+    log(f"[28 reach] {smi_line}: the SDCA kernels at shapes and meshes "
+        f"that took no kernel before")
+    cut = _reach_cuts(dev)
+    news = _reach_wide(dev, "news_sparse", (8_192, 65_536, 5e-4), (4, 1), 3)
+    news20 = _reach_wide(dev, "news20-shaped", NEWS20, (4,), 2)
+    zx = _reach_zx(dev, csr_y, mesh)
+    ranks = _reach_ranks(dev)
+    rows = [
+        _row("sparse_sdca_device_u",
+             "src/repro_torch/kernels/csrc/sparse_sdca_pipelined.cu",
+             "src/repro/kernels/sparse_sdca.py:205", news["launches"],
+             news["launches"] / news["rounds"], "per round",
+             news["errs"][:2], cut["sparse_sdca_device_u"], news["ms"][4],
+             news["errs"][2], None, news["stats"], _hw(),
+             news["shape"] + " depth=4 (news_sparse)",
+             rounds=news["rounds"], depth_ms=news["ms"],
+             us_per_step=1e3 * news["ms"][4] / news["nk"],
+             news20={"ms": news20["ms"][4],
+                     "us_per_step": 1e3 * news20["ms"][4] / news20["nk"],
+                     "plain_ms": news20["errs"][2],
+                     "max_abs_err": news20["errs"][0],
+                     "bound_ms": 1e3 * max(news20["stats"]["hbm_bytes"]
+                                           / _hw().hbm_bw,
+                                           news20["stats"]["flops"]
+                                           / _hw().peak_flops),
+                     "shape": news20["shape"], "gaps": news20["gaps"]}),
+        _row("sparse_sdca_zx_block",
+             "src/repro_torch/kernels/csrc/sparse_sdca_zx_block.cu",
+             "src/repro/kernels/sparse_sdca.py:394", zx["launches"],
+             zx["launches"] / zx["rounds"], "per round", zx["errs"][:2],
+             cut["sparse_sdca_zx_block"], zx["ms"], zx["errs"][2], None,
+             zx["stats"], _hw(), zx["shape"], rounds=zx["rounds"],
+             steps_per_round=zx["steps"],
+             us_per_step=1e3 * zx["ms"] / zx["steps"],
+             at_4x2={"block_ms": zx["ms_4x2"]["block"],
+                     "cluster_ms": zx["ms_4x2"]["cluster"],
+                     "steps": zx["steps_4x2"]},
+             process_mesh_2x2=ranks)]
+    log(f"  phase 28 took {time.perf_counter() - t_start:.1f} s")
+    return rows
+
+
 def main() -> None:
     import torch
     name, count, smi_line = phase_device()
@@ -5953,6 +6479,7 @@ def main() -> None:
     log(f"  phases 15-17 took {time.perf_counter() - t_new:.1f} s")
     phase_obs(dev, sparse, rows)
     phase_runtime(dev, sparse, dense, mesh)
+    rows += phase_reach(dev, sparse[7], mesh, smi_line)
     del mesh, sparse, dense, pipe, sparse_plain
     gc.collect()
     torch.cuda.empty_cache()

@@ -385,6 +385,8 @@ def _round(cfg: CoCoAConfig, topo: comm.Topology, solver: LocalSolver,
             if sqnorms is None:
                 sqnorms = global_row_sqnorms(X, mask, topo)
             kw = dict(sqnorms=sqnorms, model_axis=model_axis)
+            if solver.model_shards:
+                kw["model_shards"] = topo.M
             if isinstance(X, torch.Tensor) and not topo.process:
                 # dense rows on one card: the M slices on their own axis
                 X = X.view(X.shape[0], X.shape[1], topo.M, -1)
@@ -678,7 +680,8 @@ def solve(cfg: CoCoAConfig, X, y, mask, *, rounds: int, eps_gap: float = 0.0,
     agg = Aggregator()
     # the kernel library's first build and load, apart from the rounds
     from ..kernels.ops import round_libraries
-    pending_compile = aot_compile(round_libraries(solver.name, topo.M), dev)
+    pending_compile = aot_compile(
+        round_libraries(solver.name, topo.M, topo.process), dev)
     base = state.rounds
     exec_acc, covered, prev_floats = 0.0, 0, 0
 

@@ -294,6 +294,9 @@ class LocalSolver:
                      (K,) per worker)
         sqnorms      takes `sqnorms=`, the rows' ||x_i||^2 hoisted by the
                      driver once for the run
+        model_shards takes `model_shards=`, the topology's M, when it runs
+                     feature-sharded (a process mesh's rank holds one
+                     shard of the M)
     """
     name: str
     fn: Callable[..., SDCAResult]
@@ -305,6 +308,7 @@ class LocalSolver:
     model_hop: Optional[Callable[..., tuple]] = None
     deadline: bool = False
     sqnorms: bool = False
+    model_shards: bool = False
 
     def __hash__(self):
         return hash(self.name)
@@ -388,7 +392,7 @@ register_solver(LocalSolver(
 register_solver(LocalSolver(
     "sdca_sparse_kernel", _lazy_kernel("sparse_local_sdca_block"),
     dense=False, sparse=True, visit="permutation", model_axis=True,
-    model_hop=_lazy_kernel("sparse_zx_model_hops")))
+    model_shards=True, model_hop=_lazy_kernel("sparse_zx_model_hops")))
 
 
 def sparse_counterpart(name) -> Optional[str]:

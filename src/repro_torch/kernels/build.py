@@ -25,7 +25,7 @@ from typing import Dict, Tuple
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("local_sdca", "sparse_sdca_pipelined", "sparse_sdca_zx",
-           "flash_attention", "ssm_scan")
+           "sparse_sdca_zx_block", "flash_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -155,7 +155,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.local_sdca_smem_bytes.restype = ctypes.c_longlong
     elif name == "sparse_sdca_pipelined":
         lib.sparse_sdca_pipelined_launch.argtypes = ([P] * 9 + [I] * 5
-                                                     + [F, I, F, I, F, I, P])
+                                                     + [F, I, F, I, F, I, I,
+                                                        P])
         lib.sparse_sdca_pipelined_launch.restype = I
     elif name == "sparse_sdca_zx":
         lib.sparse_sdca_zx_launch.argtypes = ([P] * 10 + [I] * 7
@@ -166,6 +167,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.sparse_sdca_zx_max_clusters.argtypes = [I] * 5 + [
             ctypes.POINTER(I)]
         lib.sparse_sdca_zx_max_clusters.restype = I
+    elif name == "sparse_sdca_zx_block":
+        lib.sparse_sdca_zx_block_launch.argtypes = ([P] * 11 + [I] * 9
+                                                    + [F, I, F, I, F, P])
+        lib.sparse_sdca_zx_block_launch.restype = I
+        lib.sparse_sdca_zx_block_round.argtypes = ([P] * 10 + [I] * 7
+                                                   + [F, I, F, I, F, P])
+        lib.sparse_sdca_zx_block_round.restype = I
     elif name == "flash_attention":
         lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 6 + [F, P]
         lib.flash_attention_launch.restype = I

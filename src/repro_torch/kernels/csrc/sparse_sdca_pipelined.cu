@@ -30,9 +30,17 @@
 //
 // What the design does about it: one launch per round with a grid of K
 // blocks, one per worker, of two warps: the walk warp and a fetch warp. u
-// (d floats) sits in dynamic shared memory for the whole walk, so gather
-// and scatter never touch device memory (the ring plus u must fit the
-// 232,448-byte limit; the wrapper's smem_budget rejects wider d).
+// (d floats) sits in dynamic shared memory for the whole walk where it
+// fits beside the ring (U_SMEM), so gather and scatter never touch device
+// memory. Where it does not (d above 57,852 at depth 1, r_max 118), the
+// same walk runs with u in device memory (U_SMEM false): du[k, :] holds
+// worker k's u (initialised from w here) and becomes u - w in place at
+// the end. There the gather reads u with __ldcg, past L1, so it sees the
+// block's own earlier atomics (they land in L2), and the scatter is a
+// plain global atomicAdd (a native reduction in L2, no compare-and-swap
+// loop); the ring, its mbarriers and the fetch warp stay in shared memory.
+// u then takes K 4 d bytes of device memory: 21.7 MB at news20's width
+// (1,355,191) and K = 4, inside the card's 50 MB L2.
 // A step of the walk warp:
 //  * lane l gathers slots s = l, l + 32, ... of the staged row (u[c_s],
 //    through the soft-threshold when has_prox) into its (z, sq) partials,
@@ -99,9 +107,16 @@
 //  * The walk reads a stage only after its `full` phase completed: every
 //    fetch lane's copies of that row have landed, and the wait's acquire
 //    makes them visible to the whole walk warp.
-//  * The ring plus u must fit the 232,448-byte limit (the wrapper's
-//    smem_budget): at d = 47,236 and r_max = 118, u is 188,944 B and a
-//    depth-8 ring 8,320 B with its barriers.
+//  * The ring plus u must fit the 232,448-byte limit to hold u in shared
+//    memory (the wrapper's smem_budget): at d = 47,236 and r_max = 118, u
+//    is 188,944 B and a depth-8 ring 8,320 B with its barriers. Past it u
+//    goes to device memory, and only the ring must fit.
+//  * With u in device memory, a gather after a scatter of the same column
+//    (the same lane or another, in the next row) must see the scatter: the
+//    atomics land in L2, every read of u is an ld.global.cg (__ldcg), which
+//    does not look in L1, and the __syncwarp that ends the step orders the
+//    warp's atomics before its next loads. u is never read through L1, so
+//    L1 holds no stale line of it.
 
 #include <cuda_runtime.h>
 
@@ -191,7 +206,17 @@ __host__ __device__ __forceinline__ int stage_words(int r_max) {
   return 2 * row_words(r_max) + STAGE_SCALARS;
 }
 
-template <int DEPTH>
+// a read of u: shared memory, or device memory past L1 (see Hazards)
+template <bool U_SMEM>
+__device__ __forceinline__ float load_u(const float* p) {
+  if constexpr (U_SMEM) {
+    return *p;
+  } else {
+    return __ldcg(p);
+  }
+}
+
+template <int DEPTH, bool U_SMEM>
 __global__ void __launch_bounds__(2 * WARP)
 sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
                              const float* __restrict__ vals,
@@ -214,9 +239,11 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(ring + DEPTH * sw);
   unsigned long long* empty = full + DEPTH;
-  float* u = reinterpret_cast<float*>(empty + DEPTH);
 
   const int k = blockIdx.x;
+  // worker k's u: after the barriers in shared memory, or its row of du
+  float* u = U_SMEM ? reinterpret_cast<float*>(empty + DEPTH)
+                    : du + static_cast<size_t>(k) * d;
   const int lane = threadIdx.x & 31;
   const bool walker = threadIdx.x < WARP;
   const size_t row0 = static_cast<size_t>(k) * nk;   // first row of worker k
@@ -229,7 +256,13 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
       mbar_init(empty + s, 1);         // the walk's lane 0
     }
   }
-  for (int c = threadIdx.x; c < d; c += NTHR) u[c] = w[c];
+  for (int c = threadIdx.x; c < d; c += NTHR) {
+    if constexpr (U_SMEM) {
+      u[c] = w[c];
+    } else {
+      __stcg(u + c, w[c]);
+    }
+  }
   __syncthreads();                     // u and the barriers published
 
   if (!walker) {
@@ -305,7 +338,7 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
       for (int i = 0; i < SLOTS; ++i) {
         us[i] = 0.0f;
         if (lane + WARP * i < r_max) {
-          us[i] = u[cs[i]];
+          us[i] = load_u<U_SMEM>(u + cs[i]);
           const float uc =
               has_prox ? sdca::soft_threshold(us[i], kappa) : us[i];
           z += uc * vs[i];
@@ -314,7 +347,7 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
       }
       for (int s = lane + WARP * SLOTS; s < r_max; s += WARP) {
         const float v = vi[s];
-        float uc = u[ci[s]];
+        float uc = load_u<U_SMEM>(u + ci[s]);
         if (has_prox) uc = sdca::soft_threshold(uc, kappa);
         z += uc * v;
         sq += v * v;
@@ -332,7 +365,9 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
       // per slot in turn; here the lane's SLOTS compare-and-swaps go out
       // together, each expecting the value the gather read, and only the
       // ones that lost to a duplicate go round again. The sum is rounded
-      // as atomicAdd rounds it (the product, then the add).
+      // as atomicAdd rounds it (the product, then the add). In device
+      // memory atomicAdd is a native reduction in L2, so the lane's slots
+      // are plain atomicAdds there.
       if (coef != 0.0f) {
         float add[SLOTS];
         bool pend[SLOTS];
@@ -340,8 +375,9 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
         for (int i = 0; i < SLOTS; ++i) {
           add[i] = __fmul_rn(coef, vs[i]);
           pend[i] = vs[i] != 0.0f;
+          if (!U_SMEM && pend[i]) atomicAdd(u + cs[i], add[i]);
         }
-        bool any = true;
+        bool any = U_SMEM;
         while (any) {
           any = false;
 #pragma unroll
@@ -372,23 +408,45 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
   }
   __syncthreads();
   float* du_k = du + static_cast<size_t>(k) * d;
-  for (int c = threadIdx.x; c < d; c += NTHR) du_k[c] = u[c] - w[c];
+  for (int c = threadIdx.x; c < d; c += NTHR)
+    du_k[c] = load_u<U_SMEM>(u + c) - w[c];   // in place when u is du_k
 }
 
-template <int DEPTH>
-int launch(int K, size_t smem, cudaStream_t stream, const int* cols,
-           const float* vals, const float* y, const float* alpha,
-           const float* mask, const float* w, const int* perm, float* dalpha,
-           float* du, int nk, int r_max, int d, int n_passes, float scale,
-           int loss_id, float g, int has_prox, float kappa, int vec16) {
+template <int DEPTH, bool U_SMEM>
+int launch_instance(int K, size_t smem, cudaStream_t stream, const int* cols,
+                    const float* vals, const float* y, const float* alpha,
+                    const float* mask, const float* w, const int* perm,
+                    float* dalpha, float* du, int nk, int r_max, int d,
+                    int n_passes, float scale, int loss_id, float g,
+                    int has_prox, float kappa, int vec16) {
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_sdca_pipelined_kernel<DEPTH>,
+      sparse_sdca_pipelined_kernel<DEPTH, U_SMEM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sparse_sdca_pipelined_kernel<DEPTH><<<K, 2 * WARP, smem, stream>>>(
+  sparse_sdca_pipelined_kernel<DEPTH, U_SMEM><<<K, 2 * WARP, smem, stream>>>(
       cols, vals, y, alpha, mask, w, perm, dalpha, du, nk, r_max, d,
       n_passes, scale, loss_id, g, has_prox, kappa, vec16);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DEPTH>
+int launch(int u_in_smem, int K, size_t smem, cudaStream_t stream,
+           const int* cols, const float* vals, const float* y,
+           const float* alpha, const float* mask, const float* w,
+           const int* perm, float* dalpha, float* du, int nk, int r_max,
+           int d, int n_passes, float scale, int loss_id, float g,
+           int has_prox, float kappa, int vec16) {
+  return u_in_smem
+             ? launch_instance<DEPTH, true>(K, smem, stream, cols, vals, y,
+                                            alpha, mask, w, perm, dalpha, du,
+                                            nk, r_max, d, n_passes, scale,
+                                            loss_id, g, has_prox, kappa,
+                                            vec16)
+             : launch_instance<DEPTH, false>(K, smem, stream, cols, vals, y,
+                                             alpha, mask, w, perm, dalpha,
+                                             du, nk, r_max, d, n_passes,
+                                             scale, loss_id, g, has_prox,
+                                             kappa, vec16);
 }
 
 }  // namespace
@@ -397,7 +455,9 @@ extern "C" {
 
 // Launch one round with a ring of `depth` rows (1 <= depth <= min(nk, 8)):
 // K blocks, one per worker, on `stream`. dalpha must be zeroed by the
-// caller. Returns the cudaError_t of the launch (0 = ok).
+// caller. u_in_smem picks the instance: u in shared memory beside the
+// ring, or in device memory (du's rows; the wrapper's smem_budget
+// decides). Returns the cudaError_t of the launch (0 = ok).
 int sparse_sdca_pipelined_launch(const int* cols, const float* vals,
                                  const float* y, const float* alpha,
                                  const float* mask, const float* w,
@@ -405,12 +465,13 @@ int sparse_sdca_pipelined_launch(const int* cols, const float* vals,
                                  int K, int nk, int r_max, int d,
                                  int n_passes, float scale, int loss_id,
                                  float g, int has_prox, float kappa,
-                                 int depth, void* stream) {
+                                 int depth, int u_in_smem, void* stream) {
   if (depth < 1 || depth > MAX_DEPTH || depth > nk)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 4 * (static_cast<size_t>(d) +
-                           static_cast<size_t>(depth) * stage_words(r_max)) +
-                      16 * static_cast<size_t>(depth);   // two barriers each
+  const size_t smem =
+      4 * ((u_in_smem ? static_cast<size_t>(d) : 0) +
+           static_cast<size_t>(depth) * stage_words(r_max)) +
+      16 * static_cast<size_t>(depth);                   // two barriers each
   // 16-byte copies of a row's 16-byte chunks need 16-byte aligned bases
   // and arrays that end on a chunk (no copy reads past them)
   const int vec16 = reinterpret_cast<size_t>(cols) % 16 == 0 &&
@@ -419,9 +480,9 @@ int sparse_sdca_pipelined_launch(const int* cols, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SDCA_PIPELINED_CASE(D)                                             \
   case D:                                                                  \
-    return launch<D>(K, smem, s, cols, vals, y, alpha, mask, w, perm,      \
-                     dalpha, du, nk, r_max, d, n_passes, scale, loss_id,   \
-                     g, has_prox, kappa, vec16);
+    return launch<D>(u_in_smem, K, smem, s, cols, vals, y, alpha, mask,    \
+                     w, perm, dalpha, du, nk, r_max, d, n_passes, scale,   \
+                     loss_id, g, has_prox, kappa, vec16);
   switch (depth) {
     SDCA_PIPELINED_CASE(1)
     SDCA_PIPELINED_CASE(2)

@@ -15,7 +15,9 @@ The sparse solver resolves its launch configuration as the reference's does
 (explicit > the autotune cache > default, `kernels.autotune`) and records
 the launch that ran in `LAST_SPARSE_CONFIG`. On feature-sharded shards (a
 `FeatureShards`, M model shards per worker) it runs the z-exchange
-schedule; its wire plan is `sparse_zx_plan`.
+schedule, and on a process mesh's rank block the same schedule with the
+exchange a sum over the rank's model column; its wire plan is
+`sparse_zx_plan`.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from ..core.regularizers import L2, Regularizer
 from ..core.solvers import SDCAResult
 from .autotune import resolve_sparse_config
 from .local_sdca import local_sdca
-from .sparse_sdca import ZX_PROCESSES, sparse_local_sdca, \
+from .sparse_sdca import ZX_MAX_CLUSTER, sparse_local_sdca, \
     sparse_local_sdca_zx, zx_exchanges
 
 # The launch the sparse dispatch last ran: {"block_rows", "buffer_depth",
@@ -82,15 +84,21 @@ def local_sdca_block(X, y, alpha, mask, v, perm, loss: Loss, lam: float, n,
     return SDCAResult(dalpha, du, n_passes * nk)
 
 
-def round_libraries(solver: str, model_shards: int = 1) -> tuple:
+def round_libraries(solver: str, model_shards: int = 1,
+                    processes: bool = False) -> tuple:
     """The kernel libraries (`build.KERNELS` names) a round of `solver`
-    launches: the dense walk, the 1-D sparse walk, or the z-exchange
-    kernel on a feature-sharded mesh; none for the eager solvers."""
+    launches: the dense walk, the 1-D sparse walk, or on a feature-sharded
+    mesh the z-exchange cluster kernel (one card, M <= 16) or its
+    per-block kernel (larger M, or a process mesh); none for the eager
+    solvers."""
     if solver == "sdca_kernel":
         return ("local_sdca",)
     if solver == "sdca_sparse_kernel":
-        return ("sparse_sdca_zx",) if model_shards > 1 else (
-            "sparse_sdca_pipelined",)
+        if model_shards == 1:
+            return ("sparse_sdca_pipelined",)
+        if processes or model_shards > ZX_MAX_CLUSTER:
+            return ("sparse_sdca_zx_block",)
+        return ("sparse_sdca_zx",)
     return ()
 
 
@@ -108,6 +116,7 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
                             *, block_rows: Optional[int] = None,
                             buffer_depth: Optional[int] = None,
                             model_axis: Optional[str] = None,
+                            model_shards: Optional[int] = None,
                             sqnorms: Optional[torch.Tensor] = None,
                             zx: Optional[bool] = None,
                             reg: Regularizer = L2) -> SDCAResult:
@@ -123,13 +132,18 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
     shards here when not given); `zx=True` forces that schedule at M = 1,
     and `zx=False` with a model axis is refused, as in the reference. The
     launch knobs are resolved by `autotune.resolve_sparse_config`.
-    A process mesh's model axis (a callable) is refused: the schedule
-    exchanges within one launch on one card."""
-    if callable(model_axis):
-        raise ValueError(ZX_PROCESSES)
+
+    On a process mesh `model_axis` is the rank's `comm.Topology.
+    model_sum` (a callable) and `shard` the rank's block, a `SparseShards`
+    of one worker with shard-local ids: the z-exchange schedule runs on it
+    with that sum as its exchange (the per-block kernel), configured for
+    `model_shards`, the topology's M, as the one-process mesh is (None:
+    the tensors' own M)."""
     cols, vals = shard.cols, shard.vals
     sharded = cols.dim() == 4
     M = cols.shape[1] if sharded else 1
+    model_sum = model_axis if callable(model_axis) else None
+    M_mesh = M if model_shards is None else int(model_shards)
     use_zx = (model_axis is not None) if zx is None else zx
     if model_axis is not None and not use_zx:
         raise ValueError(
@@ -149,7 +163,7 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
                                 buffer_depth=buffer_depth,
                                 backend=vals.device.type,
                                 reg_family=reg.family,
-                                model_shards=M if use_zx else 1)
+                                model_shards=M_mesh if use_zx else 1)
     br = min(cfg["block_rows"], max(8, nk))
     depth = cfg["buffer_depth"]
     global LAST_SPARSE_CONFIG
@@ -157,7 +171,8 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
                           "buffer_depth": depth if use_zx or depth == 1
                           else min(depth, nk),
                           "clamped": br != cfg["block_rows"],
-                          "model_shards": M, "prox_fused": kappa is not None,
+                          "model_shards": M_mesh,
+                          "prox_fused": kappa is not None,
                           "zx": use_zx}
     w_in = (v if kappa is not None else reg.conj_grad(v, lam)
             ).float().contiguous()
@@ -172,7 +187,8 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
         dalpha, du = sparse_local_sdca_zx(
             cols, vals, y, alpha, mask, w_in, scale,
             sqnorms.float().contiguous(), order, loss=loss,
-            n_passes=n_passes, block_rows=br, prox_kappa=kappa)
+            n_passes=n_passes, block_rows=br, prox_kappa=kappa,
+            model_sum=model_sum)
     else:
         if sharded:
             cols, vals = cols[:, 0], vals[:, 0]
@@ -204,20 +220,27 @@ def sparse_zx_plan(nk: int, d: int, H: int, *, r_max: int,
 def sparse_zx_model_hops(X, H: int, reg: Regularizer = L2,
                          K: Optional[int] = None,
                          M: Optional[int] = None) -> tuple:
-    """The z-exchange schedule's model-axis wire plan on the
-    `FeatureShards` X: every (worker, shard) sends `exchanges` partial-dot
-    vectors of `block_rows` floats (`LocalSolver.model_hop` of
-    `sdca_sparse_kernel`). `K`/`M`, when given, must be X's own: the
-    schedule runs on one card only, and a rank's block of a process mesh
-    is refused here, before its first round."""
-    if X.cols.dim() != 4:
-        raise ValueError(ZX_PROCESSES)
-    K_x, M_x, nk, r_loc = X.cols.shape
-    if (K or K_x, M or M_x) != (K_x, M_x):
-        raise ValueError(f"the z-exchange plan is for the FeatureShards' "
-                         f"own K={K_x}, M={M_x}, not K={K}, M={M}")
-    K, M = K_x, M_x
-    plan = sparse_zx_plan(nk, X.d_local, H, r_max=r_loc,
+    """The z-exchange schedule's model-axis wire plan: every (worker,
+    shard) sends `exchanges` partial-dot vectors of `block_rows` floats
+    (`LocalSolver.model_hop` of `sdca_sparse_kernel`). X is the
+    `FeatureShards` of one card (`K`/`M`, when given, must be its own) or
+    a process mesh rank's block, a `SparseShards` of its d_local slice
+    (`K`/`M` the mesh's, required): each rank sends the same exchanges as
+    a (worker, shard) of the one-card plan."""
+    if X.cols.dim() == 4:
+        K_x, M_x, nk, r_loc = X.cols.shape
+        if (K or K_x, M or M_x) != (K_x, M_x):
+            raise ValueError(f"the z-exchange plan is for the "
+                             f"FeatureShards' own K={K_x}, M={M_x}, not "
+                             f"K={K}, M={M}")
+        K, M, d_local = K_x, M_x, X.d_local
+    else:
+        if K is None or M is None:
+            raise ValueError("a rank's block carries neither K nor M: pass "
+                             "the mesh's")
+        _, nk, r_loc = X.cols.shape
+        d_local = X.d
+    plan = sparse_zx_plan(nk, d_local, H, r_max=r_loc,
                           reg_family=reg.family, model_shards=M,
                           backend=X.cols.device.type)
-    return model_hops(WSpec(X.d, M, "model"), K, H, zx_plan=plan)
+    return model_hops(WSpec(M * d_local, M, "model"), K, H, zx_plan=plan)

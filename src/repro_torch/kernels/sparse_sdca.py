@@ -1,6 +1,6 @@
 """LocalSDCA over padded-ELL rows, with the fused prox: the CUDA kernels
-`csrc/sparse_sdca_pipelined.cu` and `csrc/sparse_sdca_zx.cu`, and their
-plain PyTorch versions.
+`csrc/sparse_sdca_pipelined.cu`, `csrc/sparse_sdca_zx.cu` and
+`csrc/sparse_sdca_zx_block.cu`, and their plain PyTorch versions.
 
 `sparse_local_sdca` replaces the TPU kernels `repro/kernels/sparse_sdca.py::
 _sparse_sdca_kernel` (buffer_depth 1) and `_sparse_sdca_pipelined_kernel`
@@ -12,25 +12,34 @@ is set), `q = scale * sum_r v_r^2`, the closed-form update, then an r_max
 scatter-axpy into raw u. Padding slots (col 0, val 0) are exact no-ops and
 duplicate column ids in a row all land. With the prox fused the caller
 passes w = v, so u lives in v-space; du = u - w = scale * A_[k] dalpha.
-Every depth walks the same visit order and gives the same results.
+Every depth walks the same visit order and gives the same results. u sits
+in shared memory where it fits beside the ring (`smem_budget`), else in
+device memory: the kernel takes any width d whose ring fits.
 
 `sparse_local_sdca_zx` replaces `_sparse_sdca_zx_kernel`: the z-exchange
-schedule of a feature-sharded (data=K, model=M) mesh, on one card. Each
-invocation walks one block of `block_rows` rows of the visit order against
-the exchanged (model-summed) partial dots, with q from the global row
-norms, then emits the next block's partial dots at the updated u.
+schedule of a feature-sharded (data=K, model=M) mesh. Each invocation
+walks one block of `block_rows` rows of the visit order against the
+exchanged (model-summed) partial dots, with q from the global row norms,
+then emits the next block's partial dots at the updated u. Two forms
+(`zx_launch_plan`): on one card a round is one launch of K thread-block
+clusters of M blocks where such a cluster fits (M <= 16); otherwise --
+larger M, a cluster the card cannot hold, and every process mesh (each
+rank one block, the exchange an all_reduce over its model column) -- one
+launch per invocation of the per-block kernel, the reference's own
+granularity, with the exchange between launches.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors. `LAUNCHES` counts the 1-D kernel's launches at
 depth 1 (the counterpart of `_sparse_sdca_kernel`), `PIPELINED_LAUNCHES`
-those at depth >= 2, `ZX_LAUNCHES` the zx kernel's (one a round: the
-round's invocations run inside it, one thread-block cluster of M blocks
-per worker) and `ZX_STEPS` the invocations those launches ran.
+those at depth >= 2, `DEVICE_U_LAUNCHES` those of either depth that held u
+in device memory, `ZX_LAUNCHES` the cluster kernel's (one a round: the
+round's invocations run inside it), `ZX_BLOCK_LAUNCHES` the per-block
+kernel's (one an invocation) and `ZX_STEPS` the invocations of both.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -41,19 +50,14 @@ from .local_sdca import MAX_SMEM_BYTES, loss_code
 
 LAUNCHES = 0                # csrc/sparse_sdca_pipelined.cu at depth 1
 PIPELINED_LAUNCHES = 0      # the same kernel at depth >= 2
+DEVICE_U_LAUNCHES = 0       # either, with u in device memory
 ZX_LAUNCHES = 0             # csrc/sparse_sdca_zx.cu, one per round
+ZX_BLOCK_LAUNCHES = 0       # csrc/sparse_sdca_zx_block.cu, one per step
 ZX_STEPS = 0                # the invocations (blocks of rows) they ran
 MAX_DEPTH = 8               # ring stages the 1-D kernel is built for
 STAGE_SCALARS = 8           # words of a 1-D ring stage after cols and vals
 ZX_MAX_CLUSTER = 16         # with the non-portable cluster-size attribute
 ZX_ID_SLOTS, ZX_SCALARS = 4, 5   # ID_SLOTS, SCALARS in the .cu
-ZX_ROADMAP = ("ROADMAP.md Queue 2, 'The z-exchange round beyond one "
-              "cluster'")
-ZX_PROCESSES = ("the z-exchange kernel exchanges z inside a thread-block "
-                "cluster of one launch and has no form across processes: "
-                "ROADMAP.md Queue 2, 'The z-exchange round across "
-                "processes'; a process mesh at M > 1 runs the eager "
-                "'sdca_sparse'")
 
 
 def stage_row_words(r_max: int) -> int:
@@ -68,12 +72,14 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
                 zx: bool = False) -> dict:
     """Dynamic shared memory one block of the launch uses, in bytes (the
     counterpart of the reference's `vmem_budget`). The 1-D kernel (a walk
-    warp and a fetch warp a worker, no reduction scratch) holds u (4 d)
-    and a ring of
+    warp and a fetch warp a worker, no reduction scratch) holds a ring of
     min(buffer_depth, nk) rows: cols and vals, each in a region of
     `stage_row_words(r_max)` words (the row's 16-byte chunks), then y,
     alpha, mask, dalpha, the row id and three spare words
-    (`STAGE_SCALARS`), and the stage's two 8-byte mbarriers.
+    (`STAGE_SCALARS`), and the stage's two 8-byte mbarriers; and u (4 d)
+    when that fits beside the ring, else u stays in device memory
+    (`u_in_smem` False, `u_bytes` 0). `fits` is False only when the ring
+    alone does not fit.
 
     The zx kernel (d = d_local, r_max = r_loc) holds the two z buffers and
     a coefficient per block row (scratch), its prefetch (two row stages of
@@ -87,10 +93,12 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
         u_in_smem = 4 * d + ring + scratch <= MAX_SMEM_BYTES
         u = 4 * d if u_in_smem else 0
     else:
-        u, scratch, u_in_smem = 4 * d, 0, True
+        scratch = 0
         stages = min(buffer_depth, nk) if nk is not None else buffer_depth
         ring = stages * (4 * (2 * stage_row_words(r_max) + STAGE_SCALARS)
                          + 16)          # and two 8-byte mbarriers a stage
+        u_in_smem = 4 * d + ring <= MAX_SMEM_BYTES
+        u = 4 * d if u_in_smem else 0
     total = u + ring + scratch
     return dict(u_bytes=u, ring_bytes=ring, scratch_bytes=scratch,
                 total_bytes=total, fits=total <= MAX_SMEM_BYTES,
@@ -192,10 +200,10 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
                          f"{vals.device}")
     _require(vals.device, vals=vals, y=y, alpha=alpha, mask=mask, w=w,
              cols=cols, perm=perm)
-    _enforce_smem(smem_budget(d=d, r_max=r_max, nk=nk,
-                              buffer_depth=buffer_depth),
-                  "sparse_local_sdca")
+    budget = smem_budget(d=d, r_max=r_max, nk=nk, buffer_depth=buffer_depth)
+    _enforce_smem(budget, "sparse_local_sdca")
     dalpha = torch.zeros((K, nk), dtype=torch.float32, device=vals.device)
+    # with u in device memory the kernel keeps u in du and leaves u - w
     du = torch.empty((K, d), dtype=torch.float32, device=vals.device)
     lib = build.load("sparse_sdca_pipelined")
     depth = min(buffer_depth, nk)   # the ring never reaches past the pass
@@ -205,13 +213,16 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
         du.data_ptr(), K, nk, r_max, d, int(n_passes), float(scale), lid, g,
         int(prox_kappa is not None),
         float(prox_kappa) if prox_kappa is not None else 0.0,
-        depth, torch.cuda.current_stream(vals.device).cuda_stream)
+        depth, int(budget["u_in_smem"]),
+        torch.cuda.current_stream(vals.device).cuda_stream)
     build.check(lib, "sparse_sdca_pipelined", code)
-    global LAUNCHES, PIPELINED_LAUNCHES
+    global LAUNCHES, PIPELINED_LAUNCHES, DEVICE_U_LAUNCHES
     if depth == 1:
         LAUNCHES += 1
     else:
         PIPELINED_LAUNCHES += 1
+    if not budget["u_in_smem"]:
+        DEVICE_U_LAUNCHES += 1
     return dalpha, du
 
 
@@ -226,24 +237,37 @@ def zx_exchanges(nk: int, block_rows: int, n_passes: int = 1) -> int:
     return n_passes * (-(-nk // block_rows)) + 1
 
 
+def zx_block_smem_bytes(B: int) -> int:
+    """Dynamic shared memory of a per-block kernel's block: a coefficient
+    and a row id per block row (`smem_bytes` in csrc/sparse_sdca_zx_block.cu)."""
+    return 8 * B
+
+
 def zx_launch_plan(K: int, M: int, nk: int, d_loc: int, B: int, *,
-                   r_loc: int, n_passes: int = 1) -> dict:
-    """How the zx kernel runs one round on the card -- shape arithmetic
-    only: `launches` (1) of K thread-block clusters of `cluster` (M)
-    blocks; `steps` invocations inside it; `u_in_smem`, `smem_bytes` and
-    `fits` from `smem_budget(zx=True)`. Raises ValueError for M above 16,
-    the largest cluster the card schedules (the CPU plain version takes
-    any M)."""
-    if not 1 <= M <= ZX_MAX_CLUSTER:
-        raise ValueError(
-            f"the zx kernel runs a worker's M = {M} model shards as one "
-            f"thread-block cluster, at most {ZX_MAX_CLUSTER} blocks on this "
-            f"card; see {ZX_ROADMAP}")
-    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
-    return dict(launches=1, cluster=M,
-                steps=n_passes * (-(-nk // B)),
-                u_in_smem=budget["u_in_smem"],
-                smem_bytes=budget["total_bytes"], fits=budget["fits"])
+                   r_loc: int, n_passes: int = 1,
+                   cluster: bool = True) -> dict:
+    """How a zx round runs on the card -- shape arithmetic only. `form`
+    "cluster": one launch (`launches` 1) of K thread-block clusters of
+    `cluster` (M) blocks, `steps` invocations inside it, with `u_in_smem`,
+    `smem_bytes` and `fits` from `smem_budget(zx=True)`. `form` "block":
+    one launch of the per-block kernel per invocation (`launches` =
+    `steps`), u in device memory; taken for M above 16, when the cluster
+    form's shared memory does not fit, and when `cluster` is False (a
+    cluster the card cannot hold, or a process mesh). Raises ValueError
+    only for M < 1."""
+    if M < 1:
+        raise ValueError(f"the zx round needs M >= 1 model shards, got {M}")
+    steps = n_passes * (-(-nk // B))
+    if cluster and M <= ZX_MAX_CLUSTER:
+        budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
+        if budget["fits"]:
+            return dict(form="cluster", launches=1, cluster=M, steps=steps,
+                        u_in_smem=budget["u_in_smem"],
+                        smem_bytes=budget["total_bytes"], fits=True)
+    smem = zx_block_smem_bytes(B)
+    return dict(form="block", launches=steps, cluster=1, steps=steps,
+                u_in_smem=False, smem_bytes=smem,
+                fits=smem <= MAX_SMEM_BYTES)
 
 
 def _zx_clusters_fit(lib, M: int, B: int, r_loc: int, d_loc: int,
@@ -296,107 +320,221 @@ def zx_partial_dots(cols, vals, u, rows, prox_kappa: Optional[float] = None):
 def sparse_local_sdca_zx_plain(cols, vals, y, alpha, mask, w, scale,
                                sqnorms, perm, *, loss: Loss,
                                n_passes: int = 1, block_rows: int = 16,
-                               prox_kappa: Optional[float] = None):
+                               prox_kappa: Optional[float] = None,
+                               model_sum: Optional[Callable] = None):
     """Plain PyTorch version: replays the reference's scan
     (`sparse_local_sdca_zx` at repro/kernels/sparse_sdca.py:476) for all
-    (k, m) at once. The rows of a block update together against the
+    (k, m) at once, as the per-block host loop (`zx_block_loop`) over
+    `zx_block_step_plain`. The rows of a block update together against the
     block's exchanged z; their scatter_add_ lands row after row, slot after
-    slot, as the reference's walk does."""
+    slot, as the reference's walk does. `model_sum` is the exchange of a
+    process mesh's rank block (K = M = 1, `sparse_local_sdca_zx`); None:
+    each invocation sums the M partials the previous one left."""
     loss_code(loss)
     K, M, nk, r_loc, d_loc = _check_zx_shapes(cols, vals, y, alpha, mask, w,
                                               sqnorms, perm)
     B = int(block_rows)
-    nb = -(-nk // B)
     w3 = w.float().reshape(1, M, d_loc)
     u = w3.expand(K, M, d_loc).clone()
     dalpha = torch.zeros((K, nk), dtype=torch.float32, device=vals.device)
     perm = perm.long()
-    z = zx_partial_dots(cols, vals, u, _block_rows_of(perm, nk, B, 0),
-                        prox_kappa)
-    for gi in range(n_passes * nb):
-        rows = _block_rows_of(perm, nk, B, gi % nb)
-        R = rows.shape[1]
-        z_ex = z[:, 0]
-        for m in range(1, M):                 # the psum, in a fixed order
-            z_ex = z_ex + z[:, m]
-        dai = dalpha.gather(1, rows)
-        delta = loss.cd_update(alpha.gather(1, rows) + dai, z_ex,
-                               scale * sqnorms.gather(1, rows),
-                               y.gather(1, rows)) * mask.gather(1, rows)
-        dalpha.scatter_(1, rows, dai + delta)
-        idx = rows[:, None, :, None].expand(K, M, R, r_loc)
-        c = cols.gather(2, idx).long().reshape(K, M, R * r_loc)
-        v = vals.gather(2, idx)
-        u.scatter_add_(2, c, ((scale * delta)[:, None, :, None] * v)
-                       .reshape(K, M, R * r_loc))
-        z = zx_partial_dots(cols, vals, u,
-                            _block_rows_of(perm, nk, B, (gi + 1) % nb),
-                            prox_kappa)
+    z0 = zx_partial_dots(cols, vals, u, _block_rows_of(perm, nk, B, 0),
+                         prox_kappa)
+    zx_block_loop(
+        lambda g, zin, want: zx_block_step_plain(
+            cols, vals, y, alpha, mask, sqnorms, perm, u, dalpha, zin, g,
+            scale, loss=loss, block_rows=B, prox_kappa=prox_kappa,
+            want_next=want),
+        (lambda z: z) if model_sum is None else model_sum, z0,
+        n_passes * -(-nk // B))
     return dalpha, (u - w3).reshape(K, M * d_loc)
+
+
+def zx_block_step_plain(cols, vals, y, alpha, mask, sqnorms, perm, u,
+                        dalpha, zin, step: int, scale, *, loss: Loss,
+                        block_rows: int,
+                        prox_kappa: Optional[float] = None,
+                        want_next: bool = True):
+    """Plain version of one per-block launch: invocation `step` for every
+    (k, m) block. zin (K, Min, >= R) holds the exchanged z of block
+    step % nb (Min partials summed here in rank order, or one already
+    summed); u (K, M, d_loc) and dalpha (K, nk) are updated in place.
+    Returns the next block's partial dots (K, M, R') at the updated u, or
+    None when not `want_next`."""
+    K, M, nk, r_loc = cols.shape
+    B = int(block_rows)
+    nb = -(-nk // B)
+    rows = _block_rows_of(perm, nk, B, step % nb)
+    R = rows.shape[1]
+    z_ex = zin[:, 0, :R]
+    for m in range(1, zin.shape[1]):          # the psum, in a fixed order
+        z_ex = z_ex + zin[:, m, :R]
+    dai = dalpha.gather(1, rows)
+    delta = loss.cd_update(alpha.gather(1, rows) + dai, z_ex,
+                           scale * sqnorms.gather(1, rows),
+                           y.gather(1, rows)) * mask.gather(1, rows)
+    dalpha.scatter_(1, rows, dai + delta)
+    idx = rows[:, None, :, None].expand(K, M, R, r_loc)
+    c = cols.gather(2, idx).long().reshape(K, M, R * r_loc)
+    v = vals.gather(2, idx)
+    u.scatter_add_(2, c, ((scale * delta)[:, None, :, None] * v)
+                   .reshape(K, M, R * r_loc))
+    if not want_next:
+        return None
+    return zx_partial_dots(cols, vals, u,
+                           _block_rows_of(perm, nk, B, (step + 1) % nb),
+                           prox_kappa)
+
+
+def zx_block_loop(step, exchange, z0, n_steps: int) -> None:
+    """The per-block round's host loop: `z = exchange(z0)`, then for each
+    invocation g < n_steps `z = exchange(step(g, z, g + 1 < n_steps))`
+    (the last invocation's next dots are not needed). `step(g, zin,
+    want_next)` runs one invocation (a launch, or `zx_block_step_plain`)
+    and returns its partial dots; `exchange` sums them over the model
+    shards (a process mesh's all_reduce over the model column), or passes
+    them on for the next invocation to sum. That is n_steps exchanges,
+    one fewer than `zx_exchanges` counts: the reference's scan also
+    exchanges the last invocation's dots, which nothing reads."""
+    z = exchange(z0)
+    for g in range(n_steps):
+        zn = step(g, z, g + 1 < n_steps)
+        if zn is not None:
+            z = exchange(zn)
 
 
 def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
                          perm, *, loss: Loss, n_passes: int = 1,
                          block_rows: int = 16,
-                         prox_kappa: Optional[float] = None):
+                         prox_kappa: Optional[float] = None,
+                         model_sum: Optional[Callable] = None):
     """One round of the z-exchange schedule for all K workers and M model
-    shards: on CUDA tensors one launch of the zx kernel, K clusters of M
-    blocks walking the round's n_passes * ceil(nk / block_rows)
-    invocations (`zx_launch_plan`; M <= 16), on CPU tensors
-    `sparse_local_sdca_zx_plain` (any M).
+    shards: on CUDA tensors the form `zx_launch_plan` picks -- one launch
+    of the cluster kernel, or one launch of the per-block kernel per
+    invocation -- on CPU tensors the plain version (any M).
 
     cols/vals (K, M, nk, r_loc) with shard-local ids (a `FeatureShards`);
     y, alpha, mask (K, nk) f32; w the padded (M d_local,) f32 vector;
     sqnorms (K, nk) the global row norms; perm (K, nk) int32, the visit
     order every shard of worker k walks. Returns (dalpha (K, nk),
-    du (K, M d_local))."""
+    du (K, M d_local)).
+
+    `model_sum` set: a process mesh's rank block (K = M = 1 here, its
+    shard-local slice), and `model_sum` the sum over its model column
+    (`comm.Topology.model_sum`), called on the prologue's partial dots and
+    after every invocation; the per-block kernel runs (its plain version
+    on the CPU) between the calls."""
     lid, g = loss_code(loss)
     K, M, nk, r_loc, d_loc = _check_zx_shapes(cols, vals, y, alpha, mask, w,
                                               sqnorms, perm)
     if block_rows < 1:
         raise ValueError(f"block_rows must be >= 1, got {block_rows}")
-    if vals.device.type == "cpu":
+    dev = vals.device
+    if model_sum is not None and (K, M) != (1, 1):
+        raise ValueError(f"a process mesh's rank holds one block, K = M = "
+                         f"1, got K={K}, M={M}")
+    if dev.type == "cpu":
         return sparse_local_sdca_zx_plain(
             cols, vals, y, alpha, mask, w, scale, sqnorms, perm, loss=loss,
-            n_passes=n_passes, block_rows=block_rows, prox_kappa=prox_kappa)
-    if vals.device.type != "cuda":
+            n_passes=n_passes, block_rows=block_rows, prox_kappa=prox_kappa,
+            model_sum=model_sum)
+    if dev.type != "cuda":
         raise ValueError(f"sparse_local_sdca_zx runs on cuda or cpu, got "
-                         f"{vals.device}")
-    _require(vals.device, vals=vals, y=y, alpha=alpha, mask=mask, w=w,
+                         f"{dev}")
+    _require(dev, vals=vals, y=y, alpha=alpha, mask=mask, w=w,
              sqnorms=sqnorms, cols=cols, perm=perm)
     B = int(block_rows)
+    w3 = w.reshape(1, M, d_loc)
+    # a copy even at K = 1, where the expanded view is w itself: the
+    # kernels update u in place
+    u = w3.expand(K, M, d_loc).clone()
+    z0 = torch.zeros((K, M, B), dtype=torch.float32, device=dev)
+    z0[:, :, :min(B, nk)] = zx_partial_dots(
+        cols, vals, u, _block_rows_of(perm, nk, B, 0), prox_kappa)
+    if model_sum is not None:
+        dalpha = _zx_rank_round(cols, vals, y, alpha, mask, sqnorms, perm, u,
+                                z0, model_sum, B, int(n_passes), scale, loss,
+                                prox_kappa)
+        return dalpha, (u - w3).reshape(K, M * d_loc)
     plan = zx_launch_plan(K, M, nk, d_loc, B, r_loc=r_loc,
                           n_passes=int(n_passes))
+    if plan["form"] == "cluster":
+        lib = build.load("sparse_sdca_zx")
+        if _zx_clusters_fit(lib, M, B, r_loc, d_loc, plan["u_in_smem"]) < 1:
+            plan = zx_launch_plan(K, M, nk, d_loc, B, r_loc=r_loc,
+                                  n_passes=int(n_passes), cluster=False)
+    _fits(plan, B)
+    dalpha = torch.zeros((K, M, nk), dtype=torch.float32, device=dev)
+    kappa = (int(prox_kappa is not None),
+             float(prox_kappa) if prox_kappa is not None else 0.0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    global ZX_LAUNCHES, ZX_BLOCK_LAUNCHES, ZX_STEPS
+    if plan["form"] == "cluster":
+        code = lib.sparse_sdca_zx_launch(
+            cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
+            alpha.data_ptr(), mask.data_ptr(), sqnorms.data_ptr(),
+            perm.data_ptr(), u.data_ptr(), dalpha.data_ptr(),
+            z0.data_ptr(), K, M, nk, r_loc, d_loc, B, int(n_passes),
+            float(scale), lid, g, *kappa, int(plan["u_in_smem"]), stream)
+        build.check(lib, "sparse_sdca_zx", code)
+        ZX_LAUNCHES += 1
+    else:
+        lib = build.load("sparse_sdca_zx_block")
+        z = torch.stack([z0, torch.zeros_like(z0)])
+        code = lib.sparse_sdca_zx_block_round(
+            cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
+            alpha.data_ptr(), mask.data_ptr(), sqnorms.data_ptr(),
+            perm.data_ptr(), u.data_ptr(), dalpha.data_ptr(), z.data_ptr(),
+            K, M, nk, r_loc, d_loc, B, plan["steps"], float(scale), lid, g,
+            *kappa, stream)
+        build.check(lib, "sparse_sdca_zx_block", code)
+        ZX_BLOCK_LAUNCHES += plan["launches"]
+    ZX_STEPS += plan["steps"]
+    return dalpha[:, 0].contiguous(), (u - w3).reshape(K, M * d_loc)
+
+
+def _fits(plan: dict, B: int) -> None:
     if not plan["fits"]:
         raise ValueError(
             f"sparse_local_sdca_zx: needs {plan['smem_bytes']} bytes of "
-            f"shared memory per block for B = {B} rows of r_loc = {r_loc} "
-            f"(z buffers and prefetch stage); the limit is {MAX_SMEM_BYTES} "
-            f"bytes")
-    lib = build.load("sparse_sdca_zx")
-    if _zx_clusters_fit(lib, M, B, r_loc, d_loc, plan["u_in_smem"]) < 1:
-        raise ValueError(
-            f"sparse_local_sdca_zx: a cluster of M = {M} blocks of "
-            f"{plan['smem_bytes']} bytes of shared memory does not fit this "
-            f"card; see {ZX_ROADMAP}")
-    w3 = w.reshape(1, M, d_loc)
-    # a copy even at K = 1, where the expanded view is w itself: the kernel
-    # updates u in place
-    u = w3.expand(K, M, d_loc).clone()
-    dalpha = torch.zeros((K, M, nk), dtype=torch.float32, device=vals.device)
-    z0 = torch.zeros((K, M, B), dtype=torch.float32, device=vals.device)
-    z0[:, :, :min(B, nk)] = zx_partial_dots(
-        cols, vals, u, _block_rows_of(perm, nk, B, 0), prox_kappa)
-    code = lib.sparse_sdca_zx_launch(
-        cols.data_ptr(), vals.data_ptr(), y.data_ptr(), alpha.data_ptr(),
-        mask.data_ptr(), sqnorms.data_ptr(), perm.data_ptr(), u.data_ptr(),
-        dalpha.data_ptr(), z0.data_ptr(), K, M, nk, r_loc, d_loc, B,
-        int(n_passes), float(scale), lid, g, int(prox_kappa is not None),
-        float(prox_kappa) if prox_kappa is not None else 0.0,
-        int(plan["u_in_smem"]),
-        torch.cuda.current_stream(vals.device).cuda_stream)
-    build.check(lib, "sparse_sdca_zx", code)
-    global ZX_LAUNCHES, ZX_STEPS
-    ZX_LAUNCHES += 1
-    ZX_STEPS += plan["steps"]
-    return dalpha[:, 0].contiguous(), (u - w3).reshape(K, M * d_loc)
+            f"shared memory per block for B = {B} rows; the limit is "
+            f"{MAX_SMEM_BYTES} bytes")
+
+
+def _zx_rank_round(cols, vals, y, alpha, mask, sqnorms, perm, u, z0,
+                   model_sum, B, n_passes, scale, loss, prox_kappa):
+    """A process mesh rank's zx round on the card (K = M = 1):
+    `zx_block_loop` with the per-block kernel and `model_sum` as the
+    exchange. Updates u; returns dalpha (1, nk)."""
+    _, _, nk, r_loc = cols.shape
+    d_loc = u.shape[-1]
+    n_steps = n_passes * (-(-nk // B))
+    plan = zx_launch_plan(1, 1, nk, d_loc, B, r_loc=r_loc,
+                          n_passes=n_passes, cluster=False)
+    _fits(plan, B)
+    lib = build.load("sparse_sdca_zx_block")
+    lid, g = loss_code(loss)
+    kappa = (int(prox_kappa is not None),
+             float(prox_kappa) if prox_kappa is not None else 0.0)
+    dalpha = torch.zeros((1, 1, nk), dtype=torch.float32, device=u.device)
+    # two output buffers in turn: an exchange that hands its input back
+    # must not make a launch's zin its own zout
+    zouts = (torch.zeros_like(z0), torch.zeros_like(z0))
+    ptrs = (cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
+            alpha.data_ptr(), mask.data_ptr(), sqnorms.data_ptr(),
+            perm.data_ptr(), u.data_ptr(), dalpha.data_ptr())
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+
+    def step(gi, zin, want):
+        global ZX_BLOCK_LAUNCHES, ZX_STEPS
+        zin, zout = zin.contiguous(), zouts[gi % 2]
+        code = lib.sparse_sdca_zx_block_launch(
+            *ptrs, zin.data_ptr(), zout.data_ptr(), 1, 1, 1, nk, r_loc,
+            d_loc, B, gi, int(want), float(scale), lid, g, *kappa, stream)
+        build.check(lib, "sparse_sdca_zx_block", code)
+        ZX_BLOCK_LAUNCHES += 1
+        ZX_STEPS += 1
+        return zout if want else None
+
+    zx_block_loop(step, model_sum, z0, n_steps)
+    return dalpha[:, 0]

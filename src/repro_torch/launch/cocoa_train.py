@@ -52,7 +52,10 @@ Same flags as `repro.launch.cocoa_train`, plus `--device` (default cuda;
 `--device cpu` runs the plain PyTorch versions). The default `--solver
 sdca` runs the eager twin, as the reference's default runs its jnp solver;
 `--solver sdca_kernel` (mapped to `sdca_sparse_kernel` on sparse data)
-runs the kernels. Under `torch.distributed.run` the mesh spans the ranks
+runs the kernels: on sparse data the 1-D walk at any width (u in shared
+memory where it fits, else in device memory) and, under `--mesh KxM`,
+the z-exchange schedule at any M, on one card or across processes.
+Under `torch.distributed.run` the mesh spans the ranks
 and the world size must equal its size; there `--ckpt` gathers the
 ranks' blocks to rank 0, which writes the one-process checkpoint, and
 every rank restores its own block from it. `--elastic-to` exits on a

@@ -19,7 +19,7 @@ that in the kernel's place.
 
 The walks' counts are `chip_smoke.py`'s kernel bounds: at rcv1's shape
 (K = 8) the 1-D sparse walk prices 0.1275 ms on `prof.H100_SXM`, the zx
-round at rcv1's 4 x 2 0.1329 ms, the dense walk at epsilon's (K = 8)
+round at rcv1's 4 x 2 0.1321 ms, the dense walk at epsilon's (K = 8)
 0.958 ms -- all three memory-bound.
 """
 from __future__ import annotations
@@ -112,16 +112,17 @@ def zx_round(nnz: int, K: int, M: int, nk: int, d_local: int,
              wire_bytes: float = 0.0) -> dict:
     """The z-exchange round of K workers over M feature shards in blocks
     of `block_rows` rows: each pass reads every nonzero once (8 bytes);
-    each of the passes x ceil(nk / B) steps reads the M partial-dot
-    vectors of B floats of every (worker, shard) and writes one (counted
-    though the one-launch kernel keeps them in shared memory: the bound is
-    the work's, not an implementation's); once a round the rows' y,
-    alpha, mask, row norms, order and dalpha, w (M d_local) and du.
-    Flops: the scatter's and the next partial dot's multiply-adds, 4 a
-    nonzero a pass."""
+    each of the passes x ceil(nk / B) steps exchanges B floats a worker,
+    its M partial-dot vectors written once and read once and their sum
+    written once, B (2M + 1) floats (counted though the cluster kernel
+    keeps them in shared memory, and once though each of the per-block
+    kernel's M blocks reads all M: the bound is the work's, not an
+    implementation's); once a round the rows' y, alpha, mask, row norms,
+    order and dalpha, w (M d_local) and du. Flops: the scatter's and the
+    next partial dot's multiply-adds, 4 a nonzero a pass."""
     steps = passes * -(-nk // block_rows)
     nbytes = (passes * 2 * F32 * nnz
-              + steps * K * M * block_rows * (M + 1) * F32
+              + steps * K * block_rows * (2 * M + 1) * F32
               + F32 * (6 * K * nk + M * d_local + K * M * d_local))
     return _stats(passes * 4 * nnz, nbytes, wire_bytes)
 
@@ -134,7 +135,9 @@ def round_stats(cfg, X, mask, topo: Optional[comm.Topology] = None) -> dict:
     The kernel solvers walk n_passes = round(H / nk) whole passes; the
     drawn eager walks H steps; `gd` H sweeps over all nk rows. The
     feature-sharded sparse kernel runs the zx round of
-    `kernels.ops.sparse_zx_plan`."""
+    `kernels.ops.sparse_zx_plan`; on a process mesh X is the rank's block
+    (one worker, one shard: K = M = 1 of that round, its z vectors the
+    exchanged sum in and its partial dots out)."""
     sparse = isinstance(X, (SparseShards, FeatureShards))
     if isinstance(X, FeatureShards):
         K, _, nk = X.cols.shape[:3]
@@ -161,6 +164,13 @@ def round_stats(cfg, X, mask, topo: Optional[comm.Topology] = None) -> dict:
                             plan["n_passes"], wire)
         return sparse_walk(nnz, K, nk, X.d_padded, steps=steps,
                            wire_bytes=wire)
+    if sparse and topo.M > 1 and solver.name == "sdca_sparse_kernel":
+        plan = ops.sparse_zx_plan(
+            nk, X.d, cfg.H, r_max=X.r_max,
+            reg_family=cfg.regularizer().family, model_shards=topo.M,
+            backend=X.device.type)
+        return zx_round(int(X.nnz.sum()), K, 1, nk, X.d, plan["block_rows"],
+                        plan["n_passes"], wire)
     if sparse:
         return sparse_walk(int(X.nnz.sum()), K, nk, X.d, steps=steps,
                            wire_bytes=wire)

@@ -123,9 +123,15 @@ JOBS4 = {
                                   dict(EAGER, model_axis="model",
                                        topology="hier:2", **TOPK), M=2),
 }
-ERRORS4 = {
+# the z-exchange kernel across processes: the per-block kernel on every
+# rank, the model column's all_reduce between its launches (the
+# reference's vmap run is the 1-D walk, another schedule: not compared)
+ZX4 = {
     "zx-across-processes": _job((2, 2), ("data", "model"), "tiny_sparse",
-                                dict(KERNEL, model_axis="model"), M=2),
+                                dict(KERNEL, model_axis="model"), M=2,
+                                reference=False),
+}
+ERRORS4 = {
     "world-mismatch": _job((2,), ("data",), "tiny", KERNEL),
 }
 
@@ -141,7 +147,7 @@ def _spawn(world, jobs):
 @pytest.fixture(scope="module")
 def runs():
     out = _spawn(2, JOBS2)
-    out.update(_spawn(4, {**JOBS4, **ERRORS4}))
+    out.update(_spawn(4, {**JOBS4, **ZX4, **ERRORS4}))
     return out
 
 
@@ -228,9 +234,31 @@ def test_process_mesh_matches_one_process_and_reference(runs, name):
     assert ranks[0]["gap"][-1] < ranks[0]["gap"][0]
 
 
-def test_zx_kernel_across_processes_is_refused(runs):
-    for r in runs["zx-across-processes"]:
-        assert "The z-exchange round across processes" in r["error"]
+def test_zx_kernel_across_processes_matches_one_process(runs):
+    """`sdca_kernel` on a 2 x 2 process mesh runs the z-exchange schedule
+    on every rank's block: every rank the same history, and per round the
+    one-card 2 x 2 mesh's within 1e-6 relative, with the same wire plan
+    (the model hop's exchanges of B floats)."""
+    job = ZX4["zx-across-processes"]
+    ranks = runs["zx-across-processes"]
+    for r in ranks:
+        assert "error" not in r, r.get("error")
+    for r in ranks[1:]:
+        for key in ("gap", "primal", "dual", "comm_floats"):
+            np.testing.assert_array_equal(r[key], ranks[0][key])
+    one = _one_process(job)
+    np.testing.assert_allclose(ranks[0]["gap"], one.history["gap"],
+                               rtol=RANK_RTOL)
+    np.testing.assert_allclose(ranks[0]["primal"], one.history["primal"],
+                               rtol=RANK_RTOL)
+    assert list(ranks[0]["comm_floats"]) == one.history["comm_floats"]
+    assert any(h.name == "model_zx" for h in one.tracer.hops)
+    w, alpha = _assemble(ranks, job)
+    np.testing.assert_allclose(w, tp.to_np(one.state.w), atol=1e-6,
+                               rtol=1e-5)
+    np.testing.assert_allclose(alpha, tp.to_np(one.state.alpha),
+                               atol=1e-6, rtol=1e-5)
+    assert ranks[0]["gap"][-1] < ranks[0]["gap"][0]
 
 
 def test_mesh_of_another_size_is_refused(runs):

@@ -5,10 +5,12 @@ kernels).
 The dense walk runs windows of B rows with u, a two-stage row ring, the
 window's Gram and its reduction buffers in shared memory
 (`dense_smem_budget`); the 1-D sparse walk, one walk warp and one fetch
-warp a worker, holds u and a ring of one-row stages (`smem_budget`). The
-zx kernel runs a round in one launch, one thread-block cluster of M
-blocks per worker, with u in shared memory where it fits beside its
-buffers (`zx_launch_plan`, `smem_budget(zx=True)`); flash attention's
+warp a worker, holds a ring of one-row stages and u where it fits beside
+them (`smem_budget`). The zx kernel runs a round in one launch, one
+thread-block cluster of M blocks per worker, with u in shared memory where
+it fits beside its buffers (`zx_launch_plan`, `smem_budget(zx=True)`);
+beyond a cluster its per-block kernel runs one launch an invocation, u in
+device memory (`zx_launch_plan`'s "block" form); flash attention's
 bfloat16 instance holds bf16 tiles with padded rows, its float32 instance
 float32 tiles (`smem_bytes(hd, dtype)`). The selective scan runs a block
 of 32 channels times ceil(N / G) warps, with two stages of its streams
@@ -39,8 +41,9 @@ def _zx_bytes(B, r_loc, d_loc=0):
 
 def test_zx_plan_at_rcv1_4x2_holds_u_in_shared_memory():
     plan = sk.zx_launch_plan(4, 2, 169_350, 23_618, 16, r_loc=70)
-    assert plan == dict(launches=1, cluster=2, steps=10_585, u_in_smem=True,
-                        smem_bytes=_zx_bytes(16, 70, 23_618), fits=True)
+    assert plan == dict(form="cluster", launches=1, cluster=2, steps=10_585,
+                        u_in_smem=True, smem_bytes=_zx_bytes(16, 70, 23_618),
+                        fits=True)
     assert plan["smem_bytes"] == 113_480 <= SMEM_LIMIT
     budget = sk.smem_budget(d=23_618, r_max=70, block_rows=16, zx=True)
     assert budget["u_bytes"] == 94_472 and budget["u_in_smem"]
@@ -75,9 +78,21 @@ def test_zx_plan_cluster_sizes(M):
 
 
 @pytest.mark.parametrize("M", [0, 17, 32])
-def test_zx_plan_refuses_clusters_the_card_cannot_schedule(M):
-    with pytest.raises(ValueError, match="Queue 2"):
-        sk.zx_launch_plan(4, M, 100, 50, 16, r_loc=4)
+def test_zx_plan_beyond_a_cluster_takes_the_block_form(M):
+    """M = 17 and 32 are past the largest cluster the card schedules: one
+    launch of the per-block kernel per invocation, u in device memory;
+    M = 0 is no mesh and still raises."""
+    if M < 1:
+        with pytest.raises(ValueError, match="M >= 1"):
+            sk.zx_launch_plan(4, M, 100, 50, 16, r_loc=4)
+        return
+    plan = sk.zx_launch_plan(4, M, 100, 50, 16, r_loc=4, n_passes=2)
+    assert plan == dict(form="block", launches=14, cluster=1, steps=14,
+                        u_in_smem=False, smem_bytes=8 * 16, fits=True)
+    # the same shape within a cluster, when the cluster is not to be used
+    inside = sk.zx_launch_plan(4, 16, 100, 50, 16, r_loc=4, n_passes=2,
+                               cluster=False)
+    assert inside == plan
 
 
 @pytest.mark.parametrize("nk,B,n_passes", [(1, 1, 1), (203, 16, 2),
@@ -206,11 +221,15 @@ def test_sparse_budget_at_rcv1(depth):
 
 
 def test_sparse_budget_at_its_limit():
-    """At depth 8 and r_max = 118 the widest u leaves the ring's 8,320
-    bytes; one float more does not fit."""
+    """At depth 8 and r_max = 118 the widest u in shared memory leaves the
+    ring's 8,320 bytes; one float more and u moves to device memory, the
+    ring alone in shared memory."""
     widest = (SMEM_LIMIT - 8 * 1_040) // 4
-    assert sk.smem_budget(d=widest, r_max=118, buffer_depth=8)["fits"]
-    assert not sk.smem_budget(d=widest + 1, r_max=118, buffer_depth=8)["fits"]
+    at = sk.smem_budget(d=widest, r_max=118, buffer_depth=8)
+    assert at["fits"] and at["u_in_smem"]
+    past = sk.smem_budget(d=widest + 1, r_max=118, buffer_depth=8)
+    assert past["fits"] and not past["u_in_smem"]
+    assert past["total_bytes"] == past["ring_bytes"] == 8 * 1_040
     # the regions round r_max + 3 up to whole 16-byte chunks
     assert [sk.stage_row_words(r) for r in (1, 2, 4, 5, 118, 125)] == \
         [4, 8, 8, 8, 124, 128]

@@ -179,9 +179,11 @@ def test_build_hashes_each_kernel_with_its_own_headers():
         "sparse_sdca_pipelined": ["sparse_sdca_pipelined.cu",
                                   "sdca_common.cuh"],
         "sparse_sdca_zx": ["sparse_sdca_zx.cu", "sdca_common.cuh"],
+        "sparse_sdca_zx_block": ["sparse_sdca_zx_block.cu",
+                                 "sdca_common.cuh"],
         "flash_attention": ["flash_attention.cu"],
         "ssm_scan": ["ssm_scan.cu"]}
-    assert len({build._target(k).name for k in build.KERNELS}) == 5
+    assert len({build._target(k).name for k in build.KERNELS}) == 6
 
 
 def test_flash_smem_fits_every_head_dim():

@@ -10,8 +10,8 @@ mesh of forced host devices, run in a child process
 
 The `cuda` tests hold the zx kernel (one launch a round, a cluster of M
 blocks per worker) against its plain version on the card, with u in
-shared memory and in device memory; run them there with
-`python -m pytest -q -m cuda tests/test_torch_mesh2d.py`.
+shared memory and in device memory, and at M = 17 its per-block form;
+run them there with `python -m pytest -q -m cuda tests/test_torch_mesh2d.py`.
 """
 import types
 
@@ -624,9 +624,10 @@ def test_cuda_zx_kernel_with_u_in_device_memory(card, M, B, kappa, n_passes):
 
 @pytest.mark.cuda
 def test_cuda_zx_cluster_limits_and_layout(card):
-    """The library's shared-memory layout is `smem_budget`'s; M = 17 is
-    refused before a launch; a cluster the card cannot hold is refused
-    naming the ROADMAP item, never run elsewhere."""
+    """The library's shared-memory layout is `smem_budget`'s; M = 16 runs
+    the cluster kernel where the card holds the cluster; M = 17, and a
+    cluster the card cannot hold, run the per-block kernel, one launch an
+    invocation; both against the plain version."""
     from repro_torch.kernels import build
     lib = build.load("sparse_sdca_zx")
     for B, r, d_loc in ((16, 70, 23_618), (1, 24, 600), (128, 24, 65_536)):
@@ -638,13 +639,13 @@ def test_cuda_zx_cluster_limits_and_layout(card):
         ins = [torch.from_numpy(a).to(card)
                for a in _zx_inputs(rng, 1, M, 40, 30, 4)]
         kw = dict(loss=get_loss("hinge"), block_rows=8)
-        if M <= 16 and sk._zx_clusters_fit(lib, M, 8, 4, 30, True) > 0:
-            got = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
-            want = sk.sparse_local_sdca_zx_plain(*ins[:6], 0.5, *ins[6:],
-                                                 **kw)
-            torch.cuda.synchronize()
-            for g, p in zip(got, want):
-                torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-5)
-        else:
-            with pytest.raises(ValueError, match="Queue 2"):
-                sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
+        cluster = M <= 16 and sk._zx_clusters_fit(lib, M, 8, 4, 30, True) > 0
+        before = (sk.ZX_LAUNCHES, sk.ZX_BLOCK_LAUNCHES)
+        got = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
+        assert (sk.ZX_LAUNCHES, sk.ZX_BLOCK_LAUNCHES) == (
+            (before[0] + 1, before[1]) if cluster
+            else (before[0], before[1] + 5))          # ceil(40 / 8) steps
+        want = sk.sparse_local_sdca_zx_plain(*ins[:6], 0.5, *ins[6:], **kw)
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-5)

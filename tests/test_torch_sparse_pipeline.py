@@ -245,16 +245,23 @@ def test_smem_budget_rejects_what_does_not_fit():
     assert sk.smem_budget(d=47_236, r_max=118, nk=3,
                           buffer_depth=4)["ring_bytes"] == 3 * 1_040
     # u and a one-row stage with its two mbarriers fill the limit to the
-    # last word (no reduction scratch)
+    # last word (no reduction scratch); a word more and u goes to device
+    # memory, the ring alone in shared memory
     widest = (232_448 - 1_040) // 4
-    assert sk.smem_budget(d=widest, r_max=118)["fits"]
-    assert not sk.smem_budget(d=widest + 1, r_max=118)["fits"]
+    at = sk.smem_budget(d=widest, r_max=118)
+    assert at["fits"] and at["u_in_smem"]
+    past = sk.smem_budget(d=widest + 1, r_max=118)
+    assert past["fits"] and not past["u_in_smem"]
+    assert past["u_bytes"] == 0 and past["total_bytes"] == 1_040
     tight = sk.smem_budget(d=widest, r_max=118, buffer_depth=2)
-    assert not tight["fits"]
+    assert tight["fits"] and not tight["u_in_smem"]
+    sk._enforce_smem(tight, "sparse_local_sdca")
+    sk._enforce_smem(sk.smem_budget(d=65_536, r_max=64), "here")
+    # what still does not fit: a ring of rows wider than shared memory
+    wide_rows = sk.smem_budget(d=65_536, r_max=30_000, buffer_depth=1)
+    assert not wide_rows["fits"] and not wide_rows["u_in_smem"]
     with pytest.raises(ValueError, match="232448 bytes"):
-        sk._enforce_smem(tight, "sparse_local_sdca")
-    with pytest.raises(ValueError, match="232448 bytes"):
-        sk._enforce_smem(sk.smem_budget(d=65_536, r_max=64), "here")
+        sk._enforce_smem(wide_rows, "sparse_local_sdca")
     zx = sk.smem_budget(d=3_200_000, r_max=500, block_rows=16, zx=True)
     assert zx["fits"] and not zx["u_in_smem"]          # u in device memory
     assert zx["u_bytes"] == 0 and zx["scratch_bytes"] == 12 * 16

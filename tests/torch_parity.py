@@ -236,14 +236,17 @@ def solve_on_ranks(rank: int, world: int, jobs: list) -> list:
     `orders` (per-round numpy visit orders, or None) and, for a deadline
     solver, `budgets` (per-round (K,) step budgets). Returns, per job,
     the history, the rank's state slices (the momentum leaves None where
-    the run has none) and the measured hops as numpy,
+    the run has none), the measured hops as numpy and the sparse
+    dispatch's last launch (`kernels.ops.LAST_SPARSE_CONFIG`),
     or {"error": message} when the mesh or `solve` raised ValueError."""
     torch.set_num_threads(1)
     from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_process_mesh
     out = []
     for job in jobs:
         X, y, mask = job_data(job)
+        ops.LAST_SPARSE_CONFIG = None
         try:
             mesh = make_process_mesh(job["shape"], job["axes"],
                                      device=job.get("device", "cpu"))
@@ -259,7 +262,8 @@ def solve_on_ranks(rank: int, world: int, jobs: list) -> list:
         res = {k: np.asarray(v) for k, v in r.history.items()}
         res.update(w=to_np(r.state.w), alpha=to_np(r.state.alpha),
                    ef=to_np(r.state.ef), coords=mesh.coords(),
-                   measured=dict(r.tracer.measured))
+                   measured=dict(r.tracer.measured),
+                   sparse_config=ops.LAST_SPARSE_CONFIG)
         for leaf in ("v_prev", "alpha_prev", "accel_a"):
             x = getattr(r.state, leaf)
             res[leaf] = None if x is None else to_np(x)
