@@ -380,10 +380,12 @@ order, each failing the run with a non-zero exit:
                and 12's tensors are on the card: the SDCA kernels at
                shapes and meshes that took no kernel before. Cut shapes
                first: the 1-D walk with u in device memory (d =
-               200,000, duplicate ids, depths 1 and 4, prox on and off)
-               and the per-block zx kernel (M = 17, a ragged block, two
-               passes) against their plain versions. news_sparse (8,192
-               x 65,536, density 5e-4) and a synthetic of news20.binary's
+               200,000, duplicate ids, depths 1 and 4, prox on and off,
+               rows of 40, 250 and 549 slots) and the zx round at M = 17 (a
+               ragged block, two passes) in its grid form and through the
+               per-block kernel, against their plain versions.
+               news_sparse (8,192 x 65,536, density 5e-4) and a
+               synthetic of news20.binary's
                shape (19,996 x 1,355,191, density 3.36e-4), K = 4, hinge,
                lambda 1e-4, H = nk, through `solve` (3 rounds at depths 4
                and 1; 2 rounds at depth 4): u in device memory, every
@@ -391,16 +393,23 @@ order, each failing the run with a non-zero exit:
                gaps falling; the wrapper against its plain version on
                the first round's inputs; ms a call and us a step. rcv1's
                shape as a 4 x 32 mesh (FeatureShards by the streaming
-               slicer) through `solve`, 2 rounds: the per-block kernel,
-               10,585 launches a round and no cluster launch; held to the
-               plain round on the first round's inputs; ms a round and us
-               an invocation; phase 12's 4 x 2 shards through the
-               per-block kernel (the cluster fit read as 0) against the
-               cluster kernel, in turns. The rcv1_sparse stand-in on a 2
-               x 2 process mesh of 4 gloo ranks on cuda:0 with
-               `sdca_kernel`, 3 rounds: every rank the per-block kernel
-               and zx_exchanges(nk, B) all_reduces a round over its model
-               column, the gaps equal across ranks and within 1e-5 of
+               slicer) through `solve`, 2 rounds: the grid form, one
+               cooperative launch of 128 blocks a round, and no cluster
+               or per-block launch; the same solve through the per-block
+               kernel (the occupancy read as 0), 10,585 launches a round
+               and gaps within 1e-5 of the grid form's; held to the plain
+               round on the first round's inputs; then that round in
+               turns as the grid form
+               and through the per-block kernel (the occupancy read as
+               0), each held to the plain result and to the other; ms a
+               round and us a step; phase 12's 4 x 2 shards in all three
+               forms (the cluster fit, then the occupancy too, read as 0)
+               against the cluster kernel, in turns. The rcv1_sparse
+               stand-in on a 2 x 2 process mesh of 4 gloo ranks on
+               cuda:0 with `sdca_kernel`, 3 rounds: every rank the
+               per-block kernel and zx_exchanges(nk, B) all_reduces a
+               round over its model column, the gaps equal across ranks
+               and within 1e-5 of
                the one-process 2 x 2 run's (the cluster kernel); each
                rank's s a round, exchanges and gloo ms an exchange
 
@@ -434,7 +443,8 @@ CUT_NK = 1024                  # phase 3's rows per worker
 CACHE_DEPTH = 1                # phase 11's cached buffer_depth
 TABLE_ORDER = ("local_sdca", "sparse_sdca", "sparse_sdca_pipelined",
                "sparse_sdca_device_u", "sparse_sdca_zx",
-               "sparse_sdca_zx_block", "ssm_scan", "flash_attention")
+               "sparse_sdca_zx_grid", "sparse_sdca_zx_block", "ssm_scan",
+               "flash_attention")
 DEPTHS = (1, 2, 4, 8)          # phase 11's timed ring depths
 SWEEP_B = (4, 8, 16, 32)       # phase 6's timed dense windows
 DENSE_WIDTHS = (54, 2_000, 2_001)   # phase 3's dense widths
@@ -1392,12 +1402,14 @@ def _counts_zero():
     sk.PIPELINED_LAUNCHES = 0
     sk.DEVICE_U_LAUNCHES = 0
     sk.ZX_LAUNCHES = 0
+    sk.ZX_GRID_LAUNCHES = 0
     sk.ZX_BLOCK_LAUNCHES = 0
     sk.ZX_STEPS = 0
     return lambda: {"local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
                     "sparse_sdca_pipelined": sk.PIPELINED_LAUNCHES,
                     "sparse_sdca_device_u": sk.DEVICE_U_LAUNCHES,
                     "sparse_sdca_zx": sk.ZX_LAUNCHES,
+                    "sparse_sdca_zx_grid": sk.ZX_GRID_LAUNCHES,
                     "sparse_sdca_zx_block": sk.ZX_BLOCK_LAUNCHES,
                     "sparse_sdca_zx_steps": sk.ZX_STEPS,
                     "flash_attention": fa.LAUNCHES,
@@ -5815,6 +5827,7 @@ print("LAUNCHES " + json.dumps({
     "sparse_sdca_pipelined": sk.PIPELINED_LAUNCHES,
     "sparse_sdca_device_u": sk.DEVICE_U_LAUNCHES,
     "sparse_sdca_zx": sk.ZX_LAUNCHES,
+    "sparse_sdca_zx_grid": sk.ZX_GRID_LAUNCHES,
     "sparse_sdca_zx_block": sk.ZX_BLOCK_LAUNCHES, "ssm_scan": ss.LAUNCHES,
     "flash_attention": fa.LAUNCHES}), flush=True)
 sys.exit(code)
@@ -5968,8 +5981,27 @@ REACH_K = 4                    # workers of every phase 28 run
 REACH_M = 32                   # rcv1 as 4 x 32: past the 16-block cluster
 REACH_CUT = dict(K=3, nk=300, d=200_000, r=40)   # the 1-D cut shape
 REACH_ZX_CUT = dict(K=3, M=17, nk=203, d_loc=600, r=24, B=16)
+REACH_WIDE_R = (250, 549)      # the cut's wide rows: two walk warps of 8,
+                               # and of 16 at news20's r_max
 REACH_RANK_RTOL = 1e-5         # ranks' gaps vs the one-process cluster round
 REACH_TIMEOUT = 180            # s for the spawn: start, data, 3 rounds
+
+
+@contextlib.contextmanager
+def _zx_forced(form):
+    """Inside the block the zx wrapper's plan takes `form`: "grid" reads
+    the cluster fit as 0, "block" the cluster fit and the grid's occupancy
+    too; "cluster" reads the card as it is."""
+    from repro_torch.kernels import sparse_sdca as sk
+    real = (sk._zx_clusters_fit, sk._zx_grid_resident)
+    if form in ("grid", "block"):
+        sk._zx_clusters_fit = lambda *a: 0
+    if form == "block":
+        sk._zx_grid_resident = lambda *a: 0
+    try:
+        yield
+    finally:
+        sk._zx_clusters_fit, sk._zx_grid_resident = real
 
 
 def _state0(K, nk, d, dev):
@@ -5983,11 +6015,14 @@ def _state0(K, nk, d, dev):
 
 
 def _reach_cuts(dev):
-    """The new instance and kernel against their plain versions at cut
+    """The new instances and kernels against their plain versions at cut
     shapes: the 1-D walk with u in device memory at d = 200,000 (rows with
     duplicate ids and column 0 next to padding, depths 1 and 4, prox on
-    and off) and the per-block zx kernel at M = 17 (ragged last block,
-    two passes). Returns the worst (max abs, max rel) errors of each."""
+    and off, and rows of 250 and 549 slots, the two-walk-warp instances)
+    and the zx round at M = 17 (ragged last block, two passes) in its grid
+    form and through the per-block kernel (the occupancy query read as
+    0).
+    Returns the worst (max abs, max rel) errors of each."""
     import numpy as np
     import torch
     from repro_torch.core.losses import get_loss
@@ -5997,6 +6032,7 @@ def _reach_cuts(dev):
     cols, vals, y, alpha, mask, w, perm = sparse_case(
         rng, c["K"], c["nk"], c["d"], c["r"], dev)
     worst = {"sparse_sdca_device_u": [0.0, 0.0],
+             "sparse_sdca_zx_grid": [0.0, 0.0],
              "sparse_sdca_zx_block": [0.0, 0.0]}
 
     def hold(name, got, want):
@@ -6007,14 +6043,16 @@ def _reach_cuts(dev):
                 fail(f"phase 28 cut shape: {name} disagrees with its plain "
                      f"version (max_abs {a:.3e})")
 
+    wide = [sparse_case(rng, 2, 40, c["d"], r, dev) for r in REACH_WIDE_R]
     for depth in (1, 4):
         for kappa in (None, 0.1):
             kw = dict(loss=get_loss("hinge"), n_passes=2, prox_kappa=kappa)
-            hold("sparse_sdca_device_u",
-                 sk.sparse_local_sdca(cols, vals, y, alpha, mask, w, 0.3,
-                                      perm, buffer_depth=depth, **kw),
-                 sk.sparse_local_sdca_plain(cols, vals, y, alpha, mask, w,
-                                            0.3, perm, **kw))
+            for case in ((cols, vals, y, alpha, mask, w, perm), *wide):
+                hold("sparse_sdca_device_u",
+                     sk.sparse_local_sdca(*case[:6], 0.3, case[6],
+                                          buffer_depth=depth, **kw),
+                     sk.sparse_local_sdca_plain(*case[:6], 0.3, case[6],
+                                                **kw))
     z = REACH_ZX_CUT
     K, M, nk, B = z["K"], z["M"], z["nk"], z["B"]
     zc, zv, _ = _ell(rng, K * M, nk, z["d_loc"], z["r"])
@@ -6031,14 +6069,26 @@ def _reach_cuts(dev):
         kw = dict(loss=get_loss("smooth_hinge"), n_passes=2, block_rows=B,
                   prox_kappa=kappa)
         args = (zc, zv, zy, za, zm, zw, 0.5, zsq, zp)
-        hold("sparse_sdca_zx_block", sk.sparse_local_sdca_zx(*args, **kw),
-             sk.sparse_local_sdca_zx_plain(*args, **kw))
+        want = sk.sparse_local_sdca_zx_plain(*args, **kw)
+        hold("sparse_sdca_zx_grid", sk.sparse_local_sdca_zx(*args, **kw),
+             want)
+        if sk.LAST_ZX_FORM != "grid":
+            fail(f"phase 28 cut shape: M={M} ran {sk.LAST_ZX_FORM}, not "
+                 f"the grid form")
+        with _zx_forced("block"):
+            hold("sparse_sdca_zx_block", sk.sparse_local_sdca_zx(*args, **kw),
+                 want)
     torch.cuda.synchronize()
     log(f"  cut shapes vs plain (tolerance |k - p| <= {ATOL} + {RTOL} |p|):"
         f" the 1-D walk with u in device memory at K={c['K']} nk={c['nk']} "
         f"d={c['d']} r_max={c['r']}, depths 1 and 4: max_abs "
-        f"{worst['sparse_sdca_device_u'][0]:.3e}; the per-block zx kernel "
-        f"at K={K} M={M} nk={nk} B={B}: max_abs "
+        f"{worst['sparse_sdca_device_u'][0]:.3e} (and rows of "
+        f"{' and '.join(map(str, REACH_WIDE_R))} slots: (walk warps, "
+        f"registers a lane) "
+        f"{[sk.device_u_walk(r) for r in REACH_WIDE_R]}); the zx round at "
+        f"K={K} M={M} "
+        f"nk={nk} B={B}: grid form max_abs "
+        f"{worst['sparse_sdca_zx_grid'][0]:.3e}, per-block kernel "
         f"{worst['sparse_sdca_zx_block'][0]:.3e}")
     return {k: tuple(v) for k, v in worst.items()}
 
@@ -6068,7 +6118,8 @@ def _reach_wide(dev, name, shape, depths, rounds):
         f"r_max={r_max} (data made in {time.perf_counter() - t0:.1f} s); "
         f"u would take {4 * d} B of shared memory a block: in device "
         f"memory, {K * 4 * d / 1e6:.1f} MB; the ring "
-        f"{budget['ring_bytes']} B at depth {depths[0]}")
+        f"{budget['ring_bytes']} B at depth {depths[0]}; (walk warps, "
+        f"slots a lane gathers at once) {sk.device_u_walk(r_max)}")
     if budget["u_in_smem"] or not budget["fits"]:
         fail(f"phase 28 {name}: the budget does not put u in device "
              f"memory: {budget}")
@@ -6137,15 +6188,21 @@ def _zx_args(cfg, X, y, mask, dev):
 
 
 def _reach_zx(dev, csr_y, mesh):
-    """The per-block zx kernel on one card: rcv1's shape as a 4 x 32 mesh
-    through `solve` (the counts at 0 just before), held to the plain
-    version on the first round's inputs and timed; then phase 12's 4 x 2
-    shards through the per-block kernel (the cluster fit read as 0) and
-    through the cluster kernel, in turns."""
+    """The zx round past one cluster on one card: rcv1's shape as a 4 x 32
+    mesh through `solve` (the counts at 0 just before) -- the grid form,
+    one cooperative launch a round, no per-block launch -- and the same
+    solve through the per-block kernel (the occupancy read as 0; the
+    counts at 0 just before), its gaps held to the grid form's; the grid
+    form held to the plain version on the first round's inputs; then that
+    round in turns as
+    the grid form and through the per-block kernel (the occupancy read as
+    0), each held to the plain result and to the other; then phase 12's
+    4 x 2 shards in all three forms, in turns, held to the cluster
+    kernel."""
     from repro_torch import comm
     from repro_torch.core import CoCoAConfig, solve
     from repro_torch.data.sparse import shard_features_streaming
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import sparse_sdca as sk
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.obs import cost
@@ -6172,68 +6229,117 @@ def _reach_zx(dev, csr_y, mesh):
     used = dict(ops.LAST_SPARSE_CONFIG)
     args, kw, plan = _zx_args(cfg, fs, yp, mk, dev)
     steps = plan["n_passes"] * plan["blocks"]
+    budget = sk.smem_budget(d=fs.d_local, r_max=r_loc,
+                            block_rows=plan["block_rows"], zx=True)
+    resident = sk._zx_grid_resident(build.load("sparse_sdca_zx"),
+                                    plan["block_rows"], r_loc, fs.d_local,
+                                    budget["u_in_smem"])
     log(f"  rcv1 {K}x{M}: LAST_SPARSE_CONFIG {used}; launches "
-        f"{ {k: v for k, v in launches.items() if v} }")
-    _check_gaps(f"rcv1 {K}x{M} sdca_sparse_kernel zx (per-block)",
-                r.history, rounds)
+        f"{ {k: v for k, v in launches.items() if v} }; the card holds "
+        f"{resident} blocks of the grid instance at once ({K * M} needed; "
+        f"{budget['total_bytes']} B of shared memory a block, u in "
+        f"{'shared' if budget['u_in_smem'] else 'device'} memory)")
+    _check_gaps(f"rcv1 {K}x{M} sdca_sparse_kernel zx (grid)", r.history,
+                rounds)
     if not used["zx"] or used["model_shards"] != M or \
-            launches["sparse_sdca_zx_block"] != rounds * steps or \
-            launches["sparse_sdca_zx"] or \
-            launches["sparse_sdca_zx_steps"] != rounds * steps:
+            used["form"] != "grid" or \
+            launches["sparse_sdca_zx_grid"] != rounds or \
+            launches["sparse_sdca_zx_block"] or launches["sparse_sdca_zx"] \
+            or launches["sparse_sdca_zx_steps"] != rounds * steps:
         fail(f"phase 28 rcv1 {K}x{M}: ran {used}, launched {launches}; "
-             f"expected {rounds} x {steps} per-block launches")
-    errs = _against_plain(f"sparse_sdca_zx_block {K}x{M} (the first round's "
+             f"expected {rounds} grid launches of {steps} steps and no "
+             f"per-block launch")
+    # the same solve through the per-block kernel (the occupancy read as
+    # 0, as on a card that cannot hold the grid): its row's launches
+    with _zx_forced("block"):
+        counts = _counts_zero()
+        rb = solve(cfg, fs, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
+                   mesh=m32)
+        block_launches = counts()
+    rel_block = _rel(rb.history["gap"], r.history["gap"])
+    log(f"  rcv1 {K}x{M} through the per-block kernel: launches "
+        f"{ {k: v for k, v in block_launches.items() if v} }; gaps "
+        f"{rb.history['gap'][0]:.6e}, {rb.history['gap'][-1]:.6e}, max rel "
+        f"diff to the grid form's {rel_block:.3e} (limit {REACH_RANK_RTOL})")
+    if block_launches["sparse_sdca_zx_block"] != rounds * steps or \
+            block_launches["sparse_sdca_zx_grid"] or \
+            block_launches["sparse_sdca_zx"] or rel_block > REACH_RANK_RTOL:
+        fail(f"phase 28 rcv1 {K}x{M} forced per-block: launched "
+             f"{block_launches}, gaps {rb.history['gap']} against the grid "
+             f"form's {r.history['gap']}; expected {rounds * steps} "
+             f"per-block launches")
+    errs = _against_plain(f"sparse_sdca_zx_grid {K}x{M} (the first round's "
                           f"inputs)", sk.sparse_local_sdca_zx,
-                          sk.sparse_local_sdca_zx_plain, args, kw)[:3]
-    ms, _ = _time_ms(lambda: sk.sparse_local_sdca_zx(*args, **kw), reps=2)
+                          sk.sparse_local_sdca_zx_plain, args, kw)
+    want = errs[3]
+
+    def call(form, a=args, k=kw):
+        with _zx_forced(form):
+            out = sk.sparse_local_sdca_zx(*a, **k)
+        if sk.LAST_ZX_FORM != form:
+            fail(f"phase 28: asked for the {form} form, ran "
+                 f"{sk.LAST_ZX_FORM}")
+        return out
+
+    ms, outs = _in_turns(("grid", "block"), call)
+    atol = ATOL * max(1.0, nk / CUT_NK)
+    block_errs = [0.0, 0.0]
+    for what, got, ref in (("per-block vs plain", outs["block"], want),
+                           ("per-block vs grid", outs["block"],
+                            outs["grid"]),
+                           ("grid (in turns) vs plain", outs["grid"], want)):
+        for part, g, p in zip(("dalpha", "du"), got, ref):
+            a, rel, ok = _errors(g, p, atol)
+            if what.startswith("per-block vs plain"):
+                block_errs = [max(block_errs[0], a), max(block_errs[1], rel)]
+            log(f"  {K}x{M} {part:6s} {what}: max_abs={a:.3e} "
+                f"max_rel={rel:.3e} (tolerance |k - p| <= {atol:.3e} + "
+                f"{RTOL} |p|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"phase 28 {K}x{M}: {what} disagree ({part})")
     topo = comm.Topology.from_mesh(m32, "data", "model")
     stats = cost.round_stats(cfg, fs, mk, topo)
     ex = r.history["execute_s"]
-    log(f"  rcv1 {K}x{M}: {ms:.3f} ms a round (CUDA events), {steps} "
-        f"launches a round, {1e3 * ms / steps:.3f} us an invocation; "
-        f"execute_s a round " + ", ".join(f"{e:.4f}" for e in ex)
+    log(f"  rcv1 {K}x{M}: ms a round (CUDA events, in turns) grid form "
+        f"{ms['grid']:.3f} (1 launch, {1e3 * ms['grid'] / steps:.3f} us a "
+        f"step), per-block kernel {ms['block']:.3f} ({steps} launches, "
+        f"{1e3 * ms['block'] / steps:.3f} us an invocation); execute_s a "
+        f"round " + ", ".join(f"{e:.4f}" for e in ex)
         + f"; gaps {r.history['gap'][0]:.6e}, {r.history['gap'][-1]:.6e}; "
         f"the plain round {errs[2]:.1f} ms")
-    del fs, r, args
+    del fs, r, rb, args, outs, want
     gc.collect()
-    # phase 12's 4 x 2 shards: per-block against the cluster kernel
+    # phase 12's 4 x 2 shards: the three forms against the cluster kernel
     fs2, yp2, mk2, cfg2 = (mesh[k] for k in ("fs", "yp", "mk", "cfg"))
     args2, kw2, plan2 = _zx_args(cfg2, fs2, yp2, mk2, dev)
-    real_fit = sk._zx_clusters_fit
-
-    def call(form):
-        if form == "cluster":
-            return sk.sparse_local_sdca_zx(*args2, **kw2)
-        sk._zx_clusters_fit = lambda *a: 0
-        try:
-            return sk.sparse_local_sdca_zx(*args2, **kw2)
-        finally:
-            sk._zx_clusters_fit = real_fit
-
-    before = (sk.ZX_LAUNCHES, sk.ZX_BLOCK_LAUNCHES)
-    ms2, outs = _in_turns(("cluster", "block"), call)
-    if sk.ZX_BLOCK_LAUNCHES == before[1] or sk.ZX_LAUNCHES == before[0]:
-        fail("phase 28: the 4 x 2 comparison did not run both forms")
+    forms = ("cluster", "grid", "block")
+    ms2, outs2 = _in_turns(forms, lambda f: call(f, args2, kw2))
     nk2 = yp2.shape[1]
-    atol = ATOL * max(1.0, nk2 / CUT_NK)
-    for part, g, p in zip(("dalpha", "du"), outs["block"], outs["cluster"]):
-        a, rel, ok = _errors(g, p, atol)
-        log(f"  4x2 {part:6s} per-block vs cluster kernel: max_abs={a:.3e} "
-            f"max_rel={rel:.3e} (tolerance |b - c| <= {atol:.3e} + {RTOL} "
-            f"|c|) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"phase 28: the per-block kernel disagrees with the "
-                 f"cluster kernel at 4 x 2 ({part})")
+    atol2 = ATOL * max(1.0, nk2 / CUT_NK)
+    for form in forms[1:]:
+        for part, g, p in zip(("dalpha", "du"), outs2[form],
+                              outs2["cluster"]):
+            a, rel, ok = _errors(g, p, atol2)
+            log(f"  4x2 {part:6s} {form} vs cluster kernel: max_abs={a:.3e}"
+                f" max_rel={rel:.3e} (tolerance |f - c| <= {atol2:.3e} + "
+                f"{RTOL} |c|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"phase 28: the {form} form disagrees with the cluster "
+                     f"kernel at 4 x 2 ({part})")
     steps2 = plan2["n_passes"] * plan2["blocks"]
     log(f"  4x2 (phase 12's shards, B={plan2['block_rows']}): ms a round "
-        f"in turns, cluster kernel {ms2['cluster']:.3f} (1 launch), "
-        f"per-block kernel {ms2['block']:.3f} ({steps2} launches, "
+        f"in turns, cluster kernel {ms2['cluster']:.3f} (1 launch), grid "
+        f"form {ms2['grid']:.3f} (1 launch, "
+        f"{1e3 * ms2['grid'] / steps2:.3f} us a step), per-block kernel "
+        f"{ms2['block']:.3f} ({steps2} launches, "
         f"{1e3 * ms2['block'] / steps2:.3f} us an invocation)")
-    return {"launches": launches["sparse_sdca_zx_block"], "rounds": rounds,
-            "steps": steps, "errs": errs, "ms": ms, "stats": stats,
+    return {"launches": launches["sparse_sdca_zx_grid"], "rounds": rounds,
+            "block_launches": block_launches["sparse_sdca_zx_block"],
+            "steps": steps, "errs": errs[:3], "block_errs": block_errs,
+            "ms": ms, "stats": stats, "resident": resident,
             "shape": f"K={K} M={M} nk={nk} r_loc={r_loc} "
                      f"d_local={-(-csr.shape[1] // M)} "
-                     f"B={plan['block_rows']} (one call: {steps} launches)",
+                     f"B={plan['block_rows']}",
             "ms_4x2": ms2, "steps_4x2": steps2}
 
 
@@ -6383,7 +6489,8 @@ def _reach_ranks(dev):
         fail(f"phase 28: the ranks' gaps {ranks[0]['gap']} differ from the "
              f"one-process run's {one.history['gap']}")
     return {"s_round": ranks[0]["execute_s"],
-            "exchanges_per_round": per_round,
+            "launches": ranks[0]["launches"]["sparse_sdca_zx_block"],
+            "rounds": rounds, "exchanges_per_round": per_round,
             "gloo_ms": sum(ranks[0]["sums_ms"]) / len(ranks[0]["sums_ms"]),
             "rel": rel,
             "max_abs_err": max(e[0] for rk in ranks for e in rk["errs"])}
@@ -6391,8 +6498,10 @@ def _reach_ranks(dev):
 
 def phase_reach(dev, csr_y, mesh, smi_line):
     """Phase 28: the 1-D walk at news_sparse's and news20's widths (u in
-    device memory), the per-block zx kernel at rcv1's 4 x 32 and 4 x 2,
-    and across a 2 x 2 process mesh; the two new rows of the table."""
+    device memory), the zx round past a cluster at rcv1's 4 x 32 (the
+    grid form; the per-block kernel in turns) and 4 x 2 (all three forms),
+    and across a 2 x 2 process mesh (the per-block kernel); three rows of
+    the table."""
     t_start = time.perf_counter()
     log(f"[28 reach] {smi_line}: the SDCA kernels at shapes and meshes "
         f"that took no kernel before")
@@ -6420,14 +6529,29 @@ def phase_reach(dev, csr_y, mesh, smi_line):
                                            news20["stats"]["flops"]
                                            / _hw().peak_flops),
                      "shape": news20["shape"], "gaps": news20["gaps"]}),
-        _row("sparse_sdca_zx_block",
-             "src/repro_torch/kernels/csrc/sparse_sdca_zx_block.cu",
+        _row("sparse_sdca_zx_grid",
+             "src/repro_torch/kernels/csrc/sparse_sdca_zx.cu",
              "src/repro/kernels/sparse_sdca.py:394", zx["launches"],
              zx["launches"] / zx["rounds"], "per round", zx["errs"][:2],
-             cut["sparse_sdca_zx_block"], zx["ms"], zx["errs"][2], None,
-             zx["stats"], _hw(), zx["shape"], rounds=zx["rounds"],
-             steps_per_round=zx["steps"],
-             us_per_step=1e3 * zx["ms"] / zx["steps"],
+             cut["sparse_sdca_zx_grid"], zx["ms"]["grid"], zx["errs"][2],
+             None, zx["stats"], _hw(), zx["shape"] + " (one launch a round)",
+             rounds=zx["rounds"], steps_per_round=zx["steps"],
+             us_per_step=1e3 * zx["ms"]["grid"] / zx["steps"],
+             resident_blocks=zx["resident"],
+             at_4x2={"grid_ms": zx["ms_4x2"]["grid"],
+                     "cluster_ms": zx["ms_4x2"]["cluster"],
+                     "block_ms": zx["ms_4x2"]["block"],
+                     "steps": zx["steps_4x2"]}),
+        _row("sparse_sdca_zx_block",
+             "src/repro_torch/kernels/csrc/sparse_sdca_zx_block.cu",
+             "src/repro/kernels/sparse_sdca.py:394", zx["block_launches"],
+             zx["block_launches"] / zx["rounds"], "per round",
+             zx["block_errs"], cut["sparse_sdca_zx_block"],
+             zx["ms"]["block"], zx["errs"][2], None, zx["stats"], _hw(),
+             zx["shape"] + f" ({zx['steps']} launches a round, the "
+             f"occupancy read as 0)",
+             rounds=zx["rounds"], steps_per_round=zx["steps"],
+             us_per_step=1e3 * zx["ms"]["block"] / zx["steps"],
              at_4x2={"block_ms": zx["ms_4x2"]["block"],
                      "cluster_ms": zx["ms_4x2"]["cluster"],
                      "steps": zx["steps_4x2"]},

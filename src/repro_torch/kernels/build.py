@@ -156,7 +156,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "sparse_sdca_pipelined":
         lib.sparse_sdca_pipelined_launch.argtypes = ([P] * 9 + [I] * 5
                                                      + [F, I, F, I, F, I, I,
-                                                        P])
+                                                        I, I, P])
         lib.sparse_sdca_pipelined_launch.restype = I
     elif name == "sparse_sdca_zx":
         lib.sparse_sdca_zx_launch.argtypes = ([P] * 10 + [I] * 7
@@ -167,6 +167,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.sparse_sdca_zx_max_clusters.argtypes = [I] * 5 + [
             ctypes.POINTER(I)]
         lib.sparse_sdca_zx_max_clusters.restype = I
+        lib.sparse_sdca_zx_grid_launch.argtypes = ([P] * 10 + [I] * 7
+                                                   + [F, I, F, I, F, I, P])
+        lib.sparse_sdca_zx_grid_launch.restype = I
+        lib.sparse_sdca_zx_grid_resident.argtypes = [I] * 4 + [
+            ctypes.POINTER(I)]
+        lib.sparse_sdca_zx_grid_resident.restype = I
     elif name == "sparse_sdca_zx_block":
         lib.sparse_sdca_zx_block_launch.argtypes = ([P] * 11 + [I] * 9
                                                     + [F, I, F, I, F, P])

@@ -29,7 +29,9 @@
 // synchronisation orders the scatter before the next gather.
 //
 // What the design does about it: one launch per round with a grid of K
-// blocks, one per worker, of two warps: the walk warp and a fetch warp. u
+// blocks, one per worker, of two warps: the walk warp and a fetch warp
+// (three where u is in device memory and rows pass 128 slots: two walk
+// warps, below). u
 // (d floats) sits in dynamic shared memory for the whole walk where it
 // fits beside the ring (U_SMEM), so gather and scatter never touch device
 // memory. Where it does not (d above 57,852 at depth 1, r_max 118), the
@@ -40,8 +42,32 @@
 // plain global atomicAdd (a native reduction in L2, no compare-and-swap
 // loop); the ring, its mbarriers and the fetch warp stay in shared memory.
 // u then takes K 4 d bytes of device memory: 21.7 MB at news20's width
-// (1,355,191) and K = 4, inside the card's 50 MB L2.
-// A step of the walk warp:
+// (1,355,191) and K = 4, inside the card's 50 MB L2. There a gather is a
+// round trip to L2 or beyond, and a step's gathers decide it: with SLOTS =
+// 4 registers a lane and the rest walked from the stage one load after
+// another, news20's rows (r_max 549, 18 slots a lane) took 5.65 us a step,
+// 14 round trips in series. So a lane issues the __ldcg of all its slots
+// before it uses any (one round trip a row), and the device-memory
+// instance is built at SLOTS 4 on one walk warp (rows up to 128 slots)
+// and at SLOTS 8 and 16 on two walk warps (the wrapper's device_u_walk
+// takes the first that holds the row). Predicated-off registers are not
+// free: at r_max 374 and 496 two warps of 8 took 10.3 and 10.7 ms a call
+// against two of 16's 11.8 and 12.2, and at r_max 170 and 250 two warps
+// of 8 took 9.9 and 10.1 against one warp of 8's 12.0 and 12.0 (news20's
+// width, K = 4, depth 4; tools/walk_times.py --parts slots, H100 at 700
+// W), so one warp of 8 is not built. Rows past a
+// lane's SLOTS walk the rest in batches of SLOTS, each batch's loads in
+// flight together. The scatter over the same registers stays
+// fire-and-forget global atomicAdd. Why two warps: on one warp with 24
+// slots a lane news20 took 3.3 us a step (16.2 ms a call), of which
+// taking the gathers out saved 0.8, fetching every step's row from L2
+// 0.6, the scatter 0.2, and the warp's __syncwarp and release nothing
+// (tools/sdca_step_ablation.py, H100 at 700 W): the lane's chain of 18
+// slots' loads, products and atomics was most of the step. Two warps, each
+// a lane's 9 slots, took 2.43 us (12.2 ms). Their totals meet in shared
+// memory behind a named barrier of the two warps (bar.sync 1), added in
+// warp order by both, and a second one ends the step.
+// A step of the walk warp (on one walk warp):
 //  * lane l gathers slots s = l, l + 32, ... of the staged row (u[c_s],
 //    through the soft-threshold when has_prox) into its (z, sq) partials,
 //    its first SLOTS slots' ids and values loaded into registers at once
@@ -89,7 +115,12 @@
 // Every depth walks the same rows with the same lane-to-slot map and the
 // same shuffle tree, so on rows without duplicate column ids every depth
 // gives the same bits (with duplicates the shared-memory atomics may land
-// in another order, at any depth).
+// in another order, at any depth). Every SLOTS adds a lane's slots into its
+// partials in the same order (slot l, l + 32, l + 64, ... on one warp), so
+// the one-warp device-memory instances give the bits of the walk that
+// loaded a lane's slots past the first 4 one at a time; two walk
+// warps take slots l + 32 q + 64 i (warp q) and add their warp totals,
+// another order of the same sum.
 //
 // Hazards:
 //  * dalpha is prefetched. That is right only because a row appears once
@@ -114,9 +145,15 @@
 //  * With u in device memory, a gather after a scatter of the same column
 //    (the same lane or another, in the next row) must see the scatter: the
 //    atomics land in L2, every read of u is an ld.global.cg (__ldcg), which
-//    does not look in L1, and the __syncwarp that ends the step orders the
-//    warp's atomics before its next loads. u is never read through L1, so
-//    L1 holds no stale line of it.
+//    does not look in L1, and the __syncwarp (one walk warp) or the walk
+//    warps' barrier (two) that ends the step orders the atomics before the
+//    next loads. u is never read through L1, so L1 holds no stale line of
+//    it.
+//  * Two walk warps: each writes its totals to part[] before the first
+//    walk barrier of the step and reads both after it; the next step's
+//    writes come after the second barrier, which both pass only after
+//    their reads. The walk's thread 0 stores dalpha and arrives on `empty`
+//    after that second barrier, when both warps are done with the stage.
 
 #include <cuda_runtime.h>
 
@@ -130,9 +167,11 @@ constexpr int MAX_DEPTH = 8;
 // and three spare, so every stage and region stays 16-byte aligned
 constexpr int STAGE_SCALARS = 8;
 constexpr unsigned FULL = 0xffffffffu;
-// slots a lane keeps in registers through a step (rows of r_max <= 128
-// whole; wider rows walk their further slots from the stage)
-constexpr int SLOTS = 4;
+// slots a lane keeps in registers through a step with u in shared memory
+// (rows of r_max <= 128 whole; wider rows walk their further slots from
+// the stage); with u in device memory SLOTS is the instance's: 4 on one
+// walk warp, 8 or 16 on two
+constexpr int SMEM_SLOTS = 4;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -216,8 +255,14 @@ __device__ __forceinline__ float load_u(const float* p) {
   }
 }
 
-template <int DEPTH, bool U_SMEM>
-__global__ void __launch_bounds__(2 * WARP)
+// the walk warps' barrier (named barrier 1; the fetch warp is not in it)
+template <int NWALK>
+__device__ __forceinline__ void walk_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NWALK * WARP) : "memory");
+}
+
+template <int DEPTH, bool U_SMEM, int SLOTS, int NWALK>
+__global__ void __launch_bounds__((NWALK + 1) * WARP)
 sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
                              const float* __restrict__ vals,
                              const float* __restrict__ y,
@@ -229,7 +274,8 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
                              float* __restrict__ du, int nk, int r_max, int d,
                              int n_passes, float scale, int loss_id, float g,
                              int has_prox, float kappa, int vec16) {
-  constexpr int NTHR = 2 * WARP;
+  constexpr int NTHR = (NWALK + 1) * WARP;
+  constexpr int STRIDE = NWALK * WARP;  // slots between a lane's two slots
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
   const int sw = stage_words(r_max);
@@ -245,7 +291,9 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
   float* u = U_SMEM ? reinterpret_cast<float*>(empty + DEPTH)
                     : du + static_cast<size_t>(k) * d;
   const int lane = threadIdx.x & 31;
-  const bool walker = threadIdx.x < WARP;
+  const bool walker = threadIdx.x < STRIDE;
+  // a walk lane's first slot: walk warp q's lane l takes l + 32 q
+  const int base = NWALK == 1 ? lane : static_cast<int>(threadIdx.x);
   const size_t row0 = static_cast<size_t>(k) * nk;   // first row of worker k
   const int* perm_k = perm + row0;
   const long long total = static_cast<long long>(n_passes) * nk;
@@ -312,7 +360,7 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
       }
     }
   } else {
-    // ---- the walk: one row a step, one warp, no block barrier
+    // ---- the walk: one row a step, on NWALK warps (no block barrier)
     int slot = 0;
     unsigned phase = 0;
     for (long long j = 0; j < total; ++j) {
@@ -329,34 +377,90 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
       float vs[SLOTS];
 #pragma unroll
       for (int i = 0; i < SLOTS; ++i) {
-        const int s = lane + WARP * i;
+        const int s = base + STRIDE * i;
         cs[i] = s < r_max ? ci[s] : 0;
         vs[i] = s < r_max ? vi[s] : 0.0f;
       }
       float z = 0.0f, sq = 0.0f, us[SLOTS];
+      if constexpr (U_SMEM) {
 #pragma unroll
-      for (int i = 0; i < SLOTS; ++i) {
-        us[i] = 0.0f;
-        if (lane + WARP * i < r_max) {
-          us[i] = load_u<U_SMEM>(u + cs[i]);
-          const float uc =
-              has_prox ? sdca::soft_threshold(us[i], kappa) : us[i];
-          z += uc * vs[i];
-          sq += vs[i] * vs[i];
+        for (int i = 0; i < SLOTS; ++i) {
+          us[i] = 0.0f;
+          if (base + STRIDE * i < r_max) {
+            us[i] = load_u<U_SMEM>(u + cs[i]);
+            const float uc =
+                has_prox ? sdca::soft_threshold(us[i], kappa) : us[i];
+            z += uc * vs[i];
+            sq += vs[i] * vs[i];
+          }
+        }
+        for (int s = base + STRIDE * SLOTS; s < r_max; s += STRIDE) {
+          const float v = vi[s];
+          float uc = load_u<U_SMEM>(u + ci[s]);
+          if (has_prox) uc = sdca::soft_threshold(uc, kappa);
+          z += uc * v;
+          sq += v * v;
+        }
+      } else {
+        // every gather of the lane's slots in flight before any is used,
+        // then the partials in slot order
+#pragma unroll
+        for (int i = 0; i < SLOTS; ++i)
+          us[i] = base + STRIDE * i < r_max ? __ldcg(u + cs[i]) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < SLOTS; ++i) {
+          if (base + STRIDE * i < r_max) {
+            const float uc =
+                has_prox ? sdca::soft_threshold(us[i], kappa) : us[i];
+            z += uc * vs[i];
+            sq += vs[i] * vs[i];
+          }
+        }
+        // rows past STRIDE * SLOTS: batches of SLOTS from the stage, each
+        // batch's gathers in flight together
+        for (int s0 = base + STRIDE * SLOTS; s0 < r_max;
+             s0 += STRIDE * SLOTS) {
+          int cb[SLOTS];
+          float vb[SLOTS], ub[SLOTS];
+#pragma unroll
+          for (int i = 0; i < SLOTS; ++i) {
+            const int s = s0 + STRIDE * i;
+            cb[i] = s < r_max ? ci[s] : 0;
+            vb[i] = s < r_max ? vi[s] : 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < SLOTS; ++i)
+            ub[i] = s0 + STRIDE * i < r_max ? __ldcg(u + cb[i]) : 0.0f;
+#pragma unroll
+          for (int i = 0; i < SLOTS; ++i) {
+            if (s0 + STRIDE * i < r_max) {
+              const float uc =
+                  has_prox ? sdca::soft_threshold(ub[i], kappa) : ub[i];
+              z += uc * vb[i];
+              sq += vb[i] * vb[i];
+            }
+          }
         }
       }
-      for (int s = lane + WARP * SLOTS; s < r_max; s += WARP) {
-        const float v = vi[s];
-        float uc = load_u<U_SMEM>(u + ci[s]);
-        if (has_prox) uc = sdca::soft_threshold(uc, kappa);
-        z += uc * v;
-        sq += v * v;
+      float2 tot = sdca::warp_sum2(z, sq);
+      if constexpr (NWALK > 1) {
+        // the walk warps' totals, added in warp order by every walk warp
+        // (the same bits in each); read before the step's closing barrier,
+        // rewritten only after it
+        __shared__ float2 part[NWALK];
+        if (lane == 0) part[threadIdx.x / WARP] = tot;
+        walk_sync<NWALK>();
+        tot = part[0];
+#pragma unroll
+        for (int q = 1; q < NWALK; ++q) {
+          tot.x += part[q].x;
+          tot.y += part[q].y;
+        }
       }
-      const float2 tot = sdca::warp_sum2(z, sq);
       const float dai = sc[3];
       const float delta = sdca::cd_update(loss_id, g, sc[1] + dai, tot.x,
                                           scale * tot.y, sc[0]) * sc[2];
-      if (lane == 0) dalpha[row0 + row] = dai + delta;
+      if (threadIdx.x == 0) dalpha[row0 + row] = dai + delta;
       const float coef = scale * delta;
       // u[c_s] += coef * v_s, atomically, so duplicate column ids in a
       // row, and zero padding slots sharing column 0 with a real entry, all
@@ -393,13 +497,18 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
             }
           }
         }
-        for (int s = lane + WARP * SLOTS; s < r_max; s += WARP) {
+        for (int s = base + STRIDE * SLOTS; s < r_max; s += STRIDE) {
           const float v = vi[s];
           if (v != 0.0f) atomicAdd(&u[ci[s]], coef * v);
         }
       }
-      __syncwarp();     // scatter before the next gather, stage reads done
-      if (lane == 0) mbar_arrive(empty + slot);   // release: dalpha too
+      // scatter before the next gather, stage reads done
+      if constexpr (NWALK > 1) {
+        walk_sync<NWALK>();
+      } else {
+        __syncwarp();
+      }
+      if (threadIdx.x == 0) mbar_arrive(empty + slot);   // release: dalpha too
       if (++slot == DEPTH) {
         slot = 0;
         phase ^= 1;
@@ -412,7 +521,7 @@ sparse_sdca_pipelined_kernel(const int* __restrict__ cols,
     du_k[c] = load_u<U_SMEM>(u + c) - w[c];   // in place when u is du_k
 }
 
-template <int DEPTH, bool U_SMEM>
+template <int DEPTH, bool U_SMEM, int SLOTS, int NWALK>
 int launch_instance(int K, size_t smem, cudaStream_t stream, const int* cols,
                     const float* vals, const float* y, const float* alpha,
                     const float* mask, const float* w, const int* perm,
@@ -420,33 +529,43 @@ int launch_instance(int K, size_t smem, cudaStream_t stream, const int* cols,
                     int n_passes, float scale, int loss_id, float g,
                     int has_prox, float kappa, int vec16) {
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_sdca_pipelined_kernel<DEPTH, U_SMEM>,
+      sparse_sdca_pipelined_kernel<DEPTH, U_SMEM, SLOTS, NWALK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sparse_sdca_pipelined_kernel<DEPTH, U_SMEM><<<K, 2 * WARP, smem, stream>>>(
+  sparse_sdca_pipelined_kernel<DEPTH, U_SMEM, SLOTS, NWALK>
+      <<<K, (NWALK + 1) * WARP, smem, stream>>>(
       cols, vals, y, alpha, mask, w, perm, dalpha, du, nk, r_max, d,
       n_passes, scale, loss_id, g, has_prox, kappa, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instance of (DEPTH, u_in_smem, slots, walkers): u in shared memory
+// at SMEM_SLOTS and one walk warp only; u in device memory at 4 slots a
+// lane of one walk warp, or 8 or 16 of two
 template <int DEPTH>
-int launch(int u_in_smem, int K, size_t smem, cudaStream_t stream,
+int launch(int u_in_smem, int slots, int walkers, int K, size_t smem,
+           cudaStream_t stream,
            const int* cols, const float* vals, const float* y,
            const float* alpha, const float* mask, const float* w,
            const int* perm, float* dalpha, float* du, int nk, int r_max,
            int d, int n_passes, float scale, int loss_id, float g,
            int has_prox, float kappa, int vec16) {
-  return u_in_smem
-             ? launch_instance<DEPTH, true>(K, smem, stream, cols, vals, y,
-                                            alpha, mask, w, perm, dalpha, du,
-                                            nk, r_max, d, n_passes, scale,
-                                            loss_id, g, has_prox, kappa,
-                                            vec16)
-             : launch_instance<DEPTH, false>(K, smem, stream, cols, vals, y,
-                                             alpha, mask, w, perm, dalpha,
-                                             du, nk, r_max, d, n_passes,
-                                             scale, loss_id, g, has_prox,
-                                             kappa, vec16);
+#define SDCA_INSTANCE(U, S, W)                                             \
+  return launch_instance<DEPTH, U, S, W>(K, smem, stream, cols, vals, y,   \
+                                         alpha, mask, w, perm, dalpha, du, \
+                                         nk, r_max, d, n_passes, scale,    \
+                                         loss_id, g, has_prox, kappa,      \
+                                         vec16);
+  if (u_in_smem) {
+    if (slots == SMEM_SLOTS && walkers == 1) SDCA_INSTANCE(true, SMEM_SLOTS, 1)
+  } else if (walkers == 1) {
+    if (slots == 4) SDCA_INSTANCE(false, 4, 1)
+  } else if (walkers == 2) {
+    if (slots == 8) SDCA_INSTANCE(false, 8, 2)
+    if (slots == 16) SDCA_INSTANCE(false, 16, 2)
+  }
+#undef SDCA_INSTANCE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -457,7 +576,10 @@ extern "C" {
 // K blocks, one per worker, on `stream`. dalpha must be zeroed by the
 // caller. u_in_smem picks the instance: u in shared memory beside the
 // ring, or in device memory (du's rows; the wrapper's smem_budget
-// decides). Returns the cudaError_t of the launch (0 = ok).
+// decides); `slots` the registers a lane gathers into at once and
+// `walkers` the walk warps: 4 and 1 with u in shared memory; in device
+// memory 4 and 1, or 8 or 16 and 2 (the wrapper's device_u_walk).
+// Returns the cudaError_t of the launch (0 = ok).
 int sparse_sdca_pipelined_launch(const int* cols, const float* vals,
                                  const float* y, const float* alpha,
                                  const float* mask, const float* w,
@@ -465,7 +587,8 @@ int sparse_sdca_pipelined_launch(const int* cols, const float* vals,
                                  int K, int nk, int r_max, int d,
                                  int n_passes, float scale, int loss_id,
                                  float g, int has_prox, float kappa,
-                                 int depth, int u_in_smem, void* stream) {
+                                 int depth, int u_in_smem, int slots,
+                                 int walkers, void* stream) {
   if (depth < 1 || depth > MAX_DEPTH || depth > nk)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
@@ -480,9 +603,9 @@ int sparse_sdca_pipelined_launch(const int* cols, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SDCA_PIPELINED_CASE(D)                                             \
   case D:                                                                  \
-    return launch<D>(u_in_smem, K, smem, s, cols, vals, y, alpha, mask,    \
-                     w, perm, dalpha, du, nk, r_max, d, n_passes, scale,   \
-                     loss_id, g, has_prox, kappa, vec16);
+    return launch<D>(u_in_smem, slots, walkers, K, smem, s, cols, vals, y, \
+                     alpha, mask, w, perm, dalpha, du, nk, r_max, d,       \
+                     n_passes, scale, loss_id, g, has_prox, kappa, vec16);
   switch (depth) {
     SDCA_PIPELINED_CASE(1)
     SDCA_PIPELINED_CASE(2)

@@ -1,5 +1,7 @@
 // The z-exchange schedule of feature-sharded sparse LocalSDCA, for Hopper
-// (sm_90a): one round in one launch, one thread-block cluster per worker.
+// (sm_90a): one round in one launch, one thread-block cluster per worker
+// (the cluster form), or one cooperative grid of K M persistent blocks
+// that exchange through device memory (the grid form, GRID below).
 //
 // Replaces the TPU kernel src/repro/kernels/sparse_sdca.py::
 // _sparse_sdca_zx_kernel (entry sparse_local_sdca_zx at :476, pallas_call
@@ -75,13 +77,57 @@
 //    critical path. A ring of two row stages (block g updated and
 //    scattered, block g + 1's dots) and four id slots.
 //
+// The grid form (GRID), for a mesh whose M shards a cluster cannot hold
+// (M > 16, or a cluster the card refuses) on one card. The per-block kernel
+// (sparse_sdca_zx_block.cu) ran that mesh one launch an invocation, 8.47 us
+// each at rcv1's 4 x 32, a launch's latency and a reload of the block's
+// rows and u from device memory every time. Here one cooperative launch
+// (cudaLaunchCooperativeKernel, so all K M blocks are resident at once or
+// the launch is refused) runs the round; block (k, m) owns worker k's shard
+// m for every invocation, so everything above carries over: u on chip where
+// it fits (5.9 KB at 4 x 32), the prefetch ring, the rows' scalars. Only
+// the exchange differs, since blocks outside a cluster cannot read each
+// other's shared memory. It goes through device memory, and each partial
+// dot carries its own flag:
+//  * Shard m writes row t's partial dot of step g + 1 as one 64-bit word,
+//    the float's bits beside the tag g + 1, to z[(g + 1) % 2][k][t][m]
+//    (st.relaxed.gpu: one single-copy-atomic store, so a reader sees the
+//    value and its tag together or neither). z[0] holds block 0's partial
+//    dots at u = w with tag 0 (the wrapper's prologue).
+//  * Step g's rows go to the warps (row t to warp t % 8). Lane j of the
+//    row's warp loads shard j's word (ld.relaxed.gpu, past L1; a row's M
+//    words lie side by side, so a warp's load is coalesced), the loads of
+//    up to ZROWS rows and of every 32 shards in flight together, and
+//    reloads until every lane holds tag g (__all_sync); then each lane adds
+//    the M values in rank order j = 0..M-1 by __shfl_sync, the order of
+//    the cluster form, the per-block kernel and the plain version, so z
+//    keeps its bits. Lane 0 updates the row.
+//  * No fence, no counter, no block barrier serves the exchange: a design
+//    with a __threadfence and an atomicAdd a step on a worker's counter,
+//    polled by one thread, then the M partials loaded by one thread a row,
+//    took 4.14 us a step at rcv1's 4 x 32 (43.8 ms a round); taking out its
+//    wait, its fence and its partials' loads saved 0.27, 0.37 and 1.15 us
+//    of it (tools/sdca_step_ablation.py, H100 at 700 W). This design
+//    takes 3.4-3.5 us a step there (36.3-37.1 ms a round), its exchange
+//    1.0 us of it.
+//  * Only the M blocks of one worker wait on each other, never the whole
+//    grid.
+//
 // Hazards:
+//  * Grid form, two z buffers: step g reads z[g % 2] (tag g) and writes
+//    z[(g + 1) % 2] (tag g + 1). A shard writes z[g % 2] again only at the
+//    end of step g + 1, after it read every peer's tag g + 1; each peer
+//    wrote that after its own reads of z[g % 2] in step g, and the value it
+//    wrote depends on them. A tag is never reused within a buffer (g and
+//    g + 2). A word that never arrives traps after ~2^34 cycles instead of
+//    hanging the card.
 //  * dalpha is prefetched two blocks ahead. Block g + 2's rows were last
 //    written in step g + 2 - nb: before step g when nb >= 3, in step g's
 //    update (before the barrier ahead of the prefetch) when nb = 2. At
 //    nb = 1 they are written in step g + 1, after the prefetch, so there
 //    the update reads dalpha from device memory (thread t owns row t in
-//    every step, so it reads its own write).
+//    every step, in the grid form lane 0 of warp t % 8, so it reads its
+//    own write).
 //  * The prefetch into stage g % 2 starts after the barrier that ends
 //    block g's scatter; its wait is the cp.async.wait_all ahead of the
 //    barrier of the next step's prefetch point, before block g + 2's dots.
@@ -101,6 +147,7 @@ constexpr int PORTABLE_CLUSTER = 8;
 constexpr int MAX_CLUSTER = 16;
 constexpr int ID_SLOTS = 4;          // row ids of blocks g .. g + 3
 constexpr int SCALARS = 5;           // y, alpha, mask, sqnorm, dalpha
+constexpr int ZROWS = 2;             // grid form: rows a warp polls at once
 
 // 4-byte words of one row stage: cols (B r_loc) | vals (B r_loc) | scalars
 __host__ __device__ __forceinline__ int stage_words(int B, int r_loc) {
@@ -193,7 +240,78 @@ __device__ __forceinline__ float load_u(const float* p) {
   }
 }
 
-template <bool U_SMEM>
+// Grid form: a tagged partial dot, the float's bits low, the step high
+__device__ __forceinline__ unsigned long long tagged(float z, int step) {
+  return (static_cast<unsigned long long>(static_cast<unsigned>(step))
+          << 32) |
+         __float_as_uint(z);
+}
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// Grid form: the exchanged z of rows t0, t0 + NWARPS, ... (ZROWS of them,
+// those below n) into zr[], the same in every lane of the calling warp.
+// zs points at z[step % 2][k][0][0]: row t's M words side by side, so a
+// warp's load of 32 shards is two 128-byte lines; every word must carry
+// tag `step`.
+__device__ __forceinline__ void exchange_rows(
+    const unsigned long long* zs, int t0, int n, int M, int B, int step,
+    float (&zr)[ZROWS]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < ZROWS; ++r) zr[r] = 0.0f;
+  for (int j0 = 0; j0 < M; j0 += 32) {
+    const int j = j0 + lane;
+    unsigned long long wv[ZROWS];
+    bool ready = true;
+#pragma unroll
+    for (int r = 0; r < ZROWS; ++r) {
+      const int t = t0 + r * NWARPS;
+      wv[r] = t < n && j < M ? load_word(zs + static_cast<size_t>(t) * M + j)
+                             : tagged(0.0f, step);
+    }
+    const long long c0 = clock64();
+    for (int spin = 0;; ++spin) {
+#pragma unroll
+      for (int r = 0; r < ZROWS; ++r)
+        ready &= static_cast<int>(wv[r] >> 32) == step;
+      if (__all_sync(0xffffffffu, ready)) break;
+      if (clock64() - c0 > (1LL << 34)) __trap();
+      if (spin >= 16) __nanosleep(32);
+      ready = true;
+#pragma unroll
+      for (int r = 0; r < ZROWS; ++r) {
+        const int t = t0 + r * NWARPS;
+        if (static_cast<int>(wv[r] >> 32) != step)
+          wv[r] = load_word(zs + static_cast<size_t>(t) * M + j);
+      }
+    }
+    // the M values in rank order, every lane the same sums
+    const int nj = min(32, M - j0);
+    for (int jj = 0; jj < nj; ++jj) {
+#pragma unroll
+      for (int r = 0; r < ZROWS; ++r)
+        zr[r] += __uint_as_float(__shfl_sync(
+            0xffffffffu, static_cast<unsigned>(wv[r]), jj));
+    }
+  }
+}
+
+template <bool U_SMEM, bool GRID>
 __global__ void __launch_bounds__(THREADS)
 sparse_sdca_zx_kernel(const int* __restrict__ cols,
                       const float* __restrict__ vals,
@@ -203,12 +321,15 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
                       const float* __restrict__ sq,
                       const int* __restrict__ perm, float* __restrict__ u,
                       float* __restrict__ dalpha,
-                      const float* __restrict__ z0, int M, int nk, int r_loc,
+                      const float* __restrict__ z0, unsigned long long* zx,
+                      int M, int nk, int r_loc,
                       int d_loc, int B, int n_passes, float scale,
                       int loss_id, float g, int has_prox, float kappa) {
-  cg::cluster_group cluster = cg::this_cluster();
+  // z0: the cluster form's (K, M, B) prologue dots; zx: the grid form's
+  // (2, K, B, M) tagged words, zx[0] the prologue dots (written by other
+  // blocks during the launch: no __restrict__)
   extern __shared__ __align__(16) float smem[];
-  const int m = static_cast<int>(cluster.block_rank());
+  const int m = static_cast<int>(blockIdx.x) % M;   // the cluster's rank
   const int k = static_cast<int>(blockIdx.x) / M;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -230,13 +351,19 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
   float* u_km = u + km * d_loc;
   float* uu = U_SMEM ? us : u_km;                  // u as gathered/scattered
   const int total = n_passes * w.nb;
+  // grid form: this worker's slice of the exchange buffers
+  const size_t zhalf = static_cast<size_t>(gridDim.x) * B;
+  unsigned long long* zk = GRID ? zx + static_cast<size_t>(k) * M * B
+                                : nullptr;
 
   // prologue: u, block 0's partial dots at u = w, ids of blocks 0-2 and the
   // rows of blocks 0-1
   if constexpr (U_SMEM) {
     for (int j = tid; j < d_loc; j += THREADS) us[j] = u_km[j];
   }
-  for (int t = tid; t < B; t += THREADS) zb[t] = z0[km * B + t];
+  if constexpr (!GRID) {
+    for (int t = tid; t < B; t += THREADS) zb[t] = z0[km * B + t];
+  }
   w.fetch_ids(0);
   w.fetch_ids(1);
   cp_async_commit();
@@ -256,13 +383,8 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
     const float* vi = w.stage_of(step) + B * r_loc;
     const float* sc = vi + B * r_loc;
     const int zin = (step & 1) * B;
-    cluster.sync();                  // every peer's zb[step % 2] is written
-
-    // the exchanged z and the row updates: one thread per row
-    for (int t = tid; t < n; t += THREADS) {
-      float z = 0.0f;
-      for (int mm = 0; mm < M; ++mm)
-        z += cluster.map_shared_rank(zb, mm)[zin + t];
+    // the row update of row t at its exchanged z
+    auto update = [&](int t, float z) {
       const int i = id[t];
       const float dai = w.nb == 1 ? w.da_km[i] : sc[4 * B + t];
       const float delta = sdca::cd_update(loss_id, g, sc[B + t] + dai, z,
@@ -270,6 +392,26 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
                           sc[2 * B + t];
       w.da_km[i] = dai + delta;
       coef[t] = scale * delta;
+    };
+    if constexpr (GRID) {
+      // each warp waits for and sums its own rows' partials: no barrier
+      for (int t0 = warp; t0 < n; t0 += NWARPS * ZROWS) {
+        float zr[ZROWS];
+        exchange_rows(zk + (step & 1) * zhalf, t0, n, M, B, step, zr);
+#pragma unroll
+        for (int r = 0; r < ZROWS; ++r)
+          if (lane == 0 && t0 + r * NWARPS < n) update(t0 + r * NWARPS, zr[r]);
+      }
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();                // every peer's zb[step % 2] is written
+      // the exchanged z and the row updates: one thread per row
+      for (int t = tid; t < n; t += THREADS) {
+        float z = 0.0f;
+        for (int mm = 0; mm < M; ++mm)
+          z += cluster.map_shared_rank(zb, mm)[zin + t];
+        update(t, z);
+      }
     }
     __syncthreads();
 
@@ -306,24 +448,34 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           z += __shfl_xor_sync(0xffffffffu, z, o);
-        if (lane == 0) zout[t] = z;
+        if (lane == 0) {
+          if constexpr (GRID) {
+            store_word(zk + ((step + 1) & 1) * zhalf +
+                           static_cast<size_t>(t) * M + m,
+                       tagged(z, step + 1));
+          } else {
+            zout[t] = z;
+          }
+        }
       }
     }
   }
   cp_async_wait_all();
-  cluster.sync();                    // peers are done reading this zb
+  if constexpr (!GRID) {
+    cg::this_cluster().sync();       // peers are done reading this zb
+  }
   if constexpr (U_SMEM) {
     for (int j = tid; j < d_loc; j += THREADS) u_km[j] = us[j];
   }
 }
 
-template <bool U_SMEM>
+template <bool U_SMEM, bool GRID>
 cudaError_t configure(int M, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_sdca_zx_kernel<U_SMEM>,
+      sparse_sdca_zx_kernel<U_SMEM, GRID>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess && M > PORTABLE_CLUSTER)
-    err = cudaFuncSetAttribute(sparse_sdca_zx_kernel<U_SMEM>,
+  if (err == cudaSuccess && !GRID && M > PORTABLE_CLUSTER)
+    err = cudaFuncSetAttribute(sparse_sdca_zx_kernel<U_SMEM, GRID>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   return err;
@@ -346,6 +498,46 @@ cudaLaunchConfig_t config(int n_clusters, int M, size_t smem,
   return cfg;
 }
 
+// The grid form's launch: K M blocks, all resident or refused
+template <bool U_SMEM>
+cudaError_t launch_grid(const int* cols, const float* vals, const float* y,
+                        const float* alpha, const float* mask,
+                        const float* sq, const int* perm, float* u,
+                        float* dalpha, unsigned long long* z, int K, int M,
+                        int nk, int r_loc, int d_loc, int B, int n_passes,
+                        float scale, int loss_id, float g, int has_prox,
+                        float kappa, size_t smem, cudaStream_t stream) {
+  cudaError_t err = configure<U_SMEM, true>(M, smem);
+  if (err != cudaSuccess) return err;
+  const float* z0 = nullptr;          // the cluster form's prologue dots
+  void* args[] = {&cols,  &vals,  &y,     &alpha,    &mask,  &sq,
+                  &perm,  &u,     &dalpha, &z0,      &z,     &M,
+                  &nk,    &r_loc, &d_loc, &B,        &n_passes, &scale,
+                  &loss_id, &g,   &has_prox, &kappa};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(sparse_sdca_zx_kernel<U_SMEM, true>),
+      dim3(K * M), dim3(THREADS), args, smem, stream);
+}
+
+// How many blocks of the grid instance the card holds at once: blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the SMs; 0 where
+// the card takes no cooperative launch
+template <bool U_SMEM>
+cudaError_t grid_resident(size_t smem, int* out) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = configure<U_SMEM, true>(1, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sparse_sdca_zx_kernel<U_SMEM, true>, THREADS, smem);
+  if (err == cudaSuccess) *out = coop ? per_sm * sms : 0;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -359,7 +551,7 @@ extern "C" {
 int sparse_sdca_zx_launch(const int* cols, const float* vals, const float* y,
                           const float* alpha, const float* mask,
                           const float* sq, const int* perm, float* u,
-                          float* dalpha, const float* z0, int K, int M,
+                          float* dalpha, float* z0, int K, int M,
                           int nk, int r_loc, int d_loc, int B, int n_passes,
                           float scale, int loss_id, float g, int has_prox,
                           float kappa, int u_in_smem, void* stream) {
@@ -369,28 +561,67 @@ int sparse_sdca_zx_launch(const int* cols, const float* vals, const float* y,
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(
       K, M, smem, static_cast<cudaStream_t>(stream), &attr);
+  unsigned long long* none = nullptr;   // the grid form's words
   cudaError_t err;
   if (u_in_smem) {
-    err = configure<true>(M, smem);
+    err = configure<true, false>(M, smem);
     if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<true>, cols, vals,
-                               y, alpha, mask, sq, perm, u, dalpha, z0, M,
-                               nk, r_loc, d_loc, B, n_passes, scale, loss_id,
-                               g, has_prox, kappa);
+      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<true, false>,
+                               cols, vals, y, alpha, mask, sq, perm, u,
+                               dalpha, z0, none, M, nk, r_loc, d_loc, B,
+                               n_passes, scale, loss_id, g, has_prox, kappa);
   } else {
-    err = configure<false>(M, smem);
+    err = configure<false, false>(M, smem);
     if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<false>, cols,
-                               vals, y, alpha, mask, sq, perm, u, dalpha, z0,
-                               M, nk, r_loc, d_loc, B, n_passes, scale,
-                               loss_id, g, has_prox, kappa);
+      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<false, false>,
+                               cols, vals, y, alpha, mask, sq, perm, u,
+                               dalpha, z0, none, M, nk, r_loc, d_loc, B,
+                               n_passes, scale, loss_id, g, has_prox, kappa);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Run one round in one cooperative launch of K M blocks on `stream` (the
+// grid form): u and dalpha as above; z (2, K, B, M) 64-bit words, z[0]
+// block 0's partial dots at u = w with tag 0 (the float's bits in the low
+// half, the high half 0), z[1] zeroed. The launch is refused (an error,
+// never another form) where the card cannot hold all K M blocks at once.
+// Returns the cudaError_t (0 = ok).
+int sparse_sdca_zx_grid_launch(const int* cols, const float* vals,
+                               const float* y, const float* alpha,
+                               const float* mask, const float* sq,
+                               const int* perm, float* u, float* dalpha,
+                               unsigned long long* z, int K, int M, int nk,
+                               int r_loc, int d_loc, int B, int n_passes,
+                               float scale, int loss_id, float g,
+                               int has_prox, float kappa, int u_in_smem,
+                               void* stream) {
+  // the tags count the round's steps
+  if (K < 1 || M < 1 || nk < 1 || B < 1 || n_passes < 0 ||
+      static_cast<long long>(n_passes) * ((nk + B - 1) / B) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(B, r_loc, d_loc, u_in_smem != 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      u_in_smem
+          ? launch_grid<true>(cols, vals, y, alpha, mask, sq, perm, u,
+                              dalpha, z, K, M, nk, r_loc, d_loc, B,
+                              n_passes, scale, loss_id, g, has_prox, kappa,
+                              smem, s)
+          : launch_grid<false>(cols, vals, y, alpha, mask, sq, perm, u,
+                               dalpha, z, K, M, nk, r_loc, d_loc,
+                               B, n_passes, scale, loss_id, g, has_prox,
+                               kappa, smem, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // a refused launch is not left for the next one
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Dynamic shared memory of one block, in bytes (the wrapper's smem_budget
-// must agree).
+// must agree; the grid form's layout is the same).
 long long sparse_sdca_zx_smem_bytes(int B, int r_loc, int d_loc,
                                     int u_in_smem) {
   return static_cast<long long>(smem_bytes(B, r_loc, d_loc, u_in_smem != 0));
@@ -408,19 +639,32 @@ int sparse_sdca_zx_max_clusters(int M, int B, int r_loc, int d_loc,
   const cudaLaunchConfig_t cfg = config(1, M, smem, nullptr, &attr);
   cudaError_t err;
   if (u_in_smem) {
-    err = configure<true>(M, smem);
+    err = configure<true, false>(M, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveClusters(
-          out, reinterpret_cast<const void*>(sparse_sdca_zx_kernel<true>),
+          out,
+          reinterpret_cast<const void*>(sparse_sdca_zx_kernel<true, false>),
           &cfg);
   } else {
-    err = configure<false>(M, smem);
+    err = configure<false, false>(M, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveClusters(
-          out, reinterpret_cast<const void*>(sparse_sdca_zx_kernel<false>),
+          out,
+          reinterpret_cast<const void*>(sparse_sdca_zx_kernel<false, false>),
           &cfg);
   }
   return static_cast<int>(err);
+}
+
+// How many blocks of the grid form's instance the card holds at once (its
+// blocks an SM times the SMs; 0 without cooperative launches) into *out:
+// the grid form runs where K M blocks fit. Returns the cudaError_t (0 = ok).
+int sparse_sdca_zx_grid_resident(int B, int r_loc, int d_loc, int u_in_smem,
+                                 int* out) {
+  *out = 0;
+  const size_t smem = smem_bytes(B, r_loc, d_loc, u_in_smem != 0);
+  return static_cast<int>(u_in_smem ? grid_resident<true>(smem, out)
+                                    : grid_resident<false>(smem, out));
 }
 
 const char* sparse_sdca_zx_error_string(int code) {

@@ -31,13 +31,16 @@ from ..core.losses import Loss
 from ..core.regularizers import L2, Regularizer
 from ..core.solvers import SDCAResult
 from .autotune import resolve_sparse_config
+from . import sparse_sdca
 from .local_sdca import local_sdca
 from .sparse_sdca import ZX_MAX_CLUSTER, sparse_local_sdca, \
     sparse_local_sdca_zx, zx_exchanges
 
 # The launch the sparse dispatch last ran: {"block_rows", "buffer_depth",
 # "source", "clamped", "model_shards", "prox_fused", "zx"} (the reference's
-# keys but its TPU-only "slot_unroll"). block_rows is the value after the
+# keys but its TPU-only "slot_unroll") and "form", the zx schedule's form
+# (`sparse_sdca.zx_launch_plan`'s "cluster", "grid" or "block", "plain" on
+# the CPU; None for the 1-D walk). block_rows is the value after the
 # clamp to the shard (what the zx schedule ran with; the 1-D kernel walks
 # row by row and only records it); buffer_depth is the ring the 1-D kernel
 # ran with, after its clamp to nk.
@@ -88,17 +91,21 @@ def round_libraries(solver: str, model_shards: int = 1,
                     processes: bool = False) -> tuple:
     """The kernel libraries (`build.KERNELS` names) a round of `solver`
     launches: the dense walk, the 1-D sparse walk, or on a feature-sharded
-    mesh the z-exchange cluster kernel (one card, M <= 16) or its
-    per-block kernel (larger M, or a process mesh); none for the eager
-    solvers."""
+    mesh the z-exchange forms of `sparse_sdca.zx_launch_plan` -- on one
+    card the cluster kernel (M <= 16), past that either its grid form
+    (same library) or the per-block kernel, as the card's occupancy query
+    decides at the launch; on a process mesh the per-block kernel. None
+    for the eager solvers."""
     if solver == "sdca_kernel":
         return ("local_sdca",)
     if solver == "sdca_sparse_kernel":
         if model_shards == 1:
             return ("sparse_sdca_pipelined",)
-        if processes or model_shards > ZX_MAX_CLUSTER:
+        if processes:
             return ("sparse_sdca_zx_block",)
-        return ("sparse_sdca_zx",)
+        if model_shards <= ZX_MAX_CLUSTER:
+            return ("sparse_sdca_zx",)
+        return ("sparse_sdca_zx", "sparse_sdca_zx_block")
     return ()
 
 
@@ -173,7 +180,7 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
                           "clamped": br != cfg["block_rows"],
                           "model_shards": M_mesh,
                           "prox_fused": kappa is not None,
-                          "zx": use_zx}
+                          "zx": use_zx, "form": None}
     w_in = (v if kappa is not None else reg.conj_grad(v, lam)
             ).float().contiguous()
     n_passes = n_passes_of(H, nk)
@@ -189,6 +196,7 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
             sqnorms.float().contiguous(), order, loss=loss,
             n_passes=n_passes, block_rows=br, prox_kappa=kappa,
             model_sum=model_sum)
+        LAST_SPARSE_CONFIG["form"] = sparse_sdca.LAST_ZX_FORM
     else:
         if sharded:
             cols, vals = cols[:, 0], vals[:, 0]

@@ -14,27 +14,35 @@ duplicate column ids in a row all land. With the prox fused the caller
 passes w = v, so u lives in v-space; du = u - w = scale * A_[k] dalpha.
 Every depth walks the same visit order and gives the same results. u sits
 in shared memory where it fits beside the ring (`smem_budget`), else in
-device memory: the kernel takes any width d whose ring fits.
+device memory: the kernel takes any width d whose ring fits. There each
+lane's gathers of a row go out together (`device_u_walk(r_max)`: the
+registers a lane gathers into, and two walk warps for rows past 128
+slots).
 
 `sparse_local_sdca_zx` replaces `_sparse_sdca_zx_kernel`: the z-exchange
 schedule of a feature-sharded (data=K, model=M) mesh. Each invocation
 walks one block of `block_rows` rows of the visit order against the
 exchanged (model-summed) partial dots, with q from the global row norms,
-then emits the next block's partial dots at the updated u. Two forms
+then emits the next block's partial dots at the updated u. Three forms
 (`zx_launch_plan`): on one card a round is one launch of K thread-block
-clusters of M blocks where such a cluster fits (M <= 16); otherwise --
-larger M, a cluster the card cannot hold, and every process mesh (each
-rank one block, the exchange an all_reduce over its model column) -- one
-launch per invocation of the per-block kernel, the reference's own
-granularity, with the exchange between launches.
+clusters of M blocks where such a cluster fits (M <= 16); past that, one
+cooperative launch of K M persistent blocks exchanging tagged partial
+dots through device memory (the grid form, in the same source) where the
+card holds them all at once; otherwise -- a grid the card cannot hold,
+and every process mesh (each rank one block, the exchange an all_reduce
+over its model column) -- one launch per invocation of the per-block
+kernel, the reference's own granularity, with the exchange between
+launches.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors. `LAUNCHES` counts the 1-D kernel's launches at
 depth 1 (the counterpart of `_sparse_sdca_kernel`), `PIPELINED_LAUNCHES`
 those at depth >= 2, `DEVICE_U_LAUNCHES` those of either depth that held u
 in device memory, `ZX_LAUNCHES` the cluster kernel's (one a round: the
-round's invocations run inside it), `ZX_BLOCK_LAUNCHES` the per-block
-kernel's (one an invocation) and `ZX_STEPS` the invocations of both.
+round's invocations run inside it), `ZX_GRID_LAUNCHES` the grid form's
+(one a round), `ZX_BLOCK_LAUNCHES` the per-block kernel's (one an
+invocation) and `ZX_STEPS` the invocations of all three. `LAST_ZX_FORM`
+names the form the last zx call ran ("plain" on the CPU).
 """
 from __future__ import annotations
 
@@ -52,12 +60,17 @@ LAUNCHES = 0                # csrc/sparse_sdca_pipelined.cu at depth 1
 PIPELINED_LAUNCHES = 0      # the same kernel at depth >= 2
 DEVICE_U_LAUNCHES = 0       # either, with u in device memory
 ZX_LAUNCHES = 0             # csrc/sparse_sdca_zx.cu, one per round
+ZX_GRID_LAUNCHES = 0        # its grid form, one per round
 ZX_BLOCK_LAUNCHES = 0       # csrc/sparse_sdca_zx_block.cu, one per step
 ZX_STEPS = 0                # the invocations (blocks of rows) they ran
 MAX_DEPTH = 8               # ring stages the 1-D kernel is built for
 STAGE_SCALARS = 8           # words of a 1-D ring stage after cols and vals
 ZX_MAX_CLUSTER = 16         # with the non-portable cluster-size attribute
+# the device-u walk's instances, (walk warps, SLOTS), in the order the
+# wrapper tries them: one warp up to 128 slots a row, two past that
+DEVICE_U_WALKS = ((1, 4), (2, 8), (2, 16))
 ZX_ID_SLOTS, ZX_SCALARS = 4, 5   # ID_SLOTS, SCALARS in the .cu
+LAST_ZX_FORM = None         # "cluster", "grid", "block" or "plain"
 
 
 def stage_row_words(r_max: int) -> int:
@@ -65,6 +78,17 @@ def stage_row_words(r_max: int) -> int:
     and up to 3 words before it, from its 16-byte chunk on, rounded up to
     16 bytes (`row_words` in csrc/sparse_sdca_pipelined.cu)."""
     return (r_max + 6) // 4 * 4
+
+
+def device_u_walk(r_max: int) -> tuple:
+    """(walk warps, SLOTS) of the 1-D walk with u in device memory: the
+    first of `DEVICE_U_WALKS` whose warps' registers hold the row (one
+    warp of 4 a lane up to 128 slots, two of 8 up to 512, two of 16 up
+    to 1,024), else the last, whose batches then walk the rest
+    (csrc/sparse_sdca_pipelined.cu, whose note gives the times that
+    chose these instances)."""
+    return next((w for w in DEVICE_U_WALKS if 32 * w[0] * w[1] >= r_max),
+                DEVICE_U_WALKS[-1])
 
 
 def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
@@ -214,6 +238,7 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
         int(prox_kappa is not None),
         float(prox_kappa) if prox_kappa is not None else 0.0,
         depth, int(budget["u_in_smem"]),
+        *((4, 1) if budget["u_in_smem"] else device_u_walk(r_max)[::-1]),
         torch.cuda.current_stream(vals.device).cuda_stream)
     build.check(lib, "sparse_sdca_pipelined", code)
     global LAUNCHES, PIPELINED_LAUNCHES, DEVICE_U_LAUNCHES
@@ -244,26 +269,33 @@ def zx_block_smem_bytes(B: int) -> int:
 
 
 def zx_launch_plan(K: int, M: int, nk: int, d_loc: int, B: int, *,
-                   r_loc: int, n_passes: int = 1,
-                   cluster: bool = True) -> dict:
-    """How a zx round runs on the card -- shape arithmetic only. `form`
-    "cluster": one launch (`launches` 1) of K thread-block clusters of
-    `cluster` (M) blocks, `steps` invocations inside it, with `u_in_smem`,
-    `smem_bytes` and `fits` from `smem_budget(zx=True)`. `form` "block":
-    one launch of the per-block kernel per invocation (`launches` =
-    `steps`), u in device memory; taken for M above 16, when the cluster
-    form's shared memory does not fit, and when `cluster` is False (a
-    cluster the card cannot hold, or a process mesh). Raises ValueError
-    only for M < 1."""
+                   r_loc: int, n_passes: int = 1, cluster: bool = True,
+                   resident: int = 0) -> dict:
+    """How a zx round runs on the card -- shape arithmetic only; what the
+    card holds comes in as arguments. `form` "cluster": one launch
+    (`launches` 1) of K thread-block clusters of `cluster` (M) blocks,
+    `steps` invocations inside it, with `u_in_smem`, `smem_bytes` and
+    `fits` from `smem_budget(zx=True)`; taken for M <= 16 unless `cluster`
+    is False (a cluster the card cannot hold, or a process mesh). `form`
+    "grid": one cooperative launch of K M blocks (`cluster` 1), the same
+    shared memory; taken otherwise when all K M blocks are `resident` (the
+    blocks of the instance the card holds at once, from
+    `_zx_grid_resident`; 0, the default, on a process mesh). `form`
+    "block": one launch of the per-block kernel per invocation
+    (`launches` = `steps`), u in device memory; taken where neither fits.
+    Raises ValueError only for M < 1."""
     if M < 1:
         raise ValueError(f"the zx round needs M >= 1 model shards, got {M}")
     steps = n_passes * (-(-nk // B))
-    if cluster and M <= ZX_MAX_CLUSTER:
-        budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
-        if budget["fits"]:
-            return dict(form="cluster", launches=1, cluster=M, steps=steps,
-                        u_in_smem=budget["u_in_smem"],
-                        smem_bytes=budget["total_bytes"], fits=True)
+    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
+    if budget["fits"] and cluster and M <= ZX_MAX_CLUSTER:
+        return dict(form="cluster", launches=1, cluster=M, steps=steps,
+                    u_in_smem=budget["u_in_smem"],
+                    smem_bytes=budget["total_bytes"], fits=True)
+    if budget["fits"] and K * M <= resident:
+        return dict(form="grid", launches=1, cluster=1, steps=steps,
+                    u_in_smem=budget["u_in_smem"],
+                    smem_bytes=budget["total_bytes"], fits=True)
     smem = zx_block_smem_bytes(B)
     return dict(form="block", launches=steps, cluster=1, steps=steps,
                 u_in_smem=False, smem_bytes=smem,
@@ -277,6 +309,18 @@ def _zx_clusters_fit(lib, M: int, B: int, r_loc: int, d_loc: int,
     out = ctypes.c_int(0)
     code = lib.sparse_sdca_zx_max_clusters(M, B, r_loc, d_loc,
                                            int(u_in_smem), ctypes.byref(out))
+    build.check(lib, "sparse_sdca_zx", code)
+    return out.value
+
+
+def _zx_grid_resident(lib, B: int, r_loc: int, d_loc: int,
+                      u_in_smem: bool) -> int:
+    """How many blocks of the grid form's instance the card holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs; 0 where
+    it takes no cooperative launch): the grid form needs K M of them."""
+    out = ctypes.c_int(0)
+    code = lib.sparse_sdca_zx_grid_resident(B, r_loc, d_loc, int(u_in_smem),
+                                            ctypes.byref(out))
     build.check(lib, "sparse_sdca_zx", code)
     return out.value
 
@@ -409,9 +453,12 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
                          prox_kappa: Optional[float] = None,
                          model_sum: Optional[Callable] = None):
     """One round of the z-exchange schedule for all K workers and M model
-    shards: on CUDA tensors the form `zx_launch_plan` picks -- one launch
-    of the cluster kernel, or one launch of the per-block kernel per
-    invocation -- on CPU tensors the plain version (any M).
+    shards: on CUDA tensors the form `zx_launch_plan` picks from the
+    shapes and the card's occupancy queries, before anything launches --
+    one launch of the cluster kernel, one cooperative launch of its grid
+    form, or one launch of the per-block kernel per invocation (a launch
+    the card refuses raises; no form stands in for another) -- on CPU
+    tensors the plain version (any M).
 
     cols/vals (K, M, nk, r_loc) with shard-local ids (a `FeatureShards`);
     y, alpha, mask (K, nk) f32; w the padded (M d_local,) f32 vector;
@@ -433,7 +480,9 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
     if model_sum is not None and (K, M) != (1, 1):
         raise ValueError(f"a process mesh's rank holds one block, K = M = "
                          f"1, got K={K}, M={M}")
+    global LAST_ZX_FORM
     if dev.type == "cpu":
+        LAST_ZX_FORM = "plain"
         return sparse_local_sdca_zx_plain(
             cols, vals, y, alpha, mask, w, scale, sqnorms, perm, loss=loss,
             n_passes=n_passes, block_rows=block_rows, prox_kappa=prox_kappa,
@@ -455,20 +504,28 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
         dalpha = _zx_rank_round(cols, vals, y, alpha, mask, sqnorms, perm, u,
                                 z0, model_sum, B, int(n_passes), scale, loss,
                                 prox_kappa)
+        LAST_ZX_FORM = "block"
         return dalpha, (u - w3).reshape(K, M * d_loc)
+    # what the card holds: clusters of M blocks, else K M resident blocks
+    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
+    lib = build.load("sparse_sdca_zx")
+    clusters = resident = 0
+    if budget["fits"]:
+        if M <= ZX_MAX_CLUSTER:
+            clusters = _zx_clusters_fit(lib, M, B, r_loc, d_loc,
+                                        budget["u_in_smem"])
+        if clusters < 1:
+            resident = _zx_grid_resident(lib, B, r_loc, d_loc,
+                                         budget["u_in_smem"])
     plan = zx_launch_plan(K, M, nk, d_loc, B, r_loc=r_loc,
-                          n_passes=int(n_passes))
-    if plan["form"] == "cluster":
-        lib = build.load("sparse_sdca_zx")
-        if _zx_clusters_fit(lib, M, B, r_loc, d_loc, plan["u_in_smem"]) < 1:
-            plan = zx_launch_plan(K, M, nk, d_loc, B, r_loc=r_loc,
-                                  n_passes=int(n_passes), cluster=False)
+                          n_passes=int(n_passes), cluster=clusters >= 1,
+                          resident=resident)
     _fits(plan, B)
     dalpha = torch.zeros((K, M, nk), dtype=torch.float32, device=dev)
     kappa = (int(prox_kappa is not None),
              float(prox_kappa) if prox_kappa is not None else 0.0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    global ZX_LAUNCHES, ZX_BLOCK_LAUNCHES, ZX_STEPS
+    global ZX_LAUNCHES, ZX_GRID_LAUNCHES, ZX_BLOCK_LAUNCHES, ZX_STEPS
     if plan["form"] == "cluster":
         code = lib.sparse_sdca_zx_launch(
             cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
@@ -478,6 +535,20 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
             float(scale), lid, g, *kappa, int(plan["u_in_smem"]), stream)
         build.check(lib, "sparse_sdca_zx", code)
         ZX_LAUNCHES += 1
+    elif plan["form"] == "grid":
+        # the exchange's tagged words, (2, K, B, M): a row's M partials
+        # side by side, the float's bits beside step 0's tag 0
+        z = torch.zeros((2, K, B, M), dtype=torch.int64, device=dev)
+        z[0] = (z0.view(torch.int32).to(torch.int64)
+                & 0xFFFFFFFF).transpose(1, 2)
+        code = lib.sparse_sdca_zx_grid_launch(
+            cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
+            alpha.data_ptr(), mask.data_ptr(), sqnorms.data_ptr(),
+            perm.data_ptr(), u.data_ptr(), dalpha.data_ptr(), z.data_ptr(),
+            K, M, nk, r_loc, d_loc, B, int(n_passes), float(scale), lid, g,
+            *kappa, int(plan["u_in_smem"]), stream)
+        build.check(lib, "sparse_sdca_zx", code)
+        ZX_GRID_LAUNCHES += 1
     else:
         lib = build.load("sparse_sdca_zx_block")
         z = torch.stack([z0, torch.zeros_like(z0)])
@@ -490,6 +561,7 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
         build.check(lib, "sparse_sdca_zx_block", code)
         ZX_BLOCK_LAUNCHES += plan["launches"]
     ZX_STEPS += plan["steps"]
+    LAST_ZX_FORM = plan["form"]
     return dalpha[:, 0].contiguous(), (u - w3).reshape(K, M * d_loc)
 
 

@@ -7,8 +7,10 @@ only a ring that does not fit is refused; its plain version at d = 65,536
 is held to the reference's `sparse_local_sdca` in interpret mode (rtol
 1e-5, atol 1e-6, tests/test_torch_sparse_pipeline.py's tolerance).
 
-The z-exchange round beyond one cluster and across processes runs one
-launch per invocation (`zx_launch_plan`'s "block" form). Its plain
+The z-exchange round beyond one cluster runs as one cooperative launch
+where the card holds its K M blocks (`zx_launch_plan`'s "grid" form,
+tests/test_torch_zx_grid.py), else, and across processes, one launch per
+invocation (the "block" form). Its plain
 version is that form's host loop (`zx_block_loop`) over the plain
 per-block step: held at M = 17 and 32 to the reference's zx round
 (tests/test_torch_mesh2d.py's inputs and tolerance, which also holds it
@@ -17,8 +19,9 @@ ranks against the one-process 2 x 2 mesh, gap per round within 1e-6; a
 rank's block priced (`obs.cost.round_stats`) as its own zx round.
 
 The `cuda` tests hold the device-memory instance of the 1-D kernel and
-the per-block kernel to their plain versions, and the per-block kernel
-to the cluster kernel; run them on the card with
+the per-block kernel (the grid's occupancy query read as 0) to their
+plain versions, and the per-block kernel to the cluster kernel; run them
+on the card with
 `python -m pytest -q -m cuda tests/test_torch_kernel_reach.py`.
 """
 import numpy as np
@@ -99,6 +102,44 @@ def test_dispatch_at_news_width_runs_the_1d_walk():
     assert ops.LAST_SPARSE_CONFIG["zx"] is False
     assert res.du.shape == (K, NEWS_SPARSE_D)
     assert torch.isfinite(res.du).all() and res.du.abs().sum() > 0
+
+
+@pytest.mark.parametrize("r_max", [549, 1_100])
+def test_plain_walk_at_wide_rows_matches_reference(r_max):
+    """Rows of news20's r_max (549: two walk warps of 16 registers a lane,
+    9 slots a lane) and of 1,100 (18 slots a lane: 16, then a second
+    batch) at d = 65,536, duplicate ids and column 0 next to padding: the
+    plain version the card's walk is held to, against the reference's
+    kernel."""
+    rng = np.random.default_rng(r_max)
+    K, nk, d = 2, 12, NEWS_SPARSE_D
+    cols, vals, _ = tp.ell_block(rng, K, nk, d, r_max)
+    y = np.where(rng.random((K, nk)) < 0.5, -1.0, 1.0).astype(np.float32)
+    alpha = (y * rng.random((K, nk)) * 0.5).astype(np.float32)
+    mask = np.ones((K, nk), np.float32)
+    w = (0.3 * rng.standard_normal(d)).astype(np.float32)
+    perm = np.stack([rng.permutation(nk) for _ in range(K)]).astype(np.int32)
+    das, dus = [], []
+    for k in range(K):
+        p = perm[k]
+        da_p, du = ref_sparse(*(jnp.asarray(a[k][p])
+                                for a in (cols, vals, y, alpha, mask)),
+                              jnp.asarray(w), 0.4,
+                              loss=ref_get_loss("hinge"), n_passes=2,
+                              block_rows=4, buffer_depth=1, prox_kappa=0.05,
+                              interpret=True)
+        da = np.zeros(nk, np.float32)
+        da[p] = np.asarray(da_p)
+        das.append(da)
+        dus.append(np.asarray(du))
+    t = [torch.from_numpy(a) for a in (cols, vals, y, alpha, mask, w)]
+    got = sk.sparse_local_sdca(*t, 0.4, torch.from_numpy(perm),
+                               loss=get_loss("hinge"), n_passes=2,
+                               prox_kappa=0.05, buffer_depth=4)
+    np.testing.assert_allclose(got[0].numpy(), np.stack(das), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got[1].numpy(), np.stack(dus), rtol=1e-5,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("kappa,depth,n_passes", [(None, 1, 1), (0.3, 4, 2),
@@ -295,14 +336,16 @@ def _zx_case(card, M, seed, K=3, nk=203, d_loc=600, r=24):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [2, 4])
 def test_cuda_zx_block_matches_cluster(card, M, monkeypatch):
-    """The per-block kernel (a cluster the card cannot hold, here made so)
-    against the cluster kernel on the same inputs, two passes, B = 16 with
-    a ragged last block (rtol 1e-4, atol 1e-5)."""
+    """The per-block kernel (a cluster the card cannot hold and no
+    resident grid, here made so) against the cluster kernel on the same
+    inputs, two passes, B = 16 with a ragged last block (rtol 1e-4, atol
+    1e-5)."""
     ins = _zx_case(card, M, 40 + M)
     kw = dict(loss=get_loss("smooth_hinge"), n_passes=2, block_rows=16,
               prox_kappa=0.2)
     fused = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
     monkeypatch.setattr(sk, "_zx_clusters_fit", lambda *a: 0)
+    monkeypatch.setattr(sk, "_zx_grid_resident", lambda *a: 0)
     before = (sk.ZX_LAUNCHES, sk.ZX_BLOCK_LAUNCHES, sk.ZX_STEPS)
     block = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
     steps = 2 * -(-203 // 16)
@@ -317,7 +360,11 @@ def test_cuda_zx_block_matches_cluster(card, M, monkeypatch):
 @pytest.mark.parametrize("M", [17, 32])
 @pytest.mark.parametrize("B,kappa,n_passes", [(16, None, 2), (1, 0.3, 1),
                                               (128, 0.3, 3)])
-def test_cuda_zx_block_matches_plain(card, M, B, kappa, n_passes):
+def test_cuda_zx_block_matches_plain(card, M, B, kappa, n_passes,
+                                    monkeypatch):
+    """The per-block kernel (the grid's occupancy query read as 0, so the
+    plan takes it) against the plain version."""
+    monkeypatch.setattr(sk, "_zx_grid_resident", lambda *a: 0)
     ins = _zx_case(card, M, M + B)
     for loss_name in ("hinge", "squared"):
         kw = dict(loss=get_loss(loss_name), n_passes=n_passes, block_rows=B,

@@ -626,8 +626,9 @@ def test_cuda_zx_kernel_with_u_in_device_memory(card, M, B, kappa, n_passes):
 def test_cuda_zx_cluster_limits_and_layout(card):
     """The library's shared-memory layout is `smem_budget`'s; M = 16 runs
     the cluster kernel where the card holds the cluster; M = 17, and a
-    cluster the card cannot hold, run the per-block kernel, one launch an
-    invocation; both against the plain version."""
+    cluster the card cannot hold, run the grid form (one cooperative
+    launch) where the card holds the K M blocks, else the per-block
+    kernel, one launch an invocation; each against the plain version."""
     from repro_torch.kernels import build
     lib = build.load("sparse_sdca_zx")
     for B, r, d_loc in ((16, 70, 23_618), (1, 24, 600), (128, 24, 65_536)):
@@ -640,11 +641,13 @@ def test_cuda_zx_cluster_limits_and_layout(card):
                for a in _zx_inputs(rng, 1, M, 40, 30, 4)]
         kw = dict(loss=get_loss("hinge"), block_rows=8)
         cluster = M <= 16 and sk._zx_clusters_fit(lib, M, 8, 4, 30, True) > 0
-        before = (sk.ZX_LAUNCHES, sk.ZX_BLOCK_LAUNCHES)
+        grid = not cluster and sk._zx_grid_resident(lib, 8, 4, 30, True) >= M
+        before = (sk.ZX_LAUNCHES, sk.ZX_GRID_LAUNCHES, sk.ZX_BLOCK_LAUNCHES)
         got = sk.sparse_local_sdca_zx(*ins[:6], 0.5, *ins[6:], **kw)
-        assert (sk.ZX_LAUNCHES, sk.ZX_BLOCK_LAUNCHES) == (
-            (before[0] + 1, before[1]) if cluster
-            else (before[0], before[1] + 5))          # ceil(40 / 8) steps
+        assert (sk.ZX_LAUNCHES, sk.ZX_GRID_LAUNCHES, sk.ZX_BLOCK_LAUNCHES) == (
+            (before[0] + 1, before[1], before[2]) if cluster
+            else (before[0], before[1] + 1, before[2]) if grid
+            else (before[0], before[1], before[2] + 5))  # ceil(40 / 8) steps
         want = sk.sparse_local_sdca_zx_plain(*ins[:6], 0.5, *ins[6:], **kw)
         torch.cuda.synchronize()
         for g, p in zip(got, want):

@@ -2,6 +2,7 @@
 """Both LocalSDCA walks timed for any checkout, on the card.
 
     python3 tools/walk_times.py [--src PATH] [--label NAME]
+                                [--parts sparse,dense,zx,wide]
 
 Needs one NVIDIA card and nvcc. Imports `repro_torch` from --src (default
 this checkout's src/; another checkout's src/ times that checkout's
@@ -16,7 +17,24 @@ warm-up), on round-1 inputs (alpha = 0, w = 0, one pass, hinge):
   * the dense walk at d = 20,000, K = 8, nk = 5,000 (3.2 GB of X, as
     epsilon's), at the wrapper's default: there the windows of 8 rows are
     cut into column tiles. Held to the plain version with chip_smoke.py's
-    tolerance, its absolute part scaled by the walk's length.
+    tolerance, its absolute part scaled by the walk's length;
+  * with `zx`, the z-exchange round at rcv1's shape as FeatureShards of
+    4 x 2 and 4 x 32 (chip_smoke.py phases 12 and 28, B = 16) in each form
+    the checkout has ("cluster" at M <= 16, "grid" where the checkout
+    has it, "block"), forced by reading the card's fits as 0;
+  * with `wide`, the 1-D walk with u in device memory at news_sparse's
+    and news20.binary's shapes (phase 28, K = 4, lambda = 1e-4) at depths
+    4 and 1;
+  * with `slots`, that walk at news20's width and rows (19,996 x
+    1,355,191, K = 4) at densities whose r_max is 170, 250, 374, 496 and
+    549 (news20's) at seed 0, at depth 4 in each (walk warps, SLOTS)
+    instance the checkout builds (`DEVICE_U_WALKS`; one walk warp only up
+    to 256 slots), forced in turns; each instance's results against the
+    first's, the wrapper's pick;
+  * with `mesh`, chip_smoke.py phase 28's 2 x 2 process mesh (the
+    rcv1_sparse stand-in, 4 gloo ranks, the per-block kernel) against
+    its one-process run (the cluster kernel), `--mesh-reps` times: the
+    ranks' gaps' max rel diff to the one-process run's, run by run.
 
 Prints ms a call and us a step, and one JSON line.
 """
@@ -38,7 +56,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--parts", default="sparse,dense",
+                    help="comma-separated: sparse, dense, zx, wide, slots, "
+                         "mesh")
+    ap.add_argument("--mesh-reps", type=int, default=2)
     args = ap.parse_args()
+    parts = args.parts.split(",")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -47,7 +70,7 @@ def main():
     import chip_smoke as cs
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     from repro_torch.core.losses import get_loss
-    from repro_torch.data import make_sparse_classification, partition_sparse
+    from repro_torch.data import make_sparse_classification
     from repro_torch.kernels import local_sdca as dk, sparse_sdca as sk
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -56,17 +79,166 @@ def main():
     hinge = get_loss("hinge")
     rng = np.random.default_rng(SEED)
 
-    csr, y = make_sparse_classification(677_399, 47_236, density=0.0016,
-                                        seed=SEED)
+    out = {"label": args.label, "device": smi}
+    csr = y = None
+    if "zx" in parts or "sparse" in parts:
+        csr, y = make_sparse_classification(677_399, 47_236, density=0.0016,
+                                            seed=SEED)
+    if "zx" in parts:
+        out["zx_ms"] = zx_forms(cs, sk, csr, y, dev, hinge, rng)
+        log(f"[walk times] {args.label}: zx ms a round by form "
+            f"{out['zx_ms']}")
+    if "wide" in parts:
+        out["wide_ms"] = wide_walks(cs, sk, dev, hinge, rng)
+        log(f"[walk times] {args.label}: the device-u walk ms a call "
+            f"{out['wide_ms']}")
+    if "slots" in parts:
+        out["slots_ms"] = slot_instances(cs, sk, dev, hinge, rng)
+    if "mesh" in parts:
+        out["mesh_rel"] = [cs._reach_ranks(dev)["rel"]
+                           for _ in range(args.mesh_reps)]
+        log(f"[walk times] {args.label}: the 2 x 2 process mesh's gaps, "
+            f"max rel diff to one process, run by run {out['mesh_rel']}")
+    if "sparse" in parts:
+        sparse(args, cs, sk, csr, y, dev, hinge, rng, smi, out)
+    del csr, y
+    if "dense" in parts:
+        dense(args, cs, dk, dev, hinge, rng, smi, out)
+    print(json.dumps(out))
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def zx_forms(cs, sk, csr, y, dev, hinge, rng):
+    """ms a round of each zx form at 4 x 2 and 4 x 32, in turns."""
+    import torch
+    from repro_torch.data.sparse import row_sqnorms, shard_features_streaming
+    got = {}
+    for K, M in ((4, 2), (4, 32)):
+        fs, yz, mz = shard_features_streaming([(csr, y)], K, M,
+                                              n_features=csr.shape[1],
+                                              device=dev)
+        nk = fs.cols.shape[2]
+        args = (fs.cols, fs.vals, yz, torch.zeros((K, nk), device=dev), mz,
+                torch.zeros(M * fs.d_local, device=dev),
+                K / (1e-6 * 677_399), (row_sqnorms(fs) * mz).contiguous(),
+                torch.from_numpy(cs._perm(rng, K, nk)).to(dev))
+        forms = (["cluster"] if M <= sk.ZX_MAX_CLUSTER else []) + (
+            ["grid"] if hasattr(sk, "_zx_grid_resident") else []) + ["block"]
+
+        def call(form):
+            real = (sk._zx_clusters_fit, getattr(sk, "_zx_grid_resident",
+                                                 None))
+            if form != "cluster":
+                sk._zx_clusters_fit = lambda *a: 0
+            if form == "block" and real[1] is not None:
+                sk._zx_grid_resident = lambda *a: 0
+            try:
+                res = sk.sparse_local_sdca_zx(*args, loss=hinge,
+                                              block_rows=16)
+            finally:
+                sk._zx_clusters_fit = real[0]
+                if real[1] is not None:
+                    sk._zx_grid_resident = real[1]
+            if getattr(sk, "LAST_ZX_FORM", form) != form:
+                raise SystemExit(f"walk_times: asked for the {form} form, "
+                                 f"ran {sk.LAST_ZX_FORM}")
+            return res
+
+        ms, _ = cs._in_turns(forms, call)
+        got[f"{K}x{M}"] = ms
+        del fs, args
+    return got
+
+
+def wide_walks(cs, sk, dev, hinge, rng):
+    """ms a call of the 1-D walk with u in device memory at news_sparse's
+    and news20's shapes, depths 4 and 1 in turns."""
+    import torch
+    from repro_torch.data import make_sparse_classification, partition_sparse
+    got = {}
+    for name, (n, d, density) in (("news_sparse", (8_192, 65_536, 5e-4)),
+                                  ("news20", cs.NEWS20)):
+        csr, y = make_sparse_classification(n, d, density=density, seed=SEED)
+        sh, yp, mk = partition_sparse(csr, y, cs.REACH_K, device=dev)
+        K, nk, _ = sh.cols.shape
+        args = (sh.cols, sh.vals, yp, torch.zeros((K, nk), device=dev), mk,
+                torch.zeros(d, device=dev), K / (cs.REACH_LAM * n),
+                torch.from_numpy(cs._perm(rng, K, nk)).to(dev))
+        ms, _ = cs._in_turns((4, 1), lambda depth: sk.sparse_local_sdca(
+            *args, loss=hinge, buffer_depth=depth), reps=2)
+        got[name] = ms
+    return got
+
+
+# r_max 170, 250, 374, 496 and news20's 549 at seed 0
+SLOT_DENSITIES = (0.9e-4, 1.4e-4, 2.2e-4, 3.0e-4, 3.36e-4)
+
+
+def slot_instances(cs, sk, dev, hinge, rng):
+    """ms a call of the device-u walk at depth 4 in each (walk warps,
+    SLOTS) instance at r_max 170 to 549, forced through `device_u_walk`,
+    in turns; each instance's (dalpha, du) max abs difference to the
+    first's, the wrapper's pick."""
+    import torch
+    from repro_torch.data import make_sparse_classification, partition_sparse
+    n, d, _ = cs.NEWS20
+    real = sk.device_u_walk
+    got = {}
+    for density in SLOT_DENSITIES:
+        csr, y = make_sparse_classification(n, d, density=density,
+                                            seed=SEED)
+        sh, yp, mk = partition_sparse(csr, y, cs.REACH_K, device=dev)
+        K, nk, r_max = sh.cols.shape
+        args = (sh.cols, sh.vals, yp, torch.zeros((K, nk), device=dev), mk,
+                torch.zeros(d, device=dev), K / (cs.REACH_LAM * n),
+                torch.from_numpy(cs._perm(rng, K, nk)).to(dev))
+        walks = [real(r_max)] + [
+            w for w in sk.DEVICE_U_WALKS
+            if w != real(r_max) and (w[0] == 2 or r_max <= 256)]
+
+        def call(walk):
+            sk.device_u_walk = lambda r: walk
+            try:
+                return sk.sparse_local_sdca(*args, loss=hinge, buffer_depth=4)
+            finally:
+                sk.device_u_walk = real
+
+        ms, outs = cs._in_turns(walks, call, reps=2, rounds=3)
+        first = outs[walks[0]]
+        diff = {str(w): max(float((a - b).abs().max())
+                            for a, b in zip(outs[w], first)) for w in walks}
+        got[str(r_max)] = {str(w): ms[w] for w in walks}
+        log(f"[walk times] device-u walk at r_max {r_max} (K={K} nk={nk} "
+            f"d={d}, depth 4), ms a call in turns by (walk warps, SLOTS), "
+            f"the wrapper's pick first: " + ", ".join(
+                f"{w}: {ms[w]:.3f} ({1e3 * ms[w] / nk:.4f} us a step)"
+                for w in walks) + f"; max abs to the first {diff}")
+        del sh, args, outs, first
+    return got
+
+
+def sparse(args, cs, sk, csr, y, dev, hinge, rng, smi, out):
+    import torch
+    from repro_torch.data import partition_sparse
     sh, yp, mk = partition_sparse(csr, y, 8, device=dev)
-    del csr
     K, nk, r_max = sh.cols.shape
     perm = torch.from_numpy(cs._perm(rng, K, nk)).to(dev)
     sargs = (sh.cols, sh.vals, yp, torch.zeros((K, nk), device=dev), mk,
              torch.zeros(sh.d, device=dev), 8.0 / (1e-6 * 677_399), perm)
     sparse_ms, _ = cs._in_turns(DEPTHS, lambda depth: sk.sparse_local_sdca(
         *sargs, loss=hinge, buffer_depth=depth), reps=2)
-    del sh, sargs
+    log(f"[walk times] {args.label} ({args.src}); {smi}; round-1 inputs, "
+        f"hinge. Sparse, rcv1 shape K={K} nk={nk} r_max={r_max}: " +
+        ", ".join(f"depth {k}: {t:.3f} ms, {1e3 * t / nk:.4f} us a step"
+                  for k, t in sparse_ms.items()))
+    out["sparse_ms"] = {str(k): t for k, t in sparse_ms.items()}
+
+
+def dense(args, cs, dk, dev, hinge, rng, smi, out):
+    import torch
 
     Kd, nkd, d = DENSE["K"], DENSE["nk"], DENSE["d"]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -87,19 +259,12 @@ def main():
         raise SystemExit(f"walk_times: the dense kernel disagrees with its "
                          f"plain version at d={d}: {errs}")
 
-    print(f"[walk times] {args.label} ({args.src}); {smi}; round-1 inputs, "
-          f"hinge. Sparse, rcv1 shape K={K} nk={nk} r_max={r_max}: " +
-          ", ".join(f"depth {k}: {t:.3f} ms, {1e3 * t / nk:.4f} us a step"
-                    for k, t in sparse_ms.items()) +
-          f". Dense, K={Kd} nk={nkd} d={d} at the default window: "
-          f"{dense_ms['dense']:.3f} ms, "
-          f"{1e3 * dense_ms['dense'] / nkd:.4f} us a step (against plain: "
-          f"dalpha {errs[0][0]:.3e}, du {errs[1][0]:.3e} max abs)",
-          flush=True)
-    print(json.dumps({"label": args.label, "device": smi,
-                      "sparse_ms": {str(k): t for k, t in sparse_ms.items()},
-                      "dense_ms": dense_ms["dense"],
-                      "dense_shape": DENSE}))
+    log(f"[walk times] {args.label} ({args.src}); {smi}. Dense, K={Kd} "
+        f"nk={nkd} d={d} at the default window: {dense_ms['dense']:.3f} ms, "
+        f"{1e3 * dense_ms['dense'] / nkd:.4f} us a step (against plain: "
+        f"dalpha {errs[0][0]:.3e}, du {errs[1][0]:.3e} max abs)")
+    out["dense_ms"] = dense_ms["dense"]
+    out["dense_shape"] = DENSE
 
 
 if __name__ == "__main__":
