@@ -383,7 +383,11 @@ order, each failing the run with a non-zero exit:
                200,000, duplicate ids, depths 1 and 4, prox on and off,
                rows of 40, 250 and 549 slots) and the zx round at M = 17 (a
                ragged block, two passes) in its grid form and through the
-               per-block kernel, against their plain versions.
+               per-block kernel, and at K = 5 x M = 17 and 32 with W = 2, 3
+               and 4 workers a block in lockstep (each W's instance alone
+               read as resident; ragged groups, prox on and off, u in
+               device memory at d_loc 65,536), against their plain
+               versions.
                news_sparse (8,192 x 65,536, density 5e-4) and a
                synthetic of news20.binary's
                shape (19,996 x 1,355,191, density 3.36e-4), K = 4, hinge,
@@ -401,8 +405,15 @@ order, each failing the run with a non-zero exit:
                round on the first round's inputs; then that round in
                turns as the grid form
                and through the per-block kernel (the occupancy read as
-               0), each held to the plain result and to the other; ms a
-               round and us a step; phase 12's 4 x 2 shards in all three
+               0), and with the occupancy read as 64 (W = 2) and 32
+               (W = 4), each held to the plain result and to the
+               others; ms a round and us a step. rcv1 as 32 x 32 (1,024
+               blocks, past what the card holds): `solve`, 2 rounds, one
+               lockstep launch a round at W = 2 and nothing else, then a
+               forced per-block `solve` whose gaps must lie within 1e-5;
+               the wrapper held to plain on the first round's inputs and
+               timed in turns with the per-block kernel; phase 12's 4 x 2
+               shards in all three
                forms (the cluster fit, then the occupancy too, read as 0)
                against the cluster kernel, in turns. The rcv1_sparse
                stand-in on a 2 x 2 process mesh of 4 gloo ranks on
@@ -443,8 +454,8 @@ CUT_NK = 1024                  # phase 3's rows per worker
 CACHE_DEPTH = 1                # phase 11's cached buffer_depth
 TABLE_ORDER = ("local_sdca", "sparse_sdca", "sparse_sdca_pipelined",
                "sparse_sdca_device_u", "sparse_sdca_zx",
-               "sparse_sdca_zx_grid", "sparse_sdca_zx_block", "ssm_scan",
-               "flash_attention")
+               "sparse_sdca_zx_grid", "sparse_sdca_zx_lockstep",
+               "sparse_sdca_zx_block", "ssm_scan", "flash_attention")
 DEPTHS = (1, 2, 4, 8)          # phase 11's timed ring depths
 SWEEP_B = (4, 8, 16, 32)       # phase 6's timed dense windows
 DENSE_WIDTHS = (54, 2_000, 2_001)   # phase 3's dense widths
@@ -552,6 +563,19 @@ def _layouts():
             f"{plan['smem_bytes']}); clusters resident at once: {fit}")
         if got != plan["smem_bytes"] or fit < 1:
             fail(f"sparse_sdca_zx layout or cluster fit: {got}, {plan}, {fit}")
+    parts = []
+    for W in sk.ZX_GRID_WORKERS:       # rcv1's 4 x 32 and 32 x 32 widths
+        want = sk.smem_budget(d=1_477, r_max=15, block_rows=16, zx=True,
+                              workers=W)
+        got = lib.sparse_sdca_zx_grid_smem_bytes(16, 15, 1_477,
+                                                 int(want["u_in_smem"]), W)
+        held = sk._zx_grid_resident(lib, 16, 15, 1_477, want["u_in_smem"], W)
+        parts.append(f"W={W}: {got} B, {held} blocks resident")
+        if got != want["total_bytes"] or held < 1:
+            fail(f"sparse_sdca_zx grid form at W={W}: {got} B against "
+                 f"smem_budget's {want['total_bytes']}, {held} resident")
+    log(f"  sparse_sdca_zx grid form at d_local=1477 B=16 r_loc=15 by "
+        f"workers a block (smem_budget's layout): " + ", ".join(parts))
     from repro_torch.kernels import ssm_scan as ss
     lib = build.load("ssm_scan")
     for N in SCAN_STATES:
@@ -1403,6 +1427,7 @@ def _counts_zero():
     sk.DEVICE_U_LAUNCHES = 0
     sk.ZX_LAUNCHES = 0
     sk.ZX_GRID_LAUNCHES = 0
+    sk.ZX_LOCKSTEP_LAUNCHES = 0
     sk.ZX_BLOCK_LAUNCHES = 0
     sk.ZX_STEPS = 0
     return lambda: {"local_sdca": dk.LAUNCHES, "sparse_sdca": sk.LAUNCHES,
@@ -1410,6 +1435,7 @@ def _counts_zero():
                     "sparse_sdca_device_u": sk.DEVICE_U_LAUNCHES,
                     "sparse_sdca_zx": sk.ZX_LAUNCHES,
                     "sparse_sdca_zx_grid": sk.ZX_GRID_LAUNCHES,
+                    "sparse_sdca_zx_lockstep": sk.ZX_LOCKSTEP_LAUNCHES,
                     "sparse_sdca_zx_block": sk.ZX_BLOCK_LAUNCHES,
                     "sparse_sdca_zx_steps": sk.ZX_STEPS,
                     "flash_attention": fa.LAUNCHES,
@@ -5828,6 +5854,7 @@ print("LAUNCHES " + json.dumps({
     "sparse_sdca_device_u": sk.DEVICE_U_LAUNCHES,
     "sparse_sdca_zx": sk.ZX_LAUNCHES,
     "sparse_sdca_zx_grid": sk.ZX_GRID_LAUNCHES,
+    "sparse_sdca_zx_lockstep": sk.ZX_LOCKSTEP_LAUNCHES,
     "sparse_sdca_zx_block": sk.ZX_BLOCK_LAUNCHES, "ssm_scan": ss.LAUNCHES,
     "flash_attention": fa.LAUNCHES}), flush=True)
 sys.exit(code)
@@ -5981,6 +6008,11 @@ REACH_K = 4                    # workers of every phase 28 run
 REACH_M = 32                   # rcv1 as 4 x 32: past the 16-block cluster
 REACH_CUT = dict(K=3, nk=300, d=200_000, r=40)   # the 1-D cut shape
 REACH_ZX_CUT = dict(K=3, M=17, nk=203, d_loc=600, r=24, B=16)
+REACH_LOCK_CUT = dict(K=5, nk=203, r=24, B=16)  # ragged groups at W 2-4
+REACH_LOCK_M = (17, 32)
+REACH_LOCK_D = (600, 65_536)   # u in shared memory, in device memory
+REACH_READ_AS = (64, 32)       # 4 x 32's residency read lower: W 2, 4
+REACH_WIDE_K = 32              # rcv1 as 32 x 32: past what the card holds
 REACH_WIDE_R = (250, 549)      # the cut's wide rows: two walk warps of 8,
                                # and of 16 at news20's r_max
 REACH_RANK_RTOL = 1e-5         # ranks' gaps vs the one-process cluster round
@@ -5991,13 +6023,23 @@ REACH_TIMEOUT = 180            # s for the spawn: start, data, 3 rounds
 def _zx_forced(form):
     """Inside the block the zx wrapper's plan takes `form`: "grid" reads
     the cluster fit as 0, "block" the cluster fit and the grid's occupancy
-    too; "cluster" reads the card as it is."""
+    too; "grid@N" reads every grid instance's occupancy as N blocks (the
+    plan then takes the fewest workers a block whose groups fit N),
+    "grid/W" only the instance of W workers a block as the card holds it
+    (the others as 0); "cluster" reads the card as it is."""
     from repro_torch.kernels import sparse_sdca as sk
     real = (sk._zx_clusters_fit, sk._zx_grid_resident)
-    if form in ("grid", "block"):
+    base, at, read = form.partition("@")
+    base, per, W = base.partition("/")
+    if base in ("grid", "block"):
         sk._zx_clusters_fit = lambda *a: 0
-    if form == "block":
+    if base == "block":
         sk._zx_grid_resident = lambda *a: 0
+    if at:
+        sk._zx_grid_resident = lambda *a: int(read)
+    if per:
+        sk._zx_grid_resident = lambda lib, B, r, d, u, workers=1: (
+            real[1](lib, B, r, d, u, workers) if workers == int(W) else 0)
     try:
         yield
     finally:
@@ -6014,14 +6056,36 @@ def _state0(K, nk, d, dev):
         alpha=torch.zeros((K, nk), device=dev))
 
 
+def _zx_cut(rng, K, M, nk, d_loc, r, dev):
+    """A zx round's arguments at a cut shape: `_ell`'s rows (duplicate ids,
+    column 0 next to padding) over M shards, the last two rows masked, the
+    global sqnorms, a visit perm, scale 0.5."""
+    import numpy as np
+    import torch
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cols, vals, _ = _ell(rng, K * M, nk, d_loc, r)
+    vals = t((vals.reshape(K, M, nk, r) / np.sqrt(M)).astype(np.float32))
+    y = np.where(rng.random((K, nk)) < 0.5, -1.0, 1.0).astype(np.float32)
+    alpha = (y * rng.random((K, nk)) * 0.5).astype(np.float32)
+    mask = np.ones((K, nk), np.float32)
+    mask[:, -2:] = alpha[:, -2:] = 0.0
+    w = (0.3 * rng.standard_normal(M * d_loc)).astype(np.float32)
+    return (t(cols.reshape(K, M, nk, r)), vals, t(y), t(alpha), t(mask),
+            t(w), 0.5, torch.sum(vals * vals, dim=(1, 3)).contiguous(),
+            t(_perm(rng, K, nk)))
+
+
 def _reach_cuts(dev):
     """The new instances and kernels against their plain versions at cut
     shapes: the 1-D walk with u in device memory at d = 200,000 (rows with
     duplicate ids and column 0 next to padding, depths 1 and 4, prox on
-    and off, and rows of 250 and 549 slots, the two-walk-warp instances)
-    and the zx round at M = 17 (ragged last block, two passes) in its grid
+    and off, and rows of 250 and 549 slots, the two-walk-warp instances),
+    the zx round at M = 17 (ragged last block, two passes) in its grid
     form and through the per-block kernel (the occupancy query read as
-    0).
+    0), and at K = 5 x M = 17 and 32 with 2, 3 and 4 workers a block in
+    lockstep (each W's instance alone read as resident: groups of 3 + 2,
+    2 + 2 + 1 and 3 + 2 workers), u in shared and in device memory, prox
+    on and off.
     Returns the worst (max abs, max rel) errors of each."""
     import numpy as np
     import torch
@@ -6033,6 +6097,7 @@ def _reach_cuts(dev):
         rng, c["K"], c["nk"], c["d"], c["r"], dev)
     worst = {"sparse_sdca_device_u": [0.0, 0.0],
              "sparse_sdca_zx_grid": [0.0, 0.0],
+             "sparse_sdca_zx_lockstep": [0.0, 0.0],
              "sparse_sdca_zx_block": [0.0, 0.0]}
 
     def hold(name, got, want):
@@ -6078,6 +6143,21 @@ def _reach_cuts(dev):
         with _zx_forced("block"):
             hold("sparse_sdca_zx_block", sk.sparse_local_sdca_zx(*args, **kw),
                  want)
+    lc = REACH_LOCK_CUT
+    for LM in REACH_LOCK_M:
+        for d_loc in REACH_LOCK_D:
+            args = _zx_cut(rng, lc["K"], LM, lc["nk"], d_loc, lc["r"], dev)
+            for kappa in (None, 0.2):
+                kw = dict(loss=get_loss("hinge"), n_passes=2,
+                          block_rows=lc["B"], prox_kappa=kappa)
+                want = sk.sparse_local_sdca_zx_plain(*args, **kw)
+                for W in (2, 3, 4):
+                    with _zx_forced(f"grid/{W}"):
+                        got = sk.sparse_local_sdca_zx(*args, **kw)
+                    if (sk.LAST_ZX_FORM, sk.LAST_ZX_WORKERS) != ("grid", W):
+                        fail(f"phase 28 cut shape: M={LM} W={W} ran "
+                             f"{sk.LAST_ZX_FORM} at {sk.LAST_ZX_WORKERS}")
+                    hold("sparse_sdca_zx_lockstep", got, want)
     torch.cuda.synchronize()
     log(f"  cut shapes vs plain (tolerance |k - p| <= {ATOL} + {RTOL} |p|):"
         f" the 1-D walk with u in device memory at K={c['K']} nk={c['nk']} "
@@ -6089,7 +6169,9 @@ def _reach_cuts(dev):
         f"K={K} M={M} "
         f"nk={nk} B={B}: grid form max_abs "
         f"{worst['sparse_sdca_zx_grid'][0]:.3e}, per-block kernel "
-        f"{worst['sparse_sdca_zx_block'][0]:.3e}")
+        f"{worst['sparse_sdca_zx_block'][0]:.3e}; in lockstep at "
+        f"K={lc['K']} M={REACH_LOCK_M} d_loc={REACH_LOCK_D} W 2-4: max_abs "
+        f"{worst['sparse_sdca_zx_lockstep'][0]:.3e}")
     return {k: tuple(v) for k, v in worst.items()}
 
 
@@ -6187,6 +6269,101 @@ def _zx_args(cfg, X, y, mask, dev):
                       block_rows=plan["block_rows"]), plan
 
 
+ZX_COUNTS = ("sparse_sdca_zx", "sparse_sdca_zx_grid",
+             "sparse_sdca_zx_lockstep", "sparse_sdca_zx_block")
+
+
+def _redeal(shards, K2):
+    """`data.sparse.shard_features_streaming`'s FeatureShards, y and mask
+    of the same rows dealt to K2 workers (a multiple of their K), made on
+    the device from the K-worker deal: row j sits at worker j % K, local
+    row j // K, and moves to worker j % K2, local row j // K2, which is
+    worker k % K's local row k // K + (K2 / K) i. Rows past the data come
+    out as the slicer pads them (col 0, val 0, no entries, y 0, mask 0)."""
+    import torch
+    from repro_torch.data.sparse import FeatureShards
+    fs, yp, mk = shards
+    K, M, nk, _ = fs.cols.shape
+    n = int(mk.sum())
+    nk2 = -(-n // K2)
+    k = torch.arange(K2, device=mk.device)[:, None]
+    i = torch.arange(nk2, device=mk.device)[None]
+    live = K2 * i + k < n
+    src = (k % K).expand(K2, nk2)
+    row = torch.where(live, k // K + (K2 // K) * i, 0)
+
+    def pick(t):            # (K, M, nk, ...) -> (K2, M, nk2, ...)
+        out = t.transpose(1, 2)[src, row]
+        out *= live.view(K2, nk2, *[1] * (out.dim() - 2)).to(out.dtype)
+        return out.transpose(1, 2).contiguous()
+
+    return (FeatureShards(pick(fs.cols), pick(fs.vals), pick(fs.nnz),
+                          d=fs.d, M=M, d_local=fs.d_local),
+            (yp[src, row] * live).contiguous(),
+            (mk[src, row] * live).contiguous())
+
+
+def _zx_mesh_solves(dev, shards, counter, workers, rounds=2):
+    """rcv1's FeatureShards (with y and mask) as a K x M mesh through
+    `solve`, the counts at 0 just before: the form the card picks, the
+    grid at `workers` workers a block, `counter` launched once a round and
+    no other zx kernel; then the same solve through the per-block kernel
+    (the occupancy read as 0, the counts at 0 just before), every round's
+    gap within REACH_RANK_RTOL of the first solve's. Returns the shards,
+    the first solve and the first round's wrapper arguments."""
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    fs, yp, mk = shards
+    K, M, nk, r_loc = fs.cols.shape
+    cfg = CoCoAConfig.adding(K, lam=SPARSE_LAM, H=nk, backend="shard_map",
+                             model_axis="model",
+                             solver="sdca_sparse_kernel", loss="hinge")
+    mesh = make_test_mesh((K, M), device=dev)
+    counts = _counts_zero()
+    r = solve(cfg, fs, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
+              mesh=mesh)
+    launches = counts()
+    used = dict(ops.LAST_SPARSE_CONFIG)
+    args, kw, plan = _zx_args(cfg, fs, yp, mk, dev)
+    steps = plan["n_passes"] * plan["blocks"]
+    log(f"  rcv1 {K}x{M}: LAST_SPARSE_CONFIG {used}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    _check_gaps(f"rcv1 {K}x{M} sdca_sparse_kernel zx ({counter[15:]})",
+                r.history, rounds)
+    if not used["zx"] or used["model_shards"] != M or \
+            used["form"] != "grid" or used["workers_per_block"] != workers \
+            or any(launches[k] != (rounds if k == counter else 0)
+                   for k in ZX_COUNTS) \
+            or launches["sparse_sdca_zx_steps"] != rounds * steps:
+        fail(f"phase 28 rcv1 {K}x{M}: ran {used}, launched {launches}; "
+             f"expected {rounds} launches of {counter} at {workers} workers "
+             f"a block, {steps} steps a round, and no other zx launch")
+    # the same solve through the per-block kernel (the occupancy read as
+    # 0, as on a card that cannot hold even M blocks): its row's launches
+    with _zx_forced("block"):
+        counts = _counts_zero()
+        rb = solve(cfg, fs, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
+                   mesh=mesh)
+        block = counts()
+    rel = _rel(rb.history["gap"], r.history["gap"])
+    log(f"  rcv1 {K}x{M} through the per-block kernel: launches "
+        f"{ {k: v for k, v in block.items() if v} }; gaps "
+        f"{rb.history['gap'][0]:.6e}, {rb.history['gap'][-1]:.6e}, max rel "
+        f"diff to the {counter[15:]} form's {rel:.3e} (limit "
+        f"{REACH_RANK_RTOL})")
+    if any(block[k] != (rounds * steps if k == "sparse_sdca_zx_block" else 0)
+           for k in ZX_COUNTS) or rel > REACH_RANK_RTOL:
+        fail(f"phase 28 rcv1 {K}x{M} forced per-block: launched {block}, "
+             f"gaps {rb.history['gap']} against the {counter[15:]} form's "
+             f"{r.history['gap']}; expected {rounds * steps} per-block "
+             f"launches")
+    return dict(fs=fs, yp=yp, mk=mk, cfg=cfg, mesh=mesh, r=r, rounds=rounds,
+                launches=launches[counter],
+                block_launches=block["sparse_sdca_zx_block"], rel=rel,
+                args=args, kw=kw, plan=plan, steps=steps)
+
+
 def _reach_zx(dev, csr_y, mesh):
     """The zx round past one cluster on one card: rcv1's shape as a 4 x 32
     mesh through `solve` (the counts at 0 just before) -- the grid form,
@@ -6195,103 +6372,78 @@ def _reach_zx(dev, csr_y, mesh):
     counts at 0 just before), its gaps held to the grid form's; the grid
     form held to the plain version on the first round's inputs; then that
     round in turns as
-    the grid form and through the per-block kernel (the occupancy read as
-    0), each held to the plain result and to the other; then phase 12's
-    4 x 2 shards in all three forms, in turns, held to the cluster
-    kernel."""
+    the grid form, with the grid's occupancy read as 64 and as 32 (2 and
+    4 workers a block in lockstep) and through the per-block kernel (the
+    occupancy read as 0), each held to the plain result and to the
+    others; then phase 12's 4 x 2 shards in all three forms, in
+    turns, held to the cluster kernel."""
     from repro_torch import comm
-    from repro_torch.core import CoCoAConfig, solve
-    from repro_torch.data.sparse import shard_features_streaming
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
     from repro_torch.kernels import sparse_sdca as sk
-    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.obs import cost
+    from repro_torch.data.sparse import shard_features_streaming
     t0 = time.perf_counter()
     csr, y = csr_y
-    K, M = REACH_K, REACH_M
-    fs, yp, mk = shard_features_streaming([(csr, y)], K, M,
-                                          n_features=csr.shape[1],
-                                          device=dev)
-    K, M, nk, r_loc = fs.cols.shape
+    shards = shard_features_streaming([(csr, y)], REACH_K, REACH_M,
+                                      n_features=csr.shape[1], device=dev)
+    fs = shards[0]
     log(f"  rcv1 shape as FeatureShards (rows dealt round robin by "
-        f"data.sparse.shard_features_streaming): K={K} M={M} nk={nk} "
-        f"d_local={fs.d_local} r_loc={r_loc} nnz={int(fs.nnz.sum())} "
-        f"(sliced in {time.perf_counter() - t0:.1f} s)")
-    cfg = CoCoAConfig.adding(K, lam=SPARSE_LAM, H=nk, backend="shard_map",
-                             model_axis="model",
-                             solver="sdca_sparse_kernel", loss="hinge")
-    m32 = make_test_mesh((K, M), device=dev)
-    rounds = 2
-    counts = _counts_zero()
-    r = solve(cfg, fs, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
-              mesh=m32)
-    launches = counts()
-    used = dict(ops.LAST_SPARSE_CONFIG)
-    args, kw, plan = _zx_args(cfg, fs, yp, mk, dev)
-    steps = plan["n_passes"] * plan["blocks"]
+        f"data.sparse.shard_features_streaming): K={REACH_K} M={REACH_M} "
+        f"nk={fs.cols.shape[2]} d_local={fs.d_local} r_loc={fs.r_loc} "
+        f"nnz={int(fs.nnz.sum())} (sliced in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    z = _zx_mesh_solves(dev, shards, "sparse_sdca_zx_grid", 1)
+    fs, mk, cfg, m32, r = (z[k] for k in ("fs", "mk", "cfg", "mesh", "r"))
+    args, kw, plan, steps = (z[k] for k in ("args", "kw", "plan", "steps"))
+    K, M, nk, r_loc = fs.cols.shape
     budget = sk.smem_budget(d=fs.d_local, r_max=r_loc,
                             block_rows=plan["block_rows"], zx=True)
     resident = sk._zx_grid_resident(build.load("sparse_sdca_zx"),
                                     plan["block_rows"], r_loc, fs.d_local,
                                     budget["u_in_smem"])
-    log(f"  rcv1 {K}x{M}: LAST_SPARSE_CONFIG {used}; launches "
-        f"{ {k: v for k, v in launches.items() if v} }; the card holds "
-        f"{resident} blocks of the grid instance at once ({K * M} needed; "
-        f"{budget['total_bytes']} B of shared memory a block, u in "
+    log(f"  rcv1 {K}x{M}: the card holds {resident} blocks of the grid "
+        f"instance at once ({K * M} needed; {budget['total_bytes']} B of "
+        f"shared memory a block, u in "
         f"{'shared' if budget['u_in_smem'] else 'device'} memory)")
-    _check_gaps(f"rcv1 {K}x{M} sdca_sparse_kernel zx (grid)", r.history,
-                rounds)
-    if not used["zx"] or used["model_shards"] != M or \
-            used["form"] != "grid" or \
-            launches["sparse_sdca_zx_grid"] != rounds or \
-            launches["sparse_sdca_zx_block"] or launches["sparse_sdca_zx"] \
-            or launches["sparse_sdca_zx_steps"] != rounds * steps:
-        fail(f"phase 28 rcv1 {K}x{M}: ran {used}, launched {launches}; "
-             f"expected {rounds} grid launches of {steps} steps and no "
-             f"per-block launch")
-    # the same solve through the per-block kernel (the occupancy read as
-    # 0, as on a card that cannot hold the grid): its row's launches
-    with _zx_forced("block"):
-        counts = _counts_zero()
-        rb = solve(cfg, fs, yp, mk, rounds=rounds, gap_every=1, seed=SEED,
-                   mesh=m32)
-        block_launches = counts()
-    rel_block = _rel(rb.history["gap"], r.history["gap"])
-    log(f"  rcv1 {K}x{M} through the per-block kernel: launches "
-        f"{ {k: v for k, v in block_launches.items() if v} }; gaps "
-        f"{rb.history['gap'][0]:.6e}, {rb.history['gap'][-1]:.6e}, max rel "
-        f"diff to the grid form's {rel_block:.3e} (limit {REACH_RANK_RTOL})")
-    if block_launches["sparse_sdca_zx_block"] != rounds * steps or \
-            block_launches["sparse_sdca_zx_grid"] or \
-            block_launches["sparse_sdca_zx"] or rel_block > REACH_RANK_RTOL:
-        fail(f"phase 28 rcv1 {K}x{M} forced per-block: launched "
-             f"{block_launches}, gaps {rb.history['gap']} against the grid "
-             f"form's {r.history['gap']}; expected {rounds * steps} "
-             f"per-block launches")
     errs = _against_plain(f"sparse_sdca_zx_grid {K}x{M} (the first round's "
                           f"inputs)", sk.sparse_local_sdca_zx,
                           sk.sparse_local_sdca_zx_plain, args, kw)
     want = errs[3]
+    # the workers a block each reading takes (the plan's arithmetic)
+    read_as = {f"grid@{n}": sk.zx_launch_plan(
+        K, M, nk, fs.d_local, plan["block_rows"], r_loc=r_loc,
+        cluster=False, resident=n)["workers_per_block"]
+        for n in REACH_READ_AS}
 
     def call(form, a=args, k=kw):
         with _zx_forced(form):
             out = sk.sparse_local_sdca_zx(*a, **k)
-        if sk.LAST_ZX_FORM != form:
+        base = form.partition("@")[0]
+        if sk.LAST_ZX_FORM != base or (
+                base == "grid"
+                and sk.LAST_ZX_WORKERS != read_as.get(form, 1)):
             fail(f"phase 28: asked for the {form} form, ran "
-                 f"{sk.LAST_ZX_FORM}")
+                 f"{sk.LAST_ZX_FORM} at {sk.LAST_ZX_WORKERS} workers a block")
         return out
 
-    ms, outs = _in_turns(("grid", "block"), call)
+    ms, outs = _in_turns(("grid", *read_as, "block"), call)
     atol = ATOL * max(1.0, nk / CUT_NK)
-    block_errs = [0.0, 0.0]
+    block_errs, lock_errs = [0.0, 0.0], [0.0, 0.0]
     for what, got, ref in (("per-block vs plain", outs["block"], want),
                            ("per-block vs grid", outs["block"],
                             outs["grid"]),
-                           ("grid (in turns) vs plain", outs["grid"], want)):
+                           ("grid (in turns) vs plain", outs["grid"], want),
+                           *((f"{f} (W={w}) vs {name}", outs[f], ref)
+                             for f, w in read_as.items()
+                             for name, ref in (("plain", want),
+                                               ("per-block", outs["block"]),
+                                               ("grid", outs["grid"])))):
         for part, g, p in zip(("dalpha", "du"), got, ref):
             a, rel, ok = _errors(g, p, atol)
             if what.startswith("per-block vs plain"):
                 block_errs = [max(block_errs[0], a), max(block_errs[1], rel)]
+            if what.startswith("grid@") and what.endswith("plain"):
+                lock_errs = [max(lock_errs[0], a), max(lock_errs[1], rel)]
             log(f"  {K}x{M} {part:6s} {what}: max_abs={a:.3e} "
                 f"max_rel={rel:.3e} (tolerance |k - p| <= {atol:.3e} + "
                 f"{RTOL} |p|) {'ok' if ok else 'FAIL'}")
@@ -6302,12 +6454,20 @@ def _reach_zx(dev, csr_y, mesh):
     ex = r.history["execute_s"]
     log(f"  rcv1 {K}x{M}: ms a round (CUDA events, in turns) grid form "
         f"{ms['grid']:.3f} (1 launch, {1e3 * ms['grid'] / steps:.3f} us a "
-        f"step), per-block kernel {ms['block']:.3f} ({steps} launches, "
+        f"step), " + "".join(
+            f"occupancy read as {f[5:]}: W={w} {ms[f]:.3f} "
+            f"({1e3 * ms[f] / steps:.3f} us a step), "
+            for f, w in read_as.items())
+        + f"per-block kernel {ms['block']:.3f} ({steps} launches, "
         f"{1e3 * ms['block'] / steps:.3f} us an invocation); execute_s a "
         f"round " + ", ".join(f"{e:.4f}" for e in ex)
         + f"; gaps {r.history['gap'][0]:.6e}, {r.history['gap'][-1]:.6e}; "
         f"the plain round {errs[2]:.1f} ms")
-    del fs, r, rb, args, outs, want
+    z = {k: z[k] for k in ("launches", "rounds", "block_launches")}
+    del fs, mk, cfg, m32, r, args, kw, outs, want
+    gc.collect()
+    wide = _redeal(shards, REACH_WIDE_K)    # the same rows, 32 workers
+    del shards
     gc.collect()
     # phase 12's 4 x 2 shards: the three forms against the cluster kernel
     fs2, yp2, mk2, cfg2 = (mesh[k] for k in ("fs", "yp", "mk", "cfg"))
@@ -6333,14 +6493,77 @@ def _reach_zx(dev, csr_y, mesh):
         f"{1e3 * ms2['grid'] / steps2:.3f} us a step), per-block kernel "
         f"{ms2['block']:.3f} ({steps2} launches, "
         f"{1e3 * ms2['block'] / steps2:.3f} us an invocation)")
-    return {"launches": launches["sparse_sdca_zx_grid"], "rounds": rounds,
-            "block_launches": block_launches["sparse_sdca_zx_block"],
+    return {"launches": z["launches"], "rounds": z["rounds"],
+            "block_launches": z["block_launches"],
             "steps": steps, "errs": errs[:3], "block_errs": block_errs,
+            "lock_errs": lock_errs, "read_as": read_as,
             "ms": ms, "stats": stats, "resident": resident,
             "shape": f"K={K} M={M} nk={nk} r_loc={r_loc} "
-                     f"d_local={-(-csr.shape[1] // M)} "
+                     f"d_local={-(-csr_y[0].shape[1] // M)} "
                      f"B={plan['block_rows']}",
-            "ms_4x2": ms2, "steps_4x2": steps2}
+            "ms_4x2": ms2, "steps_4x2": steps2, "wide": wide}
+
+
+def _reach_zx32(dev, shards):
+    """rcv1's shape as a 32 x 32 mesh, 1,024 blocks past what the card
+    holds at one worker a block: `solve` (the counts at 0 just before),
+    2 rounds -- the grid form at 2 workers a block, one lockstep launch a
+    round and no other -- then the same solve through the per-block kernel
+    (the occupancy read as 0), its gaps within 1e-5 of the lockstep's; the
+    wrapper held to the plain round on the first round's inputs, then that
+    round in turns in both forms, held to each other."""
+    from repro_torch import comm
+    from repro_torch.kernels import sparse_sdca as sk
+    from repro_torch.obs import cost
+    t0 = time.perf_counter()
+    fs = shards[0]
+    log(f"  rcv1 shape as FeatureShards: K={fs.cols.shape[0]} M={fs.M} "
+        f"nk={fs.cols.shape[2]} d_local={fs.d_local} r_loc={fs.r_loc} "
+        f"nnz={int(fs.nnz.sum())} (phase 28's 4 x 32 shards dealt again on "
+        f"the card)")
+    z = _zx_mesh_solves(dev, shards, "sparse_sdca_zx_lockstep", 2)
+    fs, mk, cfg, mesh, r = (z[k] for k in ("fs", "mk", "cfg", "mesh", "r"))
+    args, kw, plan, steps = (z[k] for k in ("args", "kw", "plan", "steps"))
+    K, M, nk, r_loc = fs.cols.shape
+    errs = _against_plain(f"sparse_sdca_zx_lockstep {K}x{M} (the first "
+                          f"round's inputs)", sk.sparse_local_sdca_zx,
+                          sk.sparse_local_sdca_zx_plain, args, kw)
+
+    def call(form):
+        with _zx_forced(form):
+            out = sk.sparse_local_sdca_zx(*args, **kw)
+        if sk.LAST_ZX_FORM != form or (form == "grid"
+                                       and sk.LAST_ZX_WORKERS != 2):
+            fail(f"phase 28 {K}x{M}: asked for the {form} form, ran "
+                 f"{sk.LAST_ZX_FORM} at {sk.LAST_ZX_WORKERS}")
+        return out
+
+    ms, outs = _in_turns(("grid", "block"), call)
+    atol = ATOL * max(1.0, nk / CUT_NK)
+    for part, g, p in zip(("dalpha", "du"), outs["grid"], outs["block"]):
+        a, rel, ok = _errors(g, p, atol)
+        log(f"  {K}x{M} {part:6s} lockstep vs per-block: max_abs={a:.3e} "
+            f"max_rel={rel:.3e} (tolerance |k - p| <= {atol:.3e} + {RTOL} "
+            f"|p|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"phase 28 {K}x{M}: lockstep and per-block disagree ({part})")
+    stats = cost.round_stats(cfg, fs, mk,
+                             comm.Topology.from_mesh(mesh, "data", "model"))
+    log(f"  rcv1 {K}x{M}: ms a round (CUDA events, in turns) lockstep "
+        f"(W=2, {-(-K // 2)} groups of {M} blocks) {ms['grid']:.3f} "
+        f"({1e3 * ms['grid'] / steps:.3f} us a step), per-block kernel "
+        f"{ms['block']:.3f} ({steps} launches, "
+        f"{1e3 * ms['block'] / steps:.3f} us an invocation): "
+        f"{ms['grid'] / ms['block']:.3f} of it; execute_s a round "
+        + ", ".join(f"{e:.4f}" for e in r.history["execute_s"])
+        + f"; the plain round {errs[2]:.1f} ms; phase 28's 32 x 32 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": z["launches"], "rounds": z["rounds"],
+            "steps": steps, "errs": errs[:3], "ms": ms,
+            "stats": stats, "gaps": r.history["gap"],
+            "block_gaps_rel": z["rel"],
+            "shape": f"K={K} M={M} nk={nk} r_loc={r_loc} "
+                     f"d_local={fs.d_local} B={plan['block_rows']}"}
 
 
 def _reach_rank(rank, world, job):
@@ -6499,9 +6722,11 @@ def _reach_ranks(dev):
 def phase_reach(dev, csr_y, mesh, smi_line):
     """Phase 28: the 1-D walk at news_sparse's and news20's widths (u in
     device memory), the zx round past a cluster at rcv1's 4 x 32 (the
-    grid form; the per-block kernel in turns) and 4 x 2 (all three forms),
-    and across a 2 x 2 process mesh (the per-block kernel); three rows of
-    the table."""
+    grid form; in lockstep with the occupancy read lower and the per-block
+    kernel in turns) and 4 x 2 (all three forms), past what the card holds
+    at rcv1's 32 x 32 (in lockstep; the per-block kernel in turns), and
+    across a 2 x 2 process mesh (the per-block kernel); four rows of the
+    table."""
     t_start = time.perf_counter()
     log(f"[28 reach] {smi_line}: the SDCA kernels at shapes and meshes "
         f"that took no kernel before")
@@ -6509,6 +6734,12 @@ def phase_reach(dev, csr_y, mesh, smi_line):
     news = _reach_wide(dev, "news_sparse", (8_192, 65_536, 5e-4), (4, 1), 3)
     news20 = _reach_wide(dev, "news20-shaped", NEWS20, (4,), 2)
     zx = _reach_zx(dev, csr_y, mesh)
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    z32 = _reach_zx32(dev, zx.pop("wide"))
+    gc.collect()
+    torch.cuda.empty_cache()
     ranks = _reach_ranks(dev)
     rows = [
         _row("sparse_sdca_device_u",
@@ -6542,6 +6773,24 @@ def phase_reach(dev, csr_y, mesh, smi_line):
                      "cluster_ms": zx["ms_4x2"]["cluster"],
                      "block_ms": zx["ms_4x2"]["block"],
                      "steps": zx["steps_4x2"]}),
+        _row("sparse_sdca_zx_lockstep",
+             "src/repro_torch/kernels/csrc/sparse_sdca_zx.cu",
+             "src/repro/kernels/sparse_sdca.py:394", z32["launches"],
+             z32["launches"] / z32["rounds"], "per round", z32["errs"][:2],
+             cut["sparse_sdca_zx_lockstep"], z32["ms"]["grid"],
+             z32["errs"][2], None, z32["stats"], _hw(),
+             z32["shape"] + " (one launch a round, 2 workers a block)",
+             rounds=z32["rounds"], steps_per_round=z32["steps"],
+             us_per_step=1e3 * z32["ms"]["grid"] / z32["steps"],
+             workers_per_block=2, block_ms=z32["ms"]["block"],
+             of_block=z32["ms"]["grid"] / z32["ms"]["block"],
+             gaps=z32["gaps"], block_gaps_max_rel=z32["block_gaps_rel"],
+             at_4x32={f"read_as_{f[5:]}": {
+                 "workers_per_block": w, "ms": zx["ms"][f],
+                 "us_per_step": 1e3 * zx["ms"][f] / zx["steps"]}
+                 for f, w in zx["read_as"].items()} | {
+                 "w1_ms": zx["ms"]["grid"], "block_ms": zx["ms"]["block"],
+                 "max_abs_err": zx["lock_errs"][0]}),
         _row("sparse_sdca_zx_block",
              "src/repro_torch/kernels/csrc/sparse_sdca_zx_block.cu",
              "src/repro/kernels/sparse_sdca.py:394", zx["block_launches"],

@@ -168,9 +168,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             ctypes.POINTER(I)]
         lib.sparse_sdca_zx_max_clusters.restype = I
         lib.sparse_sdca_zx_grid_launch.argtypes = ([P] * 10 + [I] * 7
-                                                   + [F, I, F, I, F, I, P])
+                                                   + [F, I, F, I, F, I, I,
+                                                      P])
         lib.sparse_sdca_zx_grid_launch.restype = I
-        lib.sparse_sdca_zx_grid_resident.argtypes = [I] * 4 + [
+        lib.sparse_sdca_zx_grid_smem_bytes.argtypes = [I] * 5
+        lib.sparse_sdca_zx_grid_smem_bytes.restype = ctypes.c_longlong
+        lib.sparse_sdca_zx_grid_resident.argtypes = [I] * 5 + [
             ctypes.POINTER(I)]
         lib.sparse_sdca_zx_grid_resident.restype = I
     elif name == "sparse_sdca_zx_block":

@@ -1,7 +1,9 @@
 // The z-exchange schedule of feature-sharded sparse LocalSDCA, for Hopper
 // (sm_90a): one round in one launch, one thread-block cluster per worker
-// (the cluster form), or one cooperative grid of K M persistent blocks
-// that exchange through device memory (the grid form, GRID below).
+// (the cluster form), or one cooperative grid of persistent blocks that
+// exchange through device memory (the grid form, GRID below), each block
+// holding one worker's shard or, past what the card holds, W workers'
+// shards walked in lockstep.
 //
 // Replaces the TPU kernel src/repro/kernels/sparse_sdca.py::
 // _sparse_sdca_zx_kernel (entry sparse_local_sdca_zx at :476, pallas_call
@@ -113,6 +115,41 @@
 //  * Only the M blocks of one worker wait on each other, never the whole
 //    grid.
 //
+// Workers in lockstep (the grid form's W > 1 instances), for a mesh whose
+// K M blocks the card cannot hold at once (K = 32 x M = 32 at rcv1's
+// widths: 1,024 blocks, 528 resident). Within a round the workers are
+// independent; only the M shards of one worker exchange. So the launch has
+// K' = ceil(K / W) groups of M blocks, and block (k', m) holds shard m of
+// workers k' + j K' for j < W (the last groups fewer where W does not
+// divide K). All M shards of a worker sit in one group and every block
+// walks its workers in the same order, so no wait can form a cycle. Each
+// worker keeps what it keeps at W = 1 in its own slab of shared memory
+// (u where W slabs with u fit, else u stays in device memory; its ids,
+// its prefetch ring, its coefficients) and its own (2, B, M) slice of the
+// tagged words. The step's chain is latency-bound (barriers, L2 round
+// trips, the exchange's 1.0 us), so every phase of a step runs over the
+// W B rows of all its workers together, and W workers take about one
+// chain, not W:
+//  * warp t % 8 takes row t of every worker at once, the loops over the
+//    worker slots unrolled so their loads are in flight together;
+//  * the poll: zrows(W) rows of each worker a warp, W zrows(W) <= 4 words
+//    a lane in flight; lane i of the warp then adds its i-th row's M words
+//    in rank order from the warp's staging rows in shared memory (the same
+//    additions as the shuffles at W = 1, so z keeps its bits) and updates
+//    that row, the warp's updates side by side;
+//  * rows of at most 16 slots (rcv1's r_loc 15) go two workers' rows a
+//    copy, scatter and gather instruction, one a half warp: the prefetch
+//    cost the instructions that send its copies, not the wait for them.
+// Every grid instance is held to MIN_BLOCKS blocks an SM (64 registers a
+// thread: 528 blocks resident at rcv1's widths), so each W keeps the
+// residency of one worker a block. Measured at rcv1's 4 x 32 with the
+// residency read lower (tools/sdca_step_ablation.py --workers, H100 at
+// 700 W): walking a warp's W rows one after another, lane 0 updating them
+// in turn, took 3.42, 7.14 and 13.21 us a step at W = 1, 2, 4, every part
+// of the step growing with W; this design takes 3.16 us at W = 2 and 5.76
+// at W = 4, and rcv1 at 32 x 32 runs a round in 0.42-0.49 of the
+// per-block kernel's time.
+//
 // Hazards:
 //  * Grid form, two z buffers: step g reads z[g % 2] (tag g) and writes
 //    z[(g + 1) % 2] (tag g + 1). A shard writes z[g % 2] again only at the
@@ -121,6 +158,10 @@
 //    wrote depends on them. A tag is never reused within a buffer (g and
 //    g + 2). A word that never arrives traps after ~2^34 cycles instead of
 //    hanging the card.
+//  * Lockstep: row t of worker slot j is updated by warp t % 8, lane
+//    j zrows(W) + (t / 8) % zrows(W), in every step (nb = 1 below).
+//    A warp's staging rows are written after its poll and read by lanes
+//    below ZR between two __syncwarp()s.
 //  * dalpha is prefetched two blocks ahead. Block g + 2's rows were last
 //    written in step g + 2 - nb: before step g when nb >= 3, in step g's
 //    update (before the barrier ahead of the prefetch) when nb = 2. At
@@ -132,8 +173,11 @@
 //    block g's scatter; its wait is the cp.async.wait_all ahead of the
 //    barrier of the next step's prefetch point, before block g + 2's dots.
 
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "sdca_common.cuh"
 
@@ -147,21 +191,32 @@ constexpr int PORTABLE_CLUSTER = 8;
 constexpr int MAX_CLUSTER = 16;
 constexpr int ID_SLOTS = 4;          // row ids of blocks g .. g + 3
 constexpr int SCALARS = 5;           // y, alpha, mask, sqnorm, dalpha
-constexpr int ZROWS = 2;             // grid form: rows a warp polls at once
+constexpr int ZROWS = 2;             // grid form: a worker's rows a warp polls
+constexpr int XS_STRIDE = 33;        // a staged row's 32 words, padded a bank
+
+// grid form: the rows of each worker a warp polls at once, and so how many
+// words a lane holds in flight (W zrows(W), at most 4)
+__host__ __device__ constexpr int zrows(int W) { return W <= 2 ? ZROWS : 1; }
+constexpr int MIN_BLOCKS = 4;        // blocks an SM a grid instance keeps
 
 // 4-byte words of one row stage: cols (B r_loc) | vals (B r_loc) | scalars
 __host__ __device__ __forceinline__ int stage_words(int B, int r_loc) {
   return 2 * B * r_loc + SCALARS * B;
 }
 
-// dynamic shared memory of one block, in bytes: [u (d_loc)] | zb (2 B) |
-// coef (B) | ids (ID_SLOTS B) | two stages
+// dynamic shared memory of one block, in bytes: W slabs of one worker's
+// [u (d_loc)] | zb (2 B) | coef (B) | ids (ID_SLOTS B) | two stages, then
+// at W > 1 each warp's staging rows of the exchange (W zrows(W) of
+// XS_STRIDE floats)
 __host__ __device__ __forceinline__ size_t smem_bytes(int B, int r_loc,
-                                                      int d_loc,
-                                                      bool u_smem) {
-  return 4 * ((u_smem ? static_cast<size_t>(d_loc) : 0) +
-              static_cast<size_t>(3 + ID_SLOTS) * B +
-              2 * static_cast<size_t>(stage_words(B, r_loc)));
+                                                      int d_loc, bool u_smem,
+                                                      int W = 1) {
+  return 4 * (static_cast<size_t>(W) *
+                  ((u_smem ? static_cast<size_t>(d_loc) : 0) +
+                   static_cast<size_t>(3 + ID_SLOTS) * B +
+                   2 * static_cast<size_t>(stage_words(B, r_loc))) +
+              (W > 1 ? static_cast<size_t>(NWARPS) * W * zrows(W) * XS_STRIDE
+                     : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -179,7 +234,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The block (k, m)'s view of its inputs and its shared memory.
+// One worker's view of its inputs and of its slab of shared memory, in
+// block (k, m).
 struct Walk {
   const int* perm_k;                 // (nk,) worker k's visit order
   const int* cols_km;                // (nk, r_loc) shard-local ids
@@ -195,41 +251,89 @@ struct Walk {
   }
   __device__ int* ids_of(int seq) const { return ids + (seq % ID_SLOTS) * B; }
   __device__ float* stage_of(int seq) const { return stages + (seq & 1) * sw; }
+};
 
-  // row ids of the seq-th block of the round into their slot
-  __device__ void fetch_ids(int seq) const {
-    const int lo = (seq % nb) * B;
-    const int n = rows_of(seq);
-    int* dst = ids_of(seq);
-    for (int t = threadIdx.x; t < n; t += THREADS)
-      cp_async4(dst + t, perm_k + lo + t);
-  }
-
-  // the seq-th block's rows (their ids must have landed) into its stage
-  __device__ void fetch_rows(int seq) const {
-    const int n = rows_of(seq);
-    const int* id = ids_of(seq);
-    int* ci = reinterpret_cast<int*>(stage_of(seq));
-    float* vi = stage_of(seq) + B * r_loc;
-    float* sc = vi + B * r_loc;
-    const int lane = threadIdx.x & 31;
-    for (int t = threadIdx.x >> 5; t < n; t += NWARPS) {
-      const size_t off = static_cast<size_t>(id[t]) * r_loc;
-      for (int s = lane; s < r_loc; s += 32) {
-        cp_async4(ci + t * r_loc + s, cols_km + off + s);
-        cp_async4(vi + t * r_loc + s, vals_km + off + s);
+// row ids of the seq-th block of the round into each worker's slot;
+// walk(j) is worker slot j's Walk, nw the block's workers
+template <int W, class WalkOf>
+__device__ void fetch_ids(const WalkOf& walk, int nw, int seq) {
+  const Walk w0 = walk(0);
+  const int n = w0.rows_of(seq);
+  const int lo = (seq % w0.nb) * w0.B;
+  for (int t = threadIdx.x; t < n; t += THREADS) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j < nw) {
+        const Walk w = walk(j);
+        cp_async4(w.ids_of(seq) + t, w.perm_k + lo + t);
       }
     }
-    for (int t = threadIdx.x; t < n; t += THREADS) {
-      const int i = id[t];
-      cp_async4(sc + t, y_k + i);
-      cp_async4(sc + B + t, alpha_k + i);
-      cp_async4(sc + 2 * B + t, mask_k + i);
-      cp_async4(sc + 3 * B + t, sq_k + i);
-      cp_async4(sc + 4 * B + t, da_km + i);
+  }
+}
+
+// each worker's seq-th block's rows (their ids must have landed) into its
+// stage: one warp a row of every worker at once for cols and vals, one
+// thread a row of every worker for the scalars
+template <int W, class WalkOf>
+__device__ void fetch_rows(const WalkOf& walk, int nw, int seq) {
+  const Walk w0 = walk(0);
+  const int n = w0.rows_of(seq), r_loc = w0.r_loc, B = w0.B;
+  const int lane = threadIdx.x & 31;
+  if (W > 1 && r_loc <= 16) {
+    // two workers' row t a copy instruction: lane 16 h + s copies slot s
+    // of worker slot 2 p + h's row
+    const int h = lane >> 4, s = lane & 15;
+    for (int t = threadIdx.x >> 5; t < n; t += NWARPS) {
+#pragma unroll
+      for (int p = 0; p < (W + 1) / 2; ++p) {
+        const int j = 2 * p + h;
+        if (j < nw && s < r_loc) {
+          const Walk w = walk(j);
+          const size_t off = static_cast<size_t>(w.ids_of(seq)[t]) * r_loc;
+          cp_async4(reinterpret_cast<int*>(w.stage_of(seq)) + t * r_loc + s,
+                    w.cols_km + off + s);
+          cp_async4(w.stage_of(seq) + B * r_loc + t * r_loc + s,
+                    w.vals_km + off + s);
+        }
+      }
+    }
+  } else {
+    for (int t = threadIdx.x >> 5; t < n; t += NWARPS) {
+      size_t off[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        off[j] = j < nw ? static_cast<size_t>(walk(j).ids_of(seq)[t]) * r_loc
+                        : 0;
+      for (int s = lane; s < r_loc; s += 32) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          if (j < nw) {
+            const Walk w = walk(j);
+            int* ci = reinterpret_cast<int*>(w.stage_of(seq));
+            float* vi = w.stage_of(seq) + B * r_loc;
+            cp_async4(ci + t * r_loc + s, w.cols_km + off[j] + s);
+            cp_async4(vi + t * r_loc + s, w.vals_km + off[j] + s);
+          }
+        }
+      }
     }
   }
-};
+  for (int t = threadIdx.x; t < n; t += THREADS) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j < nw) {
+        const Walk w = walk(j);
+        const int i = w.ids_of(seq)[t];
+        float* sc = w.stage_of(seq) + 2 * B * r_loc;
+        cp_async4(sc + t, w.y_k + i);
+        cp_async4(sc + B + t, w.alpha_k + i);
+        cp_async4(sc + 2 * B + t, w.mask_k + i);
+        cp_async4(sc + 3 * B + t, w.sq_k + i);
+        cp_async4(sc + 4 * B + t, w.da_km + i);
+      }
+    }
+  }
+}
 
 template <bool U_SMEM>
 __device__ __forceinline__ float load_u(const float* p) {
@@ -263,56 +367,88 @@ __device__ __forceinline__ void store_word(unsigned long long* p,
                : "memory");
 }
 
-// Grid form: the exchanged z of rows t0, t0 + NWARPS, ... (ZROWS of them,
-// those below n) into zr[], the same in every lane of the calling warp.
-// zs points at z[step % 2][k][0][0]: row t's M words side by side, so a
-// warp's load of 32 shards is two 128-byte lines; every word must carry
-// tag `step`.
-__device__ __forceinline__ void exchange_rows(
-    const unsigned long long* zs, int t0, int n, int M, int B, int step,
-    float (&zr)[ZROWS]) {
+// Grid form: shard j's words of ZR rows into wv[], reloaded until every
+// lane of the calling warp holds tag `step`: row(i) points at row i's M
+// words, side by side, so a warp's load of 32 shards is two 128-byte
+// lines; live(i) says whether row i exists.
+template <int ZR, class RowWords, class Live>
+__device__ __forceinline__ void poll_words(const RowWords& row,
+                                           const Live& live, int M, int j,
+                                           int step,
+                                           unsigned long long (&wv)[ZR]) {
+  bool ready = true;
+#pragma unroll
+  for (int r = 0; r < ZR; ++r)
+    wv[r] = live(r) && j < M ? load_word(row(r) + j) : tagged(0.0f, step);
+  const long long c0 = clock64();
+  for (int spin = 0;; ++spin) {
+#pragma unroll
+    for (int r = 0; r < ZR; ++r)
+      ready &= static_cast<int>(wv[r] >> 32) == step;
+    if (__all_sync(0xffffffffu, ready)) break;
+    if (clock64() - c0 > (1LL << 34)) __trap();
+    if (spin >= 16) __nanosleep(32);
+    ready = true;
+#pragma unroll
+    for (int r = 0; r < ZR; ++r) {
+      if (static_cast<int>(wv[r] >> 32) != step)
+        wv[r] = load_word(row(r) + j);
+    }
+  }
+}
+
+// Grid form at W = 1: the exchanged z of ZR rows into zr[], the same in
+// every lane of the calling warp, each row's M values added in rank order
+// by __shfl_sync.
+template <int ZR, class RowWords, class Live>
+__device__ __forceinline__ void exchange_rows(const RowWords& row,
+                                              const Live& live, int M,
+                                              int step, float (&zr)[ZR]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int r = 0; r < ZROWS; ++r) zr[r] = 0.0f;
+  for (int r = 0; r < ZR; ++r) zr[r] = 0.0f;
   for (int j0 = 0; j0 < M; j0 += 32) {
-    const int j = j0 + lane;
-    unsigned long long wv[ZROWS];
-    bool ready = true;
-#pragma unroll
-    for (int r = 0; r < ZROWS; ++r) {
-      const int t = t0 + r * NWARPS;
-      wv[r] = t < n && j < M ? load_word(zs + static_cast<size_t>(t) * M + j)
-                             : tagged(0.0f, step);
-    }
-    const long long c0 = clock64();
-    for (int spin = 0;; ++spin) {
-#pragma unroll
-      for (int r = 0; r < ZROWS; ++r)
-        ready &= static_cast<int>(wv[r] >> 32) == step;
-      if (__all_sync(0xffffffffu, ready)) break;
-      if (clock64() - c0 > (1LL << 34)) __trap();
-      if (spin >= 16) __nanosleep(32);
-      ready = true;
-#pragma unroll
-      for (int r = 0; r < ZROWS; ++r) {
-        const int t = t0 + r * NWARPS;
-        if (static_cast<int>(wv[r] >> 32) != step)
-          wv[r] = load_word(zs + static_cast<size_t>(t) * M + j);
-      }
-    }
+    unsigned long long wv[ZR];
+    poll_words<ZR>(row, live, M, j0 + lane, step, wv);
     // the M values in rank order, every lane the same sums
     const int nj = min(32, M - j0);
     for (int jj = 0; jj < nj; ++jj) {
 #pragma unroll
-      for (int r = 0; r < ZROWS; ++r)
+      for (int r = 0; r < ZR; ++r)
         zr[r] += __uint_as_float(__shfl_sync(
             0xffffffffu, static_cast<unsigned>(wv[r]), jj));
     }
   }
 }
 
-template <bool U_SMEM, bool GRID>
-__global__ void __launch_bounds__(THREADS)
+// Grid form at W > 1: the exchanged z of the warp's row `lane` (lanes
+// below ZR), its M values added in rank order from the warp's staging
+// rows xs (ZR x XS_STRIDE floats): the same additions in the same order
+// as exchange_rows, by one lane a row instead of every lane every row.
+template <int ZR, class RowWords, class Live>
+__device__ __forceinline__ float exchange_staged(const RowWords& row,
+                                                 const Live& live, int M,
+                                                 int step, float* xs) {
+  const int lane = threadIdx.x & 31;
+  float z = 0.0f;
+  for (int j0 = 0; j0 < M; j0 += 32) {
+    unsigned long long wv[ZR];
+    poll_words<ZR>(row, live, M, j0 + lane, step, wv);
+#pragma unroll
+    for (int r = 0; r < ZR; ++r)
+      xs[r * XS_STRIDE + lane] = __uint_as_float(static_cast<unsigned>(wv[r]));
+    __syncwarp();
+    if (lane < ZR) {
+      const int nj = min(32, M - j0);
+      for (int jj = 0; jj < nj; ++jj) z += xs[lane * XS_STRIDE + jj];
+    }
+    __syncwarp();                    // read before the next 32 shards land
+  }
+  return z;
+}
+
+template <bool U_SMEM, bool GRID, int W>
+__global__ void __launch_bounds__(THREADS, GRID ? MIN_BLOCKS : 1)
 sparse_sdca_zx_kernel(const int* __restrict__ cols,
                       const float* __restrict__ vals,
                       const float* __restrict__ y,
@@ -322,7 +458,7 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
                       const int* __restrict__ perm, float* __restrict__ u,
                       float* __restrict__ dalpha,
                       const float* __restrict__ z0, unsigned long long* zx,
-                      int M, int nk, int r_loc,
+                      int K, int M, int nk, int r_loc,
                       int d_loc, int B, int n_passes, float scale,
                       int loss_id, float g, int has_prox, float kappa) {
   // z0: the cluster form's (K, M, B) prologue dots; zx: the grid form's
@@ -330,131 +466,255 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
   // blocks during the launch: no __restrict__)
   extern __shared__ __align__(16) float smem[];
   const int m = static_cast<int>(blockIdx.x) % M;   // the cluster's rank
-  const int k = static_cast<int>(blockIdx.x) / M;
+  const int k0 = static_cast<int>(blockIdx.x) / M;  // slot 0's worker
+  const int groups = static_cast<int>(gridDim.x) / M;   // K'
+  // the block's workers k0 + j K', j < nw: W but in the last groups
+  const int nw = W == 1 ? 1 : min(W, (K - k0 + groups - 1) / groups);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t km = static_cast<size_t>(k) * M + m;
-  const size_t r0 = static_cast<size_t>(k) * nk;
+  const int nb = (nk + B - 1) / B;
+  const size_t slab = smem_bytes(B, r_loc, d_loc, U_SMEM) / 4;
 
-  float* us = smem;                                // d_loc, when U_SMEM
-  float* zb = smem + (U_SMEM ? d_loc : 0);         // 2 x B partial dots
-  float* coef = zb + 2 * B;                        // B
-  Walk w{perm + r0,
-         cols + km * nk * r_loc,
-         vals + km * nk * r_loc,
-         y + r0, alpha + r0, mask + r0, sq + r0,
-         dalpha + km * nk,
-         reinterpret_cast<int*>(coef + B),
-         coef + B + ID_SLOTS * B,
-         nk, r_loc, B, (nk + B - 1) / B, stage_words(B, r_loc)};
-  float* u_km = u + km * d_loc;
-  float* uu = U_SMEM ? us : u_km;                  // u as gathered/scattered
-  const int total = n_passes * w.nb;
-  // grid form: this worker's slice of the exchange buffers
-  const size_t zhalf = static_cast<size_t>(gridDim.x) * B;
-  unsigned long long* zk = GRID ? zx + static_cast<size_t>(k) * M * B
-                                : nullptr;
+  // worker slot j: worker k0 + j K', its slab of shared memory
+  // [u] | zb (2 B) | coef (B) | ids | stages, its u slice in device memory
+  auto worker = [&](int j) { return k0 + j * groups; };
+  auto zb_of = [&](int j) { return smem + j * slab + (U_SMEM ? d_loc : 0); };
+  auto coef_of = [&](int j) { return zb_of(j) + 2 * B; };
+  auto u_of = [&](int j) {
+    return u + (static_cast<size_t>(worker(j)) * M + m) * d_loc;
+  };
+  auto uu_of = [&](int j) {                    // u as gathered/scattered
+    return U_SMEM ? smem + j * slab : u_of(j);
+  };
+  auto make_walk = [&](int j) {
+    const int k = worker(j);
+    const size_t km = static_cast<size_t>(k) * M + m;
+    const size_t r0 = static_cast<size_t>(k) * nk;
+    float* coef = coef_of(j);
+    return Walk{perm + r0,
+                cols + km * nk * r_loc,
+                vals + km * nk * r_loc,
+                y + r0, alpha + r0, mask + r0, sq + r0,
+                dalpha + km * nk,
+                reinterpret_cast<int*>(coef + B),
+                coef + B + ID_SLOTS * B,
+                nk, r_loc, B, nb, stage_words(B, r_loc)};
+  };
+  const Walk w0 = make_walk(0);
+  auto walk = [&](int j) { return W == 1 ? w0 : make_walk(j); };
+  const int total = n_passes * nb;
+  // grid form: row t of worker slot j's words, z[s % 2][k][t][:]
+  const size_t zhalf = static_cast<size_t>(K) * B * M;
+  auto zrow = [&](int s, int j, int t) {
+    return zx + (s & 1) * zhalf +
+           (static_cast<size_t>(worker(j)) * B + t) * M;
+  };
 
   // prologue: u, block 0's partial dots at u = w, ids of blocks 0-2 and the
   // rows of blocks 0-1
   if constexpr (U_SMEM) {
-    for (int j = tid; j < d_loc; j += THREADS) us[j] = u_km[j];
+    for (int j = 0; j < nw; ++j) {
+      float* us = smem + j * slab;
+      const float* uk = u_of(j);
+      for (int i = tid; i < d_loc; i += THREADS) us[i] = uk[i];
+    }
   }
   if constexpr (!GRID) {
-    for (int t = tid; t < B; t += THREADS) zb[t] = z0[km * B + t];
+    const size_t km = static_cast<size_t>(k0) * M + m;
+    for (int t = tid; t < B; t += THREADS) zb_of(0)[t] = z0[km * B + t];
   }
-  w.fetch_ids(0);
-  w.fetch_ids(1);
+  fetch_ids<W>(walk, nw, 0);
+  fetch_ids<W>(walk, nw, 1);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  w.fetch_rows(0);
-  w.fetch_rows(1);
-  w.fetch_ids(2);
+  fetch_rows<W>(walk, nw, 0);
+  fetch_rows<W>(walk, nw, 1);
+  fetch_ids<W>(walk, nw, 2);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
   for (int step = 0; step < total; ++step) {
-    const int n = w.rows_of(step);
-    const int* id = w.ids_of(step);
-    const int* ci = reinterpret_cast<const int*>(w.stage_of(step));
-    const float* vi = w.stage_of(step) + B * r_loc;
-    const float* sc = vi + B * r_loc;
-    const int zin = (step & 1) * B;
-    // the row update of row t at its exchanged z
-    auto update = [&](int t, float z) {
-      const int i = id[t];
-      const float dai = w.nb == 1 ? w.da_km[i] : sc[4 * B + t];
+    const int n = w0.rows_of(step);         // every worker's block: n rows
+    // worker slot j's row update of its row t at its exchanged z
+    auto update = [&](int j, int t, float z) {
+      const Walk w = walk(j);
+      const float* sc = w.stage_of(step) + 2 * B * r_loc;
+      const int i = w.ids_of(step)[t];
+      const float dai = nb == 1 ? w.da_km[i] : sc[4 * B + t];
       const float delta = sdca::cd_update(loss_id, g, sc[B + t] + dai, z,
                                           scale * sc[3 * B + t], sc[t]) *
                           sc[2 * B + t];
       w.da_km[i] = dai + delta;
-      coef[t] = scale * delta;
+      coef_of(j)[t] = scale * delta;
     };
     if constexpr (GRID) {
-      // each warp waits for and sums its own rows' partials: no barrier
-      for (int t0 = warp; t0 < n; t0 += NWARPS * ZROWS) {
-        float zr[ZROWS];
-        exchange_rows(zk + (step & 1) * zhalf, t0, n, M, B, step, zr);
+      // each warp waits for and sums its own rows' partials, rows t0,
+      // t0 + NWARPS, ... (ZW of them) of every worker at once (ZR): no
+      // barrier
+      constexpr int ZW = zrows(W), ZR = W * ZW;
+      for (int t0 = warp; t0 < n; t0 += NWARPS * ZW) {
+        // the warp's row i: worker slot i / ZW, row t0 + (i % ZW) NWARPS
+        auto row_t = [&](int i) { return t0 + (i % ZW) * NWARPS; };
+        auto live = [&](int i) { return i / ZW < nw && row_t(i) < n; };
+        auto words = [&](int i) { return zrow(step, i / ZW, row_t(i)); };
+        if constexpr (W == 1) {
+          float zr[ZR];
+          exchange_rows<ZR>(words, live, M, step, zr);
 #pragma unroll
-        for (int r = 0; r < ZROWS; ++r)
-          if (lane == 0 && t0 + r * NWARPS < n) update(t0 + r * NWARPS, zr[r]);
+          for (int r = 0; r < ZR; ++r)
+            if (lane == 0 && live(r)) update(0, row_t(r), zr[r]);
+        } else {
+          // lane i sums and updates the warp's row i, side by side
+          const float z = exchange_staged<ZR>(
+              words, live, M, step,
+              smem + W * slab + warp * (ZR * XS_STRIDE));
+          if (lane < ZR && live(lane)) update(lane / ZW, row_t(lane), z);
+        }
       }
     } else {
       cg::cluster_group cluster = cg::this_cluster();
       cluster.sync();                // every peer's zb[step % 2] is written
       // the exchanged z and the row updates: one thread per row
+      float* zb = zb_of(0);
+      const int zin = (step & 1) * B;
       for (int t = tid; t < n; t += THREADS) {
         float z = 0.0f;
         for (int mm = 0; mm < M; ++mm)
           z += cluster.map_shared_rank(zb, mm)[zin + t];
-        update(t, z);
+        update(0, t, z);
       }
     }
     __syncthreads();
 
-    // the scatter into this shard's u slice: one warp per row
-    for (int t = warp; t < n; t += NWARPS) {
-      const float c = coef[t];
-      if (c == 0.0f) continue;
-      for (int s = lane; s < r_loc; s += 32) {
-        const float v = vi[t * r_loc + s];
-        if (v != 0.0f) atomicAdd(uu + ci[t * r_loc + s], c * v);
+    // the scatter into each worker's u slice: one warp per row t, of
+    // every worker at once (two workers' rows an instruction where they
+    // fit half a warp)
+    if (W > 1 && r_loc <= 16) {
+      const int h = lane >> 4, s = lane & 15;
+      for (int t = warp; t < n; t += NWARPS) {
+#pragma unroll
+        for (int p = 0; p < (W + 1) / 2; ++p) {
+          const int j = 2 * p + h;
+          const float c = j < nw && s < r_loc ? coef_of(j)[t] : 0.0f;
+          if (c != 0.0f) {
+            const Walk w = walk(j);
+            const int* ci = reinterpret_cast<const int*>(w.stage_of(step));
+            const float v = w.stage_of(step)[B * r_loc + t * r_loc + s];
+            if (v != 0.0f) atomicAdd(uu_of(j) + ci[t * r_loc + s], c * v);
+          }
+        }
+      }
+    } else {
+      for (int t = warp; t < n; t += NWARPS) {
+        float c[W];
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          c[j] = j < nw ? coef_of(j)[t] : 0.0f;
+          any |= c[j] != 0.0f;
+        }
+        if (!any) continue;
+        for (int s = lane; s < r_loc; s += 32) {
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if (c[j] != 0.0f) {
+              const Walk w = walk(j);
+              const int* ci =
+                  reinterpret_cast<const int*>(w.stage_of(step));
+              const float v = w.stage_of(step)[B * r_loc + t * r_loc + s];
+              if (v != 0.0f)
+                atomicAdd(uu_of(j) + ci[t * r_loc + s], c[j] * v);
+            }
+          }
+        }
       }
     }
     // block step + 1's rows and block step + 2's ids have landed; block
     // step's stage and step - 1's id slot are free
     cp_async_wait_all();
     __syncthreads();
-    w.fetch_rows(step + 2);
-    w.fetch_ids(step + 3);
+    fetch_rows<W>(walk, nw, step + 2);
+    fetch_ids<W>(walk, nw, step + 3);
     cp_async_commit();
 
-    // the next block's partial dots at the updated u: one warp per row
-    if (step + 1 < total) {
-      const int n2 = w.rows_of(step + 1);
-      const int* c2 = reinterpret_cast<const int*>(w.stage_of(step + 1));
-      const float* v2 = w.stage_of(step + 1) + B * r_loc;
-      float* zout = zb + ((step + 1) & 1) * B;
+    // the next block's partial dots at the updated u: one warp per row t,
+    // of every worker at once
+    if (step + 1 < total && W > 1 && r_loc <= 16) {
+      // two workers' rows an instruction: half h of the warp sums worker
+      // slot 2 p + h's row with the butterfly's last four levels (the
+      // first would add the 0 of lanes past r_loc: the same bits)
+      const int n2 = w0.rows_of(step + 1);
+      const int h = lane >> 4, s = lane & 15;
       for (int t = warp; t < n2; t += NWARPS) {
-        float z = 0.0f;
-        for (int s = lane; s < r_loc; s += 32) {
-          float uc = load_u<U_SMEM>(uu + c2[t * r_loc + s]);
-          if (has_prox) uc = sdca::soft_threshold(uc, kappa);
-          z += uc * v2[t * r_loc + s];
+        float z[(W + 1) / 2];
+#pragma unroll
+        for (int p = 0; p < (W + 1) / 2; ++p) {
+          const int j = 2 * p + h;
+          z[p] = 0.0f;
+          if (j < nw && s < r_loc) {
+            const Walk w = walk(j);
+            const int* c2 =
+                reinterpret_cast<const int*>(w.stage_of(step + 1));
+            const float* v2 = w.stage_of(step + 1) + B * r_loc;
+            float uc = load_u<U_SMEM>(uu_of(j) + c2[t * r_loc + s]);
+            if (has_prox) uc = sdca::soft_threshold(uc, kappa);
+            z[p] += uc * v2[t * r_loc + s];
+          }
         }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          z += __shfl_xor_sync(0xffffffffu, z, o);
+        for (int o = 8; o > 0; o >>= 1) {
+#pragma unroll
+          for (int p = 0; p < (W + 1) / 2; ++p)
+            z[p] += __shfl_xor_sync(0xffffffffu, z[p], o);
+        }
+        if (s == 0) {
+#pragma unroll
+          for (int p = 0; p < (W + 1) / 2; ++p) {
+            if (2 * p + h < nw)
+              store_word(zrow(step + 1, 2 * p + h, t) + m,
+                         tagged(z[p], step + 1));
+          }
+        }
+      }
+    } else if (step + 1 < total) {
+      const int n2 = w0.rows_of(step + 1);
+      for (int t = warp; t < n2; t += NWARPS) {
+        float z[W];
+#pragma unroll
+        for (int j = 0; j < W; ++j) z[j] = 0.0f;
+        for (int s = lane; s < r_loc; s += 32) {
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if (j < nw) {
+              const Walk w = walk(j);
+              const int* c2 =
+                  reinterpret_cast<const int*>(w.stage_of(step + 1));
+              const float* v2 = w.stage_of(step + 1) + B * r_loc;
+              float uc = load_u<U_SMEM>(uu_of(j) + c2[t * r_loc + s]);
+              if (has_prox) uc = sdca::soft_threshold(uc, kappa);
+              z[j] += uc * v2[t * r_loc + s];
+            }
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+          for (int j = 0; j < W; ++j)
+            z[j] += __shfl_xor_sync(0xffffffffu, z[j], o);
+        }
         if (lane == 0) {
-          if constexpr (GRID) {
-            store_word(zk + ((step + 1) & 1) * zhalf +
-                           static_cast<size_t>(t) * M + m,
-                       tagged(z, step + 1));
-          } else {
-            zout[t] = z;
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if (j < nw) {
+              if constexpr (GRID) {
+                store_word(zrow(step + 1, j, t) + m, tagged(z[j], step + 1));
+              } else {
+                zb_of(0)[((step + 1) & 1) * B + t] = z[j];
+              }
+            }
           }
         }
       }
@@ -465,17 +725,21 @@ sparse_sdca_zx_kernel(const int* __restrict__ cols,
     cg::this_cluster().sync();       // peers are done reading this zb
   }
   if constexpr (U_SMEM) {
-    for (int j = tid; j < d_loc; j += THREADS) u_km[j] = us[j];
+    for (int j = 0; j < nw; ++j) {
+      const float* us = smem + j * slab;
+      float* uk = u_of(j);
+      for (int i = tid; i < d_loc; i += THREADS) uk[i] = us[i];
+    }
   }
 }
 
-template <bool U_SMEM, bool GRID>
+template <bool U_SMEM, bool GRID, int W>
 cudaError_t configure(int M, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_sdca_zx_kernel<U_SMEM, GRID>,
+      sparse_sdca_zx_kernel<U_SMEM, GRID, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err == cudaSuccess && !GRID && M > PORTABLE_CLUSTER)
-    err = cudaFuncSetAttribute(sparse_sdca_zx_kernel<U_SMEM, GRID>,
+    err = cudaFuncSetAttribute(sparse_sdca_zx_kernel<U_SMEM, GRID, W>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   return err;
@@ -498,31 +762,48 @@ cudaLaunchConfig_t config(int n_clusters, int M, size_t smem,
   return cfg;
 }
 
-// The grid form's launch: K M blocks, all resident or refused
-template <bool U_SMEM>
+// f(std::integral_constant<int, W>) for the grid form's instance of W
+// workers a block (1-4; sparse_sdca.ZX_GRID_WORKERS); an error for a W it
+// is not built for
+template <class F>
+cudaError_t with_workers(int W, F f) {
+  switch (W) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The grid form's launch: ceil(K / W) groups of M blocks, all resident or
+// refused
+template <bool U_SMEM, int W>
 cudaError_t launch_grid(const int* cols, const float* vals, const float* y,
                         const float* alpha, const float* mask,
                         const float* sq, const int* perm, float* u,
                         float* dalpha, unsigned long long* z, int K, int M,
                         int nk, int r_loc, int d_loc, int B, int n_passes,
                         float scale, int loss_id, float g, int has_prox,
-                        float kappa, size_t smem, cudaStream_t stream) {
-  cudaError_t err = configure<U_SMEM, true>(M, smem);
+                        float kappa, cudaStream_t stream) {
+  const size_t smem = smem_bytes(B, r_loc, d_loc, U_SMEM, W);
+  cudaError_t err = configure<U_SMEM, true, W>(M, smem);
   if (err != cudaSuccess) return err;
   const float* z0 = nullptr;          // the cluster form's prologue dots
   void* args[] = {&cols,  &vals,  &y,     &alpha,    &mask,  &sq,
-                  &perm,  &u,     &dalpha, &z0,      &z,     &M,
-                  &nk,    &r_loc, &d_loc, &B,        &n_passes, &scale,
-                  &loss_id, &g,   &has_prox, &kappa};
+                  &perm,  &u,     &dalpha, &z0,      &z,     &K,
+                  &M,     &nk,    &r_loc, &d_loc,    &B,     &n_passes,
+                  &scale, &loss_id, &g,   &has_prox, &kappa};
+  const int groups = (K + W - 1) / W;
   return cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sparse_sdca_zx_kernel<U_SMEM, true>),
-      dim3(K * M), dim3(THREADS), args, smem, stream);
+      reinterpret_cast<const void*>(sparse_sdca_zx_kernel<U_SMEM, true, W>),
+      dim3(groups * M), dim3(THREADS), args, smem, stream);
 }
 
-// How many blocks of the grid instance the card holds at once: blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the SMs; 0 where
-// the card takes no cooperative launch
-template <bool U_SMEM>
+// How many blocks of the grid instance of W workers a block the card holds
+// at once: blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// times the SMs; 0 where the card takes no cooperative launch
+template <bool U_SMEM, int W>
 cudaError_t grid_resident(size_t smem, int* out) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -530,10 +811,10 @@ cudaError_t grid_resident(size_t smem, int* out) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess) err = configure<U_SMEM, true>(1, smem);
+  if (err == cudaSuccess) err = configure<U_SMEM, true, W>(1, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sparse_sdca_zx_kernel<U_SMEM, true>, THREADS, smem);
+        &per_sm, sparse_sdca_zx_kernel<U_SMEM, true, W>, THREADS, smem);
   if (err == cudaSuccess) *out = coop ? per_sm * sms : 0;
   return err;
 }
@@ -564,30 +845,32 @@ int sparse_sdca_zx_launch(const int* cols, const float* vals, const float* y,
   unsigned long long* none = nullptr;   // the grid form's words
   cudaError_t err;
   if (u_in_smem) {
-    err = configure<true, false>(M, smem);
+    err = configure<true, false, 1>(M, smem);
     if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<true, false>,
+      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<true, false, 1>,
                                cols, vals, y, alpha, mask, sq, perm, u,
-                               dalpha, z0, none, M, nk, r_loc, d_loc, B,
+                               dalpha, z0, none, K, M, nk, r_loc, d_loc, B,
                                n_passes, scale, loss_id, g, has_prox, kappa);
   } else {
-    err = configure<false, false>(M, smem);
+    err = configure<false, false, 1>(M, smem);
     if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<false, false>,
+      err = cudaLaunchKernelEx(&cfg, sparse_sdca_zx_kernel<false, false, 1>,
                                cols, vals, y, alpha, mask, sq, perm, u,
-                               dalpha, z0, none, M, nk, r_loc, d_loc, B,
+                               dalpha, z0, none, K, M, nk, r_loc, d_loc, B,
                                n_passes, scale, loss_id, g, has_prox, kappa);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Run one round in one cooperative launch of K M blocks on `stream` (the
-// grid form): u and dalpha as above; z (2, K, B, M) 64-bit words, z[0]
-// block 0's partial dots at u = w with tag 0 (the float's bits in the low
-// half, the high half 0), z[1] zeroed. The launch is refused (an error,
-// never another form) where the card cannot hold all K M blocks at once.
-// Returns the cudaError_t (0 = ok).
+// Run one round in one cooperative launch on `stream` (the grid form):
+// ceil(K / workers) groups of M blocks, block (k', m) walking shard m of
+// workers k' + j ceil(K / workers), j < workers, in lockstep. u and dalpha
+// as above; z (2, K, B, M) 64-bit words, z[0] block 0's partial dots at
+// u = w with tag 0 (the float's bits in the low half, the high half 0),
+// z[1] zeroed. The launch is refused (an error, never another form) where
+// the card cannot hold all its blocks at once. Returns the cudaError_t
+// (0 = ok).
 int sparse_sdca_zx_grid_launch(const int* cols, const float* vals,
                                const float* y, const float* alpha,
                                const float* mask, const float* sq,
@@ -596,23 +879,24 @@ int sparse_sdca_zx_grid_launch(const int* cols, const float* vals,
                                int r_loc, int d_loc, int B, int n_passes,
                                float scale, int loss_id, float g,
                                int has_prox, float kappa, int u_in_smem,
-                               void* stream) {
+                               int workers, void* stream) {
   // the tags count the round's steps
   if (K < 1 || M < 1 || nk < 1 || B < 1 || n_passes < 0 ||
       static_cast<long long>(n_passes) * ((nk + B - 1) / B) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(B, r_loc, d_loc, u_in_smem != 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      u_in_smem
-          ? launch_grid<true>(cols, vals, y, alpha, mask, sq, perm, u,
-                              dalpha, z, K, M, nk, r_loc, d_loc, B,
-                              n_passes, scale, loss_id, g, has_prox, kappa,
-                              smem, s)
-          : launch_grid<false>(cols, vals, y, alpha, mask, sq, perm, u,
-                               dalpha, z, K, M, nk, r_loc, d_loc,
-                               B, n_passes, scale, loss_id, g, has_prox,
-                               kappa, smem, s);
+  const cudaError_t err = with_workers(workers, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return u_in_smem
+               ? launch_grid<true, W>(cols, vals, y, alpha, mask, sq, perm,
+                                      u, dalpha, z, K, M, nk, r_loc, d_loc,
+                                      B, n_passes, scale, loss_id, g,
+                                      has_prox, kappa, s)
+               : launch_grid<false, W>(cols, vals, y, alpha, mask, sq, perm,
+                                       u, dalpha, z, K, M, nk, r_loc, d_loc,
+                                       B, n_passes, scale, loss_id, g,
+                                       has_prox, kappa, s);
+  });
   if (err != cudaSuccess) {
     cudaGetLastError();   // a refused launch is not left for the next one
     return static_cast<int>(err);
@@ -621,10 +905,17 @@ int sparse_sdca_zx_grid_launch(const int* cols, const float* vals,
 }
 
 // Dynamic shared memory of one block, in bytes (the wrapper's smem_budget
-// must agree; the grid form's layout is the same).
+// must agree; the grid form's layout at W = 1 is the same).
 long long sparse_sdca_zx_smem_bytes(int B, int r_loc, int d_loc,
                                     int u_in_smem) {
   return static_cast<long long>(smem_bytes(B, r_loc, d_loc, u_in_smem != 0));
+}
+
+// The same for the grid form's block of `workers` workers (W slabs).
+long long sparse_sdca_zx_grid_smem_bytes(int B, int r_loc, int d_loc,
+                                         int u_in_smem, int workers) {
+  return static_cast<long long>(
+      smem_bytes(B, r_loc, d_loc, u_in_smem != 0, workers));
 }
 
 // How many clusters of M blocks of this instance the card can hold at
@@ -639,32 +930,37 @@ int sparse_sdca_zx_max_clusters(int M, int B, int r_loc, int d_loc,
   const cudaLaunchConfig_t cfg = config(1, M, smem, nullptr, &attr);
   cudaError_t err;
   if (u_in_smem) {
-    err = configure<true, false>(M, smem);
+    err = configure<true, false, 1>(M, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveClusters(
           out,
-          reinterpret_cast<const void*>(sparse_sdca_zx_kernel<true, false>),
+          reinterpret_cast<const void*>(sparse_sdca_zx_kernel<true, false, 1>),
           &cfg);
   } else {
-    err = configure<false, false>(M, smem);
+    err = configure<false, false, 1>(M, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveClusters(
           out,
-          reinterpret_cast<const void*>(sparse_sdca_zx_kernel<false, false>),
+          reinterpret_cast<const void*>(
+              sparse_sdca_zx_kernel<false, false, 1>),
           &cfg);
   }
   return static_cast<int>(err);
 }
 
-// How many blocks of the grid form's instance the card holds at once (its
-// blocks an SM times the SMs; 0 without cooperative launches) into *out:
-// the grid form runs where K M blocks fit. Returns the cudaError_t (0 = ok).
+// How many blocks of the grid form's instance of `workers` workers a block
+// the card holds at once (its blocks an SM times the SMs; 0 without
+// cooperative launches) into *out: the grid form runs where its
+// ceil(K / workers) M blocks fit. Returns the cudaError_t (0 = ok).
 int sparse_sdca_zx_grid_resident(int B, int r_loc, int d_loc, int u_in_smem,
-                                 int* out) {
+                                 int workers, int* out) {
   *out = 0;
-  const size_t smem = smem_bytes(B, r_loc, d_loc, u_in_smem != 0);
-  return static_cast<int>(u_in_smem ? grid_resident<true>(smem, out)
-                                    : grid_resident<false>(smem, out));
+  return static_cast<int>(with_workers(workers, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    const size_t smem = smem_bytes(B, r_loc, d_loc, u_in_smem != 0, W);
+    return u_in_smem ? grid_resident<true, W>(smem, out)
+                     : grid_resident<false, W>(smem, out);
+  }));
 }
 
 const char* sparse_sdca_zx_error_string(int code) {

@@ -40,10 +40,12 @@ from .sparse_sdca import ZX_MAX_CLUSTER, sparse_local_sdca, \
 # "source", "clamped", "model_shards", "prox_fused", "zx"} (the reference's
 # keys but its TPU-only "slot_unroll") and "form", the zx schedule's form
 # (`sparse_sdca.zx_launch_plan`'s "cluster", "grid" or "block", "plain" on
-# the CPU; None for the 1-D walk). block_rows is the value after the
-# clamp to the shard (what the zx schedule ran with; the 1-D kernel walks
-# row by row and only records it); buffer_depth is the ring the 1-D kernel
-# ran with, after its clamp to nk.
+# the CPU; None for the 1-D walk) and "workers_per_block", the workers each
+# block of its launch walked (the grid form's W; 1 for the cluster and
+# per-block forms, None on the CPU and for the 1-D walk). block_rows is the
+# value after the clamp to the shard (what the zx schedule ran with; the
+# 1-D kernel walks row by row and only records it); buffer_depth is the
+# ring the 1-D kernel ran with, after its clamp to nk.
 LAST_SPARSE_CONFIG = None
 
 
@@ -92,9 +94,10 @@ def round_libraries(solver: str, model_shards: int = 1,
     """The kernel libraries (`build.KERNELS` names) a round of `solver`
     launches: the dense walk, the 1-D sparse walk, or on a feature-sharded
     mesh the z-exchange forms of `sparse_sdca.zx_launch_plan` -- on one
-    card the cluster kernel (M <= 16), past that either its grid form
-    (same library) or the per-block kernel, as the card's occupancy query
-    decides at the launch; on a process mesh the per-block kernel. None
+    card the cluster kernel (M <= 16), past that either its grid form at
+    any workers a block (same library) or the per-block kernel, as the
+    card's occupancy queries decide at the launch; on a process mesh the
+    per-block kernel. None
     for the eager solvers."""
     if solver == "sdca_kernel":
         return ("local_sdca",)
@@ -180,7 +183,8 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
                           "clamped": br != cfg["block_rows"],
                           "model_shards": M_mesh,
                           "prox_fused": kappa is not None,
-                          "zx": use_zx, "form": None}
+                          "zx": use_zx, "form": None,
+                          "workers_per_block": None}
     w_in = (v if kappa is not None else reg.conj_grad(v, lam)
             ).float().contiguous()
     n_passes = n_passes_of(H, nk)
@@ -197,6 +201,7 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
             n_passes=n_passes, block_rows=br, prox_kappa=kappa,
             model_sum=model_sum)
         LAST_SPARSE_CONFIG["form"] = sparse_sdca.LAST_ZX_FORM
+        LAST_SPARSE_CONFIG["workers_per_block"] = sparse_sdca.LAST_ZX_WORKERS
     else:
         if sharded:
             cols, vals = cols[:, 0], vals[:, 0]

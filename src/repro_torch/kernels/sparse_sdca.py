@@ -26,13 +26,15 @@ exchanged (model-summed) partial dots, with q from the global row norms,
 then emits the next block's partial dots at the updated u. Three forms
 (`zx_launch_plan`): on one card a round is one launch of K thread-block
 clusters of M blocks where such a cluster fits (M <= 16); past that, one
-cooperative launch of K M persistent blocks exchanging tagged partial
-dots through device memory (the grid form, in the same source) where the
-card holds them all at once; otherwise -- a grid the card cannot hold,
-and every process mesh (each rank one block, the exchange an all_reduce
-over its model column) -- one launch per invocation of the per-block
-kernel, the reference's own granularity, with the exchange between
-launches.
+cooperative launch of persistent blocks exchanging tagged partial dots
+through device memory (the grid form, in the same source): K M blocks
+where the card holds them all at once, else ceil(K / W) M blocks, each
+walking W workers' shards in lockstep, for the smallest W of
+`ZX_GRID_WORKERS` whose blocks the card holds; otherwise -- M past what
+the card holds, a ring that does not fit, and every process mesh (each
+rank one block, the exchange an all_reduce over its model column) -- one
+launch per invocation of the per-block kernel, the reference's own
+granularity, with the exchange between launches.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors. `LAUNCHES` counts the 1-D kernel's launches at
@@ -40,14 +42,16 @@ depth 1 (the counterpart of `_sparse_sdca_kernel`), `PIPELINED_LAUNCHES`
 those at depth >= 2, `DEVICE_U_LAUNCHES` those of either depth that held u
 in device memory, `ZX_LAUNCHES` the cluster kernel's (one a round: the
 round's invocations run inside it), `ZX_GRID_LAUNCHES` the grid form's
-(one a round), `ZX_BLOCK_LAUNCHES` the per-block kernel's (one an
-invocation) and `ZX_STEPS` the invocations of all three. `LAST_ZX_FORM`
-names the form the last zx call ran ("plain" on the CPU).
+at one worker a block (one a round), `ZX_LOCKSTEP_LAUNCHES` the grid
+form's at W > 1 workers a block (one a round), `ZX_BLOCK_LAUNCHES` the
+per-block kernel's (one an invocation) and `ZX_STEPS` the invocations of
+all of them. `LAST_ZX_FORM` names the form the last zx call ran ("plain"
+on the CPU), `LAST_ZX_WORKERS` its workers a block (None on the CPU).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional, Union
 
 import torch
 
@@ -60,17 +64,21 @@ LAUNCHES = 0                # csrc/sparse_sdca_pipelined.cu at depth 1
 PIPELINED_LAUNCHES = 0      # the same kernel at depth >= 2
 DEVICE_U_LAUNCHES = 0       # either, with u in device memory
 ZX_LAUNCHES = 0             # csrc/sparse_sdca_zx.cu, one per round
-ZX_GRID_LAUNCHES = 0        # its grid form, one per round
+ZX_GRID_LAUNCHES = 0        # its grid form at W = 1, one per round
+ZX_LOCKSTEP_LAUNCHES = 0    # its grid form at W > 1, one per round
 ZX_BLOCK_LAUNCHES = 0       # csrc/sparse_sdca_zx_block.cu, one per step
 ZX_STEPS = 0                # the invocations (blocks of rows) they ran
 MAX_DEPTH = 8               # ring stages the 1-D kernel is built for
 STAGE_SCALARS = 8           # words of a 1-D ring stage after cols and vals
 ZX_MAX_CLUSTER = 16         # with the non-portable cluster-size attribute
+ZX_GRID_WORKERS = (1, 2, 3, 4)   # the grid form's instances: workers a block
 # the device-u walk's instances, (walk warps, SLOTS), in the order the
 # wrapper tries them: one warp up to 128 slots a row, two past that
 DEVICE_U_WALKS = ((1, 4), (2, 8), (2, 16))
 ZX_ID_SLOTS, ZX_SCALARS = 4, 5   # ID_SLOTS, SCALARS in the .cu
+ZX_WARPS, ZX_XS_STRIDE = 8, 33   # NWARPS, XS_STRIDE in the .cu
 LAST_ZX_FORM = None         # "cluster", "grid", "block" or "plain"
+LAST_ZX_WORKERS = None      # the last zx launch's workers a block
 
 
 def stage_row_words(r_max: int) -> int:
@@ -91,9 +99,16 @@ def device_u_walk(r_max: int) -> tuple:
                 DEVICE_U_WALKS[-1])
 
 
+def zx_poll_rows(workers: int) -> int:
+    """Rows of each worker a warp of the zx grid form polls at once
+    (`zrows` in csrc/sparse_sdca_zx.cu): two, one past two workers a
+    block, so a lane holds at most four words in flight."""
+    return 2 if workers <= 2 else 1
+
+
 def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
                 buffer_depth: int = 1, block_rows: int = 16,
-                zx: bool = False) -> dict:
+                zx: bool = False, workers: int = 1) -> dict:
     """Dynamic shared memory one block of the launch uses, in bytes (the
     counterpart of the reference's `vmem_budget`). The 1-D kernel (a walk
     warp and a fetch warp a worker, no reduction scratch) holds a ring of
@@ -109,13 +124,19 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
     a coefficient per block row (scratch), its prefetch (two row stages of
     B rows' cols, vals and five scalars, and four slots of B row ids:
     ring), and u (4 d) when that fits beside them; else u stays in device
-    memory (`u_in_smem` False, `u_bytes` 0)."""
+    memory (`u_in_smem` False, `u_bytes` 0). Its grid form's block of
+    `workers` workers holds that many copies (u in shared memory only
+    where all of them fit) and, past one worker, each warp's staging rows
+    of the exchange (`zx_poll_rows(workers)` rows a worker of
+    `ZX_XS_STRIDE` floats: scratch)."""
     if zx:
-        B = block_rows
-        scratch = 4 * 3 * B
-        ring = 4 * (ZX_ID_SLOTS * B + 2 * (2 * B * r_max + ZX_SCALARS * B))
-        u_in_smem = 4 * d + ring + scratch <= MAX_SMEM_BYTES
-        u = 4 * d if u_in_smem else 0
+        B, W = block_rows, workers
+        scratch = W * 4 * 3 * B + (
+            4 * ZX_WARPS * W * zx_poll_rows(W) * ZX_XS_STRIDE if W > 1 else 0)
+        ring = W * 4 * (ZX_ID_SLOTS * B
+                        + 2 * (2 * B * r_max + ZX_SCALARS * B))
+        u_in_smem = W * 4 * d + ring + scratch <= MAX_SMEM_BYTES
+        u = W * 4 * d if u_in_smem else 0
     else:
         scratch = 0
         stages = min(buffer_depth, nk) if nk is not None else buffer_depth
@@ -270,20 +291,24 @@ def zx_block_smem_bytes(B: int) -> int:
 
 def zx_launch_plan(K: int, M: int, nk: int, d_loc: int, B: int, *,
                    r_loc: int, n_passes: int = 1, cluster: bool = True,
-                   resident: int = 0) -> dict:
+                   resident: Union[int, Mapping[int, int]] = 0) -> dict:
     """How a zx round runs on the card -- shape arithmetic only; what the
     card holds comes in as arguments. `form` "cluster": one launch
     (`launches` 1) of K thread-block clusters of `cluster` (M) blocks,
     `steps` invocations inside it, with `u_in_smem`, `smem_bytes` and
     `fits` from `smem_budget(zx=True)`; taken for M <= 16 unless `cluster`
     is False (a cluster the card cannot hold, or a process mesh). `form`
-    "grid": one cooperative launch of K M blocks (`cluster` 1), the same
-    shared memory; taken otherwise when all K M blocks are `resident` (the
-    blocks of the instance the card holds at once, from
-    `_zx_grid_resident`; 0, the default, on a process mesh). `form`
-    "block": one launch of the per-block kernel per invocation
-    (`launches` = `steps`), u in device memory; taken where neither fits.
-    Raises ValueError only for M < 1."""
+    "grid": one cooperative launch (`cluster` 1) of `groups` (K' =
+    ceil(K / W)) groups of M blocks, each block walking `workers_per_block`
+    (W) workers' shards in lockstep, with the shared memory of
+    `smem_budget(zx=True, workers=W)`; taken otherwise for the smallest W
+    of `ZX_GRID_WORKERS` whose block fits shared memory and whose K' M
+    blocks are `resident`: the blocks of W's instance the card holds at
+    once (from `_zx_grid_resident`), a {W: blocks} mapping or one count
+    for every W (0, the default, on a process mesh). W = 1 wherever all K M
+    blocks are resident. `form` "block": one launch of the per-block
+    kernel per invocation (`launches` = `steps`), u in device memory;
+    taken where none fits. Raises ValueError only for M < 1."""
     if M < 1:
         raise ValueError(f"the zx round needs M >= 1 model shards, got {M}")
     steps = n_passes * (-(-nk // B))
@@ -292,10 +317,17 @@ def zx_launch_plan(K: int, M: int, nk: int, d_loc: int, B: int, *,
         return dict(form="cluster", launches=1, cluster=M, steps=steps,
                     u_in_smem=budget["u_in_smem"],
                     smem_bytes=budget["total_bytes"], fits=True)
-    if budget["fits"] and K * M <= resident:
-        return dict(form="grid", launches=1, cluster=1, steps=steps,
-                    u_in_smem=budget["u_in_smem"],
-                    smem_bytes=budget["total_bytes"], fits=True)
+    for W in ZX_GRID_WORKERS:
+        held = resident.get(W, 0) if isinstance(resident, Mapping) \
+            else resident
+        grid = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True,
+                           workers=W)
+        groups = -(-K // W)
+        if grid["fits"] and groups * M <= held:
+            return dict(form="grid", launches=1, cluster=1, steps=steps,
+                        u_in_smem=grid["u_in_smem"],
+                        smem_bytes=grid["total_bytes"], fits=True,
+                        workers_per_block=W, groups=groups)
     smem = zx_block_smem_bytes(B)
     return dict(form="block", launches=steps, cluster=1, steps=steps,
                 u_in_smem=False, smem_bytes=smem,
@@ -314,13 +346,15 @@ def _zx_clusters_fit(lib, M: int, B: int, r_loc: int, d_loc: int,
 
 
 def _zx_grid_resident(lib, B: int, r_loc: int, d_loc: int,
-                      u_in_smem: bool) -> int:
-    """How many blocks of the grid form's instance the card holds at once
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs; 0 where
-    it takes no cooperative launch): the grid form needs K M of them."""
+                      u_in_smem: bool, workers: int = 1) -> int:
+    """How many blocks of the grid form's instance of `workers` workers a
+    block the card holds at once (its blocks an SM,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, times the SMs; 0 where
+    it takes no cooperative launch): the grid form needs ceil(K / workers)
+    M of them."""
     out = ctypes.c_int(0)
     code = lib.sparse_sdca_zx_grid_resident(B, r_loc, d_loc, int(u_in_smem),
-                                            ctypes.byref(out))
+                                            int(workers), ctypes.byref(out))
     build.check(lib, "sparse_sdca_zx", code)
     return out.value
 
@@ -456,7 +490,8 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
     shards: on CUDA tensors the form `zx_launch_plan` picks from the
     shapes and the card's occupancy queries, before anything launches --
     one launch of the cluster kernel, one cooperative launch of its grid
-    form, or one launch of the per-block kernel per invocation (a launch
+    form (W workers a block, `zx_launch_plan`), or one launch of the
+    per-block kernel per invocation (a launch
     the card refuses raises; no form stands in for another) -- on CPU
     tensors the plain version (any M).
 
@@ -480,9 +515,9 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
     if model_sum is not None and (K, M) != (1, 1):
         raise ValueError(f"a process mesh's rank holds one block, K = M = "
                          f"1, got K={K}, M={M}")
-    global LAST_ZX_FORM
+    global LAST_ZX_FORM, LAST_ZX_WORKERS
     if dev.type == "cpu":
-        LAST_ZX_FORM = "plain"
+        LAST_ZX_FORM, LAST_ZX_WORKERS = "plain", None
         return sparse_local_sdca_zx_plain(
             cols, vals, y, alpha, mask, w, scale, sqnorms, perm, loss=loss,
             n_passes=n_passes, block_rows=block_rows, prox_kappa=prox_kappa,
@@ -504,19 +539,23 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
         dalpha = _zx_rank_round(cols, vals, y, alpha, mask, sqnorms, perm, u,
                                 z0, model_sum, B, int(n_passes), scale, loss,
                                 prox_kappa)
-        LAST_ZX_FORM = "block"
+        LAST_ZX_FORM, LAST_ZX_WORKERS = "block", 1
         return dalpha, (u - w3).reshape(K, M * d_loc)
-    # what the card holds: clusters of M blocks, else K M resident blocks
+    # what the card holds: clusters of M blocks, else blocks of each grid
+    # instance whose shared memory fits
     budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
     lib = build.load("sparse_sdca_zx")
-    clusters = resident = 0
-    if budget["fits"]:
-        if M <= ZX_MAX_CLUSTER:
-            clusters = _zx_clusters_fit(lib, M, B, r_loc, d_loc,
-                                        budget["u_in_smem"])
-        if clusters < 1:
-            resident = _zx_grid_resident(lib, B, r_loc, d_loc,
-                                         budget["u_in_smem"])
+    clusters, resident = 0, {}
+    if budget["fits"] and M <= ZX_MAX_CLUSTER:
+        clusters = _zx_clusters_fit(lib, M, B, r_loc, d_loc,
+                                    budget["u_in_smem"])
+    if clusters < 1:
+        for W in ZX_GRID_WORKERS:
+            grid = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True,
+                               workers=W)
+            if grid["fits"]:
+                resident[W] = _zx_grid_resident(lib, B, r_loc, d_loc,
+                                                grid["u_in_smem"], W)
     plan = zx_launch_plan(K, M, nk, d_loc, B, r_loc=r_loc,
                           n_passes=int(n_passes), cluster=clusters >= 1,
                           resident=resident)
@@ -525,7 +564,8 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
     kappa = (int(prox_kappa is not None),
              float(prox_kappa) if prox_kappa is not None else 0.0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    global ZX_LAUNCHES, ZX_GRID_LAUNCHES, ZX_BLOCK_LAUNCHES, ZX_STEPS
+    global ZX_LAUNCHES, ZX_GRID_LAUNCHES, ZX_LOCKSTEP_LAUNCHES, \
+        ZX_BLOCK_LAUNCHES, ZX_STEPS
     if plan["form"] == "cluster":
         code = lib.sparse_sdca_zx_launch(
             cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
@@ -541,14 +581,18 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
         z = torch.zeros((2, K, B, M), dtype=torch.int64, device=dev)
         z[0] = (z0.view(torch.int32).to(torch.int64)
                 & 0xFFFFFFFF).transpose(1, 2)
+        W = plan["workers_per_block"]
         code = lib.sparse_sdca_zx_grid_launch(
             cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
             alpha.data_ptr(), mask.data_ptr(), sqnorms.data_ptr(),
             perm.data_ptr(), u.data_ptr(), dalpha.data_ptr(), z.data_ptr(),
             K, M, nk, r_loc, d_loc, B, int(n_passes), float(scale), lid, g,
-            *kappa, int(plan["u_in_smem"]), stream)
+            *kappa, int(plan["u_in_smem"]), W, stream)
         build.check(lib, "sparse_sdca_zx", code)
-        ZX_GRID_LAUNCHES += 1
+        if W == 1:
+            ZX_GRID_LAUNCHES += 1
+        else:
+            ZX_LOCKSTEP_LAUNCHES += 1
     else:
         lib = build.load("sparse_sdca_zx_block")
         z = torch.stack([z0, torch.zeros_like(z0)])
@@ -562,6 +606,7 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
         ZX_BLOCK_LAUNCHES += plan["launches"]
     ZX_STEPS += plan["steps"]
     LAST_ZX_FORM = plan["form"]
+    LAST_ZX_WORKERS = plan.get("workers_per_block", 1)
     return dalpha[:, 0].contiguous(), (u - w3).reshape(K, M * d_loc)
 
 

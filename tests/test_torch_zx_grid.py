@@ -4,10 +4,11 @@ holds a lane's row.
 
 `zx_launch_plan` takes the grid form on one card where the cluster form is
 not taken (M > 16, or a cluster the card cannot hold) and the card holds
-all K M blocks at once (`resident`, the wrapper's occupancy query), the
-per-block form where it cannot and on every process mesh, and the cluster
-form at M <= 16 as before; `ops.round_libraries` names the library each
-form launches. The device-u walk gathers a lane's slots into registers
+all K M blocks at once (`resident`, the wrapper's occupancy query; past
+that, a block walks several workers in lockstep, tests/
+test_torch_zx_turns.py), the per-block form where not even M blocks fit
+and on every process mesh, and the cluster form at M <= 16 as before;
+`ops.round_libraries` names the library each form launches. The device-u walk gathers a lane's slots into registers
 at once (`device_u_walk(r_max)`: 4 slots a lane on one walk warp up to
 128 slots a row, 8 or 16 on two walk warps past that, rows past 1,024
 slots in batches). These run on the CPU as shape arithmetic; the grid
@@ -50,12 +51,14 @@ def test_grid_at_rcv1_4x32_with_132_resident_blocks():
     budget = sk.smem_budget(d=1_477, r_max=15, block_rows=16, zx=True)
     assert plan == dict(form="grid", launches=1, cluster=1, steps=10_585,
                         u_in_smem=True, smem_bytes=budget["total_bytes"],
-                        fits=True)
+                        fits=True, workers_per_block=1, groups=4)
     assert budget["u_bytes"] == 5_908
 
 
-@pytest.mark.parametrize("resident", [0, 127])
+@pytest.mark.parametrize("resident", [0, 31])
 def test_block_form_where_the_grid_cannot_be_resident(resident):
+    """Fewer resident blocks than M = 32: not even one worker a group of
+    M blocks fits, whatever the workers a block."""
     plan = _plan(RCV1_4X32, resident=resident)
     assert plan == dict(form="block", launches=10_585, cluster=1,
                         steps=10_585, u_in_smem=False, smem_bytes=8 * 16,
@@ -83,12 +86,14 @@ def test_cluster_form_at_m_up_to_16_whatever_is_resident(M):
 @pytest.mark.parametrize("M", [2, 4, 16])
 def test_grid_where_the_cluster_is_refused(M):
     """A cluster the card cannot hold (the wrapper's query read 0) takes
-    the grid form where K M blocks are resident, else the per-block one."""
+    the grid form where K M blocks are resident, else the per-block one
+    where not even M blocks are."""
     grid = sk.zx_launch_plan(4, M, 1_000, 600, 16, r_loc=24, cluster=False,
                              resident=4 * M)
     assert grid["form"] == "grid" and grid["launches"] == 1
+    assert grid["workers_per_block"] == 1
     block = sk.zx_launch_plan(4, M, 1_000, 600, 16, r_loc=24, cluster=False,
-                              resident=4 * M - 1)
+                              resident=M - 1)
     assert block["form"] == "block" and block["launches"] == block["steps"]
 
 
@@ -107,7 +112,7 @@ FORM_LIBRARY = {"cluster": "sparse_sdca_zx", "grid": "sparse_sdca_zx",
 
 @pytest.mark.parametrize("M,workers,resident,form", [
     (2, 4, None, "cluster"), (16, 4, 64, "cluster"), (17, 3, 132, "grid"),
-    (32, 4, 132, "grid"), (32, 4, 127, "block"), (64, 4, 132, "block")])
+    (32, 4, 132, "grid"), (32, 4, 31, "block"), (64, 4, 63, "block")])
 def test_round_libraries_agree_with_the_plan(M, workers, resident, form):
     plan = sk.zx_launch_plan(workers, M, 1_000, 600, 16, r_loc=24,
                              resident=resident or 0)

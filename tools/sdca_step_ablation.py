@@ -3,6 +3,7 @@
 
     python3 tools/sdca_step_ablation.py [--out build/sdca_step_ablation.json]
                                         [--only sparse,wide,zx,dense]
+                                        [--workers 1,2,4]
 
 Needs one NVIDIA card and nvcc; run from the root of a checkout. Builds
 variants of the two walk kernels (csrc/sparse_sdca_pipelined.cu and
@@ -12,7 +13,10 @@ by a cheaper one, and times every variant beside the unchanged kernel, in
 turns, on round-1 inputs at the shapes `chip_smoke.py` runs: rcv1's
 677,399 x 47,236 at density 0.0016 (sparse, K = 8, ring depth 2; the
 walk warp's step, the fetch warp off its chain; zx, the same rows as
-phase 28's 4 x 32 FeatureShards, B = 16, one cooperative launch a round),
+phase 28's 4 x 32 FeatureShards, B = 16, one cooperative launch a round,
+at each of `--workers` workers a block: W = 1 as the card holds it, W > 1
+with the grid's residency read as ceil(4 / W) 32 blocks, so the plan
+takes the lockstep instance),
 phase 28's news20-shaped synthetic (wide: 19,996 x 1,355,191 at density
 3.36e-4, K = 4, ring depth 4, u in device memory) and
 epsilon's 400,000 x 2,000 (dense, K = 8, windows of 8 rows), hinge. A
@@ -44,16 +48,22 @@ Variants (the text each one replaces is named in VARIANTS), by group:
   zx      no_poll     the M tagged partials loaded once, their tags unread
                       (no wait for the peers)
           no_exchange no load of the M partial dots at all (z = 0)
+          no_update   cd_update replaced by a multiply-add
           no_scatter  no scatter into u
           no_gather   no u[c] gather in the next block's dots (v stands in)
           no_prefetch no copy of block g + 2's rows (stale stages walked)
+          no_rows     the prefetch without its cols and vals
+          no_scalars  the prefetch without its five scalars a row
+          no_wait     no wait for the copies before the prefetch point
+                      (copies still in flight are read as they are)
   dense   no_gram     no z0 / Gram tiles (the window's dots)
           no_scalar   no scalar loop (the window's B updates)
           no_fill     no next window's rows fetched (stale stages)
           no_update   no u += X_B^T c
           fast_div    as above
-Each variant's replacements must each match the source once, or the run
-fails: an edit of a kernel that moves the text shows here.
+Each variant's replacements must each match the source once (or the
+count given as a third element), or the run fails: an edit of a kernel
+that moves the text shows here.
 """
 from __future__ import annotations
 
@@ -120,15 +130,44 @@ VARIANTS = {
     "zx": {
         "no_poll": [("if (__all_sync(0xffffffffu, ready)) break;",
                      "break;")],
-        "no_exchange": [("exchange_rows(zk + (step & 1) * zhalf, t0, n, M, "
-                         "B, step, zr);",
-                         "for (int r = 0; r < ZROWS; ++r) zr[r] = 0.0f;")],
-        "no_scatter": [("if (v != 0.0f) atomicAdd(uu + ci[t * r_loc + s], "
-                        "c * v);", "if (v != v) atomicAdd(uu + ci[t * r_loc"
-                        " + s], c * v);")],
-        "no_gather": [("float uc = load_u<U_SMEM>(uu + c2[t * r_loc + s]);",
-                       "float uc = v2[t * r_loc + s];")],
-        "no_prefetch": [("    w.fetch_rows(step + 2);\n", "")],
+        "no_exchange": [("exchange_rows<ZR>(words, live, M, step, zr);",
+                         "for (int r = 0; r < ZR; ++r) zr[r] = 0.0f;"),
+                        ("const float z = exchange_staged<ZR>(\n"
+                         "              words, live, M, step,\n"
+                         "              smem + W * slab + warp * (ZR * "
+                         "XS_STRIDE));", "const float z = 0.0f;")],
+        "no_update": [("sdca::cd_update(loss_id, g, sc[B + t] + dai, z,\n"
+                       "                                          scale * "
+                       "sc[3 * B + t], sc[t]) *\n"
+                       "                          sc[2 * B + t];",
+                       "(z + dai) * 1e-30f;")],
+        "no_scatter": [("if (v != 0.0f) atomicAdd(uu_of(j) + ci[t * r_loc + "
+                        "s], c * v);", "if (v != v) atomicAdd(uu_of(j) + "
+                        "ci[t * r_loc + s], c * v);"),
+                       ("if (v != 0.0f)\n                atomicAdd(uu_of(j) "
+                        "+ ci[t * r_loc + s], c[j] * v);", "if (v != v)\n"
+                        "                atomicAdd(uu_of(j) + ci[t * r_loc "
+                        "+ s], c[j] * v);")],
+        "no_gather": [("float uc = load_u<U_SMEM>(uu_of(j) + c2[t * r_loc + "
+                       "s]);", "float uc = v2[t * r_loc + s];", 2)],
+        "no_prefetch": [("    fetch_rows<W>(walk, nw, step + 2);\n", "")],
+        "no_rows": [("            cp_async4(ci + t * r_loc + s, w.cols_km + "
+                     "off[j] + s);\n            cp_async4(vi + t * r_loc + s, "
+                     "w.vals_km + off[j] + s);\n", ""),
+                    ("          cp_async4(reinterpret_cast<int*>(w.stage_of("
+                     "seq)) + t * r_loc + s,\n                    w.cols_km "
+                     "+ off + s);\n          cp_async4(w.stage_of(seq) + B * "
+                     "r_loc + t * r_loc + s,\n                    w.vals_km "
+                     "+ off + s);\n", "          (void)off;\n")],
+        "no_scalars": [("        cp_async4(sc + t, w.y_k + i);\n"
+                        "        cp_async4(sc + B + t, w.alpha_k + i);\n"
+                        "        cp_async4(sc + 2 * B + t, w.mask_k + i);\n"
+                        "        cp_async4(sc + 3 * B + t, w.sq_k + i);\n"
+                        "        cp_async4(sc + 4 * B + t, w.da_km + i);\n",
+                        "        (void)sc;\n")],
+        "no_wait": [("    cp_async_wait_all();\n    __syncthreads();\n"
+                     "    fetch_rows<W>", "    __syncthreads();\n"
+                     "    fetch_rows<W>")],
     },
     "dense": {
         "no_gram": [("for (int I = 0; I < NBLK; ++I) {",
@@ -163,13 +202,13 @@ def variant_dirs(base: pathlib.Path, groups=None):
             shutil.copytree(build.CSRC, d)
             for path in d.iterdir():
                 text = path.read_text()
-                for old, new in edits:
+                for old, new, *_ in edits:
                     text = text.replace(old, new) if text.count(old) else text
                 path.write_text(text)
-            for old, _ in edits:
+            for old, _, *count in edits:
                 hits = sum(p.read_text().count(old) for p in
                            build.CSRC.iterdir())
-                if hits != 1:
+                if hits != (count[0] if count else 1):
                     raise SystemExit(f"{group} {name}: {old!r} found "
                                      f"{hits} times in csrc/")
             dirs[(group, name)] = d
@@ -213,12 +252,12 @@ def _time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def in_turns(group, libs, call, steps, reps=2):
+def in_turns(group, libs, call, steps, reps=2, name=None):
     """ms a call of every variant of `group`, in turns (forward, then
     backward); returns {variant: ms}."""
     from repro_torch.kernels import build
     kernel = GROUP_KERNEL[group]
-    name = group
+    name = name or group
     names = ["full", *VARIANTS[group]]
     ms = {n: [] for n in names}
     for n in names + names[::-1]:
@@ -239,7 +278,11 @@ def main():
     ap.add_argument("--only", default=None,
                     help="comma-separated groups to time (default: all of "
                          + ", ".join(VARIANTS) + ")")
+    ap.add_argument("--workers", default="1",
+                    help="comma-separated workers a block of the zx grid "
+                         "form to ablate (1, 2, 4 at rcv1's 4 x 32)")
     args = ap.parse_args()
+    workers = tuple(int(w) for w in args.workers.split(","))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -262,8 +305,8 @@ def main():
     rng = np.random.default_rng(SEED)
     result = {"device": smi}
 
-    walks = {"sparse": sparse_walk, "wide": wide_walk, "zx": zx_grid,
-             "dense": dense_walk}
+    walks = {"sparse": sparse_walk, "wide": wide_walk, "dense": dense_walk,
+             "zx": lambda *a: zx_grid(*a, workers=workers)}
     for group in groups:
         result[group] = walks[group](libs, dev, rng, hinge)
     out = ROOT / args.out
@@ -317,10 +360,12 @@ def wide_walk(libs, dev, rng, hinge):
         lambda: sk.sparse_local_sdca(*wargs, loss=hinge, buffer_depth=4), nk)
 
 
-def zx_grid(libs, dev, rng, hinge):
+def zx_grid(libs, dev, rng, hinge, workers=(1,)):
     """The grid form at phase 28's 4 x 32 shape: rcv1's rows dealt round
     robin into FeatureShards, the first round's inputs (w = 0, alpha = 0),
-    B = 16, one pass; the time a step is the round's over its steps."""
+    B = 16, one pass, at each W of `workers` (W > 1: the residency read as
+    ceil(K / W) M); the time a step is the round's over its steps.
+    Returns {W: {variant: ms}}."""
     import numpy as np
     import torch
     from repro_torch.data import make_sparse_classification
@@ -340,16 +385,28 @@ def zx_grid(libs, dev, rng, hinge):
             torch.zeros(M * fs.d_local, device=dev), 4.0 / (1e-6 * 677_399),
             sq, perm)
     steps = -(-nk // 16)
-    log(f"[zx] rcv1 shape K={K} M={M} nk={nk} r_loc={r_loc} "
-        f"d_local={fs.d_local}, B 16, {steps} steps a round, grid form")
+    real = sk._zx_grid_resident
+    got = {}
+    for W in workers:
+        log(f"[zx] rcv1 shape K={K} M={M} nk={nk} r_loc={r_loc} "
+            f"d_local={fs.d_local}, B 16, {steps} steps a round, grid form, "
+            f"W = {W}")
+        held = -(-K // W) * M
 
-    def call():
-        out = sk.sparse_local_sdca_zx(*args, loss=hinge, block_rows=16)
-        if sk.LAST_ZX_FORM != "grid":
-            raise SystemExit(f"zx ablation ran the {sk.LAST_ZX_FORM} form")
-        return out
+        def call():
+            out = sk.sparse_local_sdca_zx(*args, loss=hinge, block_rows=16)
+            if (sk.LAST_ZX_FORM, sk.LAST_ZX_WORKERS) != ("grid", W):
+                raise SystemExit(f"zx ablation ran {sk.LAST_ZX_FORM} at W = "
+                                 f"{sk.LAST_ZX_WORKERS}, not the grid at {W}")
+            return out
 
-    return in_turns("zx", libs, call, steps)
+        if W > 1:
+            sk._zx_grid_resident = lambda *a: held
+        try:
+            got[W] = in_turns("zx", libs, call, steps, name=f"zx W={W}")
+        finally:
+            sk._zx_grid_resident = real
+    return got
 
 
 def dense_walk(libs, dev, rng, hinge):

@@ -2,7 +2,8 @@
 """Both LocalSDCA walks timed for any checkout, on the card.
 
     python3 tools/walk_times.py [--src PATH] [--label NAME]
-                                [--parts sparse,dense,zx,wide]
+                                [--parts sparse,dense,zx,zx32,wide]
+                                [--workers 1,2,4]
 
 Needs one NVIDIA card and nvcc. Imports `repro_torch` from --src (default
 this checkout's src/; another checkout's src/ times that checkout's
@@ -21,7 +22,13 @@ warm-up), on round-1 inputs (alpha = 0, w = 0, one pass, hinge):
   * with `zx`, the z-exchange round at rcv1's shape as FeatureShards of
     4 x 2 and 4 x 32 (chip_smoke.py phases 12 and 28, B = 16) in each form
     the checkout has ("cluster" at M <= 16, "grid" where the checkout
-    has it, "block"), forced by reading the card's fits as 0;
+    has it, "block"), forced by reading the card's fits as 0; at 4 x 32
+    also the grid form at each W > 1 of `--workers` where the checkout
+    has the lockstep instances ("grid@W2", ...: the grid's residency read
+    as ceil(4 / W) 32 blocks);
+  * with `zx32`, rcv1 as 32 x 32 FeatureShards (1,024 blocks: past what
+    the card holds at W = 1) in the grid form the card's own residency
+    picks and through the per-block kernel, in turns;
   * with `wide`, the 1-D walk with u in device memory at news_sparse's
     and news20.binary's shapes (phase 28, K = 4, lambda = 1e-4) at depths
     4 and 1;
@@ -60,7 +67,10 @@ def main():
                     help="comma-separated: sparse, dense, zx, wide, slots, "
                          "mesh")
     ap.add_argument("--mesh-reps", type=int, default=2)
+    ap.add_argument("--workers", default="1,2,4",
+                    help="workers a block of the zx grid forms at 4 x 32")
     args = ap.parse_args()
+    workers = [int(w) for w in args.workers.split(",")]
     parts = args.parts.split(",")
     import numpy as np
     import torch
@@ -81,13 +91,18 @@ def main():
 
     out = {"label": args.label, "device": smi}
     csr = y = None
-    if "zx" in parts or "sparse" in parts:
+    if {"zx", "zx32", "sparse"} & set(parts):
         csr, y = make_sparse_classification(677_399, 47_236, density=0.0016,
                                             seed=SEED)
     if "zx" in parts:
-        out["zx_ms"] = zx_forms(cs, sk, csr, y, dev, hinge, rng)
+        out["zx_ms"] = zx_forms(cs, sk, csr, y, dev, hinge, rng, workers)
         log(f"[walk times] {args.label}: zx ms a round by form "
             f"{out['zx_ms']}")
+    if "zx32" in parts:
+        out["zx32_ms"] = zx_forms(cs, sk, csr, y, dev, hinge, rng, (1,),
+                                  meshes=((32, 32),))
+        log(f"[walk times] {args.label}: zx at 32 x 32, ms a round by form "
+            f"{out['zx32_ms']}")
     if "wide" in parts:
         out["wide_ms"] = wide_walks(cs, sk, dev, hinge, rng)
         log(f"[walk times] {args.label}: the device-u walk ms a call "
@@ -111,12 +126,18 @@ def log(msg):
     print(msg, flush=True)
 
 
-def zx_forms(cs, sk, csr, y, dev, hinge, rng):
-    """ms a round of each zx form at 4 x 2 and 4 x 32, in turns."""
+def zx_forms(cs, sk, csr, y, dev, hinge, rng, workers,
+             meshes=((4, 2), (4, 32))):
+    """ms a round of each zx form at each (K, M) of `meshes`, in turns;
+    "grid@W<W>" the grid form with its residency read as ceil(K / W) M
+    blocks, for each W > 1 of `workers` that takes fewer blocks than
+    W = 1. With the lockstep instances, also each form's workers a block
+    and its results' max abs difference to the per-block kernel's."""
     import torch
     from repro_torch.data.sparse import row_sqnorms, shard_features_streaming
     got = {}
-    for K, M in ((4, 2), (4, 32)):
+    lockstep = hasattr(sk, "ZX_GRID_WORKERS")
+    for K, M in meshes:
         fs, yz, mz = shard_features_streaming([(csr, y)], K, M,
                                               n_features=csr.shape[1],
                                               device=dev)
@@ -126,15 +147,22 @@ def zx_forms(cs, sk, csr, y, dev, hinge, rng):
                 K / (1e-6 * 677_399), (row_sqnorms(fs) * mz).contiguous(),
                 torch.from_numpy(cs._perm(rng, K, nk)).to(dev))
         forms = (["cluster"] if M <= sk.ZX_MAX_CLUSTER else []) + (
-            ["grid"] if hasattr(sk, "_zx_grid_resident") else []) + ["block"]
+            ["grid"] if hasattr(sk, "_zx_grid_resident") else []) + [
+            f"grid@W{w}" for w in workers
+            if lockstep and w > 1 and M > sk.ZX_MAX_CLUSTER
+            and -(-K // w) < K] + ["block"]
+        seen = {}
 
         def call(form):
+            base, _, w = form.partition("@W")
             real = (sk._zx_clusters_fit, getattr(sk, "_zx_grid_resident",
                                                  None))
-            if form != "cluster":
+            if base != "cluster":
                 sk._zx_clusters_fit = lambda *a: 0
-            if form == "block" and real[1] is not None:
+            if base == "block" and real[1] is not None:
                 sk._zx_grid_resident = lambda *a: 0
+            if w:
+                sk._zx_grid_resident = lambda *a: -(-K // int(w)) * M
             try:
                 res = sk.sparse_local_sdca_zx(*args, loss=hinge,
                                               block_rows=16)
@@ -142,12 +170,20 @@ def zx_forms(cs, sk, csr, y, dev, hinge, rng):
                 sk._zx_clusters_fit = real[0]
                 if real[1] is not None:
                     sk._zx_grid_resident = real[1]
-            if getattr(sk, "LAST_ZX_FORM", form) != form:
+            if getattr(sk, "LAST_ZX_FORM", base) != base or (
+                    w and sk.LAST_ZX_WORKERS != int(w)):
                 raise SystemExit(f"walk_times: asked for the {form} form, "
                                  f"ran {sk.LAST_ZX_FORM}")
+            seen[form] = getattr(sk, "LAST_ZX_WORKERS", 1)
             return res
 
-        ms, _ = cs._in_turns(forms, call)
+        ms, outs = cs._in_turns(forms, call)
+        if lockstep:
+            ms = {"ms": ms, "workers_per_block": seen,
+                  "max_abs_to_block": {
+                      f: max(float((a - b).abs().max())
+                             for a, b in zip(outs[f], outs["block"]))
+                      for f in forms}}
         got[f"{K}x{M}"] = ms
         del fs, args
     return got
