@@ -40,7 +40,8 @@ order, each failing the run with a non-zero exit:
                published shape, 677,399 x 47,236 at density 0.0016, K = 8,
                hinge, lambda = 1e-6, after a small-input cross-check of the
                card against the CPU: the sparse kernel at the card's
-               cache-miss ring depth, 4 (the prefetching walk)
+               cache-miss ring depth, 4 (the prefetching walk; the ring
+               that ran is printed in LAST_SPARSE_CONFIG's ring_depth)
   5. dense     the main path (`solve`, sdca_kernel) at epsilon's published
                shape, 400,000 x 2,000, K = 8 (3.2 GB of X on the card),
                hinge, lambda = 1e-4
@@ -89,9 +90,11 @@ order, each failing the run with a non-zero exit:
                the plain version)
  11. depth-1   phase 4's main path again (rcv1 shape, K = 8, 5 rounds)
                with buffer_depth 1 resolved from a one-entry autotune cache
-               named by REPRO_TORCH_AUTOTUNE_CACHE: the sparse kernel walks
-               without prefetching, and the state equals phase 4's bit for
-               bit; its time per launch and per step at depth 1, 2, 4, 8
+               named by REPRO_TORCH_AUTOTUNE_CACHE: the launches count as
+               the depth-1 kernel, the ring that ran is the card's
+               (`sparse_sdca.ring_plan`: D_CARD deep, printed), and the
+               state equals phase 4's bit for bit; its time per launch and
+               per step asked at depth 1, 2, 4, 8
  12. mesh2d    the feature-sharded path: after a small-input cross-check of
                card against CPU, phase 4's CSR partitioned K = 4, M = 2 (the
                reference's --mesh 4x2) and solved through `solve` on
@@ -761,8 +764,9 @@ def phase_kernels(dev):
                 f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"sparse {loss_name} kappa={kappa} {part}")
-    errs["sparse_sdca_pipelined"] = _cut_pipelined(rng, dev, sparse_in,
-                                                   scale, bad)
+    with _rings_as_asked():
+        errs["sparse_sdca_pipelined"] = _cut_pipelined(rng, dev, sparse_in,
+                                                       scale, bad)
     errs["sparse_sdca_zx"] = _cut_zx(rng, dev, scale, bad)
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -828,6 +832,19 @@ def _cut_dense(rng, dev, scale, bad):
         if nk >= 4 and not bool((got[0][:, [2, nk - 1]] == 0).all()):
             bad.append(f"dense d={d} B={B} nk={nk}: a masked row moved")
     return worst
+
+
+@contextlib.contextmanager
+def _rings_as_asked():
+    """Inside the block the 1-D walk runs each asked ring as asked
+    (`sparse_sdca.D_CARD` read as 1), so phase 3 holds every ring the
+    kernel is built for, not only the card's."""
+    from repro_torch.kernels import sparse_sdca as sk
+    real, sk.D_CARD = sk.D_CARD, 1
+    try:
+        yield
+    finally:
+        sk.D_CARD = real
 
 
 def _cut_pipelined(rng, dev, sparse_in, scale, bad):
@@ -1899,8 +1916,9 @@ def _cached_depth(sh, depth):
 
 def phase_depth_one(sparse):
     """Phase 4's main path with buffer_depth 1 from a one-entry autotune
-    cache: the sparse kernel must walk without prefetching and give phase
-    4's state."""
+    cache: the launches must count as the depth-1 kernel, run the ring
+    `ring_plan` gives (the card's D_CARD deep at rcv1's shape), and give
+    phase 4's state."""
     import torch
     from repro_torch.core import solve
     from repro_torch.core.losses import get_loss
@@ -1915,14 +1933,19 @@ def phase_depth_one(sparse):
                   gap_every=1, seed=SEED)
         launches = counts()
         used = dict(ops.LAST_SPARSE_CONFIG)
+    ring = sk.ring_plan(CACHE_DEPTH, nk=nk, d=sh.d, r_max=r_max)["depth"]
     log(f"[11 depth-1] rcv1 shape, K={K}, buffer_depth from the cache "
-        f"file {path.name} ({autotune.ENV_VAR}): LAST_SPARSE_CONFIG {used}")
+        f"file {path.name} ({autotune.ENV_VAR}): LAST_SPARSE_CONFIG {used}; "
+        f"the ring ran {used['ring_depth']} deep (ring_plan: {ring})")
     log(f"  launches on the main path: {launches}")
     rounds = len(r4.history["round"])
     _check_gaps("rcv1 sdca_sparse_kernel, depth 1", r.history, rounds)
     if used["buffer_depth"] != CACHE_DEPTH or used["source"] != "cache":
         fail(f"phase 11 did not resolve depth {CACHE_DEPTH} from the "
              f"cache: {used}")
+    if used["ring_depth"] != ring:
+        fail(f"phase 11 ran a ring of {used['ring_depth']}, not ring_plan's "
+             f"{ring}")
     if launches["sparse_sdca"] != rounds or \
             launches["sparse_sdca_pipelined"] != 0:
         fail(f"phase 11 launched {launches} in {rounds} rounds")
@@ -1951,8 +1974,11 @@ def phase_depth_one(sparse):
     equal = all(torch.equal(a, b) for depth in DEPTHS[1:]
                 for a, b in zip(outs[depth], outs[1]))
     order = DEPTHS + DEPTHS[::-1]
+    rings = [sk.ring_plan(k, nk=nk, d=sh.d, r_max=r_max)["depth"]
+             for k in DEPTHS]
     log(f"  ms per launch on the next round's inputs (CUDA events, depths "
-        f"in turns {', '.join(map(str, order))}): " + ", ".join(
+        f"asked in turns {', '.join(map(str, order))}, rings run {rings}): "
+        + ", ".join(
             f"depth {k}: {v:.3f}" for k, v in ms.items())
         + f"; us a step: " + ", ".join(
             f"depth {k}: {1e3 * v / (nk * cfg_passes):.4f}"
@@ -2679,7 +2705,7 @@ def phase_accel(dev, dense):
 # ----------------------------------------------------------------------------
 
 OBS_REGIONS = ("cocoa/local_solve", "cocoa/exchange", "cocoa/certificate")
-RING_KERNEL = "sparse_sdca_pipelined_kernel"   # row 3's __global__ name
+RING_KERNEL = "sparse_sdca_smem_kernel"   # rows 2-3's __global__ at rcv1
 OBS_TRACES = 5                 # traces phase 18 takes before it gives up
 CLI_TIMEOUT = 120              # s for each of phase 18's CLI runs
 

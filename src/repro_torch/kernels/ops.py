@@ -45,7 +45,9 @@ from .sparse_sdca import ZX_MAX_CLUSTER, sparse_local_sdca, \
 # per-block forms, None on the CPU and for the 1-D walk). block_rows is the
 # value after the clamp to the shard (what the zx schedule ran with; the
 # 1-D kernel walks row by row and only records it); buffer_depth is the
-# ring the 1-D kernel ran with, after its clamp to nk.
+# ring asked of the 1-D kernel, after its clamp to nk, and "ring_depth" the
+# ring it ran on the card (`sparse_sdca.ring_plan`; None on the CPU, where
+# the plain version has no ring, and for the zx schedule).
 LAST_SPARSE_CONFIG = None
 
 
@@ -184,7 +186,7 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
                           "model_shards": M_mesh,
                           "prox_fused": kappa is not None,
                           "zx": use_zx, "form": None,
-                          "workers_per_block": None}
+                          "workers_per_block": None, "ring_depth": None}
     w_in = (v if kappa is not None else reg.conj_grad(v, lam)
             ).float().contiguous()
     n_passes = n_passes_of(H, nk)
@@ -208,6 +210,7 @@ def sparse_local_sdca_block(shard, y, alpha, mask, v, perm, loss: Loss,
         dalpha, du = sparse_local_sdca(
             cols, vals, y, alpha, mask, w_in, scale, order, loss=loss,
             n_passes=n_passes, prox_kappa=kappa, buffer_depth=depth)
+        LAST_SPARSE_CONFIG["ring_depth"] = sparse_sdca.LAST_RING_DEPTH
     return SDCAResult(dalpha, du, n_passes * nk)
 
 

@@ -4,9 +4,10 @@
 
 `sparse_local_sdca` replaces the TPU kernels `repro/kernels/sparse_sdca.py::
 _sparse_sdca_kernel` (buffer_depth 1) and `_sparse_sdca_pipelined_kernel`
-(buffer_depth >= 2) with one kernel templated on its ring depth: at depth 1
-each row is fetched in its own step, at depth >= 2 the next rows are
-prefetched. One call runs one round for all K workers: per row an
+(buffer_depth >= 2) with one kernel templated on its ring depth. The
+depth is the TPU's VMEM double-buffering knob and changes no result, so on
+the card the ring runs at least `D_CARD` deep where u stays in shared
+memory (`ring_plan`). One call runs one round for all K workers: per row an
 r_max gather-dot `sum_r prox(u[c_r]) * v_r` (prox only when `prox_kappa`
 is set), `q = scale * sum_r v_r^2`, the closed-form update, then an r_max
 scatter-axpy into raw u. Padding slots (col 0, val 0) are exact no-ops and
@@ -37,15 +38,16 @@ launch per invocation of the per-block kernel, the reference's own
 granularity, with the exchange between launches.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
-version for CPU tensors. `LAUNCHES` counts the 1-D kernel's launches at
-depth 1 (the counterpart of `_sparse_sdca_kernel`), `PIPELINED_LAUNCHES`
-those at depth >= 2, `DEVICE_U_LAUNCHES` those of either depth that held u
-in device memory, `ZX_LAUNCHES` the cluster kernel's (one a round: the
-round's invocations run inside it), `ZX_GRID_LAUNCHES` the grid form's
-at one worker a block (one a round), `ZX_LOCKSTEP_LAUNCHES` the grid
-form's at W > 1 workers a block (one a round), `ZX_BLOCK_LAUNCHES` the
-per-block kernel's (one an invocation) and `ZX_STEPS` the invocations of
-all of them. `LAST_ZX_FORM` names the form the last zx call ran ("plain"
+version for CPU tensors. `LAUNCHES` counts the 1-D kernel's launches asked
+at depth 1 (the counterpart of `_sparse_sdca_kernel`, whatever ring ran),
+`PIPELINED_LAUNCHES` those asked at depth >= 2, `DEVICE_U_LAUNCHES` those
+of either that held u in device memory, `LAST_RING_DEPTH` the ring the
+last one ran (None on the CPU), `ZX_LAUNCHES` the cluster kernel's (one a
+round: the round's invocations run inside it), `ZX_GRID_LAUNCHES` the
+grid form's at one worker a block (one a round), `ZX_LOCKSTEP_LAUNCHES`
+the grid form's at W > 1 workers a block (one a round),
+`ZX_BLOCK_LAUNCHES` the per-block kernel's (one an invocation) and
+`ZX_STEPS` the invocations of all of them. `LAST_ZX_FORM` names the form the last zx call ran ("plain"
 on the CPU), `LAST_ZX_WORKERS` its workers a block (None on the CPU).
 """
 from __future__ import annotations
@@ -69,6 +71,11 @@ ZX_LOCKSTEP_LAUNCHES = 0    # its grid form at W > 1, one per round
 ZX_BLOCK_LAUNCHES = 0       # csrc/sparse_sdca_zx_block.cu, one per step
 ZX_STEPS = 0                # the invocations (blocks of rows) they ran
 MAX_DEPTH = 8               # ring stages the 1-D kernel is built for
+# the ring the card runs at least, with u in shared memory: the fastest of
+# rings 3-8 at rcv1's shape, 40.2 ms against ring 4's 43.8 (H100 at 700 W;
+# PERF.md, the 1-D walk's ring sweep)
+D_CARD = 8
+LAST_RING_DEPTH = None      # the ring the last 1-D launch ran
 STAGE_SCALARS = 8           # words of a 1-D ring stage after cols and vals
 ZX_MAX_CLUSTER = 16         # with the non-portable cluster-size attribute
 ZX_GRID_WORKERS = (1, 2, 3, 4)   # the grid form's instances: workers a block
@@ -150,6 +157,27 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
                 u_in_smem=u_in_smem)
 
 
+def ring_plan(buffer_depth: int, *, nk: int, d: int, r_max: int) -> dict:
+    """The ring the 1-D kernel runs on the card for an asked
+    `buffer_depth` -- shape arithmetic only. Where u fits shared memory
+    beside the asked ring (clamped to nk), the ring is max(buffer_depth,
+    `D_CARD`), clamped to nk and `MAX_DEPTH`, and cut back to the deepest
+    that still leaves u in shared memory; where it does not, u goes to
+    device memory and the asked ring runs. Returns {"depth", "u_in_smem"}.
+    Every depth gives the same results (see the kernel's note)."""
+    asked = min(buffer_depth, nk)
+
+    def fits(depth):
+        return smem_budget(d=d, r_max=r_max, nk=nk,
+                           buffer_depth=depth)["u_in_smem"]
+
+    if not fits(asked):
+        return dict(depth=asked, u_in_smem=False)
+    want = min(max(buffer_depth, D_CARD), nk, MAX_DEPTH)
+    depth = next(k for k in range(want, asked - 1, -1) if fits(k))
+    return dict(depth=depth, u_in_smem=True)
+
+
 def _enforce_smem(budget: dict, where: str) -> None:
     """Reject a launch whose shared memory does not fit a block."""
     if not budget["fits"]:
@@ -219,9 +247,10 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
                       prox_kappa: Optional[float] = None,
                       buffer_depth: int = 1):
     """One round of sparse LocalSDCA for all K workers: on CUDA tensors the
-    kernel with a ring of buffer_depth rows (clamped to nk: see its source
-    note), which at depth >= 2 prefetches the next rows; on CPU tensors
-    `sparse_local_sdca_plain`, whatever the depth.
+    kernel with the ring `ring_plan` gives for buffer_depth (at least
+    `D_CARD` rows where u stays in shared memory, never past nk: see the
+    kernel's source note); on CPU tensors `sparse_local_sdca_plain`,
+    whatever the depth.
 
     cols (K, nk, r_max) int32 (padding col 0); vals (K, nk, r_max) f32
     (padding 0); y, alpha, mask (K, nk) f32; w (d,) f32; perm (K, nk) int32;
@@ -236,7 +265,9 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
     if not 1 <= buffer_depth <= MAX_DEPTH:
         raise ValueError(f"buffer_depth must lie in [1, {MAX_DEPTH}], got "
                          f"{buffer_depth}")
+    global LAST_RING_DEPTH
     if vals.device.type == "cpu":
+        LAST_RING_DEPTH = None
         return sparse_local_sdca_plain(cols, vals, y, alpha, mask, w, scale,
                                        perm, loss=loss, n_passes=n_passes,
                                        prox_kappa=prox_kappa)
@@ -245,13 +276,14 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
                          f"{vals.device}")
     _require(vals.device, vals=vals, y=y, alpha=alpha, mask=mask, w=w,
              cols=cols, perm=perm)
-    budget = smem_budget(d=d, r_max=r_max, nk=nk, buffer_depth=buffer_depth)
+    plan = ring_plan(buffer_depth, nk=nk, d=d, r_max=r_max)
+    depth = plan["depth"]
+    budget = smem_budget(d=d, r_max=r_max, nk=nk, buffer_depth=depth)
     _enforce_smem(budget, "sparse_local_sdca")
     dalpha = torch.zeros((K, nk), dtype=torch.float32, device=vals.device)
     # with u in device memory the kernel keeps u in du and leaves u - w
     du = torch.empty((K, d), dtype=torch.float32, device=vals.device)
     lib = build.load("sparse_sdca_pipelined")
-    depth = min(buffer_depth, nk)   # the ring never reaches past the pass
     code = lib.sparse_sdca_pipelined_launch(
         cols.data_ptr(), vals.data_ptr(), y.data_ptr(), alpha.data_ptr(),
         mask.data_ptr(), w.data_ptr(), perm.data_ptr(), dalpha.data_ptr(),
@@ -263,7 +295,9 @@ def sparse_local_sdca(cols, vals, y, alpha, mask, w, scale, perm, *,
         torch.cuda.current_stream(vals.device).cuda_stream)
     build.check(lib, "sparse_sdca_pipelined", code)
     global LAUNCHES, PIPELINED_LAUNCHES, DEVICE_U_LAUNCHES
-    if depth == 1:
+    LAST_RING_DEPTH = depth
+    # keyed on the TPU kernel asked for: the ring never reaches past nk
+    if min(buffer_depth, nk) == 1:
         LAUNCHES += 1
     else:
         PIPELINED_LAUNCHES += 1

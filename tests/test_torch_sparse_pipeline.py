@@ -9,7 +9,8 @@ on the same cache entries; the dispatch's `buffer_depth` against depth 1;
 
 The `cuda` tests hold the kernel at depth >= 2 to the same kernel at
 depth 1 bit for bit on rows without duplicate column ids, and to the plain
-version on rows with them; run them on the card with
+version on rows with them, each ring run as asked (the card's floor
+`sparse_sdca.D_CARD` read as 1); run them on the card with
 `python -m pytest -q -m cuda tests/test_torch_sparse_pipeline.py`.
 """
 import types
@@ -289,6 +290,12 @@ def card():
     return torch.device("cuda:0")
 
 
+@pytest.fixture
+def raw_rings(monkeypatch):
+    """Every asked depth runs as asked (D_CARD read as 1)."""
+    monkeypatch.setattr(sk, "D_CARD", 1)
+
+
 def _unique_case(rng, K, nk, d, r_max):
     """Rows without duplicate column ids (the contract for bit equality)."""
     nnz = rng.integers(1, r_max + 1, size=(K, nk))
@@ -326,8 +333,8 @@ WALK_BRANCHES = [(3, 101, 117), (4, 96, 200)]
      (8, 97, 2, 4, 40), (4, 3, 2, 4, 40), (4, 1, 3, 4, 40)]
     + [(depth, nk, 2, K, r) for K, nk, r in WALK_BRANCHES
        for depth in (2, 4, 8)])
-def test_cuda_pipelined_equals_depth_one_bit_for_bit(card, depth, nk,
-                                                     n_passes, K, r):
+def test_cuda_pipelined_equals_depth_one_bit_for_bit(card, raw_rings, depth,
+                                                     nk, n_passes, K, r):
     rng = np.random.default_rng(depth * 1000 + nk)
     d = 5_000
     cols, vals = _unique_case(rng, K, nk, d, r)
@@ -357,7 +364,8 @@ def test_cuda_pipelined_equals_depth_one_bit_for_bit(card, depth, nk,
     [(2, 4, 256, 48), (4, 4, 256, 48)]
     + [(depth, K, nk, r) for K, nk, r in WALK_BRANCHES
        for depth in (1, 2, 4, 8)])
-def test_cuda_pipelined_matches_plain_with_duplicates(card, depth, K, nk, r):
+def test_cuda_pipelined_matches_plain_with_duplicates(card, raw_rings, depth,
+                                                      K, nk, r):
     """Rows with duplicate ids and column 0 next to padding, and at r =
     200 ids repeated across slot 128 (tolerance rtol 1e-4, atol 1e-5:
     warp reductions and shared-memory atomics reorder the float32 sums)."""

@@ -3,7 +3,8 @@
 
     python3 tools/sdca_step_ablation.py [--out build/sdca_step_ablation.json]
                                         [--only sparse,wide,zx,dense]
-                                        [--workers 1,2,4]
+                                        [--workers 1,2,4] [--depth 4]
+                                        [--stress N]
 
 Needs one NVIDIA card and nvcc; run from the root of a checkout. Builds
 variants of the two walk kernels (csrc/sparse_sdca_pipelined.cu and
@@ -11,8 +12,9 @@ csrc/local_sdca.cu) and of the zx round's grid form (csrc/
 sparse_sdca_zx.cu), each with one part of the step taken out or replaced
 by a cheaper one, and times every variant beside the unchanged kernel, in
 turns, on round-1 inputs at the shapes `chip_smoke.py` runs: rcv1's
-677,399 x 47,236 at density 0.0016 (sparse, K = 8, ring depth 2; the
-walk warp's step, the fetch warp off its chain; zx, the same rows as
+677,399 x 47,236 at density 0.0016 (sparse, K = 8, ring depth `--depth`,
+4 by default, the card's; the walk warp's step, the fetch warp off its
+chain; zx, the same rows as
 phase 28's 4 x 32 FeatureShards, B = 16, one cooperative launch a round,
 at each of `--workers` workers a block: W = 1 as the card holds it, W > 1
 with the grid's residency read as ceil(4 / W) 32 blocks, so the plan
@@ -24,17 +26,33 @@ variant computes something else than the walk; only its time is read. The
 difference to the unchanged kernel is what the part costs on the chain.
 
 Variants (the text each one replaces is named in VARIANTS), by group:
-  sparse  plain_add   the scatter's compare-and-swaps as plain stores
+  sparse  cas_scatter the compare-and-swap scatter on every row (the
+                      prep warp's `plain` mark ignored)
           no_scatter  no scatter at all
           seq_rows    rows fetched in storage order, not through perm
-                      (their walk still reads each row's id from perm)
-          no_reduce   no warp butterfly (each lane's own partials)
+                      (the prep and the write-back still read perm)
+          no_reduce   no warp butterfly of z (each lane's own partial)
           no_gather   no u[c] gather (the value itself stands in)
-          no_dalpha   no dalpha store
+          no_dalpha   no dalpha left in the stage by the walk
           relaxed     the walk's arrival on a stage's `empty` relaxed, not
                       a release
           no_update   cd_update replaced by a multiply-add
           fast_div    cd_update's divisions by __fdividef
+          no_init_fence the ring's barriers initialised without
+                      fence.mbarrier_init before the bulk copies use them
+          no_lookahead the next row loaded after the release, not in the
+                      shadow of this row's sums
+          cp_async_rows a row's cols and vals by 16-byte cp.asyncs of
+                      the fetch warp's lanes, not by two bulk copies
+          stamped     the stamped build (SDCA_STEP_STAMPS): the step split
+                      positively. Every thread of the walk, fetch and prep
+                      warps reads clock64 at each phase boundary the source
+                      names (`sparse_sdca_stamp_names`) and adds the cycles
+                      to that phase's total, every step, without a branch;
+                      printed as us a step a phase (clock64 turned into
+                      time by %globaltimer over the whole walk), the walk's
+                      sum beside the unstamped step, the walk's wait for
+                      its row and the fetch warp's time a row
   wide    same_row    every step fetches row 0 (the fetch off device memory)
           seq_rows    as above
           no_gather   no u[c] gathers (the slot's value stands in)
@@ -64,6 +82,13 @@ Variants (the text each one replaces is named in VARIANTS), by group:
 Each variant's replacements must each match the source once (or the
 count given as a third element), or the run fails: an edit of a kernel
 that moves the text shows here.
+
+--stress N (with the sparse group): N fresh processes for the unchanged
+kernel and N for no_init_fence, 8 at a time, each loading its library and
+launching it STRESS_LAUNCHES times at a cut shape (K = 8, nk = 512, rcv1's
+r_max 118 and d, rows that repeat no id, ring --depth): the launches that
+fail and the results that differ from the process's first, so a fault
+that shows on a module's first launch only is sampled N times.
 """
 from __future__ import annotations
 
@@ -82,12 +107,12 @@ DIV = ("return a / (b == 0.0f ? 1.0f : b);",
 GROUP_KERNEL = {"sparse": "sparse_sdca_pipelined",
                 "wide": "sparse_sdca_pipelined", "zx": "sparse_sdca_zx",
                 "dense": "local_sdca"}
+# the fetch loops of both kernels (u in shared and in device memory)
 SEQ_ROWS = [("const int i = __shfl_sync(FULL, cur, "
              "static_cast<int>(p & 31));",
-             "const int i = static_cast<int>(p % nk);")]
+             "const int i = static_cast<int>(p % nk);", 2)]
 RELAXED = [("mbarrier.arrive.shared::cta.b64 %0, [%1];",
             "mbarrier.arrive.relaxed.cta.shared::cta.b64 %0, [%1];")]
-NO_REDUCE = [("sdca::warp_sum2(z, sq);", "make_float2(z, sq);")]
 NO_UPDATE = [("sdca::cd_update(loss_id, g, sc[1] + dai, tot.x,\n"
               "                                          scale * "
               "tot.y, sc[0]) * sc[2];",
@@ -95,13 +120,13 @@ NO_UPDATE = [("sdca::cd_update(loss_id, g, sc[1] + dai, tot.x,\n"
 VARIANTS = {
     "wide": {
         "same_row": [("const int i = __shfl_sync(FULL, cur, "
-                      "static_cast<int>(p & 31));", "const int i = 0;")],
+                      "static_cast<int>(p & 31));", "const int i = 0;", 2)],
         "seq_rows": SEQ_ROWS,
         "no_gather": [("us[i] = base + STRIDE * i < r_max ? __ldcg(u + "
                        "cs[i]) : 0.0f;", "us[i] = vs[i];")],
-        "no_scatter": [("if (!U_SMEM && pend[i]) atomicAdd(u + cs[i], "
-                        "add[i]);", "")],
-        "no_reduce": NO_REDUCE,
+        "no_scatter": [("if (vs[i] != 0.0f) atomicAdd(u + cs[i], "
+                        "__fmul_rn(coef, vs[i]));", "")],
+        "no_reduce": [("sdca::warp_sum2(z, sq);", "make_float2(z, sq);")],
         "no_update": NO_UPDATE,
         "no_step_sync": [("      if constexpr (NWALK > 1) {\n"
                           "        walk_sync<NWALK>();\n      } else {\n"
@@ -109,23 +134,61 @@ VARIANTS = {
         "relaxed": RELAXED,
     },
     "sparse": {
-        "plain_add": [("const unsigned got = atomicCAS(\n"
-                       "                  reinterpret_cast<unsigned*>(u + "
-                       "cs[i]), seen,\n"
-                       "                  __float_as_uint(__fadd_rn(us[i], "
-                       "add[i])));",
-                       "u[cs[i]] = __fadd_rn(us[i], add[i]);\n"
-                       "              const unsigned got = seen;")],
-        "no_scatter": [("if (coef != 0.0f) {", "if (coef != coef) {")],
+        "cas_scatter": [("if (row.flags & FLAG_PLAIN) {", "if (false) {")],
+        "no_scatter": [("if (coef != 0.0f) {", "if (coef != coef) {", 2)],
         "seq_rows": SEQ_ROWS,
-        "no_reduce": NO_REDUCE,
-        "no_gather": [("us[i] = load_u<U_SMEM>(u + cs[i]);",
-                       "us[i] = vs[i];")],
-        "no_dalpha": [("if (threadIdx.x == 0) dalpha[row0 + row] = dai + "
+        "no_reduce": [("      z = warp_sum1(z);\n", "")],
+        "no_gather": [("us[i] = lane + WARP * i < r_max ? u[row.cs[i]] : "
+                       "0.0f;", "us[i] = row.vs[i];")],
+        "no_dalpha": [("if (lane == 0) st[2 * rw + SC_DALPHA] = row.dai + "
                        "delta;", "")],
-        "relaxed": RELAXED,
-        "no_update": NO_UPDATE,
+        "relaxed": [("if (lane == 0) mbar_arrive(empty + slot);",
+                     "if (lane == 0) {\n        unsigned long long s_;\n"
+                     "        asm volatile(\"mbarrier.arrive.relaxed.cta."
+                     "shared::cta.b64 %0, [%1];\" : \"=l\"(s_) : \"r\"("
+                     "smem_addr(empty + slot)) : \"memory\");\n      }")],
+        "no_update": [("sdca::cd_update(loss_id, g, row.sc.y, z,\n"
+                       "                                          row.sc.w, "
+                       "row.sc.x) * row.sc.z;",
+                       "(z + row.dai) * 1e-30f;")],
         "fast_div": [DIV],
+        "no_lookahead": [("const bool ahead = DEPTH > 1 && j + 1 < total;",
+                          "const bool ahead = false;")],
+        "cp_async_rows": [(
+            "        if (lane == 0) {\n"
+            "          mbar_arrive_expect_tx(full + slot, 2 * bytes);\n"
+            "          bulk_copy(st, cols + a0, bytes, full + slot);\n"
+            "          bulk_copy(st + rw, vals + a0, bytes, full + slot);\n"
+            "        }\n",
+            "        if (lane == 0) mbar_arrive_expect_tx(full + slot, 0);\n"
+            "        for (int q = lane; q < static_cast<int>(bytes / 16); "
+            "q += WARP) {\n"
+            "          cp_async16(st + 4 * q, cols + a0 + 4 * q);\n"
+            "          cp_async16(st + rw + 4 * q, vals + a0 + 4 * q);\n"
+            "        }\n")],
+        "no_mark": [("        plain &= (v1 == 0.0f) | ((v != 0.0f) & "
+                     "(c < c1));\n", "        (void)v1;\n        (void)c1;"
+                     "\n")],
+        "no_prep_slots": [("for (int s = lane; s < r_max; s += WARP) {\n"
+                           "        const float v = vi[s];",
+                           "for (int s = lane; s < 0; s += WARP) {\n"
+                           "        const float v = vi[s];")],
+        "no_prep_reduce": [("      sq = warp_sum1(sq);\n", "")],
+        "no_write_back": [("          dalpha[row0 + iq] = sc[SC_DALPHA];\n"
+                           "          __threadfence_block();\n", "")],
+        "no_scalars": [("        cp_async4(sc + (lane == 0 ? SC_Y : lane == "
+                        "1 ? SC_ABAR\n", "        if (0) cp_async4(sc + ("
+                        "lane == 0 ? SC_Y : lane == 1 ? SC_ABAR\n")],
+        "no_init_fence": [('    asm volatile("fence.mbarrier_init.release.'
+                           'cluster;\\n" ::: "memory");\n', "")],
+        "wait_sleep": [("for (unsigned n = 1; !mbar_try(bar, parity); ++n)",
+                        "for (unsigned n = 1; !mbar_try(bar, parity); "
+                        "++n, __nanosleep(40))")],
+        "wait_hint": [(" mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+                       "%2;\\n", " mbarrier.try_wait.parity.shared::cta.b64 "
+                       "p, [%1], %2, 100000;\\n")],
+        "stamped": [("#define SDCA_STEP_STAMPS 0",
+                     "#define SDCA_STEP_STAMPS 1")],
     },
     "zx": {
         "no_poll": [("if (__all_sync(0xffffffffu, ready)) break;",
@@ -278,10 +341,19 @@ def main():
     ap.add_argument("--only", default=None,
                     help="comma-separated groups to time (default: all of "
                          + ", ".join(VARIANTS) + ")")
+    ap.add_argument("--depth", type=int, default=4,
+                    help="the sparse group's ring depth (4: the card's "
+                         "default)")
     ap.add_argument("--workers", default="1",
                     help="comma-separated workers a block of the zx grid "
                          "form to ablate (1, 2, 4 at rcv1's 4 x 32)")
+    ap.add_argument("--stress", type=int, default=0,
+                    help="fresh processes a sparse variant for the launch "
+                         "stress (0: none)")
+    ap.add_argument("--stress-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.stress_child:
+        return stress_child(args.stress_child, args.depth)
     workers = tuple(int(w) for w in args.workers.split(","))
     import numpy as np
     import torch
@@ -305,17 +377,103 @@ def main():
     rng = np.random.default_rng(SEED)
     result = {"device": smi}
 
-    walks = {"sparse": sparse_walk, "wide": wide_walk, "dense": dense_walk,
+    walks = {"sparse": lambda *a: sparse_walk(*a, depth=args.depth),
+             "wide": wide_walk, "dense": dense_walk,
              "zx": lambda *a: zx_grid(*a, workers=workers)}
     for group in groups:
         result[group] = walks[group](libs, dev, rng, hinge)
+    if args.stress and "sparse" in groups:
+        result["stress"] = {
+            name: stress(dirs[("sparse", name)], args.stress, args.depth)
+            for name in ("full", "no_init_fence")}
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1) + "\n")
     log(json.dumps(result))
 
 
-def sparse_walk(libs, dev, rng, hinge):
+STRESS_LAUNCHES = 50
+
+
+def stress(d, n, depth):
+    """n fresh processes launching the sparse library built in `d`; returns
+    the processes, launches that failed and results that differed."""
+    import concurrent.futures
+    lib = d / f"{GROUP_KERNEL['sparse']}.so"
+    cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+           "--stress-child", str(lib), "--depth", str(depth)]
+
+    def one(_):
+        run = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300)
+        try:
+            return json.loads(run.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            return {"failed": 1, "differ": 0, "launches": 0,
+                    "error": (run.stderr or run.stdout)[-300:]}
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(one, range(n)))
+    out = {"processes": n,
+           "launches": sum(g["launches"] for g in got),
+           "failed": sum(g["failed"] for g in got),
+           "differ": sum(g["differ"] for g in got),
+           "failed_first": sum(g.get("failed_first", 0) for g in got),
+           "errors": sorted({g["error"] for g in got if g.get("error")})[:3]}
+    log(f"  stress {d.name}: {out}")
+    return out
+
+
+def stress_child(lib_path, depth):
+    """One process of `stress`: load the library, launch it
+    STRESS_LAUNCHES times, print the failures as one JSON line."""
+    import ctypes
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sparse_sdca as sk
+    kernel = GROUP_KERNEL["sparse"]
+    lib = ctypes.CDLL(lib_path)
+    build._bind(kernel, lib)
+    build._LIBS[kernel] = lib
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(SEED)
+    K, nk, r, d = 8, 512, 118, 47_236
+    nnz = rng.integers(1, r + 1, size=(K, nk))
+    cols = np.zeros((K, nk, r), np.int32)
+    vals = np.zeros((K, nk, r), np.float32)
+    for k in range(K):
+        for i in range(nk):
+            n = int(nnz[k, i])
+            cols[k, i, :n] = np.sort(rng.choice(d, n, replace=False))
+            vals[k, i, :n] = rng.standard_normal(n) / np.sqrt(n)
+    y = np.where(rng.random((K, nk)) < 0.5, -1.0, 1.0).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (
+        cols, vals, y, np.zeros((K, nk), np.float32),
+        np.ones((K, nk), np.float32), np.zeros(d, np.float32),
+        np.stack([rng.permutation(nk) for _ in range(K)]).astype(np.int32))]
+    failed = differ = first_failed = 0
+    first, err = None, None
+    for i in range(STRESS_LAUNCHES):
+        try:
+            got = sk.sparse_local_sdca(*t[:6], 0.5, t[6],
+                                       loss=get_loss("hinge"), n_passes=2,
+                                       buffer_depth=depth)
+            torch.cuda.synchronize()
+        except RuntimeError as e:          # a failed launch poisons the rest
+            failed, first_failed, err = failed + 1, int(i == 0), str(e)[:200]
+            break
+        if first is None:
+            first = got
+        elif not all(torch.equal(a, b) for a, b in zip(got, first)):
+            differ += 1
+    print(json.dumps({"launches": i + 1, "failed": failed, "differ": differ,
+                      "failed_first": first_failed, "error": err}))
+
+
+def sparse_walk(libs, dev, rng, hinge, depth=4):
     import numpy as np
     import torch
     from repro_torch.data import make_sparse_classification, partition_sparse
@@ -331,10 +489,76 @@ def sparse_walk(libs, dev, rng, hinge):
     scale = 8.0 / (1e-6 * 677_399)
     sargs = (sh.cols, sh.vals, yp, zeros, mk,
              torch.zeros(sh.d, device=dev), scale, perm)
-    log(f"[sparse] rcv1 shape K={K} nk={nk} r_max={sh.r_max}, depth 2")
-    return in_turns(
-        "sparse", libs,
-        lambda: sk.sparse_local_sdca(*sargs, loss=hinge, buffer_depth=2), nk)
+    log(f"[sparse] rcv1 shape K={K} nk={nk} r_max={sh.r_max}, depth "
+        f"{depth}")
+
+    def call():
+        return sk.sparse_local_sdca(*sargs, loss=hinge, buffer_depth=depth)
+
+    ms = in_turns("sparse", libs, call, nk)
+    return {"ms": ms, "split": step_split(libs[("sparse", "stamped")], call,
+                                          K, nk, ms)}
+
+
+def step_split(lib, call, K, nk, ms):
+    """One launch of the stamped build: us a phase of each role (the walk
+    warp, the fetch warp, and any other the source names), each phase's
+    cycles over all steps of the K blocks turned into time at the SM clock
+    the walk ran at (clock64 over %globaltimer across the walk), against
+    the unstamped step (`ms["full"]` over nk) and the stamped one. The
+    source names its roles' phases in word order ("role:a,b;role:c,...");
+    the roles' step counts are the buffer's last words, in that order."""
+    import ctypes
+    import numpy as np
+    from repro_torch.kernels import build
+    kernel = GROUP_KERNEL["sparse"]
+    shape = (ctypes.c_int * 2)()
+    lib.sparse_sdca_stamp_shape(shape)
+    blocks, words = shape
+    lib.sparse_sdca_stamp_names.restype = ctypes.c_char_p
+    roles = [part.split(":") for part in
+             lib.sparse_sdca_stamp_names().decode().split(";")]
+    stamps = np.zeros((blocks, words), np.int64)
+    clocks = np.zeros((blocks, 4), np.int64)
+    build._LIBS[kernel] = lib
+    try:
+        build.check(lib, kernel, lib.sparse_sdca_stamps_reset())
+        call()
+        build.check(lib, kernel, lib.sparse_sdca_stamps_read(
+            stamps.ctypes.data_as(ctypes.c_void_p),
+            clocks.ctypes.data_as(ctypes.c_void_p)))
+    finally:
+        build._LIBS.pop(kernel, None)
+    K = min(K, blocks)
+    st, clk = stamps[:K].astype(np.float64), clocks[:K].astype(np.float64)
+    ghz = float(np.mean((clk[:, 1] - clk[:, 0])
+                        / np.maximum(clk[:, 3] - clk[:, 2], 1)))
+    split, w0 = {}, 0
+    for r, (role, names) in enumerate(roles):
+        names = names.split(",")
+        steps = st[:, words - len(roles) + r].sum()
+        split[role] = {n: float(st[:, w0 + i].sum() / steps / ghz / 1e3)
+                       for i, n in enumerate(names)}
+        w0 += len(names)
+    walk, fetch = split["walk"], split["fetch"]
+    step = 1e3 * ms["full"] / nk
+    stamped = 1e3 * ms["stamped"] / nk
+    total = sum(walk.values())
+    fwait = next(v for n, v in fetch.items() if n.startswith("wait"))
+    out = dict(us=split, walk_sum_us=total, step_us=step,
+               stamped_step_us=stamped, sum_over_step=total / step,
+               walk_wait_us=sum(v for n, v in walk.items()
+                                if n.startswith("wait")),
+               fetch_row_us=sum(fetch.values()), fetch_wait_us=fwait,
+               fetch_busy_us=sum(fetch.values()) - fwait, ghz=ghz)
+    log(f"  sparse split (SM clock {ghz:.3f} GHz), us a step: " + "; ".join(
+        f"{role} " + ", ".join(f"{n} {v:.4f}" for n, v in parts.items())
+        + f" (sum {sum(parts.values()):.4f})" for role, parts in split.items())
+        + f". The walk's sum {total:.4f} against the unstamped step "
+        f"{step:.4f} ({total / step:.3f}x) and the stamped {stamped:.4f}; "
+        f"the walk waits {out['walk_wait_us']:.4f} on its row; the fetch "
+        f"warp is busy {out['fetch_busy_us']:.4f} a row")
+    return out
 
 
 def wide_walk(libs, dev, rng, hinge):

@@ -3,7 +3,7 @@
 
     python3 tools/walk_times.py [--src PATH] [--label NAME]
                                 [--parts sparse,dense,zx,zx32,wide]
-                                [--workers 1,2,4]
+                                [--workers 1,2,4] [--digests]
 
 Needs one NVIDIA card and nvcc. Imports `repro_torch` from --src (default
 this checkout's src/; another checkout's src/ times that checkout's
@@ -14,7 +14,12 @@ warm-up), on round-1 inputs (alpha = 0, w = 0, one pass, hinge):
 
   * the 1-D sparse walk at rcv1's shape (677,399 x 47,236 at density
     0.0016, K = 8, lambda = 1e-6, as chip_smoke.py phase 4) at
-    buffer_depth 1, 2, 4 and 8;
+    buffer_depth 1, 2, 4 and 8 as asked (where the checkout has
+    `ring_plan`, the ring that ran is at least its D_CARD), and, in such a
+    checkout, at every ring 1-8 forced ("ring1", ...: D_CARD read as 1). With --digests, also the sha256 of every (dalpha, du) the walk
+    gives on those inputs for each loss, prox off and on (kappa 1e-3) and
+    1 or 2 passes at asked depths 1 and 4 (rcv1's rows repeat no column
+    id, so two checkouts whose digests agree give the same bits);
   * the dense walk at d = 20,000, K = 8, nk = 5,000 (3.2 GB of X, as
     epsilon's), at the wrapper's default: there the windows of 8 rows are
     cut into column tiles. Held to the plain version with chip_smoke.py's
@@ -55,6 +60,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DEPTHS = (1, 2, 4, 8)
+RINGS = tuple(range(1, 9))     # every ring the 1-D kernel is built for
 DENSE = dict(K=8, nk=5_000, d=20_000)
 SEED = 0
 
@@ -69,6 +75,9 @@ def main():
     ap.add_argument("--mesh-reps", type=int, default=2)
     ap.add_argument("--workers", default="1,2,4",
                     help="workers a block of the zx grid forms at 4 x 32")
+    ap.add_argument("--digests", action="store_true",
+                    help="with `sparse`: sha256 of the walk's outputs for "
+                         "each loss, prox, passes and depth")
     args = ap.parse_args()
     workers = [int(w) for w in args.workers.split(",")]
     parts = args.parts.split(",")
@@ -257,20 +266,60 @@ def slot_instances(cs, sk, dev, hinge, rng):
 
 
 def sparse(args, cs, sk, csr, y, dev, hinge, rng, smi, out):
+    import hashlib
     import torch
+    from repro_torch.core.losses import get_loss
     from repro_torch.data import partition_sparse
     sh, yp, mk = partition_sparse(csr, y, 8, device=dev)
     K, nk, r_max = sh.cols.shape
     perm = torch.from_numpy(cs._perm(rng, K, nk)).to(dev)
     sargs = (sh.cols, sh.vals, yp, torch.zeros((K, nk), device=dev), mk,
              torch.zeros(sh.d, device=dev), 8.0 / (1e-6 * 677_399), perm)
-    sparse_ms, _ = cs._in_turns(DEPTHS, lambda depth: sk.sparse_local_sdca(
-        *sargs, loss=hinge, buffer_depth=depth), reps=2)
+    planned = hasattr(sk, "ring_plan")
+    keys = list(DEPTHS) + ([f"ring{k}" for k in RINGS] if planned else [])
+    rings = {}
+
+    def call(key, **kw):
+        depth = int(str(key).replace("ring", ""))
+        real = getattr(sk, "D_CARD", None)
+        if str(key).startswith("ring"):
+            sk.D_CARD = 1
+        try:
+            res = sk.sparse_local_sdca(*sargs, buffer_depth=depth,
+                                       **{"loss": hinge, **kw})
+        finally:
+            if planned:
+                sk.D_CARD = real
+        rings[key] = getattr(sk, "LAST_RING_DEPTH", depth)
+        return res
+
+    sparse_ms, _ = cs._in_turns(keys, call, reps=2)
     log(f"[walk times] {args.label} ({args.src}); {smi}; round-1 inputs, "
         f"hinge. Sparse, rcv1 shape K={K} nk={nk} r_max={r_max}: " +
-        ", ".join(f"depth {k}: {t:.3f} ms, {1e3 * t / nk:.4f} us a step"
+        ", ".join(f"{'ring' if str(k).startswith('ring') else 'depth'} "
+                  f"{str(k).replace('ring', '')} (ran {rings[k]}): "
+                  f"{t:.3f} ms, {1e3 * t / nk:.4f} us a step"
                   for k, t in sparse_ms.items()))
     out["sparse_ms"] = {str(k): t for k, t in sparse_ms.items()}
+    out["sparse_rings"] = {str(k): r for k, r in rings.items()}
+    if args.digests:
+        digests = {}
+        for name in ("hinge", "smooth_hinge", "squared", "absolute"):
+            for kappa in (None, 1e-3):
+                for n_passes in (1, 2):
+                    for depth in (1, 4):
+                        got = call(depth, loss=get_loss(name),
+                                   prox_kappa=kappa, n_passes=n_passes)
+                        torch.cuda.synchronize()
+                        h = hashlib.sha256()
+                        for t in got:
+                            h.update(t.cpu().numpy().tobytes())
+                        digests[f"{name}/kappa={kappa}/passes={n_passes}/"
+                                f"depth={depth}"] = h.hexdigest()[:16]
+        out["sparse_digests"] = digests
+        log(f"[walk times] {args.label}: {len(digests)} digests of the "
+            f"sparse walk's (dalpha, du); {len(set(digests.values()))} "
+            f"distinct")
 
 
 def dense(args, cs, dk, dev, hinge, rng, smi, out):
