@@ -31,9 +31,11 @@ order, each failing the run with a non-zero exit:
                a lane's 128 register slots (r_max = 200, duplicate ids
                across slot 128); the z-exchange kernel (one launch a
                round, a cluster of M blocks per worker) at M = 1, 2, 4, 8,
-               B = 1, 16, 128 with ragged last blocks, 1-3 passes, one and
-               two blocks a pass, u in shared memory and (d_loc = 65,536)
-               in device memory, and at B = 1, M = 1 against the sparse
+               16, B = 1, 16, 128 with ragged last blocks, 1-3 passes, one
+               and two blocks a pass, u in shared memory and (d_loc =
+               65,536) in device memory, on rows whose blocks repeat no
+               column id (bit for bit launch after launch), and at B = 1,
+               M = 1 against the sparse
                kernel at depth 1 (the new instance and kernel of phase
                28 are held at their cut shapes there)
   4. sparse    the main path (`solve`, sdca_sparse_kernel) at rcv1's
@@ -100,7 +102,9 @@ order, each failing the run with a non-zero exit:
                reference's --mesh 4x2) and solved through `solve` on
                `make_test_mesh((4, 2))` with sdca_sparse_kernel, 5 rounds:
                the z-exchange kernel, one launch a round of n_passes * nb
-               steps
+               steps; one more round split on the host clock (the draw,
+               the check and copy, the solver call, the exchange and the
+               update)
  13. new-times the depth-1 walk and the zx kernel against their plain
                versions on their paths' next-round inputs (phase 11's are
                phase 4's, so phase 6's plain result serves), times beside
@@ -556,7 +560,7 @@ def _layouts():
                                   (8, 1, 84_675, 65_536, 16, 118)):
         plan = sk.zx_launch_plan(K, M, nk, d_loc, B, r_loc=r)
         got = lib.sparse_sdca_zx_smem_bytes(B, r, d_loc,
-                                            int(plan["u_in_smem"]))
+                                            int(plan["u_in_smem"]), M)
         fit = sk._zx_clusters_fit(lib, M, B, r, d_loc, plan["u_in_smem"])
         log(f"  sparse_sdca_zx at K={K} M={M} d_local={d_loc} B={B} "
             f"r_loc={r}: {plan['launches']} launch of {K} clusters of {M}, "
@@ -964,13 +968,40 @@ def _cut_walk_branches(rng, dev, scale, bad):
     return worst
 
 
+def _block_distinct_rows(K, M, nk, d_loc, r_loc, B, seed=SEED):
+    """FeatureShards-shaped numpy inputs (cols, vals, y, sqnorms, perm)
+    whose blocks of B rows of the visit order repeat no column id among
+    them: the row at position p of worker k's order takes its ids in
+    shard m from the (p % B)-th of B disjoint slices of [0, d_loc). No two
+    atomics of a zx step then land on one entry of u, so the round's bits
+    do not depend on their order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    perm = _perm(rng, K, nk)
+    width = d_loc // B
+    cols = np.zeros((K, M, nk, r_loc), np.int32)
+    vals = np.zeros((K, M, nk, r_loc), np.float32)
+    for k in range(K):
+        for p, i in enumerate(perm[k]):
+            lo = (p % B) * width
+            for m in range(M):
+                n = int(rng.integers(1, r_loc + 1))
+                cols[k, m, i, :n] = np.sort(lo + rng.choice(width, n,
+                                                            replace=False))
+                vals[k, m, i, :n] = rng.standard_normal(n) / np.sqrt(M * n)
+    y = np.where(rng.random((K, nk)) < 0.5, -1.0, 1.0).astype(np.float32)
+    sq = np.sum(vals * vals, axis=(1, 3)).astype(np.float32)
+    return cols, vals, y, sq, perm
+
+
 def _cut_zx(rng, dev, scale, bad):
     """The z-exchange kernel at cut shapes against its plain version: M =
-    1, 2, 4, 8 and B = 1, 16, 128 at nk = 1,000 (B = 16 and 128 leave a
-    ragged last block), 1-3 passes, prox on and off; one and two blocks a
-    pass (nk = 100 and 200 at B = 128); one, two and three at B = 1 (nk =
-    1, 2, 3, three passes); u in device memory (d_loc = 65,536 at M = 1);
-    and at B = 1, M = 1 against the depth-1 kernel.
+    1, 2, 4, 8, 16 and B = 1, 16, 128 at nk = 1,000 (B = 16 and 128 leave
+    a ragged last block), 1-3 passes, prox on and off; one and two blocks
+    a pass (nk = 100 and 200 at B = 128); one, two and three at B = 1 (nk
+    = 1, 2, 3, three passes); u in device memory (d_loc = 65,536 at M = 1);
+    at M = 2 and 4 on rows whose blocks repeat no column id, twice, bit for
+    bit; and at B = 1, M = 1 against the depth-1 kernel.
     Returns the max (abs, rel) errors against the plain version."""
     import torch
     from repro_torch.core.losses import get_loss
@@ -994,7 +1025,8 @@ def _cut_zx(rng, dev, scale, bad):
     cases += [(8, 16, "hinge", 0.5, 2), (8, 128, "squared", None, 3),
               (8, 1, "smooth_hinge", None, 1), (4, 128, "absolute", 0.5, 1),
               (2, 128, "hinge", None, 3), (2, 1, "hinge", 0.5, 2),
-              (8, 1, "squared", None, 3)]
+              (8, 1, "squared", None, 3), (16, 16, "absolute", 0.5, 2),
+              (16, 1, "hinge", None, 1), (16, 128, "smooth_hinge", None, 3)]
     runs = [(f"M={case[0]} B={case[1]:3d} nk=1000", sh, base, *case)
             for case in cases]
     # B = 1 with one, two and three blocks a pass: dalpha prefetched two
@@ -1030,6 +1062,30 @@ def _cut_zx(rng, dev, scale, bad):
                 f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"zx {what} {loss_name} {part}")
+    for M in (2, 4):
+        cols, vals, y, sq, perm = _block_distinct_rows(2, M, 400, 2_000, 30,
+                                                       16)
+        t = [torch.from_numpy(a).to(dev) for a in (cols, vals, y, sq, perm)]
+        args = (t[0], t[1], t[2], torch.zeros((2, 400), device=dev),
+                torch.ones((2, 400), device=dev),
+                torch.zeros(M * 2_000, device=dev), scale, t[3], t[4])
+        for loss_name, kappa in (("hinge", None), ("squared", 0.5)):
+            kw = dict(loss=get_loss(loss_name), n_passes=2, block_rows=16,
+                      prox_kappa=kappa)
+            got = sk.sparse_local_sdca_zx(*args, **kw)
+            again = sk.sparse_local_sdca_zx(*args, **kw)
+            want = sk.sparse_local_sdca_zx_plain(*args, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            for part, g, p in zip(("dalpha", "du"), got, want):
+                a, r, ok = _errors(g, p)
+                worst = [max(worst[0], a), max(worst[1], r)]
+                log(f"  zx M={M} B= 16 block-distinct rows {loss_name:12s} "
+                    f"kappa={kappa} {part:6s} max_abs={a:.3e} max_rel="
+                    f"{r:.3e} {'ok' if ok else 'FAIL'}; two launches "
+                    f"{'bit for bit' if same else 'DIFFER'}")
+                if not (ok and same):
+                    bad.append(f"zx M={M} block-distinct {loss_name} {part}")
     fs = shard_features(sh, 1)
     hinge = get_loss("hinge")
     zx = sk.sparse_local_sdca_zx(fs.cols, fs.vals, *base[2:6], scale,
@@ -1224,20 +1280,28 @@ def _against_plain(name, kernel, plain, args, kw, known=None):
     return worst[0], worst[1], plain_ms, want
 
 
-def _host_split(cfg, X, y, mask, state):
+def _host_split(cfg, X, y, mask, state, topo=None):
     """One more main-path round split on the host clock, each part fenced
     by a synchronize: the visit-order draw, the perm's host check and copy,
     the solver call (conjugate map, launch and kernel), the exchange and the
-    update. Returns ms per part."""
+    update. `topo` a feature-sharded mesh's topology (phase 12): the solver
+    then takes the model axis, the global row norms (computed once a run by
+    `solve`, so here before the clock) and M, as the round does. Returns ms
+    per part."""
     import torch
     from repro_torch import comm
     from repro_torch.core import cocoa, duality
     from repro_torch.core.losses import get_loss
     from repro_torch.kernels import ops
     K, nk = y.shape
-    solver = cocoa.resolve_solver(cfg.solver, not torch.is_tensor(X))
+    solver = cocoa.resolve_solver(cfg.solver, not torch.is_tensor(X),
+                                  feature_sharded=topo is not None)
     p = cfg.agg_params(K)
     n = float(duality.effective_n(mask))
+    kw = {} if topo is None else dict(
+        sqnorms=cocoa.global_row_sqnorms(X, mask, topo),
+        model_axis=cfg.model_axis,
+        **({"model_shards": topo.M} if solver.model_shards else {}))
     out = {}
 
     def fenced(part, fn):
@@ -1253,9 +1317,9 @@ def _host_split(cfg, X, y, mask, state):
     perm = fenced("check_copy", lambda: ops.perm_i32(order, nk, y.device))
     res = fenced("solver", lambda: solver.fn(
         X, y, state.alpha, mask, state.w, perm, get_loss(cfg.loss), cfg.lam,
-        n, p.sigma_prime, cfg.H, reg=cfg.regularizer()))
+        n, p.sigma_prime, cfg.H, reg=cfg.regularizer(), **kw))
     dw, _ = fenced("exchange", lambda: comm.exchange(
-        comm.Topology.simulated(K), res.du, state.ef, p,
+        topo or comm.Topology.simulated(K), res.du, state.ef, p,
         comm.NoCompression()))
     fenced("update", lambda: comm.apply_update(state.w, state.alpha, dw,
                                                res.dalpha, p))
@@ -1994,6 +2058,7 @@ def phase_depth_one(sparse):
 def phase_mesh2d(dev, csr_y):
     """The feature-sharded path through `solve` on a (4, 2) mesh."""
     import torch
+    from repro_torch import comm
     from repro_torch.core import CoCoAConfig, solve
     from repro_torch.data import load, partition_sparse
     from repro_torch.kernels import ops
@@ -2042,6 +2107,13 @@ def phase_mesh2d(dev, csr_y):
         fail(f"phase 12 launched {launches}, expected {rounds} zx launches "
              f"of {per_round} steps each")
     ex = r.history["execute_s"]
+    topo = comm.Topology.from_mesh(make_test_mesh((K, M), device=dev),
+                                   "data", "model")
+    split = _host_split(cfg, fs, yp, mk, r.state, topo)
+    log(f"  one more round on the host clock, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items())
+        + f" (sum {sum(split.values()):.3f}; the kernel's round is in the "
+        f"solver call)")
     log(f"  1 launch a round of {per_round} steps (n_passes "
         f"{plan['n_passes']} x {plan['blocks']} blocks of "
         f"{plan['block_rows']}); execute_s per round "
@@ -2052,7 +2124,8 @@ def phase_mesh2d(dev, csr_y):
     del csr
     return {"fs": fs, "yp": yp, "mk": mk, "r": r, "cfg": cfg,
             "launches": launches["sparse_sdca_zx"], "per_round": per_round,
-            "B": plan["block_rows"], "n_passes": plan["n_passes"]}
+            "B": plan["block_rows"], "n_passes": plan["n_passes"],
+            "host_split": split}
 
 
 def phase_new_times(pipe, sparse_plain, mesh, cut_errs):

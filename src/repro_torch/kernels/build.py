@@ -162,7 +162,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.sparse_sdca_zx_launch.argtypes = ([P] * 10 + [I] * 7
                                               + [F, I, F, I, F, I, P])
         lib.sparse_sdca_zx_launch.restype = I
-        lib.sparse_sdca_zx_smem_bytes.argtypes = [I] * 4
+        lib.sparse_sdca_zx_smem_bytes.argtypes = [I] * 5
         lib.sparse_sdca_zx_smem_bytes.restype = ctypes.c_longlong
         lib.sparse_sdca_zx_max_clusters.argtypes = [I] * 5 + [
             ctypes.POINTER(I)]

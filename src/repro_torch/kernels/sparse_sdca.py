@@ -84,6 +84,8 @@ ZX_GRID_WORKERS = (1, 2, 3, 4)   # the grid form's instances: workers a block
 DEVICE_U_WALKS = ((1, 4), (2, 8), (2, 16))
 ZX_ID_SLOTS, ZX_SCALARS = 4, 5   # ID_SLOTS, SCALARS in the .cu
 ZX_WARPS, ZX_XS_STRIDE = 8, 33   # NWARPS, XS_STRIDE in the .cu
+ZX_RING_MAX = 4             # RING_MAX in the .cu: the cluster form's
+                            # deepest ring of stages of B rows
 LAST_ZX_FORM = None         # "cluster", "grid", "block" or "plain"
 LAST_ZX_WORKERS = None      # the last zx launch's workers a block
 
@@ -115,7 +117,8 @@ def zx_poll_rows(workers: int) -> int:
 
 def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
                 buffer_depth: int = 1, block_rows: int = 16,
-                zx: bool = False, workers: int = 1) -> dict:
+                zx: bool = False, workers: int = 1,
+                cluster: Optional[int] = None) -> dict:
     """Dynamic shared memory one block of the launch uses, in bytes (the
     counterpart of the reference's `vmem_budget`). The 1-D kernel (a walk
     warp and a fetch warp a worker, no reduction scratch) holds a ring of
@@ -127,16 +130,30 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
     (`u_in_smem` False, `u_bytes` 0). `fits` is False only when the ring
     alone does not fit.
 
-    The zx kernel (d = d_local, r_max = r_loc) holds the two z buffers and
-    a coefficient per block row (scratch), its prefetch (two row stages of
-    B rows' cols, vals and five scalars, and four slots of B row ids:
-    ring), and u (4 d) when that fits beside them; else u stays in device
-    memory (`u_in_smem` False, `u_bytes` 0). Its grid form's block of
-    `workers` workers holds that many copies (u in shared memory only
-    where all of them fit) and, past one worker, each warp's staging rows
-    of the exchange (`zx_poll_rows(workers)` rows a worker of
-    `ZX_XS_STRIDE` floats: scratch)."""
-    if zx:
+    The zx kernel (d = d_local, r_max = r_loc) holds its prefetch (ring)
+    and u (4 d) when that fits beside the rest; else u stays in device
+    memory (`u_in_smem` False, `u_bytes` 0). Its cluster form (`cluster`
+    = M shards) holds a ring of stages of B rows, each row's cols and vals
+    in `stage_row_words(r_loc)` words (its 16-byte chunks), then its five
+    scalars and its id, each stage with two 8-byte mbarriers: as many
+    stages as fit, `ZX_RING_MAX` down to 2, u in shared memory where it
+    fits beside two (`zx_cluster_ring`); and the exchange's two buffers of
+    B rows' M partials and their two mbarriers (scratch). Its grid form's
+    block of `workers` workers (`cluster` None) holds, for each worker,
+    two row stages of B rows' cols, vals and five scalars and four slots
+    of B row ids (ring), the two z buffers and a coefficient per block row
+    (scratch) beside them (u in shared memory only where all W copies
+    fit) and, past one worker, each warp's staging rows of the exchange
+    (`zx_poll_rows(workers)` rows a worker of `ZX_XS_STRIDE` floats:
+    scratch)."""
+    if zx and cluster is not None:
+        B = block_rows
+        scratch = 8 * B * cluster + 16
+        depth, u_in_smem = zx_cluster_ring(d=d, r_max=r_max, block_rows=B,
+                                           cluster=cluster)
+        ring = depth * (4 * _zx_stage_words(B, r_max) + 16)
+        u = 4 * d if u_in_smem else 0
+    elif zx:
         B, W = block_rows, workers
         scratch = W * 4 * 3 * B + (
             4 * ZX_WARPS * W * zx_poll_rows(W) * ZX_XS_STRIDE if W > 1 else 0)
@@ -155,6 +172,34 @@ def smem_budget(*, d: int, r_max: int, nk: Optional[int] = None,
     return dict(u_bytes=u, ring_bytes=ring, scratch_bytes=scratch,
                 total_bytes=total, fits=total <= MAX_SMEM_BYTES,
                 u_in_smem=u_in_smem)
+
+
+def _zx_stage_words(B: int, r_loc: int) -> int:
+    """Words of one stage of the zx cluster form's ring: B rows' cols and
+    vals in `stage_row_words(r_loc)` words each, then their five scalars
+    and ids, rounded up to 16 bytes (`ring_stage_words` in
+    csrc/sparse_sdca_zx.cu)."""
+    return (2 * B * stage_row_words(r_loc) + (ZX_SCALARS + 1) * B + 3) \
+        // 4 * 4
+
+
+def zx_cluster_ring(*, d: int, r_max: int, block_rows: int,
+                    cluster: int) -> tuple:
+    """(stages, u_in_smem) of the zx cluster form's block of `cluster` (M)
+    shards -- shape arithmetic only: u in shared memory where it fits
+    beside a ring of two stages, then the deepest ring of `ZX_RING_MAX`
+    .. 2 stages that fits beside the rest (2 where none does; `fits` then
+    says so). `cluster_ring` in csrc/sparse_sdca_zx.cu."""
+    B, M = block_rows, cluster
+
+    def total(depth, u_smem):
+        return (depth * (4 * _zx_stage_words(B, r_max) + 16) + 8 * B * M
+                + 16 + (4 * d if u_smem else 0))
+
+    u_in_smem = total(2, True) <= MAX_SMEM_BYTES
+    depth = next((k for k in range(ZX_RING_MAX, 2, -1)
+                  if total(k, u_in_smem) <= MAX_SMEM_BYTES), 2)
+    return depth, u_in_smem
 
 
 def ring_plan(buffer_depth: int, *, nk: int, d: int, r_max: int) -> dict:
@@ -330,8 +375,9 @@ def zx_launch_plan(K: int, M: int, nk: int, d_loc: int, B: int, *,
     card holds comes in as arguments. `form` "cluster": one launch
     (`launches` 1) of K thread-block clusters of `cluster` (M) blocks,
     `steps` invocations inside it, with `u_in_smem`, `smem_bytes` and
-    `fits` from `smem_budget(zx=True)`; taken for M <= 16 unless `cluster`
-    is False (a cluster the card cannot hold, or a process mesh). `form`
+    `fits` from `smem_budget(zx=True, cluster=M)`; taken for M <= 16
+    unless `cluster` is False (a cluster the card cannot hold, or a
+    process mesh). `form`
     "grid": one cooperative launch (`cluster` 1) of `groups` (K' =
     ceil(K / W)) groups of M blocks, each block walking `workers_per_block`
     (W) workers' shards in lockstep, with the shared memory of
@@ -346,7 +392,8 @@ def zx_launch_plan(K: int, M: int, nk: int, d_loc: int, B: int, *,
     if M < 1:
         raise ValueError(f"the zx round needs M >= 1 model shards, got {M}")
     steps = n_passes * (-(-nk // B))
-    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
+    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True,
+                         cluster=M)
     if budget["fits"] and cluster and M <= ZX_MAX_CLUSTER:
         return dict(form="cluster", launches=1, cluster=M, steps=steps,
                     u_in_smem=budget["u_in_smem"],
@@ -577,7 +624,8 @@ def sparse_local_sdca_zx(cols, vals, y, alpha, mask, w, scale, sqnorms,
         return dalpha, (u - w3).reshape(K, M * d_loc)
     # what the card holds: clusters of M blocks, else blocks of each grid
     # instance whose shared memory fits
-    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True)
+    budget = smem_budget(d=d_loc, r_max=r_loc, block_rows=B, zx=True,
+                         cluster=M)
     lib = build.load("sparse_sdca_zx")
     clusters, resident = 0, {}
     if budget["fits"] and M <= ZX_MAX_CLUSTER:

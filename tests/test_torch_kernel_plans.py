@@ -33,19 +33,29 @@ from repro_torch.kernels import ssm_scan as ss
 SMEM_LIMIT = 232_448
 
 
-def _zx_bytes(B, r_loc, d_loc=0):
-    """The zx block's layout written out: u, two z buffers and a
-    coefficient per row, four id slots and two stages of B rows."""
-    return 4 * (d_loc + 3 * B + 4 * B + 2 * (2 * B * r_loc + 5 * B))
+def _zx_bytes(B, r_loc, d_loc=0, M=None, ring=4):
+    """The zx block's layout written out, with u. The grid form's (M None):
+    two z buffers and a coefficient per row, four id slots and two stages
+    of B rows' cols, vals and five scalars. The cluster form's at M
+    shards: `ring` stages of B rows, each row's cols and vals in its
+    16-byte chunks (r_loc + 6 rounded down to 4 words each), its five
+    scalars and its id, two 8-byte mbarriers a stage; two buffers of B
+    rows' M partials and their two mbarriers."""
+    if M is None:
+        return 4 * (d_loc + 3 * B + 4 * B + 2 * (2 * B * r_loc + 5 * B))
+    stage = (2 * B * ((r_loc + 6) // 4 * 4) + 6 * B + 3) // 4 * 4
+    return ring * (4 * stage + 16) + 8 * B * M + 16 + 4 * d_loc
 
 
 def test_zx_plan_at_rcv1_4x2_holds_u_in_shared_memory():
     plan = sk.zx_launch_plan(4, 2, 169_350, 23_618, 16, r_loc=70)
     assert plan == dict(form="cluster", launches=1, cluster=2, steps=10_585,
-                        u_in_smem=True, smem_bytes=_zx_bytes(16, 70, 23_618),
+                        u_in_smem=True,
+                        smem_bytes=_zx_bytes(16, 70, 23_618, M=2),
                         fits=True)
-    assert plan["smem_bytes"] == 113_480 <= SMEM_LIMIT
-    budget = sk.smem_budget(d=23_618, r_max=70, block_rows=16, zx=True)
+    assert plan["smem_bytes"] == 135_256 <= SMEM_LIMIT
+    budget = sk.smem_budget(d=23_618, r_max=70, block_rows=16, zx=True,
+                            cluster=2)
     assert budget["u_bytes"] == 94_472 and budget["u_in_smem"]
     assert budget["total_bytes"] == plan["smem_bytes"]
 
@@ -54,7 +64,7 @@ def test_zx_plan_at_a_wide_slice_keeps_u_in_device_memory():
     plan = sk.zx_launch_plan(8, 1, 2_000, 65_536, 16, r_loc=64,
                              n_passes=2)
     assert not plan["u_in_smem"] and plan["fits"]
-    assert plan["smem_bytes"] == _zx_bytes(16, 64)
+    assert plan["smem_bytes"] == _zx_bytes(16, 64, M=1)
     assert (plan["launches"], plan["steps"]) == (1, 2 * 125)
 
 

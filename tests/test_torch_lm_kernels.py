@@ -178,7 +178,8 @@ def test_build_hashes_each_kernel_with_its_own_headers():
         "local_sdca": ["local_sdca.cu", "sdca_common.cuh"],
         "sparse_sdca_pipelined": ["sparse_sdca_pipelined.cu",
                                   "sdca_common.cuh"],
-        "sparse_sdca_zx": ["sparse_sdca_zx.cu", "sdca_common.cuh"],
+        "sparse_sdca_zx": ["sparse_sdca_zx.cu", "sdca_common.cuh",
+                           "sdca_zx_stamps.cuh"],
         "sparse_sdca_zx_block": ["sparse_sdca_zx_block.cu",
                                  "sdca_common.cuh"],
         "flash_attention": ["flash_attention.cu"],

@@ -634,7 +634,7 @@ def test_cuda_zx_cluster_limits_and_layout(card):
     for B, r, d_loc in ((16, 70, 23_618), (1, 24, 600), (128, 24, 65_536)):
         plan = sk.zx_launch_plan(4, 2, 1_000, d_loc, B, r_loc=r)
         assert lib.sparse_sdca_zx_smem_bytes(
-            B, r, d_loc, int(plan["u_in_smem"])) == plan["smem_bytes"]
+            B, r, d_loc, int(plan["u_in_smem"]), 2) == plan["smem_bytes"]
     rng = np.random.default_rng(10)
     for M in (16, 17):
         ins = [torch.from_numpy(a).to(card)

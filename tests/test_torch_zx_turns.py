@@ -169,7 +169,7 @@ def test_workers_match_the_cuda_source():
     assert all(a == b for a, b in cases)
     assert tuple(int(a) for a, _ in cases) == sk.ZX_GRID_WORKERS
     assert "constexpr int MIN_BLOCKS = 4;" in src
-    assert "__launch_bounds__(THREADS, GRID ? MIN_BLOCKS : 1)" in src
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in src
     assert re.search(r"constexpr int XS_STRIDE = (\d+);", src).group(1) == \
         str(sk.ZX_XS_STRIDE)
     assert "return W <= 2 ? ZROWS : 1;" in src            # zx_poll_rows

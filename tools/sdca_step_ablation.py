@@ -2,13 +2,13 @@
 """Where a step of the port's LocalSDCA walks goes, on the card.
 
     python3 tools/sdca_step_ablation.py [--out build/sdca_step_ablation.json]
-                                        [--only sparse,wide,zx,dense]
+                                        [--only sparse,wide,zx,zxc,dense]
                                         [--workers 1,2,4] [--depth 4]
-                                        [--stress N]
+                                        [--stress N] [--src PATH]
 
 Needs one NVIDIA card and nvcc; run from the root of a checkout. Builds
 variants of the two walk kernels (csrc/sparse_sdca_pipelined.cu and
-csrc/local_sdca.cu) and of the zx round's grid form (csrc/
+csrc/local_sdca.cu) and of the zx round's grid and cluster forms (csrc/
 sparse_sdca_zx.cu), each with one part of the step taken out or replaced
 by a cheaper one, and times every variant beside the unchanged kernel, in
 turns, on round-1 inputs at the shapes `chip_smoke.py` runs: rcv1's
@@ -18,7 +18,8 @@ chain; zx, the same rows as
 phase 28's 4 x 32 FeatureShards, B = 16, one cooperative launch a round,
 at each of `--workers` workers a block: W = 1 as the card holds it, W > 1
 with the grid's residency read as ceil(4 / W) 32 blocks, so the plan
-takes the lockstep instance),
+takes the lockstep instance; zxc, the same rows as phase 12's 4 x 2
+FeatureShards, B = 16, the cluster form),
 phase 28's news20-shaped synthetic (wide: 19,996 x 1,355,191 at density
 3.36e-4, K = 4, ring depth 4, u in device memory) and
 epsilon's 400,000 x 2,000 (dense, K = 8, windows of 8 rows), hinge. A
@@ -74,14 +75,40 @@ Variants (the text each one replaces is named in VARIANTS), by group:
           no_scalars  the prefetch without its five scalars a row
           no_wait     no wait for the copies before the prefetch point
                       (copies still in flight are read as they are)
+  zxc     stamped     the stamped build (SDCA_ZX_STAMPS, csrc/
+                      sdca_zx_stamps.cuh): the step split positively,
+                      clock64 at each phase boundary the source names
+                      (`sparse_sdca_zx_stamp_names`) summed in registers
+                      without a branch, every step, for the walk's warp 0
+                      and the fetch warp; printed as us a step a phase
+                      (as the sparse group's), each role's sum beside the
+                      unstamped step
+          no_exchange no wait for the peers' partials, no sends and no
+                      re-arming of the exchange's barriers (z from the
+                      stale buffer)
+          no_update   as the zx group's
+          no_scatter  no scatter into u (neither the swaps nor atomicAdd)
+          atomic_scatter the held slots off: every slot scattered by
+                      atomicAdd, as the first design of the walk did
+          no_gather   no u[c] gather in the next block's dots (v stands
+                      in; the swaps then expect v and go round again)
   dense   no_gram     no z0 / Gram tiles (the window's dots)
           no_scalar   no scalar loop (the window's B updates)
           no_fill     no next window's rows fetched (stale stages)
           no_update   no u += X_B^T c
           fast_div    as above
-Each variant's replacements must each match the source once (or the
-count given as a third element), or the run fails: an edit of a kernel
-that moves the text shows here.
+Each variant's replacements must each match the sources of its group's
+kernel (the .cu and the headers it includes) once (or the count given as
+a third element), or the run fails: an edit of a kernel that moves the
+text shows here (tests/test_torch_zx_cluster.py checks them on the CPU).
+
+--src PATH (with --only zxc): ablate another checkout's cluster form (its
+src/, imported and built instead of this one's), a parent whose cluster
+form shared the grid form's kernel: its stamped build gets this
+checkout's csrc/sdca_zx_stamps.cuh and the boundaries of `PARENT_ZXC`
+(warp 0, "update", holds the 16 threads that exchange and update at
+B = 16; warp 1, "idle", waits for them at the barrier before the
+scatter), beside its prefetch and its exchange taken out.
 
 --stress N (with the sparse group): N fresh processes for the unchanged
 kernel and N for no_init_fence, 8 at a time, each loading its library and
@@ -106,7 +133,7 @@ DIV = ("return a / (b == 0.0f ? 1.0f : b);",
        "return __fdividef(a, b == 0.0f ? 1.0f : b);")
 GROUP_KERNEL = {"sparse": "sparse_sdca_pipelined",
                 "wide": "sparse_sdca_pipelined", "zx": "sparse_sdca_zx",
-                "dense": "local_sdca"}
+                "zxc": "sparse_sdca_zx", "dense": "local_sdca"}
 # the fetch loops of both kernels (u in shared and in device memory)
 SEQ_ROWS = [("const int i = __shfl_sync(FULL, cur, "
              "static_cast<int>(p & 31));",
@@ -117,6 +144,69 @@ NO_UPDATE = [("sdca::cd_update(loss_id, g, sc[1] + dai, tot.x,\n"
               "                                          scale * "
               "tot.y, sc[0]) * sc[2];",
               "(tot.x + tot.y + dai) * 1e-30f;")]
+# the grid form's update
+ZX_NO_UPDATE = [("sdca::cd_update(loss_id, g, sc[B + t] + dai, z,\n"
+                 "                                          scale * "
+                 "sc[3 * B + t], sc[t]) *\n"
+                 "                          sc[2 * B + t];",
+                 "(z + dai) * 1e-30f;")]
+# The parent's cluster form (one kernel with the grid form, before its own
+# function), for --src: its stamped build, the boundaries of
+# sdca_zx_stamps.cuh put in by hand ("update" is warp 0, whose 16 threads
+# exchange and update at B = 16; "idle" warp 1, which waits for them at the
+# barrier before the scatter), and its prefetch and exchange taken out.
+PARENT_PHASES = ("cluster_wait,exchange,update,bar_scatter,scatter,copy_wait,"
+                 "bar_prefetch,prefetch,dots")
+PARENT_ZXC = {
+    "stamped": [
+        ('#include "sdca_common.cuh"\n',
+         '#include "sdca_common.cuh"\n\n#define ZX_STAMP_NAMES "update:'
+         + PARENT_PHASES + ';idle:' + PARENT_PHASES + '"\n'
+         '#define SDCA_ZX_STAMPS 1\n#include "sdca_zx_stamps.cuh"\n'),
+        ("  for (int step = 0; step < total; ++step) {\n"
+         "    const int n = w0.rows_of(step);",
+         "  ZX_STAMP_BEGIN(9);\n  ZX_STAMP_CLOCK(0);\n"
+         "  for (int step = 0; step < total; ++step) {\n    ZX_STAMP(8);\n"
+         "    const int n = w0.rows_of(step);"),
+        ("      cluster.sync();                // every peer's zb[step % 2] "
+         "is written\n",
+         "      cluster.sync();                // every peer's zb[step % 2] "
+         "is written\n      ZX_STAMP(0);\n"),
+        ("          z += cluster.map_shared_rank(zb, mm)[zin + t];\n"
+         "        update(0, t, z);\n",
+         "          z += cluster.map_shared_rank(zb, mm)[zin + t];\n"
+         "        ZX_STAMP(1);\n        update(0, t, z);\n"
+         "        ZX_STAMP(2);\n"),
+        ("    __syncthreads();\n\n    // the scatter into each worker's u "
+         "slice",
+         "    __syncthreads();\n    ZX_STAMP(3);\n\n    // the scatter into "
+         "each worker's u slice"),
+        ("    cp_async_wait_all();\n    __syncthreads();\n"
+         "    fetch_rows<W>(walk, nw, step + 2);\n"
+         "    fetch_ids<W>(walk, nw, step + 3);\n    cp_async_commit();\n",
+         "    ZX_STAMP(4);\n    cp_async_wait_all();\n    ZX_STAMP(5);\n"
+         "    __syncthreads();\n    ZX_STAMP(6);\n"
+         "    fetch_rows<W>(walk, nw, step + 2);\n"
+         "    fetch_ids<W>(walk, nw, step + 3);\n    cp_async_commit();\n"
+         "    ZX_STAMP(7);\n"),
+        ("  cp_async_wait_all();\n  if constexpr (!GRID) {\n"
+         "    cg::this_cluster().sync();",
+         "  ZX_STAMP_CLOCK(1);\n  if constexpr (!GRID) {\n"
+         "    if (tid < 32) ZX_STAMP_FLUSH(0, 9, 0, total);\n"
+         "    if (tid >= 32 && tid < 64) ZX_STAMP_FLUSH(9, 9, 1, total);\n"
+         "  }\n"
+         "  cp_async_wait_all();\n  if constexpr (!GRID) {\n"
+         "    cg::this_cluster().sync();"),
+    ],
+    "no_exchange": [
+        ("      cluster.sync();                // every peer's zb[step % 2] "
+         "is written\n", ""),
+        ("z += cluster.map_shared_rank(zb, mm)[zin + t];",
+         "z += zb[zin + t];")],
+    "no_prefetch": [("    fetch_rows<W>(walk, nw, step + 2);\n", "")],
+}
+# the stamps' header, given to a checkout that lacks it
+STAMP_HEADER = "sdca_zx_stamps.cuh"
 VARIANTS = {
     "wide": {
         "same_row": [("const int i = __shfl_sync(FULL, cur, "
@@ -196,14 +286,10 @@ VARIANTS = {
         "no_exchange": [("exchange_rows<ZR>(words, live, M, step, zr);",
                          "for (int r = 0; r < ZR; ++r) zr[r] = 0.0f;"),
                         ("const float z = exchange_staged<ZR>(\n"
-                         "              words, live, M, step,\n"
-                         "              smem + W * slab + warp * (ZR * "
+                         "            words, live, M, step,\n"
+                         "            smem + W * slab + warp * (ZR * "
                          "XS_STRIDE));", "const float z = 0.0f;")],
-        "no_update": [("sdca::cd_update(loss_id, g, sc[B + t] + dai, z,\n"
-                       "                                          scale * "
-                       "sc[3 * B + t], sc[t]) *\n"
-                       "                          sc[2 * B + t];",
-                       "(z + dai) * 1e-30f;")],
+        "no_update": ZX_NO_UPDATE,
         "no_scatter": [("if (v != 0.0f) atomicAdd(uu_of(j) + ci[t * r_loc + "
                         "s], c * v);", "if (v != v) atomicAdd(uu_of(j) + "
                         "ci[t * r_loc + s], c * v);"),
@@ -232,6 +318,36 @@ VARIANTS = {
                      "    fetch_rows<W>", "    __syncthreads();\n"
                      "    fetch_rows<W>")],
     },
+    "zxc": {
+        "stamped": [("#define SDCA_ZX_STAMPS 0", "#define SDCA_ZX_STAMPS 1")],
+        "no_exchange": [
+            ("      if (step > 0 && lane < rows)\n        mbar_wait(xbar + "
+             "(step & 1), ((step - 1) >> 1) & 1);\n", ""),
+            ("      if (tid == 0 && step > 0 && step + 2 < total)\n"
+             "        mbar_expect(xbar + (step & 1), 4u * M * rows_of(step "
+             "+ 2));\n", ""),
+            ("            send_partial(to + 4u * t0 * M, za, bar);\n"
+             "            if (two) send_partial(to + 4u * t1 * M, zb, bar);"
+             "\n", "")],
+        "no_update": [("sdca::cd_update(loss_id, g, sc[B + t] + dai, z,\n"
+                       "                                            scale * "
+                       "sc[3 * B + t], sc[t]) *\n"
+                       "                            sc[2 * B + t];",
+                       "(z + dai) * 1e-30f;")],
+        "no_scatter": [("          if (v != 0.0f) atomicAdd(uu + ci[s], "
+                        "c * v);", "          if (v != v) atomicAdd(uu + "
+                        "ci[s], c * v);"),
+                       ("          pa[j] = in && c0 != 0.0f && va[j] != 0.0f;"
+                        "\n          pb[j] = in && c1 != 0.0f && vb[j] != "
+                        "0.0f;\n", "          pa[j] = false;\n"
+                        "          pb[j] = false;\n")],
+        "atomic_scatter": [("    const bool held = U_SMEM && B <= 2 * NWARPS;",
+                            "    const bool held = false;")],
+        "no_gather": [("            ua[j] = load_u<U_SMEM>(uu + ca[j]);\n"
+                       "            ub[j] = load_u<U_SMEM>(uu + cb[j]);\n",
+                       "            ua[j] = va[j];\n            ub[j] = "
+                       "vb[j];\n")],
+    },
     "dense": {
         "no_gram": [("for (int I = 0; I < NBLK; ++I) {",
                      "for (int I = 0; I < NBLK * (nch < 0); ++I) {")],
@@ -249,31 +365,64 @@ def log(msg):
     print(msg, flush=True)
 
 
-def variant_dirs(base: pathlib.Path, groups=None):
-    """{(group, variant): csrc dir}: a copy of csrc/ per variant of each of
-    `groups` (None: all) with its replacements applied ("full":
-    unchanged)."""
+def group_variants(group, parent=False):
+    """The variants of `group`: this checkout's, or with `parent` (--src)
+    those of the parent's source (`PARENT_ZXC`; only the zxc group has
+    them)."""
+    if not parent:
+        return VARIANTS[group]
+    if group != "zxc":
+        raise SystemExit(f"--src ablates the zxc group only, not {group}")
+    return PARENT_ZXC
+
+
+def kernel_sources(d: pathlib.Path, kernel: str):
+    """The texts of `d/<kernel>.cu` and the headers of `d` it includes,
+    directly or through another header."""
+    import re
+    seen, todo = [], [d / f"{kernel}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo += [d / inc for inc in re.findall(
+            r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)]
+    return [p.read_text() for p in seen]
+
+
+def variant_dirs(base: pathlib.Path, groups=None, parent=False):
+    """{(group, variant): csrc dir}: a copy of csrc/ (with the stamps'
+    header where it lacks one) per variant of each of `groups` (None: all)
+    with its replacements applied ("full": unchanged). Each replacement
+    must match the group kernel's sources the given number of times (1 by
+    default), or the run fails."""
     from repro_torch.kernels import build
     dirs = {}
-    for group, variants in VARIANTS.items():
+    for group in VARIANTS:
         if groups is not None and group not in groups:
             continue
+        variants = group_variants(group, parent)
         for name, edits in {"full": [], **variants}.items():
             d = base / f"{group}-{name}"
             if d.exists():
                 shutil.rmtree(d)
             shutil.copytree(build.CSRC, d)
+            if not (d / STAMP_HEADER).exists():
+                shutil.copy(ROOT / "src/repro_torch/kernels/csrc" /
+                            STAMP_HEADER, d)
+            texts = kernel_sources(d, GROUP_KERNEL[group])
+            for old, _, *count in edits:
+                hits = sum(t.count(old) for t in texts)
+                if hits != (count[0] if count else 1):
+                    raise SystemExit(f"{group} {name}: {old!r} found "
+                                     f"{hits} times in the sources of "
+                                     f"{GROUP_KERNEL[group]}.cu")
             for path in d.iterdir():
                 text = path.read_text()
                 for old, new, *_ in edits:
-                    text = text.replace(old, new) if text.count(old) else text
+                    text = text.replace(old, new)
                 path.write_text(text)
-            for old, _, *count in edits:
-                hits = sum(p.read_text().count(old) for p in
-                           build.CSRC.iterdir())
-                if hits != (count[0] if count else 1):
-                    raise SystemExit(f"{group} {name}: {old!r} found "
-                                     f"{hits} times in csrc/")
             dirs[(group, name)] = d
     return dirs
 
@@ -316,12 +465,12 @@ def _time(fn, reps):
 
 
 def in_turns(group, libs, call, steps, reps=2, name=None):
-    """ms a call of every variant of `group`, in turns (forward, then
-    backward); returns {variant: ms}."""
+    """ms a call of every variant of `group` built in `libs`, in turns
+    (forward, then backward); returns {variant: ms}."""
     from repro_torch.kernels import build
     kernel = GROUP_KERNEL[group]
     name = name or group
-    names = ["full", *VARIANTS[group]]
+    names = [n for g, n in libs if g == group]
     ms = {n: [] for n in names}
     for n in names + names[::-1]:
         build._LIBS[kernel] = libs[(group, n)]
@@ -350,6 +499,9 @@ def main():
     ap.add_argument("--stress", type=int, default=0,
                     help="fresh processes a sparse variant for the launch "
                          "stress (0: none)")
+    ap.add_argument("--src", default=None,
+                    help="another checkout's src/ to ablate (its zxc "
+                         "group: the parent's cluster form, `PARENT_ZXC`)")
     ap.add_argument("--stress-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.stress_child:
@@ -359,7 +511,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("sdca_step_ablation: needs a CUDA card")
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(pathlib.Path(args.src or ROOT / "src").resolve()))
     from repro_torch.core.losses import get_loss
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -369,17 +521,19 @@ def main():
     groups = args.only.split(",") if args.only else list(VARIANTS)
     if set(groups) - set(VARIANTS):
         raise SystemExit(f"unknown groups {set(groups) - set(VARIANTS)}")
-    dirs = variant_dirs(ROOT / "build" / "ablation", groups)
+    dirs = variant_dirs(ROOT / "build" / "ablation", groups,
+                        parent=args.src is not None)
     libs = build_variants(dirs)
     log(f"  {len(libs)} variants built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda:0")
     hinge = get_loss("hinge")
     rng = np.random.default_rng(SEED)
-    result = {"device": smi}
+    result = {"device": smi, "src": args.src or str(ROOT / "src")}
 
     walks = {"sparse": lambda *a: sparse_walk(*a, depth=args.depth),
              "wide": wide_walk, "dense": dense_walk,
-             "zx": lambda *a: zx_grid(*a, workers=workers)}
+             "zx": lambda *a: zx_grid(*a, workers=workers),
+             "zxc": zx_cluster}
     for group in groups:
         result[group] = walks[group](libs, dev, rng, hinge)
     if args.stress and "sparse" in groups:
@@ -500,46 +654,56 @@ def sparse_walk(libs, dev, rng, hinge, depth=4):
                                           K, nk, ms)}
 
 
-def step_split(lib, call, K, nk, ms):
-    """One launch of the stamped build: us a phase of each role (the walk
-    warp, the fetch warp, and any other the source names), each phase's
-    cycles over all steps of the K blocks turned into time at the SM clock
-    the walk ran at (clock64 over %globaltimer across the walk), against
-    the unstamped step (`ms["full"]` over nk) and the stamped one. The
-    source names its roles' phases in word order ("role:a,b;role:c,...");
-    the roles' step counts are the buffer's last words, in that order."""
+def read_stamps(lib, group, prefix, call, blocks_run):
+    """One launch (`call`) of the stamped build `lib` of `group`'s kernel:
+    us a step of each phase of each role the source names, each phase's
+    cycles over all steps of the first `blocks_run` blocks turned into
+    time at the SM clock the loop ran at (clock64 over %globaltimer across
+    the loop). The source names its roles' phases in word order
+    ("role:a,b;role:c,...") through `<prefix>_stamp_names`; the roles'
+    step counts are the buffer's last words, in that order. Returns
+    ({role: {phase: us}}, GHz)."""
     import ctypes
     import numpy as np
     from repro_torch.kernels import build
-    kernel = GROUP_KERNEL["sparse"]
+    kernel = GROUP_KERNEL[group]
     shape = (ctypes.c_int * 2)()
-    lib.sparse_sdca_stamp_shape(shape)
+    getattr(lib, f"{prefix}_stamp_shape")(shape)
     blocks, words = shape
-    lib.sparse_sdca_stamp_names.restype = ctypes.c_char_p
-    roles = [part.split(":") for part in
-             lib.sparse_sdca_stamp_names().decode().split(";")]
+    names_of = getattr(lib, f"{prefix}_stamp_names")
+    names_of.restype = ctypes.c_char_p
+    roles = [part.split(":") for part in names_of().decode().split(";")]
     stamps = np.zeros((blocks, words), np.int64)
     clocks = np.zeros((blocks, 4), np.int64)
     build._LIBS[kernel] = lib
     try:
-        build.check(lib, kernel, lib.sparse_sdca_stamps_reset())
+        build.check(lib, kernel, getattr(lib, f"{prefix}_stamps_reset")())
         call()
-        build.check(lib, kernel, lib.sparse_sdca_stamps_read(
+        build.check(lib, kernel, getattr(lib, f"{prefix}_stamps_read")(
             stamps.ctypes.data_as(ctypes.c_void_p),
             clocks.ctypes.data_as(ctypes.c_void_p)))
     finally:
         build._LIBS.pop(kernel, None)
-    K = min(K, blocks)
-    st, clk = stamps[:K].astype(np.float64), clocks[:K].astype(np.float64)
+    n = min(blocks_run, blocks)
+    st, clk = stamps[:n].astype(np.float64), clocks[:n].astype(np.float64)
     ghz = float(np.mean((clk[:, 1] - clk[:, 0])
                         / np.maximum(clk[:, 3] - clk[:, 2], 1)))
     split, w0 = {}, 0
     for r, (role, names) in enumerate(roles):
         names = names.split(",")
         steps = st[:, words - len(roles) + r].sum()
-        split[role] = {n: float(st[:, w0 + i].sum() / steps / ghz / 1e3)
-                       for i, n in enumerate(names)}
+        split[role] = {p: float(st[:, w0 + i].sum() / steps / ghz / 1e3)
+                       for i, p in enumerate(names)}
         w0 += len(names)
+    return split, ghz
+
+
+def step_split(lib, call, K, nk, ms):
+    """The shared-memory walk's split (`read_stamps` of the sparse
+    group's stamped build): us a phase of each role (the walk warp, the
+    fetch warp, and any other the source names) against the unstamped
+    step (`ms["full"]` over nk) and the stamped one."""
+    split, ghz = read_stamps(lib, "sparse", "sparse_sdca", call, K)
     walk, fetch = split["walk"], split["fetch"]
     step = 1e3 * ms["full"] / nk
     stamped = 1e3 * ms["stamped"] / nk
@@ -631,6 +795,74 @@ def zx_grid(libs, dev, rng, hinge, workers=(1,)):
         finally:
             sk._zx_grid_resident = real
     return got
+
+
+def zx_cluster(libs, dev, rng, hinge):
+    """The cluster form at phase 12's 4 x 2 shape: rcv1's rows dealt into
+    FeatureShards, the first round's inputs (w = 0, alpha = 0), B = 16,
+    one pass, every variant in turns; then the stamped build once, split
+    (`cluster_split`). Returns {"ms": {variant: ms}, "split": ...}."""
+    import numpy as np
+    import torch
+    from repro_torch.data import make_sparse_classification
+    from repro_torch.data.sparse import row_sqnorms, shard_features_streaming
+    from repro_torch.kernels import sparse_sdca as sk
+    csr, y = make_sparse_classification(677_399, 47_236, density=0.0016,
+                                        seed=SEED)
+    fs, yp, mk = shard_features_streaming([(csr, y)], 4, 2,
+                                          n_features=csr.shape[1],
+                                          device=dev)
+    del csr
+    K, M, nk, r_loc = fs.cols.shape
+    perm = torch.from_numpy(np.stack([np.random.default_rng(k).permutation(
+        nk) for k in range(K)]).astype(np.int32)).to(dev)
+    args = (fs.cols, fs.vals, yp, torch.zeros((K, nk), device=dev), mk,
+            torch.zeros(M * fs.d_local, device=dev), 4.0 / (1e-6 * 677_399),
+            (row_sqnorms(fs) * mk).contiguous(), perm)
+    steps = -(-nk // 16)
+    log(f"[zxc] rcv1 shape K={K} M={M} nk={nk} r_loc={r_loc} "
+        f"d_local={fs.d_local}, B 16, {steps} steps a round, cluster form")
+
+    def call():
+        out = sk.sparse_local_sdca_zx(*args, loss=hinge, block_rows=16)
+        if sk.LAST_ZX_FORM != "cluster":
+            raise SystemExit(f"zxc ablation ran {sk.LAST_ZX_FORM}, not the "
+                             f"cluster form")
+        return out
+
+    ms = in_turns("zxc", libs, call, steps)
+    return {"ms": ms, "split": cluster_split(libs[("zxc", "stamped")], call,
+                                             K * M, steps, ms)}
+
+
+def cluster_split(lib, call, blocks, steps, ms):
+    """The cluster form's split (`read_stamps` of the zxc group's stamped
+    build, warps 0 and 1): us a step of each phase of each warp, each
+    warp's sum against the unstamped step (`ms["full"]` over the steps)
+    and the stamped one. In the parent's source, warp 0 ("update") holds
+    the 16 threads that exchange and update and warp 1 ("idle") waits for
+    them at the barrier before the scatter: both printed side by side."""
+    split, ghz = read_stamps(lib, "zxc", "sparse_sdca_zx", call, blocks)
+    step = 1e3 * ms["full"] / steps
+    stamped = 1e3 * ms["stamped"] / steps
+    sums = {role: sum(parts.values()) for role, parts in split.items()}
+    out = dict(us=split, sum_us=sums, step_us=step, stamped_step_us=stamped,
+               sum_over_step={r: v / step for r, v in sums.items()},
+               ghz=ghz)
+    if "idle" in split:
+        upd = split["update"]
+        out["updating_us"] = upd["exchange"] + upd["update"]
+        out["idle_wait_us"] = split["idle"]["bar_scatter"]
+    log(f"  zxc split (SM clock {ghz:.3f} GHz), us a step: " + "; ".join(
+        f"{role} " + ", ".join(f"{n} {v:.4f}" for n, v in parts.items())
+        + f" (sum {sums[role]:.4f}, {sums[role] / step:.3f}x the "
+        f"unstamped step {step:.4f}; stamped {stamped:.4f})"
+        for role, parts in split.items())
+        + ("" if "idle" not in split else
+           f". The 16 updating threads' exchange and update "
+           f"{out['updating_us']:.4f} against the idle warp's wait at the "
+           f"barrier {out['idle_wait_us']:.4f}"))
+    return out
 
 
 def dense_walk(libs, dev, rng, hinge):

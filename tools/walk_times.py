@@ -30,7 +30,14 @@ warm-up), on round-1 inputs (alpha = 0, w = 0, one pass, hinge):
     has it, "block"), forced by reading the card's fits as 0; at 4 x 32
     also the grid form at each W > 1 of `--workers` where the checkout
     has the lockstep instances ("grid@W2", ...: the grid's residency read
-    as ceil(4 / W) 32 blocks);
+    as ceil(4 / W) 32 blocks). With --digests, also the sha256 of the
+    cluster form's (dalpha, du) for each loss, prox off and on (kappa
+    1e-3), at M = 2 and 4: at B = 1 on rcv1's rows (one pass), and at
+    B = 16, two passes, on rows made so that no block of the visit order
+    repeats a column id among its rows (chip_smoke.py's
+    `_block_distinct_rows`: K = 4, nk = 4,096, rcv1's r_loc 70 and
+    d_local 23,618); there no two atomics of a step land on one
+    entry of u, so two checkouts whose digests agree give the same bits;
   * with `zx32`, rcv1 as 32 x 32 FeatureShards (1,024 blocks: past what
     the card holds at W = 1) in the grid form the card's own residency
     picks and through the per-block kernel, in turns;
@@ -43,6 +50,10 @@ warm-up), on round-1 inputs (alpha = 0, w = 0, one pass, hinge):
     instance the checkout builds (`DEVICE_U_WALKS`; one walk warp only up
     to 256 slots), forced in turns; each instance's results against the
     first's, the wrapper's pick;
+  * with `gaps12`, chip_smoke.py phase 12's solve (rcv1 as K = 4 x M = 2
+    FeatureShards through `solve` on a one-card mesh, sdca_sparse_kernel,
+    5 rounds), its certified gaps printed in full, so two checkouts'
+    gaps compare past the digits chip_smoke.py prints;
   * with `mesh`, chip_smoke.py phase 28's 2 x 2 process mesh (the
     rcv1_sparse stand-in, 4 gloo ranks, the per-block kernel) against
     its one-process run (the cluster kernel), `--mesh-reps` times: the
@@ -70,14 +81,16 @@ def main():
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--parts", default="sparse,dense",
-                    help="comma-separated: sparse, dense, zx, wide, slots, "
-                         "mesh")
+                    help="comma-separated: sparse, dense, zx, zx32, wide, "
+                         "slots, gaps12, mesh")
     ap.add_argument("--mesh-reps", type=int, default=2)
     ap.add_argument("--workers", default="1,2,4",
                     help="workers a block of the zx grid forms at 4 x 32")
     ap.add_argument("--digests", action="store_true",
                     help="with `sparse`: sha256 of the walk's outputs for "
-                         "each loss, prox, passes and depth")
+                         "each loss, prox, passes and depth; with `zx`: "
+                         "of the cluster form's at B = 1 and on "
+                         "block-distinct rows")
     args = ap.parse_args()
     workers = [int(w) for w in args.workers.split(",")]
     parts = args.parts.split(",")
@@ -100,18 +113,27 @@ def main():
 
     out = {"label": args.label, "device": smi}
     csr = y = None
-    if {"zx", "zx32", "sparse"} & set(parts):
+    if {"zx", "zx32", "sparse", "gaps12"} & set(parts):
         csr, y = make_sparse_classification(677_399, 47_236, density=0.0016,
                                             seed=SEED)
     if "zx" in parts:
         out["zx_ms"] = zx_forms(cs, sk, csr, y, dev, hinge, rng, workers)
         log(f"[walk times] {args.label}: zx ms a round by form "
             f"{out['zx_ms']}")
+        if args.digests:
+            out["zx_digests"] = zx_digests(cs, sk, csr, y, dev)
+            log(f"[walk times] {args.label}: {len(out['zx_digests'])} "
+                f"digests of the cluster form's (dalpha, du): "
+                f"{json.dumps(out['zx_digests'])}")
     if "zx32" in parts:
         out["zx32_ms"] = zx_forms(cs, sk, csr, y, dev, hinge, rng, (1,),
                                   meshes=((32, 32),))
         log(f"[walk times] {args.label}: zx at 32 x 32, ms a round by form "
             f"{out['zx32_ms']}")
+    if "gaps12" in parts:
+        out["gaps12"] = mesh2d_gaps(cs, csr, y, dev)
+        log(f"[walk times] {args.label}: phase 12's gaps "
+            f"{[repr(g) for g in out['gaps12']]}")
     if "wide" in parts:
         out["wide_ms"] = wide_walks(cs, sk, dev, hinge, rng)
         log(f"[walk times] {args.label}: the device-u walk ms a call "
@@ -198,6 +220,81 @@ def zx_forms(cs, sk, csr, y, dev, hinge, rng, workers,
     return got
 
 
+LOSSES = ("hinge", "smooth_hinge", "squared", "absolute")
+
+
+def mesh2d_gaps(cs, csr, y, dev):
+    """chip_smoke.py phase 12's rcv1 solve on a (4, 2) one-card mesh
+    through the z-exchange kernel, 5 rounds: its certified gaps."""
+    from repro_torch.core import CoCoAConfig, solve
+    from repro_torch.data import partition_sparse
+    from repro_torch.launch.mesh import make_test_mesh
+    K, M = 4, 2
+    fs, yp, mk = partition_sparse(csr, y, K, M=M, device=dev)
+    cfg = CoCoAConfig.adding(K, lam=cs.SPARSE_LAM, H=yp.shape[1],
+                             backend="shard_map", model_axis="model",
+                             solver="sdca_sparse_kernel", loss="hinge")
+    r = solve(cfg, fs, yp, mk, rounds=5, gap_every=1, seed=cs.SEED,
+              mesh=make_test_mesh((K, M), device=dev))
+    return [float(g) for g in r.history["gap"]]
+
+
+def _digest(tensors):
+    import hashlib
+    import torch
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def zx_digests(cs, sk, csr, y, dev):
+    """The sha256 (16 hex digits) of the cluster form's (dalpha, du) for
+    each loss and prox (off, kappa 1e-3) at M = 2 and 4: B = 1 on rcv1's
+    rows as 4 x M FeatureShards (one pass, round-1 inputs), and B = 16 on
+    chip_smoke.py's `_block_distinct_rows` (two passes). Each run must be
+    the cluster form's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.data.sparse import row_sqnorms, shard_features_streaming
+    cases = {}
+    for M in (2, 4):
+        fs, yz, mz = shard_features_streaming([(csr, y)], 4, M,
+                                              n_features=csr.shape[1],
+                                              device=dev)
+        K, _, nk, _ = fs.cols.shape
+        perm = np.stack([np.random.default_rng(k).permutation(nk)
+                         for k in range(K)]).astype(np.int32)
+        cases[f"rcv1_4x{M}/B=1"] = (
+            (fs.cols, fs.vals, yz, torch.zeros((K, nk), device=dev), mz,
+             torch.zeros(M * fs.d_local, device=dev), K / (1e-6 * 677_399),
+             (row_sqnorms(fs) * mz).contiguous(),
+             torch.from_numpy(perm).to(dev)), 1, 1)
+        cols, vals, yd, sq, perm = cs._block_distinct_rows(
+            4, M, 4_096, 23_618, 70, 16)
+        t = [torch.from_numpy(a).to(dev) for a in (cols, vals, yd, sq, perm)]
+        cases[f"distinct_4x{M}/B=16"] = (
+            (t[0], t[1], t[2], torch.zeros((4, 4_096), device=dev),
+             torch.ones((4, 4_096), device=dev),
+             torch.zeros(M * 23_618, device=dev), 4 / (1e-4 * 16_384), t[3],
+             t[4]), 16, 2)
+    got = {}
+    for case, (zargs, B, n_passes) in cases.items():
+        for name in LOSSES:
+            for kappa in (None, 1e-3):
+                res = sk.sparse_local_sdca_zx(
+                    *zargs, loss=get_loss(name), block_rows=B,
+                    n_passes=n_passes, prox_kappa=kappa)
+                if getattr(sk, "LAST_ZX_FORM", "cluster") != "cluster":
+                    raise SystemExit(f"walk_times: the zx digests ran "
+                                     f"{sk.LAST_ZX_FORM}, not the cluster "
+                                     f"form")
+                got[f"{case}/{name}/kappa={kappa}"] = _digest(res)
+    return got
+
+
 def wide_walks(cs, sk, dev, hinge, rng):
     """ms a call of the 1-D walk with u in device memory at news_sparse's
     and news20's shapes, depths 4 and 1 in turns."""
@@ -266,7 +363,6 @@ def slot_instances(cs, sk, dev, hinge, rng):
 
 
 def sparse(args, cs, sk, csr, y, dev, hinge, rng, smi, out):
-    import hashlib
     import torch
     from repro_torch.core.losses import get_loss
     from repro_torch.data import partition_sparse
@@ -304,18 +400,14 @@ def sparse(args, cs, sk, csr, y, dev, hinge, rng, smi, out):
     out["sparse_rings"] = {str(k): r for k, r in rings.items()}
     if args.digests:
         digests = {}
-        for name in ("hinge", "smooth_hinge", "squared", "absolute"):
+        for name in LOSSES:
             for kappa in (None, 1e-3):
                 for n_passes in (1, 2):
                     for depth in (1, 4):
                         got = call(depth, loss=get_loss(name),
                                    prox_kappa=kappa, n_passes=n_passes)
-                        torch.cuda.synchronize()
-                        h = hashlib.sha256()
-                        for t in got:
-                            h.update(t.cpu().numpy().tobytes())
                         digests[f"{name}/kappa={kappa}/passes={n_passes}/"
-                                f"depth={depth}"] = h.hexdigest()[:16]
+                                f"depth={depth}"] = _digest(got)
         out["sparse_digests"] = digests
         log(f"[walk times] {args.label}: {len(digests)} digests of the "
             f"sparse walk's (dalpha, du); {len(set(digests.values()))} "
