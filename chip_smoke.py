@@ -22,8 +22,11 @@ order, each failing the run with a non-zero exit:
                duplicate column ids and column-0 entries next to padding;
                the windowed dense kernel also at d = 54 and 2,001, windows
                B = 1, 4, 16, 32, nk = 1, below B and not a multiple of B,
-               1-3 passes, zero and masked rows, and in column tiles at
-               d = 20,000 and 20,001 (B = 8, 2); the sparse kernel at
+               1-3 passes, zero and masked rows, in column tiles at
+               d = 20,000 and 20,001 (B = 8, 2), each at every forced
+               cluster of 1, 2, 3, 4, 8 and 16 blocks a worker, and at
+               d = 65,536, past what one block holds (refused at one
+               block, run at the others); the sparse kernel at
                depths 2-4 and 8 (nk below and above the depth) also bit
                for bit against itself at depth 1 on rows with unique
                column ids, and at depths 1, 2, 4, 8 with 4-byte row
@@ -46,14 +49,16 @@ order, each failing the run with a non-zero exit:
                that ran is printed in LAST_SPARSE_CONFIG's ring_depth)
   5. dense     the main path (`solve`, sdca_kernel) at epsilon's published
                shape, 400,000 x 2,000, K = 8 (3.2 GB of X on the card),
-               hinge, lambda = 1e-4
+               hinge, lambda = 1e-4; the dense walk in the cluster
+               LAST_DENSE_CONFIG reports (C > 1 blocks a worker)
   6. times     each kernel held against its plain version once more, on the
                main path's own next-round inputs at the main path's shapes
                (those are the errors and the plain time the summary
                reports), within phase 3's tolerance with its absolute part
                scaled by the walk's length (`_against_plain`); the kernel's
                time with CUDA events beside its bound, and us a step; the
-               dense kernel at windows B = 4, 8, 16, 32 in turns; one more
+               dense kernel at windows B = 4, 8, 16, 32 and clusters of
+               1, 2, 4, 8, 16 blocks in turns; one more
                round split on the host clock
   7. lm-kernels  flash attention and the selective scan against their plain
                versions on the card at cut shapes: GQA, MQA, softcap, ragged
@@ -358,7 +363,8 @@ order, each failing the run with a non-zero exit:
                a fake 4-rank world) of phase 24's and (a)'s steps and of
                phase 26's, every tally equal to the real rank 0's; (c)
                one rank's block of the 512-rank paper-svm cell through
-               row 1
+               row 1, in the plan's cluster (C > 1, LAST_DENSE_CONFIG)
+               and, in turns, at one block a worker (cluster=1)
  26. long      serve_long's decode over a sequence-sharded KV cache on
                the same mesh, the card's memory freed first:
                gemma3-27b at full width and 12 of 62 layers (2 global),
@@ -467,6 +473,8 @@ DEPTHS = (1, 2, 4, 8)          # phase 11's timed ring depths
 SWEEP_B = (4, 8, 16, 32)       # phase 6's timed dense windows
 DENSE_WIDTHS = (54, 2_000, 2_001)   # phase 3's dense widths
 WIDE_D = 20_000                # phase 3's dense width in column tiles
+PAST_D = 65_536                # phase 3's dense width past one block's
+CUT_CLUSTERS = (1, 2, 3, 4, 8, 16)  # phase 3's forced dense clusters
 SEED = 0
 DENSE_LAM, SPARSE_LAM = 1e-4, 1e-6
 
@@ -533,18 +541,20 @@ def _layouts():
     from repro_torch.kernels import local_sdca as dk
     from repro_torch.kernels import sparse_sdca as sk
     lib = build.load("local_sdca")
-    for d in DENSE_WIDTHS + (WIDE_D,):
-        parts = []
-        for B in dk.BLOCK_ROWS:
-            want = dk.dense_smem_budget(d, B)
-            got = lib.local_sdca_smem_bytes(d, B, want["d_tile"])
-            parts.append(f"B={B}: {got} B ({want['chunks']} x "
-                         f"{want['d_tile']})")
-            if got != want["total_bytes"]:
-                fail(f"local_sdca's shared memory at d={d} B={B}: {got}, "
-                     f"dense_smem_budget {want}")
-        log(f"  local_sdca d={d} shared memory per block (column tiles x "
-            f"d_tile), equal to dense_smem_budget: " + ", ".join(parts))
+    for d in DENSE_WIDTHS + (WIDE_D, PAST_D):
+        for C in CUT_CLUSTERS:
+            parts = []
+            for B in dk.BLOCK_ROWS:
+                want = dk.dense_smem_budget(d, B, C)
+                got = lib.local_sdca_smem_bytes(d, B, C)
+                parts.append(f"B={B}: {got} B ({want['chunks']} x "
+                             f"{want['d_tile']}{', ahead' * want['ahead']})")
+                if got != want["total_bytes"]:
+                    fail(f"local_sdca's shared memory at d={d} B={B} C={C}: "
+                         f"{got}, dense_smem_budget {want}")
+            log(f"  local_sdca d={d} C={C} shared memory per block (column "
+                f"tiles x d_tile), equal to dense_smem_budget: "
+                + ", ".join(parts))
     lib = build.load("flash_attention")
     for dt, code in fa.DTYPES.items():
         got = {hd: lib.flash_attention_smem_bytes(hd, code)
@@ -797,12 +807,15 @@ def _dense_rows(rng, K, nk, d, dev):
 
 
 def _cut_dense(rng, dev, scale, bad):
-    """The windowed dense kernel at cut shapes against its plain version:
-    d = 54 (fewer columns than threads), 2,000 (16-byte copies; column
-    tiles at B = 16 and 32) and 2,001 (4-byte copies); B = 1, 4, 16, 32;
-    column tiles at the default B = 8 (d = 20,000 and 20,001) and B = 2;
-    nk = 1, below B and not a multiple of B; 1-3 passes; every loss; zero
-    and masked rows. Returns the max (abs, rel) errors."""
+    """The windowed dense kernel at cut shapes against its plain version,
+    at each forced cluster of CUT_CLUSTERS: d = 54 (fewer columns than
+    threads, and than 4 C: slices past d), 2,000 (bulk copies) and 2,001
+    (4-byte copies); B = 1, 4, 16, 32; column tiles at the default B = 8
+    (d = 20,000 and 20,001) and B = 2 where a cluster's slices do not fit
+    whole; nk = 1, below B and not a multiple of B; 1-3 passes; every loss;
+    zero and masked rows; and d = 65,536, past what one block holds, at
+    every cluster but 1, which must refuse it. Returns the max (abs, rel)
+    errors."""
     import torch
     from repro_torch.core.losses import get_loss
     from repro_torch.kernels import local_sdca as dk
@@ -814,27 +827,46 @@ def _cut_dense(rng, dev, scale, bad):
     runs += [(8, nk, 2_000, B, losses[i % 4], 2 + i % 2)
              for i, (nk, B) in enumerate(((1, 16), (1, 32), (5, 16),
                                           (13, 32), (40, 16), (3, 4)))]
-    # column tiles at the default window and at B = 2 (9 and 2 tiles)
+    # column tiles at the default window and at B = 2 (9 and 2 tiles at
+    # C = 1), and past one block's width
     runs += [(8, 40, WIDE_D, 8, "hinge", 2),
              (4, 19, WIDE_D + 1, 8, "squared", 3),
-             (4, 13, WIDE_D, 2, "smooth_hinge", 2)]
+             (4, 13, WIDE_D, 2, "smooth_hinge", 2),
+             (2, 19, PAST_D, 8, "squared", 3)]
     worst = [0.0, 0.0]
     for K, nk, d, B, loss_name, n_passes in runs:
         ins = _dense_rows(rng, K, nk, d, dev)
         kw = dict(loss=get_loss(loss_name), n_passes=n_passes)
-        got = dk.local_sdca(*ins[:5], scale, ins[5], block_rows=B, **kw)
         want = dk.local_sdca_plain(*ins[:5], scale, ins[5], **kw)
-        torch.cuda.synchronize()
-        for part, g, p in zip(("dalpha", "du"), got, want):
-            a, r, ok = _errors(g, p)
-            worst = [max(worst[0], a), max(worst[1], r)]
-            log(f"  dense d={d} B={B:2d} nk={nk} {loss_name:12s} "
-                f"passes={n_passes} {part:6s} max_abs={a:.3e} "
-                f"max_rel={r:.3e} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                bad.append(f"dense d={d} B={B} nk={nk} {loss_name} {part}")
-        if nk >= 4 and not bool((got[0][:, [2, nk - 1]] == 0).all()):
-            bad.append(f"dense d={d} B={B} nk={nk}: a masked row moved")
+        for C in CUT_CLUSTERS:
+            if not dk.dense_smem_budget(d, B, C)["fits"]:
+                try:
+                    dk.local_sdca(*ins[:5], scale, ins[5], block_rows=B,
+                                  cluster=C, **kw)
+                except ValueError:
+                    log(f"  dense d={d} B={B:2d} C={C:2d}: refused (past "
+                        f"what a block's shared memory holds)")
+                    continue
+                bad.append(f"dense d={d} B={B} C={C}: ran past the limit")
+                continue
+            got = dk.local_sdca(*ins[:5], scale, ins[5], block_rows=B,
+                                cluster=C, **kw)
+            torch.cuda.synchronize()
+            errs = []
+            for part, g, p in zip(("dalpha", "du"), got, want):
+                a, r, ok = _errors(g, p)
+                worst = [max(worst[0], a), max(worst[1], r)]
+                errs.append(f"{part} {a:.3e}/{r:.3e}")
+                if not ok:
+                    bad.append(f"dense d={d} B={B} C={C} nk={nk} {loss_name} "
+                               f"{part}")
+            log(f"  dense d={d} B={B:2d} C={C:2d} nk={nk} {loss_name:12s} "
+                f"passes={n_passes} max abs/rel {', '.join(errs)} "
+                f"(ahead={dk.LAST_DENSE_CONFIG['ahead']}, chunks="
+                f"{dk.LAST_DENSE_CONFIG['chunks']})")
+            if nk >= 4 and not bool((got[0][:, [2, nk - 1]] == 0).all()):
+                bad.append(f"dense d={d} B={B} C={C} nk={nk}: a masked row "
+                           f"moved")
     return worst
 
 
@@ -1186,6 +1218,11 @@ def phase_dense(dev):
         f"{time.perf_counter() - t0:.1f} s)")
     r, launches, cfg = _main_path("epsilon sdca_kernel", Xp, yp, mk,
                                   "sdca_kernel", 3, DENSE_LAM, "local_sdca")
+    from repro_torch.kernels import ops
+    log(f"  LAST_DENSE_CONFIG {ops.LAST_DENSE_CONFIG}")
+    if ops.LAST_DENSE_CONFIG["cluster"] < 2:
+        fail(f"phase 5: the dense walk ran a block a worker, not a cluster: "
+             f"{ops.LAST_DENSE_CONFIG}")
     return Xp, yp, mk, r, cfg, launches
 
 
@@ -1354,6 +1391,7 @@ def phase_times(dense, sparse, cut_errs):
     K, nk, d = Xp.shape
     w, scale, perm = _round_inputs(cfg, Xp, yp, mk, r.state)
     args = (Xp, yp, r.state.alpha, mk, w, scale, perm)
+    config = dict(ops.LAST_DENSE_CONFIG)      # phase 5's main path
     *errs, dense_want = _against_plain("local_sdca", dk.local_sdca,
                                        dk.local_sdca_plain, args, hinge)
     ms, _ = _time_ms(lambda: dk.local_sdca(*args, **hinge), reps=3)
@@ -1365,7 +1403,8 @@ def phase_times(dense, sparse, cut_errs):
                 f"K={K} nk={nk} d={d} block_rows={dk.DEFAULT_BLOCK_ROWS}",
                 _host_split(cfg, Xp, yp, mk, r.state),
                 dict(us_per_step=1e3 * ms / steps,
-                     block_rows=dk.DEFAULT_BLOCK_ROWS, block_rows_ms=sweep)))
+                     block_rows=dk.DEFAULT_BLOCK_ROWS, block_rows_ms=sweep,
+                     last_dense_config=config)))
     # sparse at rcv1's shape, at the main path's ring depth
     sh, yp, mk, r, cfg, launches, nnz, _, depth = sparse
     K, nk, r_max = sh.cols.shape
@@ -1407,30 +1446,32 @@ def phase_times(dense, sparse, cut_errs):
 
 
 def _dense_sweep(args, hinge, want):
-    """The dense kernel at every window of SWEEP_B on the main path's
-    next-round inputs, in turns (B ascending, then descending), each result
-    held to the plain version's `want` with `_against_plain`'s tolerance.
-    Returns {B: ms a call}."""
+    """The dense kernel at every window of SWEEP_B and cluster of
+    local_sdca.CLUSTERS on the main path's next-round inputs, in turns
+    (ascending, then descending), each result held to the plain version's
+    `want` with `_against_plain`'s tolerance. Returns {"BxC": ms a call}."""
     from repro_torch.kernels import local_sdca as dk
     nk = args[-1].shape[1]
     atol = ATOL * max(1.0, nk / CUT_NK)
+    keys = [(B, C) for B in SWEEP_B for C in sorted(dk.CLUSTERS)]
 
-    def held(B, got):
+    def held(key, got):
         for part, g, p in zip(("dalpha", "du"), got, want):
             a, _, ok = _errors(g, p, atol)
             if not ok:
-                fail(f"local_sdca at block_rows={B} disagrees with its plain "
-                     f"version on the main path's inputs: {part} {a:.3e}")
-    ms, _ = _in_turns(SWEEP_B, lambda B: dk.local_sdca(
-        *args, block_rows=B, **hinge), each=held)
-    order = SWEEP_B + SWEEP_B[::-1]
-    log(f"  local_sdca window sweep, ms a call (CUDA events, in turns "
-        f"{', '.join(map(str, order))}; each held to the plain version): "
-        + ", ".join(f"B={B}: {t:.3f} ({1e3 * t / nk:.4f} us a step)"
-                    for B, t in ms.items())
-        + f"; fastest B={min(ms, key=ms.get)}, default "
-        f"{dk.DEFAULT_BLOCK_ROWS}")
-    return ms
+                fail(f"local_sdca at (block_rows, cluster)={key} disagrees "
+                     f"with its plain version on the main path's inputs: "
+                     f"{part} {a:.3e}")
+    ms, _ = _in_turns(keys, lambda key: dk.local_sdca(
+        *args, block_rows=key[0], cluster=key[1], **hinge), each=held)
+    best = min(ms, key=ms.get)
+    log(f"  local_sdca (window B, cluster C) sweep, ms a call (CUDA events, "
+        f"in turns ascending then descending; each held to the plain "
+        f"version): " + ", ".join(f"B={B} C={C}: {t:.3f} ({1e3 * t / nk:.4f} "
+                                  f"us a step)" for (B, C), t in ms.items())
+        + f"; fastest B={best[0]} C={best[1]}, default B="
+        f"{dk.DEFAULT_BLOCK_ROWS} in the plan's cluster")
+    return {f"{B}x{C}": t for (B, C), t in ms.items()}
 
 
 def _row(name, src, repl, launches, per, per_what, errs, cut, ms, plain_ms,
@@ -5612,11 +5653,18 @@ def _paper_block(dev, rows, card):
     end.synchronize()
     ms = start.elapsed_time(end) / PAPER_REPS
     launches = counts()["local_sdca"]
+    config = dict(dk.LAST_DENSE_CONFIG)
     if launches != PAPER_REPS + 1:
         fail(f"phase 25: the paper block launched row 1 {launches} times, "
              f"not {PAPER_REPS + 1}")
     if not (torch.isfinite(dalpha).all() and torch.isfinite(du).all()):
         fail("phase 25: the paper block's round is not finite")
+    if config["cluster"] < 2:
+        fail(f"phase 25: the paper block ran a block a worker, not a "
+             f"cluster: {config}")
+    # the plan's cluster against one block (the parent's form), in turns
+    turns, _ = _in_turns(("plan", "one block"), lambda key: dk.local_sdca(
+        *args, cluster=None if key == "plan" else 1, **kw))
     abs_err, rel_err, plain_ms, _ = _against_plain(
         f"local_sdca at the paper cell's rank block, its first "
         f"{PAPER_PLAIN_ROWS} of {nk} rows", dk.local_sdca,
@@ -5631,12 +5679,18 @@ def _paper_block(dev, rows, card):
         f"{bound_ms:.4f} ms bound (bytes: {stats['hbm_bytes']:.0f} B at "
         f"{prof.H100_SXM.hbm_bw / 1e12:g} TB/s) -> {ms / bound_ms:.0f}x; "
         f"its first {PAPER_PLAIN_ROWS} rows held to plain, max_abs "
-        f"{abs_err:.3e}, the plain walk {plain_ms:.1f} ms")
+        f"{abs_err:.3e}, the plain walk {plain_ms:.1f} ms; "
+        f"LAST_DENSE_CONFIG {config}; in turns (CUDA events) the plan's "
+        f"cluster {turns['plan']:.3f} ms, one block a worker (cluster=1) "
+        f"{turns['one block']:.3f} ms, "
+        f"{turns['plan'] / turns['one block']:.3f}x")
     for row in rows:
         if row["name"] == "local_sdca":
             row["launches"] += launches
             row["ms_paper_block"] = ms
             row["bound_ms_paper_block"] = bound_ms
+            row["config_paper_block"] = config
+            row["ms_paper_block_turns"] = turns
     del X
     _free()
     return {"ms": ms, "bound_ms": bound_ms, "nk": nk, "d": d,

@@ -153,6 +153,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.local_sdca_launch.restype = I
         lib.local_sdca_smem_bytes.argtypes = [I] * 3
         lib.local_sdca_smem_bytes.restype = ctypes.c_longlong
+        lib.local_sdca_max_clusters.argtypes = [I] * 3 + [ctypes.POINTER(I)]
+        lib.local_sdca_max_clusters.restype = I
     elif name == "sparse_sdca_pipelined":
         lib.sparse_sdca_pipelined_launch.argtypes = ([P] * 9 + [I] * 5
                                                      + [F, I, F, I, F, I, I,

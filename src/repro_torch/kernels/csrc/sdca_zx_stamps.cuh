@@ -1,9 +1,10 @@
-// The stamped build of the zx cluster form's step (tools/
-// sdca_step_ablation.py --only zxc: its `stamped` variant sets
-// SDCA_ZX_STAMPS to 1; the tool gives a checkout that lacks the stamps this
-// header and its own boundaries). Every thread reads clock64 at each phase
-// boundary of every step and adds the cycles since the boundary before to
-// that phase's 32-bit total, in registers, without a branch; lane 0 of the
+// The stamped build of the zx cluster form's step and of the dense walk's
+// window (tools/sdca_step_ablation.py --only zxc,dense: their `stamped`
+// variants set SDCA_ZX_STAMPS to 1; the tool gives a checkout that lacks the
+// stamps this header and its own boundaries). Every thread reads clock64 at
+// each phase boundary of every step and adds the cycles since the boundary
+// before to that phase's 32-bit total, in registers, without a branch; lane
+// 0 of the
 // warp that flushes a role writes its totals and its step count to a
 // device buffer at the end. A phase is the time from one boundary's issue
 // to the next one's: a load's latency shows where its value is first

@@ -11,9 +11,11 @@ perm[k, j] in place and writes dalpha at the original row index.
     Python's round, as the reference does,
   * take the per-worker visit permutation as an explicit (K, nk) input.
 
-The sparse solver resolves its launch configuration as the reference's does
-(explicit > the autotune cache > default, `kernels.autotune`) and records
-the launch that ran in `LAST_SPARSE_CONFIG`. On feature-sharded shards (a
+The dense solver records the launch that ran in `LAST_DENSE_CONFIG` (the
+cluster size `local_sdca.dense_launch_plan` picked). The sparse solver
+resolves its launch configuration as the reference's does (explicit > the
+autotune cache > default, `kernels.autotune`) and records the launch that
+ran in `LAST_SPARSE_CONFIG`. On feature-sharded shards (a
 `FeatureShards`, M model shards per worker) it runs the z-exchange
 schedule, and on a process mesh's rank block the same schedule with the
 exchange a sum over the rank's model column; its wire plan is
@@ -31,7 +33,7 @@ from ..core.losses import Loss
 from ..core.regularizers import L2, Regularizer
 from ..core.solvers import SDCAResult
 from .autotune import resolve_sparse_config
-from . import sparse_sdca
+from . import local_sdca as dense, sparse_sdca
 from .local_sdca import local_sdca
 from .sparse_sdca import ZX_MAX_CLUSTER, sparse_local_sdca, \
     sparse_local_sdca_zx, zx_exchanges
@@ -49,6 +51,12 @@ from .sparse_sdca import ZX_MAX_CLUSTER, sparse_local_sdca, \
 # ring it ran on the card (`sparse_sdca.ring_plan`; None on the CPU, where
 # the plain version has no ring, and for the zx schedule).
 LAST_SPARSE_CONFIG = None
+# The launch the dense solver last ran: `local_sdca.LAST_DENSE_CONFIG` of
+# its call -- {"form": "cluster", "block_rows", "cluster" (C, the blocks a
+# worker), "dc" (a block's columns), "d_tile", "chunks", "ring" (the row
+# stages), "smem_bytes", "held" (the clusters of C the card holds),
+# "forced"}, or {"form": "plain", ...} on the CPU -- and "n_passes".
+LAST_DENSE_CONFIG = None
 
 
 def n_passes_of(H: int, nk: int) -> int:
@@ -88,6 +96,8 @@ def local_sdca_block(X, y, alpha, mask, v, perm, loss: Loss, lam: float, n,
     dalpha, du = local_sdca(X, y, alpha, mask, w0, scale,
                             perm_i32(perm, nk, X.device), loss=loss,
                             n_passes=n_passes)
+    global LAST_DENSE_CONFIG
+    LAST_DENSE_CONFIG = {**dense.LAST_DENSE_CONFIG, "n_passes": n_passes}
     return SDCAResult(dalpha, du, n_passes * nk)
 
 

@@ -281,10 +281,14 @@ def test_cuda_dense_kernel_at_every_window(card, B, d):
 
 @pytest.mark.cuda
 def test_cuda_dense_kernel_refuses_what_does_not_fit(card):
-    X = torch.zeros((1, 4, 65_536), device=card)
+    """d = 1,048,576 is past what sixteen blocks' slices hold (a cluster
+    of 16 takes d up to ~0.9 M at B = 8)."""
+    d = 1 << 20
+    assert not any(dk.dense_smem_budget(d, 8, C)["fits"] for C in dk.CLUSTERS)
+    X = torch.zeros((1, 4, d), device=card)
     v = torch.zeros((1, 4), device=card)
     with pytest.raises(ValueError, match="232448 bytes"):
-        dk.local_sdca(X, v, v, v, torch.zeros(65_536, device=card), 0.5,
+        dk.local_sdca(X, v, v, v, torch.zeros(d, device=card), 0.5,
                       torch.zeros((1, 4), dtype=torch.int32, device=card),
                       loss=get_loss("hinge"))
 

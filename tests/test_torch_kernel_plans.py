@@ -2,11 +2,12 @@
 checked on the CPU (shape arithmetic only; the card-only tests run the
 kernels).
 
-The dense walk runs windows of B rows with u, a two-stage row ring, the
-window's Gram and its reduction buffers in shared memory
-(`dense_smem_budget`); the 1-D sparse walk, one walk warp and one fetch
-warp a worker, holds a ring of one-row stages and u where it fits beside
-them (`smem_budget`). The zx kernel runs a round in one launch, one
+The dense walk runs windows of B rows over a cluster of C blocks, each
+with its slice of u, a ring of row stages, the window's exchanged partials
+and its reduction buffers in shared memory (`dense_smem_budget`; C = 1
+here, tests/test_torch_dense_cluster.py checks every C); the 1-D sparse
+walk, one walk warp and one fetch warp a worker, holds a ring of one-row
+stages and u where it fits beside them (`smem_budget`). The zx kernel runs a round in one launch, one
 thread-block cluster of M blocks per worker, with u in shared memory where
 it fits beside its buffers (`zx_launch_plan`, `smem_budget(zx=True)`);
 beyond a cluster its per-block kernel runs one launch an invocation, u in
@@ -166,50 +167,60 @@ def test_flash_smem_bytes_refuses_other_dtypes():
         fa.smem_bytes(64, torch.float16)
 
 
-def _dense_bytes(d, B, d_tile):
-    """The dense block's layout written out: u, two stages of B x d_tile
-    floats, G, z0 and c, two reduction buffers of 8 x 64 words and four
-    windows of B row ids."""
-    return 4 * ((d + 3) // 4 * 4 + 2 * B * d_tile + B * B + 2 * B
-                + 2 * 8 * 64 + 4 * B)
+def _dense_bytes(d, B, d_tile, ring=2, ahead=False):
+    """The dense block's layout written out, a block a worker (C = 1): a
+    full and an empty mbarrier a stage, four for the exchange and two for
+    c, `ring` stages of B x d_tile floats, u (two with the lookahead), the
+    exchange's four buffers of P partials, the block's own and the summed
+    partials, c and the row ids in two slots, and two reduction buffers of
+    7 x 64 words; P = B (B + 3) / 2, plus B^2 with the lookahead."""
+    P = B * (B + 3) // 2 + (B * B if ahead else 0)
+    return 4 * (2 * (2 * ring + 6) + ring * B * d_tile
+                + (2 if ahead else 1) * ((d + 3) // 4 * 4) + 4 * P + 2 * P
+                + 4 * B + 2 * 7 * 64)
 
 
 @pytest.mark.parametrize("B,chunks,d_tile", [(1, 1, 2_000), (2, 1, 2_000),
                                              (4, 1, 2_000), (8, 1, 2_000),
                                              (16, 2, 1_000), (32, 3, 668)])
 def test_dense_budget_at_epsilons_width(B, chunks, d_tile):
-    """epsilon's d = 2,000: whole rows up to B = 8 (the default window),
-    rows cut into balanced column tiles beyond."""
+    """epsilon's d = 2,000 at a block a worker: whole rows with the
+    lookahead up to B = 8 (the default window; a ring of 4 stages, 3 at
+    B = 8), rows cut into balanced column tiles beyond (two stages)."""
+    ahead = chunks == 1
+    ring = {1: 4, 2: 4, 4: 4, 8: 3}.get(B, 2)
     got = dk.dense_smem_budget(2_000, B)
-    assert (got["chunks"], got["d_tile"]) == (chunks, d_tile)
-    assert got["total_bytes"] == _dense_bytes(2_000, B, d_tile)
+    assert (got["chunks"], got["d_tile"], got["ring"], got["ahead"]) == (
+        chunks, d_tile, ring, ahead)
+    assert got["total_bytes"] == _dense_bytes(2_000, B, d_tile, ring, ahead)
     assert got["fits"] and got["total_bytes"] <= SMEM_LIMIT
-    assert got["u_bytes"] == 8_000
+    assert got["u_bytes"] == 8_000 * (2 if ahead else 1)
     assert chunks * d_tile >= 2_000 > (chunks - 1) * d_tile
 
 
 def test_dense_budget_at_rcv1s_width_tiles_the_rows():
-    """d = 47,236 (rcv1's width, were it dense): u takes 188,944 bytes, so
-    the default window's rows are cut into 78 tiles of 608 columns."""
+    """d = 47,236 (rcv1's width, were it dense) at a block a worker: u
+    takes 188,944 bytes, so the default window's rows are cut into 79 tiles
+    of 600 columns."""
     got = dk.dense_smem_budget(47_236)
     assert dk.DEFAULT_BLOCK_ROWS == 8
-    assert (got["chunks"], got["d_tile"], got["u_bytes"]) == (78, 608,
+    assert (got["chunks"], got["d_tile"], got["u_bytes"]) == (79, 600,
                                                                188_944)
-    assert got["fits"] and got["total_bytes"] == _dense_bytes(47_236, 8, 608)
+    assert got["fits"] and got["total_bytes"] == _dense_bytes(47_236, 8, 600)
 
 
 def test_dense_budget_at_its_limit():
-    """The widest d whose u and a 4-column ring still fit, per window (at
-    B = 8, 56,912); four columns more are refused by check_u_fits, naming
-    the limit."""
+    """The widest d whose u and a 4-column ring still fit a block, per
+    window (at B = 8, 56,836); four columns more are refused by
+    check_u_fits, naming the limit."""
     for B in dk.BLOCK_ROWS:
-        widest = max(d for d in range(55_000, 58_100, 4)
+        widest = max(d for d in range(50_000, 58_100, 4)
                      if dk.dense_smem_budget(d, B)["fits"])
         assert dk.dense_smem_budget(widest, B)["total_bytes"] <= SMEM_LIMIT
         assert not dk.dense_smem_budget(widest + 4, B)["fits"]
         with pytest.raises(ValueError, match="232448 bytes"):
             dk.check_u_fits(widest + 4, B)
-        assert B != 8 or widest == 56_912
+        assert B != 8 or widest == 56_836
     assert dk.check_u_fits(2_000)["fits"]
 
 
@@ -264,13 +275,14 @@ def test_python_layouts_match_the_cuda_sources():
     assert "HD >= 256 ? 32 : 64" in tc
     dense = (build.CSRC / "local_sdca.cu").read_text()
     assert re.search(r"constexpr int THREADS = (\d+);", dense).group(1) == \
-        str(32 * dk.WARPS)
+        str(32 * (dk.COL_WARPS + 1))
     assert re.search(r"constexpr int RED_WORDS = (\d+);", dense).group(1) \
         == str(dk.RED_WORDS)
-    assert re.search(r"constexpr int ID_SLOTS = (\d+);", dense).group(1) == \
-        str(dk.ID_SLOTS)
-    assert tuple(int(b) for b in re.findall(r"LOCAL_SDCA_CASE\((\d+)\)",
-                                            dense)) == dk.BLOCK_ROWS
+    assert re.search(r"constexpr int XBUFS = (\d+);", dense).group(1) == \
+        str(dk.XBUFS)
+    assert tuple(int(b) for b in re.findall(
+        r"case (\d+): return f\(std::integral_constant<int, \1>", dense)) \
+        == dk.BLOCK_ROWS
     walk = (build.CSRC / "sparse_sdca_pipelined.cu").read_text()
     assert re.search(r"constexpr int STAGE_SCALARS = (\d+);", walk).group(1) \
         == str(sk.STAGE_SCALARS)

@@ -175,7 +175,8 @@ def test_ref_module_exports_the_plain_versions():
 def test_build_hashes_each_kernel_with_its_own_headers():
     from repro_torch.kernels import build
     assert {k: [p.name for p in build.sources(k)] for k in build.KERNELS} == {
-        "local_sdca": ["local_sdca.cu", "sdca_common.cuh"],
+        "local_sdca": ["local_sdca.cu", "sdca_common.cuh",
+                       "sdca_zx_stamps.cuh"],
         "sparse_sdca_pipelined": ["sparse_sdca_pipelined.cu",
                                   "sdca_common.cuh"],
         "sparse_sdca_zx": ["sparse_sdca_zx.cu", "sdca_common.cuh",

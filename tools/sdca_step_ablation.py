@@ -22,7 +22,8 @@ takes the lockstep instance; zxc, the same rows as phase 12's 4 x 2
 FeatureShards, B = 16, the cluster form),
 phase 28's news20-shaped synthetic (wide: 19,996 x 1,355,191 at density
 3.36e-4, K = 4, ring depth 4, u in device memory) and
-epsilon's 400,000 x 2,000 (dense, K = 8, windows of 8 rows), hinge. A
+epsilon's 400,000 x 2,000 and the paper cell's rank block (dense, K = 8
+and 1, the default window, the cluster the plan picks), hinge. A
 variant computes something else than the walk; only its time is read. The
 difference to the unchanged kernel is what the part costs on the chain.
 
@@ -92,11 +93,24 @@ Variants (the text each one replaces is named in VARIANTS), by group:
                       atomicAdd, as the first design of the walk did
           no_gather   no u[c] gather in the next block's dots (v stands
                       in; the swaps then expect v and go round again)
-  dense   no_gram     no z0 / Gram tiles (the window's dots)
+  dense   no_exchange each block pushes its window's partials into its own
+                      buffer only and waits for those (the peers' slots
+                      stale): the exchange across the cluster taken out,
+                      its protocol kept
+          no_gram     no FMAs of the partials (G, the dots, H) over the
+                      block's columns (the reductions and the exchange
+                      kept)
           no_scalar   no scalar loop (the window's B updates)
-          no_fill     no next window's rows fetched (stale stages)
+          no_fill     no row slices copied by the fetch warp (stale stages;
+                      the row ids and the barriers kept)
           no_update   no u += X_B^T c
           fast_div    as above
+          stamped     the stamped build (SDCA_ZX_STAMPS, csrc/
+                      sdca_zx_stamps.cuh): the window split positively for
+                      warp 0 and column warp 1 (`dense_split`)
+          each at epsilon's shape and at the paper cell's rank block (K = 1,
+          nk = d = 16,384), in the cluster the plan picks; "us a step" there
+          is us a window
 Each variant's replacements must each match the sources of its group's
 kernel (the .cu and the headers it includes) once (or the count given as
 a third element), or the run fails: an edit of a kernel that moves the
@@ -349,14 +363,24 @@ VARIANTS = {
                        "vb[j];\n")],
     },
     "dense": {
-        "no_gram": [("for (int I = 0; I < NBLK; ++I) {",
-                     "for (int I = 0; I < NBLK * (nch < 0); ++I) {")],
-        "no_scalar": [("        if (l < nb) {\n          const float dl",
-                       "        if (l < 0) {\n          const float dl")],
-        "no_fill": [("      fill((s + 1) * nch, 32);\n", "")],
-        "no_update": [("          if (j < nb) v = fmaf(cj[j], "
-                       "st[j * d_tile + c], v);", "")],
+        "no_exchange": [
+            ("      for (int j = 0; j < x.C; ++j)\n"
+             "        send_partial(",
+             "      for (int j = x.rank; j <= x.rank; ++j)\n"
+             "        send_partial("),
+            ("  const unsigned xbytes = 4u * P * C;",
+             "  const unsigned xbytes = 4u * P;")],
+        "no_gram": [("  for (int cl = tt; cl < w; cl += 32 * NW) {",
+                     "  for (int cl = tt; cl < w * 0; cl += 32 * NW) {")],
+        "no_scalar": [("    if (l < nb) {\n      const float dl",
+                       "    if (l < 0) {\n      const float dl")],
+        "no_fill": [("        if (lane < nb && wd > 0) {\n"
+                     "          bulk_copy(",
+                     "        if (lane < 0) {\n          bulk_copy(")],
+        "no_update": [("            if (j < nb) v = fmaf(cj[j], "
+                       "st[j * dt + c], v);", "")],
         "fast_div": [DIV],
+        "stamped": [("#define SDCA_ZX_STAMPS 0", "#define SDCA_ZX_STAMPS 1")],
     },
 }
 
@@ -866,6 +890,7 @@ def cluster_split(lib, call, blocks, steps, ms):
 
 
 def dense_walk(libs, dev, rng, hinge):
+    import math
     import numpy as np
     import torch
     from repro_torch.data import make_classification, partition
@@ -878,10 +903,57 @@ def dense_walk(libs, dev, rng, hinge):
                             .astype(np.int32)).to(dev)
     dargs = (Xp, yp, torch.zeros((K, nk), device=dev), mk,
              torch.zeros(d, device=dev), 8.0 / (1e-4 * 400_000), perm)
-    log(f"[dense] epsilon shape K={K} nk={nk} d={d}, block_rows 8")
-    return in_turns(
-        "dense", libs,
-        lambda: dk.local_sdca(*dargs, loss=hinge, block_rows=8), nk)
+    dk.local_sdca(*dargs, loss=hinge)
+    log(f"[dense] epsilon shape K={K} nk={nk} d={d}, block_rows "
+        f"{dk.DEFAULT_BLOCK_ROWS}: {dk.LAST_DENSE_CONFIG}")
+    windows = -(-nk // dk.DEFAULT_BLOCK_ROWS)
+    call = lambda: dk.local_sdca(*dargs, loss=hinge)   # noqa: E731
+    ms = in_turns("dense", libs, call, windows,
+                  name="dense epsilon (a window)")
+    out = {"epsilon": {"ms": ms, "split": dense_split(
+        libs[("dense", "stamped")], call, K * dk.LAST_DENSE_CONFIG["cluster"],
+        windows, ms, "epsilon")}}
+    del dargs, Xp
+    # the paper cell's rank block (chip_smoke.py phase 25c)
+    n = 16_384
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    Xb = torch.randn((1, n, n), generator=g, device=dev) / math.sqrt(n)
+    yb = torch.where(torch.rand((1, n), generator=g, device=dev) < 0.5,
+                     -1.0, 1.0)
+    pb = torch.randperm(n, generator=g, device=dev).to(torch.int32)[None]
+    bargs = (Xb, yb, torch.zeros((1, n), device=dev),
+             torch.ones((1, n), device=dev), torch.zeros(n, device=dev),
+             512.0 / (1e-4 * 512 * n), pb.contiguous())
+    dk.local_sdca(*bargs, loss=hinge)
+    log(f"[dense] the paper block K=1 nk={n} d={n}: {dk.LAST_DENSE_CONFIG}")
+    windows = -(-n // dk.DEFAULT_BLOCK_ROWS)
+    call = lambda: dk.local_sdca(*bargs, loss=hinge)   # noqa: E731
+    ms = in_turns("dense", libs, call, windows, name="dense paper (a window)")
+    out["paper"] = {"ms": ms, "split": dense_split(
+        libs[("dense", "stamped")], call, dk.LAST_DENSE_CONFIG["cluster"],
+        windows, ms, "paper")}
+    return out
+
+
+def dense_split(lib, call, blocks, windows, ms, shape):
+    """The dense walk's split (`read_stamps` of the dense group's stamped
+    build): us a window of each phase of warp 0 ("scalar": the wait for the
+    window's partials, their sums, the fix z = z' + H c, the loop, the
+    hand-off of c) and of column warp 1 ("columns": the wait for a stage,
+    the partials and their push, the wait for c, the update), each role's
+    sum against the unstamped window and the stamped one."""
+    split, ghz = read_stamps(lib, "dense", "sparse_sdca_zx", call, blocks)
+    window = 1e3 * ms["full"] / windows
+    stamped = 1e3 * ms["stamped"] / windows
+    sums = {role: sum(parts.values()) for role, parts in split.items()}
+    log(f"  dense {shape} split (SM clock {ghz:.3f} GHz), us a window: "
+        + "; ".join(f"{role} " + ", ".join(f"{n} {v:.4f}"
+                                           for n, v in parts.items())
+                    + f" (sum {sums[role]:.4f})"
+                    for role, parts in split.items())
+        + f"; the unstamped window {window:.4f}, the stamped {stamped:.4f}")
+    return dict(us=split, sum_us=sums, window_us=window,
+                stamped_window_us=stamped, ghz=ghz)
 
 
 if __name__ == "__main__":

@@ -21,9 +21,17 @@ warm-up), on round-1 inputs (alpha = 0, w = 0, one pass, hinge):
     1 or 2 passes at asked depths 1 and 4 (rcv1's rows repeat no column
     id, so two checkouts whose digests agree give the same bits);
   * the dense walk at d = 20,000, K = 8, nk = 5,000 (3.2 GB of X, as
-    epsilon's), at the wrapper's default: there the windows of 8 rows are
-    cut into column tiles. Held to the plain version with chip_smoke.py's
-    tolerance, its absolute part scaled by the walk's length;
+    epsilon's), at epsilon's shape (K = 8, nk = 50,000, d = 2,000) and at
+    the paper cell's rank block (K = 1, nk = d = 16,384, chip_smoke.py
+    phase 25c), on random rows, at the wrapper's default window and launch
+    (where the checkout has `LAST_DENSE_CONFIG`, the cluster that ran is
+    printed). Held to the plain version on worker 0's first 2,048 rows with
+    chip_smoke.py's tolerance, its absolute part scaled by the walk's
+    length;
+  * with `clusters`, the dense walk at forced clusters in turns (K = 7 at
+    d = 2,000, K = 4 at d = 1,000 and 4,000, C = 4, 8, 16; the paper
+    block at B = 4, 8, 16, 32 and C = 4, 8, 16): what dense_launch_plan's
+    columns-a-block rule and the default window rest on;
   * with `zx`, the z-exchange round at rcv1's shape as FeatureShards of
     4 x 2 and 4 x 32 (chip_smoke.py phases 12 and 28, B = 16) in each form
     the checkout has ("cluster" at M <= 16, "grid" where the checkout
@@ -72,7 +80,11 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DEPTHS = (1, 2, 4, 8)
 RINGS = tuple(range(1, 9))     # every ring the 1-D kernel is built for
-DENSE = dict(K=8, nk=5_000, d=20_000)
+# the dense walk's shapes (K, nk, d): d = 20,000 (3.2 GB of X, as
+# epsilon's), epsilon's own and the paper cell's rank block
+DENSE_SHAPES = {"d20000": (8, 5_000, 20_000), "epsilon": (8, 50_000, 2_000),
+                "paper": (1, 16_384, 16_384)}
+PLAIN_ROWS = 2_048
 SEED = 0
 
 
@@ -81,8 +93,8 @@ def main():
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--parts", default="sparse,dense",
-                    help="comma-separated: sparse, dense, zx, zx32, wide, "
-                         "slots, gaps12, mesh")
+                    help="comma-separated: sparse, dense, clusters, zx, "
+                         "zx32, wide, slots, gaps12, mesh")
     ap.add_argument("--mesh-reps", type=int, default=2)
     ap.add_argument("--workers", default="1,2,4",
                     help="workers a block of the zx grid forms at 4 x 32")
@@ -150,6 +162,8 @@ def main():
     del csr, y
     if "dense" in parts:
         dense(args, cs, dk, dev, hinge, rng, smi, out)
+    if "clusters" in parts:
+        out["clusters_ms"] = clusters(cs, dk, dev, hinge, rng)
     print(json.dumps(out))
 
 
@@ -415,33 +429,86 @@ def sparse(args, cs, sk, csr, y, dev, hinge, rng, smi, out):
 
 
 def dense(args, cs, dk, dev, hinge, rng, smi, out):
+    """The dense walk at each of DENSE_SHAPES, at the checkout's default
+    window and launch; each held to the plain version (on worker 0's
+    first PLAIN_ROWS rows where the walk is long), with chip_smoke.py's
+    tolerance, its absolute part scaled by the walk's length."""
     import torch
 
-    Kd, nkd, d = DENSE["K"], DENSE["nk"], DENSE["d"]
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    X = torch.randn((Kd, nkd, d), generator=gen, device=dev)
-    X /= torch.linalg.vector_norm(X, dim=-1, keepdim=True)
-    yd = torch.where(torch.rand((Kd, nkd), generator=gen, device=dev) < 0.5,
-                     -1.0, 1.0)
-    dargs = (X, yd, torch.zeros((Kd, nkd), device=dev),
-             torch.ones((Kd, nkd), device=dev), torch.zeros(d, device=dev),
-             8.0 / (1e-4 * Kd * nkd),
-             torch.from_numpy(cs._perm(rng, Kd, nkd)).to(dev))
-    dense_ms, outs = cs._in_turns(("dense",), lambda _: dk.local_sdca(
-        *dargs, loss=hinge), reps=2)
-    want = dk.local_sdca_plain(*dargs, loss=hinge)
-    atol = cs.ATOL * max(1.0, nkd / cs.CUT_NK)
-    errs = [cs._errors(g, p, atol) for g, p in zip(outs["dense"], want)]
-    if not all(ok for *_, ok in errs):
-        raise SystemExit(f"walk_times: the dense kernel disagrees with its "
-                         f"plain version at d={d}: {errs}")
+    out["dense_ms"], out["dense_config"] = {}, {}
+    for name, (Kd, nkd, d) in DENSE_SHAPES.items():
+        dargs = _dense_args(cs, dev, rng, Kd, nkd, d,
+                            unit_rows=name != "paper")
+        dense_ms, outs = cs._in_turns((name,), lambda _: dk.local_sdca(
+            *dargs, loss=hinge), reps=2)
+        config = getattr(dk, "LAST_DENSE_CONFIG", None)
+        # worker 0's first PLAIN_ROWS rows where the walk is long
+        cut = dargs if nkd <= PLAIN_ROWS else cs._prefix(
+            [t[:1] if torch.is_tensor(t) and t.dim() > 1 else t
+             for t in dargs], PLAIN_ROWS)
+        got = dk.local_sdca(*cut, loss=hinge)
+        want = dk.local_sdca_plain(*cut, loss=hinge)
+        atol = cs.ATOL * max(1.0, min(nkd, PLAIN_ROWS) / cs.CUT_NK)
+        errs = [cs._errors(g, p, atol) for g, p in zip(got, want)]
+        if not all(ok for *_, ok in errs):
+            raise SystemExit(f"walk_times: the dense kernel disagrees with "
+                             f"its plain version at {name}: {errs}")
+        ms = dense_ms[name]
+        log(f"[walk times] {args.label} ({args.src}); {smi}. Dense {name}, "
+            f"K={Kd} nk={nkd} d={d} at the default window: {ms:.3f} ms, "
+            f"{1e3 * ms / nkd:.4f} us a step (against plain on "
+            f"{min(nkd, PLAIN_ROWS)} rows: dalpha {errs[0][0]:.3e}, du "
+            f"{errs[1][0]:.3e} max abs); launch {config}")
+        out["dense_ms"][name] = ms
+        out["dense_config"][name] = config
+        del dargs, cut, outs
+        torch.cuda.empty_cache()
+    out["dense_shapes"] = DENSE_SHAPES
 
-    log(f"[walk times] {args.label} ({args.src}); {smi}. Dense, K={Kd} "
-        f"nk={nkd} d={d} at the default window: {dense_ms['dense']:.3f} ms, "
-        f"{1e3 * dense_ms['dense'] / nkd:.4f} us a step (against plain: "
-        f"dalpha {errs[0][0]:.3e}, du {errs[1][0]:.3e} max abs)")
-    out["dense_ms"] = dense_ms["dense"]
-    out["dense_shape"] = DENSE
+
+def _dense_args(cs, dev, rng, K, nk, d, unit_rows=True):
+    """Random rows (K, nk, d) from SEED, unit length (or scaled by
+    1/sqrt(d)), with round-1 inputs and a visit order."""
+    import math
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    X = torch.randn((K, nk, d), generator=gen, device=dev)
+    X /= torch.linalg.vector_norm(X, dim=-1, keepdim=True) if unit_rows \
+        else math.sqrt(d)
+    y = torch.where(torch.rand((K, nk), generator=gen, device=dev) < 0.5,
+                    -1.0, 1.0)
+    return (X, y, torch.zeros((K, nk), device=dev),
+            torch.ones((K, nk), device=dev), torch.zeros(d, device=dev),
+            8.0 / (1e-4 * K * nk),
+            torch.from_numpy(cs._perm(rng, K, nk)).to(dev))
+
+
+def clusters(cs, dk, dev, hinge, rng):
+    """The dense walk at forced clusters, in turns (this checkout's
+    `local_sdca(cluster=)`): a block's columns against the cluster's size
+    (K = 7 at d = 2,000, where 7 clusters of 16 are resident; K = 4 at
+    d = 1,000 and 4,000; nk = 20,000, windows of 8, C = 4, 8, 16), and the
+    paper cell's rank block (K = 1, nk = d = 16,384) at every window B of
+    4, 8, 16, 32 and C = 4, 8, 16. Returns {shape: {"BxC": ms}}."""
+    import torch
+    out = {}
+    shapes = [("K7 d2000", 7, 20_000, 2_000, (8,)),
+              ("K4 d1000", 4, 20_000, 1_000, (8,)),
+              ("K4 d4000", 4, 20_000, 4_000, (8,)),
+              ("paper", 1, 16_384, 16_384, (4, 8, 16, 32))]
+    for name, K, nk, d, windows in shapes:
+        args = _dense_args(cs, dev, rng, K, nk, d, unit_rows=name != "paper")
+        keys = [(B, C) for B in windows for C in (4, 8, 16)]
+        ms, _ = cs._in_turns(keys, lambda key: dk.local_sdca(
+            *args, loss=hinge, block_rows=key[0], cluster=key[1]), reps=2)
+        out[name] = {f"{B}x{C}": t for (B, C), t in ms.items()}
+        log(f"[walk times] clusters, {name} (K={K} nk={nk} d={d}), ms a "
+            f"call in turns: " + ", ".join(
+                f"B={B} C={C} ({dk.slice_cols(d, C)} columns a block): "
+                f"{t:.3f}" for (B, C), t in ms.items()))
+        del args
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":
